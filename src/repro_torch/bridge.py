@@ -1,0 +1,44 @@
+"""Carry parameters between the JAX package and the port, through numpy.
+
+Both packages lay parameters out alike: nested dicts with weights
+``(d_in, d_out)`` as used by ``x @ W``; the base tree holds ``embed``,
+``final_norm``, ``lm_head`` and ``decoder.blocks.l0.*`` stacked on axis 0
+(the layer); a LoRA pack tree has the pack on axis 1 under ``"blocks"`` and
+on axis 0 elsewhere. So the bridge changes no layout: it converts leaves.
+JAX → numpy → :func:`to_torch` → :func:`to_numpy` is bit-exact.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+
+def _leaf_to_torch(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
+        t = torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))  # own copy: never aliases the caller's array
+    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only for bf16 leaves; ships with JAX
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def to_torch(tree, device, dtype=None):
+    """A numpy (or JAX) parameter tree as torch tensors on ``device``,
+    optionally cast to ``dtype``; same structure and layout."""
+    return tree_map(lambda a: _leaf_to_torch(a, device, dtype), tree)
+
+
+def to_numpy(tree):
+    """A torch parameter tree as numpy arrays; same structure and layout."""
+    return tree_map(_leaf_to_numpy, tree)

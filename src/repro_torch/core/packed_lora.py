@@ -1,0 +1,120 @@
+"""Packed-LoRA application and per-adapter extraction.
+
+``lora_linear`` is the entry point every model layer uses: a frozen base
+matmul plus the packed adapter delta computed by ``repro_torch.kernels.ops``.
+The activation carries the pack as the outermost batch factor — x has shape
+(N*B, ..., d_in) with adapter n owning rows [n*B, (n+1)*B) — so packing never
+changes the math of any single adapter.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ops import FUSED, KernelConfig, fused_lora_linear, packed_lora_delta
+
+
+def lora_linear(
+    x: torch.Tensor,
+    params: dict,
+    lora: Optional[dict],
+    scales: Optional[torch.Tensor],
+    n_pack: int = 1,
+    *,
+    kcfg: Optional[KernelConfig] = None,
+) -> torch.Tensor:
+    """y = x @ W (+ bias) + packed-LoRA delta.
+
+    x: (N*B, ..., d_in); params: {"w": (d_in, d_out)[, "b": (d_out,)]};
+    lora: {"a": (N, d_in, r), "b": (N, r, d_out)} or None; scales: (N,);
+    kcfg: the kernel policy (impl, the pack's ranks). With a fused impl the
+    base projection and the delta run as one kernel pass and the bias is
+    added after it; on the two-pass path the bias is added between base and
+    delta — the one reassociation between the two (as in the reference,
+    ``packed_lora.py:67-68`` against ``:73-74``).
+    """
+    kc = kcfg or KernelConfig()
+    impl_r = kc.resolved_impl()
+    w = params["w"]
+    d_in, d_out = w.shape
+    lead = x.shape[:-1]
+    if lora is not None:
+        xp = x.reshape(n_pack, x.shape[0] // n_pack, -1, d_in)
+    if lora is not None and impl_r in FUSED:
+        y = fused_lora_linear(
+            xp, w.to(x.dtype), lora["a"].to(x.dtype), lora["b"].to(x.dtype),
+            scales, impl=impl_r, ranks=kc.ranks,
+        ).reshape(*lead, d_out)
+        if "b" in params:
+            y = y + params["b"].to(x.dtype)
+        return y
+    y = x @ w.to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    if lora is not None:
+        delta = packed_lora_delta(
+            xp, lora["a"].to(x.dtype), lora["b"].to(x.dtype), scales,
+            impl=impl_r, ranks=kc.ranks,
+        )
+        y = y + delta.reshape(*lead, d_out)
+    return y
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def extract_adapter(lora_params, idx: int, ranks=None):
+    """Slice adapter ``idx`` (unpadded to its rank if ``ranks`` is given)
+    out of a pack, on the host in numpy. The pack dim is axis 1 under a
+    layer-stacked "blocks" subtree and axis 0 elsewhere."""
+    r = int(ranks[idx]) if ranks is not None else None
+
+    def walk(t, in_blocks):
+        if isinstance(t, dict):
+            out = {k: walk(v, in_blocks or k == "blocks") for k, v in t.items()}
+            if r is not None and set(out) == {"a", "b"}:
+                out = {"a": out["a"][..., :r], "b": out["b"][..., :r, :]}
+            return out
+        return np.take(_host(t), idx, axis=1 if in_blocks else 0)
+
+    return walk(lora_params, False)
+
+
+def inject_adapter(lora_params, adapter, idx: int):
+    """Inverse of :func:`extract_adapter`: write one adapter's weights into
+    slot ``idx`` of a pack, zero-padding rank dims up to the pack's bucket.
+    Runs on the host in numpy; the pack's leaves are copied, never mutated.
+    The adapter may be a sparse sub-structure of the pack."""
+
+    def put(leaf, sub, path):
+        ax = 1 if "blocks" in path else 0
+        sub = _host(sub)
+        out = np.array(_host(leaf))  # host copy; the template stays intact
+        last = path[-1] if path else None
+        if last == "a" and sub.shape[-1] < out.shape[-1]:
+            pad = [(0, 0)] * sub.ndim
+            pad[-1] = (0, out.shape[-1] - sub.shape[-1])
+            sub = np.pad(sub, pad)
+        if last == "b" and sub.shape[-2] < out.shape[-2]:
+            pad = [(0, 0)] * sub.ndim
+            pad[-2] = (0, out.shape[-2] - sub.shape[-2])
+            sub = np.pad(sub, pad)
+        idxer = [slice(None)] * out.ndim
+        idxer[ax] = idx
+        out[tuple(idxer)] = sub.astype(out.dtype)
+        return out
+
+    def walk(pack, sub, path):
+        if isinstance(pack, dict):
+            return {
+                k: (walk(v, sub[k], path + (k,)) if isinstance(sub, dict) and k in sub else v)
+                for k, v in pack.items()
+            }
+        return put(pack, sub, path)
+
+    return walk(lora_params, adapter, ())

@@ -1,0 +1,141 @@
+"""Top-level model: embedding, decoder stack, LM head; prefill and decode.
+
+Public API (functional; parameters are nested dicts of tensors laid out as
+the reference's pytrees, so ``repro_torch.bridge`` carries them across
+unchanged):
+
+  init_model(seed, cfg, meta, dtype, device) -> (base_params, lora_params)
+  forward(base, lora, scales, batch, cfg, .) -> (hidden (NB,S,d), caches|None)
+  logits(base, hidden, cfg)                  -> (NB,S,V)
+  init_caches(cfg, nb, smax)                 -> cache tree
+  prefill(...)                               -> (last logits (NB,1,V), caches)
+  decode_step(...)                           -> (logits (NB,1,V), caches)
+
+The pack dim N is folded into the leading batch: every tensor is (N*B, ...).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adapter import PackMeta
+from repro_torch.models.layers.common import apply_norm, init_linear, init_norm
+from repro_torch.models.transformer import (
+    apply_stack,
+    find_period,
+    init_stack,
+    init_stack_cache,
+    layer_specs,
+    make_rope_cache,
+)
+
+_NO_LORA = {"blocks": {}, "rest": {}}
+
+
+def init_model(seed: int, cfg: ModelConfig, meta: Optional[PackMeta],
+               dtype=torch.float32, device=None):
+    """Random weights from a ``torch.Generator`` seeded with ``seed``:
+    embedding N(0, 0.02), linears N(0, 1/d_in), norms 1, biases 0, LoRA A
+    N(0, 1/d_in) and B 0. Runs on CUDA unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, device=device)
+    base: Dict[str, Any] = {
+        "embed": {"w": (emb * 0.02).to(dtype)},
+        "final_norm": init_norm(cfg.d_model, dtype, device),
+    }
+    del emb
+    dec_p, dec_l, _ = init_stack(gen, cfg, layer_specs(cfg), meta, dtype, device)
+    base["decoder"] = dec_p
+    base["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab, False, dtype, device)
+    return base, {"decoder": dec_l}
+
+
+def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=None):
+    """A LoRA pack tree of zeros in ``init_model``'s layout, without
+    building a base model (the serve engine's row pack and template)."""
+    device = resolve_device(device)
+    a, d, n, r = cfg.attention, cfg.d_model, meta.n, meta.r_bucket
+    dims = {
+        "attn": {"q": (d, a.n_heads * a.head_dim), "k": (d, a.n_kv_heads * a.head_dim),
+                 "v": (d, a.n_kv_heads * a.head_dim), "o": (a.n_heads * a.head_dim, d)},
+        "mlp": {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)},
+    }
+    specs = layer_specs(cfg)
+    p = find_period(specs)
+    n_blocks, n_rest = divmod(len(specs), p)
+
+    def layer(*lead):
+        return {
+            grp: {
+                nm: {"a": torch.zeros((*lead, n, di, r), dtype=dtype, device=device),
+                     "b": torch.zeros((*lead, n, r, do), dtype=dtype, device=device)}
+                for nm, (di, do) in projs.items() if nm in cfg.lora_targets
+            }
+            for grp, projs in dims.items()
+        }
+
+    return {"decoder": {
+        "blocks": {f"l{i}": layer(n_blocks) for i in range(p)} if n_blocks else {},
+        "rest": {f"l{i}": layer() for i in range(n_rest)},
+    }}
+
+
+def forward(base, lora, scales, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            n_pack: int = 1, chunk_q: int = 512, make_cache: bool = False, kcfg=None):
+    """batch: {"tokens": (NB, S)}. Returns (hidden (NB, S, d), caches|None)."""
+    tokens = batch["tokens"]
+    x = base["embed"]["w"][tokens]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, caches = apply_stack(
+        base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
+        layer_specs(cfg), n_pack=n_pack, rope_cache=make_rope_cache(cfg, positions),
+        make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg,
+    )
+    return apply_norm(base["final_norm"], x), caches
+
+
+def unembed_w(base, cfg: ModelConfig):
+    """The LM head's (d, V) weight (the port's configs do not tie it)."""
+    return base["lm_head"]["w"]
+
+
+def logits(base, hidden, cfg: ModelConfig):
+    """(NB, S, padded_vocab); padded columns masked to -1e30."""
+    lg = hidden @ unembed_w(base, cfg).to(hidden.dtype)
+    if cfg.padded_vocab != cfg.vocab_size:
+        lg[..., cfg.vocab_size:] = -1e30
+    return lg
+
+
+def init_caches(cfg: ModelConfig, nb: int, smax: int, dtype=torch.bfloat16, device=None):
+    return init_stack_cache(cfg, layer_specs(cfg), nb, smax, dtype, resolve_device(device))
+
+
+def decode_step(base, lora, scales, token: torch.Tensor, caches, pos, cfg: ModelConfig, *,
+                n_pack: int = 1, kcfg=None):
+    """One serve step: embed ``token`` (NB, 1) at ``pos`` (() shared, or (NB,)
+    per row), run the stack against ``caches`` (updated in place), return
+    (logits (NB, 1, V), caches)."""
+    x = base["embed"]["w"][token]
+    # scalar pos -> shared (1, D/2) tables; vector pos -> per-row (NB, 1, D/2)
+    rc = make_rope_cache(cfg, pos[None] if pos.dim() == 0 else pos[:, None])
+    x, caches = apply_stack(
+        base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
+        layer_specs(cfg), n_pack=n_pack, rope_cache=rc, caches=caches, pos=pos, kcfg=kcfg,
+    )
+    x = apply_norm(base["final_norm"], x)
+    return logits(base, x, cfg), caches
+
+
+def prefill(base, lora, scales, batch, cfg: ModelConfig, *,
+            n_pack: int = 1, chunk_q: int = 512, kcfg=None):
+    """Full-sequence forward that also returns the k/v caches (in the
+    compute dtype, capacity S). Returns (last-position logits (NB,1,V),
+    caches)."""
+    hidden, caches = forward(base, lora, scales, batch, cfg, n_pack=n_pack,
+                             chunk_q=chunk_q, make_cache=True, kcfg=kcfg)
+    return logits(base, hidden[:, -1:, :], cfg), caches

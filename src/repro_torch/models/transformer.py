@@ -1,0 +1,164 @@
+"""Decoder stack: pre-norm GQA attention + dense SwiGLU FFN layers.
+
+Layers are grouped as in the reference: the per-layer spec sequence has a
+minimal period p, the L//p repeats are stacked under ``"blocks"`` (every
+leaf gains a leading block axis) and the remainder sits under ``"rest"``.
+The stack runs as a Python loop over blocks where the reference scans.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers.attention import apply_gqa, init_gqa
+from repro_torch.models.layers.common import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.layers.rope import rope_tables
+from repro_torch.tree import tree_index, tree_map, tree_stack
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """What may differ between the layers of a stack: so far, the rope theta
+    (every layer is GQA attention + a dense SwiGLU FFN)."""
+
+    theta: float = 10_000.0
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    return [LayerSpec(theta=cfg.attention.rope_theta) for _ in range(cfg.n_layers)]
+
+
+def find_period(specs: List[LayerSpec]) -> int:
+    n = len(specs)
+    for p in range(1, n + 1):
+        if all(specs[i] == specs[i % p] for i in range(n)):
+            return p
+    return n
+
+
+def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None):
+    a = cfg.attention
+    params: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, dtype, device)}
+    lora: Dict[str, Any] = {}
+    p, lo = init_gqa(gen, a, cfg.d_model, meta, cfg.lora_targets, dtype, device)
+    params["attn"] = p
+    if lo:
+        lora["attn"] = lo
+    p, lo = init_mlp(gen, cfg.d_model, cfg.d_ff, a.use_bias, meta, cfg.lora_targets, dtype, device)
+    params["mlp"] = p
+    params["norm2"] = init_norm(cfg.d_model, dtype, device)
+    if lo:
+        lora["mlp"] = lo
+    return params, lora
+
+
+def apply_layer(
+    params, lora, scales, x, spec: LayerSpec, cfg: ModelConfig, *,
+    n_pack: int, rope_cache, cache=None, pos=None, make_cache: bool = False,
+    chunk_q: int = 512, kcfg=None,
+):
+    """Pre-norm residual layer. Returns (x, new_cache or None)."""
+    lo = lora or {}
+    h = apply_norm(params["norm1"], x)
+    y, c = apply_gqa(
+        params["attn"], lo.get("attn"), scales, h,
+        acfg=cfg.attention, n_pack=n_pack, rope=rope_cache[spec.theta],
+        cache=cache.get("attn") if cache else None,
+        pos=pos, make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg,
+    )
+    x = x + y
+    h = apply_norm(params["norm2"], x)
+    x = x + apply_mlp(params["mlp"], lo.get("mlp"), scales, h, n_pack, kcfg=kcfg)
+    return x, ({"attn": c} if c is not None else None)
+
+
+def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, device=None):
+    """Returns ({"blocks": stacked, "rest": dict}, same for lora, period).
+
+    Block leaves are allocated stacked once and filled block by block, so a
+    full-size model never holds two copies of its weights."""
+    p = find_period(specs)
+    n_blocks, n_rest = divmod(len(specs), p)
+
+    def one(spec_slice):
+        bp, bl = {}, {}
+        for i, spec in enumerate(spec_slice):
+            lp, ll = init_layer(gen, cfg, spec, meta, dtype, device)
+            bp[f"l{i}"] = lp
+            if ll:
+                bl[f"l{i}"] = ll
+        return bp, bl
+
+    blocks_p: Any = {}
+    blocks_l: Any = {}
+    for bi in range(n_blocks):
+        bp, bl = one(specs[:p])
+        if bi == 0:
+            alloc = lambda t: torch.empty((n_blocks, *t.shape), dtype=t.dtype, device=t.device)  # noqa: E731
+            blocks_p, blocks_l = tree_map(alloc, bp), tree_map(alloc, bl)
+        tree_map(lambda dst, src: dst[bi].copy_(src), blocks_p, bp)
+        tree_map(lambda dst, src: dst[bi].copy_(src), blocks_l, bl)
+    rest_p, rest_l = one(specs[:n_rest])
+    return {"blocks": blocks_p, "rest": rest_p}, {"blocks": blocks_l, "rest": rest_l}, p
+
+
+def apply_stack(
+    params, lora, scales, x, cfg: ModelConfig, specs: List[LayerSpec], *,
+    n_pack: int, rope_cache, caches=None, pos=None, make_cache: bool = False,
+    chunk_q: int = 512, kcfg=None,
+):
+    """Run the whole stack. Returns (x, new_caches): with ``caches`` given
+    (decode) they are updated in place and returned; with ``make_cache``
+    (prefill) the per-layer k/v come back in the cache tree layout."""
+    p = find_period(specs)
+    n_blocks, n_rest = divmod(len(specs), p)
+    kw = dict(cfg=cfg, n_pack=n_pack, rope_cache=rope_cache, pos=pos,
+              make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg)
+    lora = lora or {}
+
+    def run(x, bp, bl, bc, n_layers):
+        new_c = {}
+        for i in range(n_layers):
+            x, c = apply_layer(bp[f"l{i}"], (bl or {}).get(f"l{i}"), scales, x, specs[i],
+                               cache=(bc or {}).get(f"l{i}"), **kw)
+            if c is not None:
+                new_c[f"l{i}"] = c
+        return x, new_c
+
+    block_caches = []
+    for bi in range(n_blocks):
+        bl = tree_index(lora["blocks"], bi) if lora.get("blocks") else None
+        bc = tree_index(caches["blocks"], bi) if caches is not None else None
+        x, c = run(x, tree_index(params["blocks"], bi), bl, bc, p)
+        block_caches.append(c)
+    x, rest_c = run(x, params["rest"], lora.get("rest"), caches["rest"] if caches else None, n_rest)
+    if caches is not None:
+        return x, caches
+    if make_cache:
+        return x, {"blocks": tree_stack(block_caches) if n_blocks else None, "rest": rest_c}
+    return x, None
+
+
+def make_rope_cache(cfg: ModelConfig, positions: torch.Tensor):
+    """cos/sin tables per distinct rope theta of the stack."""
+    thetas = {s.theta for s in layer_specs(cfg)}
+    return {t: rope_tables(positions, cfg.attention.head_dim, t) for t in thetas}
+
+
+def init_stack_cache(cfg, specs, nb: int, smax: int, dtype=torch.bfloat16, device=None):
+    """Cache tree matching ``apply_stack(caches=...)``."""
+    p = find_period(specs)
+    n_blocks, n_rest = divmod(len(specs), p)
+    kv, hd = cfg.attention.n_kv_heads, cfg.attention.head_dim
+
+    def one(*lead):
+        shape = (*lead, nb, smax, kv, hd)
+        return {"attn": {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}}
+
+    return {
+        "blocks": {f"l{i}": one(n_blocks) for i in range(p)} if n_blocks else None,
+        "rest": {f"l{i}": one() for i in range(n_rest)},
+    }

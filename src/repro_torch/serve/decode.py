@@ -1,0 +1,101 @@
+"""Multi-LoRA serving: prefill + decode steps over packed adapters.
+
+A decode batch of (N*B) requests where requests [n*B, (n+1)*B) use adapter
+n runs one grouped-kernel pass per projection — no per-adapter dispatch.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adapter import PackMeta
+from repro_torch.models.model import decode_step, prefill
+
+
+def _scales(meta: Optional[PackMeta], device) -> torch.Tensor:
+    return meta.scales(device) if meta else torch.ones((1,), dtype=torch.float32, device=device)
+
+
+def make_serve_step(cfg: ModelConfig, meta: Optional[PackMeta], *, kcfg=None, device=None):
+    """One-token greedy decode step against a cache:
+    ``(base, lora, caches, token (NB,1), pos) -> (next_tok, logits, caches)``."""
+    scales = _scales(meta, resolve_device(device))
+    n_pack = meta.n if meta else 1
+
+    def serve_step(base, lora, caches, token, pos):
+        lg, caches = decode_step(base, lora, scales, token, caches, pos, cfg,
+                                 n_pack=n_pack, kcfg=kcfg)
+        return torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32), lg, caches
+
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig, meta: Optional[PackMeta], *, chunk_q: int = 512,
+                 kcfg=None, device=None):
+    scales = _scales(meta, resolve_device(device))
+    n_pack = meta.n if meta else 1
+
+    def prefill_fn(base, lora, batch):
+        return prefill(base, lora, scales, batch, cfg, n_pack=n_pack, chunk_q=chunk_q, kcfg=kcfg)
+
+    return prefill_fn
+
+
+def pad_caches(caches, target_len: int):
+    """Grow prefill caches along the sequence axis to ``target_len`` with
+    zeros. Attention k/v are (NB, S, KV, D); under a stacked ``"blocks"``
+    subtree every leaf has a leading layer axis, moving the sequence axis
+    from 1 to 2. Keeps the dtype."""
+
+    def walk(t, in_blocks=False):
+        if isinstance(t, dict):
+            out = {}
+            for k, v in t.items():
+                if k in ("k", "v") and isinstance(v, torch.Tensor):
+                    ax = 2 if in_blocks else 1
+                    if v.shape[ax] > target_len:
+                        raise ValueError(f"cache {k} {tuple(v.shape)} longer than {target_len}")
+                    shape = list(v.shape)
+                    shape[ax] = target_len
+                    new = v.new_zeros(shape)
+                    new.narrow(ax, 0, v.shape[ax]).copy_(v)
+                    out[k] = new
+                else:
+                    out[k] = walk(v, in_blocks or k == "blocks")
+            return out
+        return t
+
+    return walk(caches)
+
+
+def generate(base, lora, cfg: ModelConfig, meta: Optional[PackMeta],
+             prompt_tokens: torch.Tensor, n_new: int, *, kcfg=None, executor=None,
+             device=None):
+    """Greedy generation: prefill the prompt (NB, S), then decode ``n_new``
+    tokens at a shared position. Returns (NB, n_new) int32. Runs on CUDA
+    unless ``device`` says otherwise; ``prompt_tokens`` must be there."""
+    from repro_torch.serve.engine import ServeExecutor
+
+    device = resolve_device(device)
+    if prompt_tokens.device != device:
+        raise ValueError(f"prompt on {prompt_tokens.device}, expected {device}")
+    ex = executor if executor is not None else ServeExecutor()
+    scales = _scales(meta, device)
+    n_pack = meta.n if meta else 1
+    s_prompt = prompt_tokens.shape[1]
+    with torch.no_grad():
+        lg, caches = ex.prefill_fn(cfg, n_pack, kcfg=kcfg)(
+            base, lora, scales, {"tokens": prompt_tokens}
+        )
+        caches = pad_caches(caches, s_prompt + n_new)
+        step_fn = ex.step_fn(cfg, n_pack, kcfg=kcfg)
+        tok = torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32)
+        out = [tok]
+        for i in range(n_new - 1):
+            pos = torch.tensor(s_prompt + i, dtype=torch.int64, device=device)
+            tok, lg, caches = step_fn(base, lora, scales, caches, tok[:, None], pos)
+            out.append(tok)
+    return torch.stack(out, dim=1)

@@ -1,0 +1,594 @@
+"""Continuous-batching multi-LoRA serving engine (greedy, one-shot prefill).
+
+The port of ``repro/serve/engine.py``'s serve side. The decode batch has a
+fixed width of ``rows`` independent slots, each carrying its *own* adapter:
+the packed-LoRA delta runs at row granularity (``n_pack == rows``, one token
+per row, per-row scales and per-row decode positions). When a row finishes
+its request, the next queued request is admitted into it before the next
+step, so the batch never drains while work is queued.
+
+``AdapterSlotCache``
+    Fixed-capacity host-side staging for adapter weights, LRU-evicted;
+    ``publish()`` inserts an adapter from memory. Adapters of active rows are
+    pinned and never evicted. A miss raises ``KeyError`` (loading from a
+    checkpoint pool is not ported yet).
+
+``ServeExecutor``
+    A keyed cache of the prefill and decode-step closures, one per
+    ``(kind, cfg, n_rows, ...)`` key, with ``scales`` a runtime argument.
+
+``ServeEngine``
+    The event loop: ``publish``, ``submit``, ``serve`` and the width-1
+    ``serve_sequential`` baseline.
+
+Invariants, checked in ``tests/test_torch_serve.py``: continuous batching
+emits the same greedy tokens as ``serve_sequential``. Unlike the reference,
+the logits are equal only within rounding, not bitwise: the base GEMMs run
+at another batch width (PyTorch picks its GEMM by shape), and the
+sequential path decodes from compute-dtype caches where the engine's row
+caches are bf16 — as in the reference.
+"""
+from __future__ import annotations
+
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import LoraConfig, ModelConfig
+from repro_torch.core.adapter import pack_meta
+from repro_torch.core.packed_lora import inject_adapter
+from repro_torch.models.model import decode_step, init_caches, lora_zeros, prefill
+from repro_torch.obs import NULL_TRACER, Histogram
+from repro_torch.serve.decode import pad_caches
+from repro_torch.tree import tree_map
+
+# ---------------------------------------------------------------------------
+# Request / result / stats surface
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ServeRequest:
+    """One greedy decode request against one adapter.
+
+    ``arrival`` is in virtual time (decode steps since trace start).
+    ``rank``/``alpha`` override the adapter's own metadata when that lacks
+    them. ``deadline_ms`` is a wall-clock SLO from the moment the request
+    entered the queue: a queued request past it is rejected before any
+    prefill, and an in-flight row that goes overdue retires as a partial
+    result; both carry ``error="deadline"``."""
+
+    request_id: int
+    adapter_id: str
+    prompt: np.ndarray  # (S,) int32 token ids
+    max_new_tokens: int = 16
+    arrival: float = 0.0
+    rank: Optional[int] = None
+    alpha: Optional[float] = None
+    deadline_ms: Optional[float] = None
+
+
+@dataclass
+class ServeResult:
+    """Emitted tokens + admission/latency accounting for one request.
+    ``error`` is None for a served request; a rejected one has zero tokens."""
+
+    request_id: int
+    adapter_id: str
+    tokens: np.ndarray  # (<= max_new_tokens,) int32
+    n_prompt: int
+    arrival: float
+    admitted_step: int
+    finished_step: int
+    admitted_wall: float  # seconds since serve() start
+    finished_wall: float
+    error: Optional[str] = None
+
+
+@dataclass
+class ServeStats:
+    """Aggregate outcome of one drain. ``ttft``: seconds from enqueue to
+    the first token; ``itl``: gap between a row's consecutive tokens (any
+    admission work in between included); ``queue_wait``: enqueue to start
+    of admission."""
+
+    results: List[ServeResult] = field(default_factory=list)
+    steps: int = 0
+    tokens_emitted: int = 0
+    occupancy_sum: int = 0
+    wall_seconds: float = 0.0
+    cache_hits: int = 0
+    cache_misses: int = 0
+    cache_evictions: int = 0
+    ttft: Histogram = field(default_factory=lambda: Histogram("serve.ttft"))
+    itl: Histogram = field(default_factory=lambda: Histogram("serve.itl"))
+    queue_wait: Histogram = field(default_factory=lambda: Histogram("serve.queue_wait"))
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens_emitted / self.wall_seconds if self.wall_seconds else 0.0
+
+    @property
+    def mean_occupancy(self) -> float:
+        return self.occupancy_sum / self.steps if self.steps else 0.0
+
+    def latency_summaries(self) -> Dict[str, Dict[str, float]]:
+        return {"ttft": self.ttft.summary(), "itl": self.itl.summary(),
+                "queue_wait": self.queue_wait.summary()}
+
+
+def poisson_requests(adapter_ids: Sequence[str], prompts: Sequence[np.ndarray],
+                     mean_interarrival: float, *, max_new_tokens: int = 16,
+                     seed: int = 0) -> List[ServeRequest]:
+    """A Poisson request trace (gaps ~ Exp(mean_interarrival) decode steps),
+    shifted so the first request arrives at t=0."""
+    if len(adapter_ids) != len(prompts):
+        raise ValueError("one adapter id per prompt")
+    rng = np.random.RandomState(seed)
+    gaps = rng.exponential(mean_interarrival, size=len(adapter_ids))
+    times = np.cumsum(gaps) - gaps[0]
+    return [
+        ServeRequest(request_id=i, adapter_id=aid, prompt=np.asarray(p, np.int32),
+                     max_new_tokens=max_new_tokens, arrival=float(t))
+        for i, (aid, p, t) in enumerate(zip(adapter_ids, prompts, times))
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Adapter slot cache
+# ---------------------------------------------------------------------------
+
+
+class AdapterSlotCache:
+    """Fixed-capacity LRU cache of host-side adapter weights. ``pin``ned
+    adapters (referenced by active rows) are never evicted; if every slot is
+    pinned a new insert is refused rather than growing past capacity."""
+
+    def __init__(self, capacity: int, *, metrics=None):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.capacity = capacity
+        self._slots: "OrderedDict[str, Tuple[dict, dict]]" = OrderedDict()
+        self._pins: Dict[str, int] = {}
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.metrics = metrics if metrics is not None else NULL_TRACER.metrics
+
+    def __contains__(self, adapter_id: str) -> bool:
+        return adapter_id in self._slots
+
+    def __len__(self) -> int:
+        return len(self._slots)
+
+    def ids(self) -> List[str]:
+        """Slot ids in LRU order (least recently used first)."""
+        return list(self._slots)
+
+    def pin(self, adapter_id: str) -> None:
+        self._pins[adapter_id] = self._pins.get(adapter_id, 0) + 1
+
+    def unpin(self, adapter_id: str) -> None:
+        n = self._pins.get(adapter_id, 0) - 1
+        if n <= 0:
+            self._pins.pop(adapter_id, None)
+        else:
+            self._pins[adapter_id] = n
+
+    def _evict_to_fit(self) -> None:
+        while len(self._slots) >= self.capacity:
+            victim = next((aid for aid in self._slots if aid not in self._pins), None)
+            if victim is None:
+                raise RuntimeError(
+                    f"all {self.capacity} adapter slots are pinned by active rows; "
+                    "cannot admit a new adapter (raise slot_capacity or lower rows)"
+                )
+            self._slots.pop(victim)
+            self.evictions += 1
+            self.metrics.counter("serve.adapter_cache_evictions").inc()
+
+    def publish(self, adapter_id: str, adapter_tree: dict, meta: dict) -> None:
+        """Insert (or refresh) an adapter from memory."""
+        if adapter_id in self._slots:
+            self._slots.pop(adapter_id)
+        else:
+            self._evict_to_fit()
+        self._slots[adapter_id] = (adapter_tree, dict(meta))
+
+    def get(self, adapter_id: str) -> Tuple[dict, dict]:
+        if adapter_id in self._slots:
+            self.hits += 1
+            self.metrics.counter("serve.adapter_cache_hits").inc()
+            self._slots.move_to_end(adapter_id)
+            return self._slots[adapter_id]
+        self.misses += 1
+        self.metrics.counter("serve.adapter_cache_misses").inc()
+        raise KeyError(f"adapter {adapter_id!r} is neither staged nor in the checkpoint pool")
+
+
+# ---------------------------------------------------------------------------
+# Serve executor: keyed closure cache
+# ---------------------------------------------------------------------------
+
+
+class ServeExecutor:
+    """One prefill and one decode-step closure per key; ``scales`` is a
+    runtime argument of both, so admission never builds a new one."""
+
+    def __init__(self):
+        self._fns: Dict[Tuple, Callable] = {}
+
+    @property
+    def cache_size(self) -> int:
+        return len(self._fns)
+
+    def step_fn(self, cfg: ModelConfig, n_rows: int, *, kcfg=None):
+        """``(base, lora, scales, caches, token (R,1), pos () or (R,)) ->
+        (next_tok (R,), logits, caches)``; greedy."""
+        key = ("step", cfg, n_rows, kcfg)
+        if key not in self._fns:
+
+            def step(base, lora, scales, caches, token, pos):
+                lg, caches = decode_step(base, lora, scales, token, caches, pos, cfg,
+                                         n_pack=n_rows, kcfg=kcfg)
+                return torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32), lg, caches
+
+            self._fns[key] = step
+        return self._fns[key]
+
+    def prefill_fn(self, cfg: ModelConfig, n_rows: int, *, chunk_q: int = 512, kcfg=None):
+        """``(base, lora, scales, batch) -> (last-pos logits (R,1,V), caches)``."""
+        key = ("prefill", cfg, n_rows, chunk_q, kcfg)
+        if key not in self._fns:
+
+            def prefill_(base, lora, scales, batch):
+                return prefill(base, lora, scales, batch, cfg, n_pack=n_rows,
+                               chunk_q=chunk_q, kcfg=kcfg)
+
+            self._fns[key] = prefill_
+        return self._fns[key]
+
+
+# ---------------------------------------------------------------------------
+# Row-granular write
+# ---------------------------------------------------------------------------
+
+
+def write_row_caches(caches, row_caches, row: int):
+    """Write a width-1 tree into row ``row`` of a width-R tree (decode caches
+    or packed lora params — both share the layout), in place, casting to the
+    width-R tree's dtype. Under a stacked ``"blocks"`` subtree the row axis
+    is 1, else 0; a shorter sequence axis fills its leading part."""
+
+    def walk(t, s, in_blocks):
+        if isinstance(t, dict):
+            return {k: walk(t[k], s[k], in_blocks or k == "blocks") for k in t}
+        if t is None or s is None:
+            return t
+        src = s.select(1 if in_blocks else 0, 0)
+        dst = t.select(1 if in_blocks else 0, row)
+        for ax in range(src.dim()):
+            dst = dst.narrow(ax, 0, src.shape[ax])
+        dst.copy_(src)
+        return t
+
+    return walk(caches, row_caches, False)
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _ActiveRow:
+    request: ServeRequest
+    emitted: List[int]
+    admitted_step: int
+    admitted_wall: float
+    n_prompt: int
+    last_emit_wall: float = 0.0
+
+
+class ServeEngine:
+    """Continuous-batching greedy decode over ``rows`` adapter slots.
+
+    The base parameters must lie on ``device`` (CUDA unless given); their
+    embedding's dtype is the compute dtype, and the row pack of adapters is
+    kept in it. Decode caches are bf16, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, base_params, *, rows: int = 4, smax: int = 64,
+                 r_bucket: int = 8, slot_capacity: int = 8,
+                 serve_executor: Optional[ServeExecutor] = None, impl: Optional[str] = None,
+                 tracer=None, device=None):
+        self.device = resolve_device(device)
+        emb = base_params["embed"]["w"]
+        if emb.device != self.device:
+            raise ValueError(f"base params on {emb.device}, engine on {self.device}")
+        self.dtype = emb.dtype
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.cfg = cfg
+        self.rows = rows
+        self.smax = smax
+        # uniform engine-wide rank bucket: every admitted adapter is
+        # zero-padded to r_bucket, so the pack shape never changes
+        self.meta = pack_meta([LoraConfig(rank=r_bucket, alpha=float(r_bucket))] * rows)
+        self.meta1 = pack_meta([LoraConfig(rank=r_bucket, alpha=float(r_bucket))])
+        self.kcfg = self.meta.kernel_config(impl)
+        self.kcfg1 = self.meta1.kernel_config(impl)
+        self.base = base_params
+        # device-resident R-row pack (zero: empty rows add exactly nothing)
+        # and the width-1 host template that admission injects into
+        self._lora = lora_zeros(cfg, self.meta, self.dtype, self.device)
+        self._lora1_host = tree_map(
+            lambda t: t.numpy(), lora_zeros(cfg, self.meta1, torch.float32, "cpu")
+        )
+        self._scales = np.zeros((rows,), np.float32)
+        self._caches = None  # allocated on first serve()
+        self._tok = np.zeros((rows, 1), np.int32)
+        self._pos = np.zeros((rows,), np.int64)
+        self._rows: List[Optional[_ActiveRow]] = [None] * rows
+        self.slot_cache = AdapterSlotCache(slot_capacity, metrics=self.tracer.metrics)
+        self.queue: "deque[ServeRequest]" = deque()
+        self._enq_abs: Dict[int, float] = {}
+        self._serve_t0 = 0.0
+        self.serve_executor = serve_executor or ServeExecutor()
+
+    # ---------------- adapter staging --------------------------------------
+
+    def publish(self, adapter_id: str, adapter_tree: dict, meta: dict) -> None:
+        """Stage a finished adapter (a host tree, e.g. from
+        ``extract_adapter``) with its ``{"rank", "alpha"}``."""
+        self.slot_cache.publish(adapter_id, adapter_tree, meta)
+
+    def _device_tree(self, host_tree):
+        return tree_map(
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device, self.dtype),
+            host_tree,
+        )
+
+    # ---------------- admission / retirement --------------------------------
+
+    def submit(self, req: ServeRequest) -> None:
+        """Enqueue a request; queue wait and TTFT count from here."""
+        self._enq_abs[req.request_id] = time.perf_counter()
+        self.queue.append(req)
+
+    def _deadline_blown(self, req: ServeRequest) -> bool:
+        if req.deadline_ms is None:
+            return False
+        enq = self._enq_abs.get(req.request_id)
+        return enq is not None and (time.perf_counter() - enq) * 1e3 > req.deadline_ms
+
+    def _scale_for(self, req: ServeRequest, meta: dict) -> float:
+        rank = req.rank if req.rank is not None else meta.get("rank")
+        alpha = req.alpha if req.alpha is not None else meta.get("alpha")
+        if rank is None or alpha is None:
+            raise ValueError(
+                f"request {req.request_id} for adapter {req.adapter_id!r}: "
+                "rank/alpha neither on the request nor in adapter metadata"
+            )
+        return float(alpha) / float(rank)
+
+    def _rejected(self, req: ServeRequest, step: int, wall: float, err: str) -> ServeResult:
+        self._enq_abs.pop(req.request_id, None)
+        return ServeResult(
+            request_id=req.request_id, adapter_id=req.adapter_id,
+            tokens=np.zeros((0,), np.int32), n_prompt=int(np.asarray(req.prompt).shape[0]),
+            arrival=req.arrival, admitted_step=step, finished_step=step,
+            admitted_wall=wall, finished_wall=wall, error=err,
+        )
+
+    def _admit(self, req: ServeRequest, row: int, step: int, wall: float,
+               stats: Optional[ServeStats] = None) -> Optional[ServeResult]:
+        """Admit ``req`` into free row ``row`` with a one-shot prefill, or
+        reject it (oversized prompt, unknown adapter, no rank/alpha) as an
+        errored result — validated before any pin or latency sample."""
+        prompt = np.asarray(req.prompt, np.int32)
+        s_total = prompt.shape[0]
+        if s_total + req.max_new_tokens > self.smax:
+            return self._rejected(req, step, wall, (
+                f"request {req.request_id}: prompt {s_total} + {req.max_new_tokens} "
+                f"new tokens exceeds smax={self.smax}"))
+        try:
+            adapter, ameta = self.slot_cache.get(req.adapter_id)
+            scale = self._scale_for(req, ameta)
+        except (KeyError, ValueError) as e:
+            return self._rejected(req, step, wall, str(e))
+        if stats is not None:
+            stats.queue_wait.record(max(0.0, time.perf_counter() - self._enq_abs[req.request_id]))
+        with self.tracer.span("serve.admit", cat="serve", track=f"row{row}",
+                              request_id=req.request_id, adapter=req.adapter_id, step=step):
+            self.slot_cache.pin(req.adapter_id)
+            lora1 = self._device_tree(inject_adapter(self._lora1_host, adapter, 0))
+            write_row_caches(self._lora, lora1, row)
+            with self.tracer.span("serve.prefill", cat="serve", track=f"row{row}",
+                                  request_id=req.request_id, n_prompt=int(s_total)):
+                pf = self.serve_executor.prefill_fn(self.cfg, 1, kcfg=self.kcfg1)
+                lg, c1 = pf(self.base, lora1,
+                            torch.full((1,), scale, dtype=torch.float32, device=self.device),
+                            {"tokens": torch.from_numpy(prompt[None, :]).to(self.device)})
+                write_row_caches(self._caches, pad_caches(c1, self.smax), row)
+                first = int(torch.argmax(lg[0, -1, :]))
+        now = time.perf_counter()
+        if stats is not None:
+            stats.ttft.record(max(0.0, now - self._enq_abs[req.request_id]))
+        self._scales[row] = scale
+        self._tok[row, 0] = first
+        self._pos[row] = s_total
+        self._rows[row] = _ActiveRow(
+            request=req, emitted=[first], admitted_step=step, admitted_wall=wall,
+            n_prompt=s_total, last_emit_wall=now - self._serve_t0,
+        )
+        return None
+
+    def _retire(self, row: int, step: int, wall: float, error: Optional[str] = None) -> ServeResult:
+        active = self._rows[row]
+        self._rows[row] = None
+        self._scales[row] = 0.0
+        self.slot_cache.unpin(active.request.adapter_id)
+        self._enq_abs.pop(active.request.request_id, None)
+        self.tracer.add_span(
+            "serve.request", self._serve_t0 + active.admitted_wall, self._serve_t0 + wall,
+            cat="serve", track=f"row{row}", request_id=active.request.request_id,
+            adapter=active.request.adapter_id, tokens=len(active.emitted),
+        )
+        return ServeResult(
+            request_id=active.request.request_id, adapter_id=active.request.adapter_id,
+            tokens=np.asarray(active.emitted, np.int32), n_prompt=active.n_prompt,
+            arrival=active.request.arrival, admitted_step=active.admitted_step,
+            finished_step=step, admitted_wall=active.admitted_wall, finished_wall=wall,
+            error=error,
+        )
+
+    # ---------------- the decode loop ---------------------------------------
+
+    def serve(self, requests: Optional[Sequence[ServeRequest]] = None, *,
+              max_steps: Optional[int] = None) -> ServeStats:
+        """Drain a request trace (plus anything already ``submit()``ted).
+
+        Virtual time is the decode-step counter: a request becomes
+        admissible once ``step >= arrival``; freed rows are refilled before
+        the next step. ``max_steps`` bounds the drain: rows still in flight
+        retire as partial results."""
+        pending = deque(sorted(requests or (), key=lambda r: (r.arrival, r.request_id)))
+        if self._caches is None:
+            self._caches = init_caches(self.cfg, self.rows, self.smax, device=self.device)
+        stats = ServeStats()
+        with torch.no_grad(), self.tracer.span(
+            "serve.drain", cat="serve", track="serve",
+            n_requests=len(pending) + len(self.queue), rows=self.rows,
+        ):
+            self._serve_drain(pending, stats, max_steps)
+        stats.cache_hits = self.slot_cache.hits
+        stats.cache_misses = self.slot_cache.misses
+        stats.cache_evictions = self.slot_cache.evictions
+        stats.results.sort(key=lambda r: r.request_id)
+        return stats
+
+    def _fill_rows(self, step: int, wall: float, stats: ServeStats) -> None:
+        for row in range(self.rows):
+            while self._rows[row] is None and self.queue:
+                req = self.queue.popleft()
+                if self._deadline_blown(req):
+                    stats.results.append(self._rejected(req, step, wall, "deadline"))
+                    continue
+                rejected = self._admit(req, row, step, wall, stats)
+                if rejected is not None:
+                    stats.results.append(rejected)
+                    continue
+                if len(self._rows[row].emitted) >= req.max_new_tokens:
+                    stats.tokens_emitted += len(self._rows[row].emitted)
+                    stats.results.append(self._retire(row, step, wall))
+
+    def _serve_drain(self, pending, stats: ServeStats, max_steps: Optional[int]) -> None:
+        qdepth = self.tracer.metrics.gauge("serve.queue_depth")
+        t0 = time.perf_counter()
+        self._serve_t0 = t0
+        step = 0
+        while True:
+            wall = time.perf_counter() - t0
+            while pending and pending[0].arrival <= step:
+                req = pending.popleft()
+                self._enq_abs.setdefault(req.request_id, time.perf_counter())
+                self.queue.append(req)
+            qdepth.set(len(self.queue))
+            self._fill_rows(step, wall, stats)
+            for row in range(self.rows):
+                a = self._rows[row]
+                if a is not None and self._deadline_blown(a.request):
+                    wall = time.perf_counter() - t0
+                    stats.tokens_emitted += len(a.emitted)
+                    stats.results.append(self._retire(row, step, wall, error="deadline"))
+            active = [r for r in range(self.rows) if self._rows[r] is not None]
+            if not active:
+                if self.queue:
+                    continue
+                if pending:
+                    step = int(np.ceil(pending[0].arrival))
+                    continue
+                break
+            if max_steps is not None and stats.steps >= max_steps:
+                wall = time.perf_counter() - t0
+                for row in active:
+                    stats.tokens_emitted += len(self._rows[row].emitted)
+                    stats.results.append(self._retire(row, step, wall))
+                break
+            with self.tracer.span("serve.step", cat="serve", track="serve",
+                                  step=step, batch=len(active)):
+                fn = self.serve_executor.step_fn(self.cfg, self.rows, kcfg=self.kcfg)
+                next_tok, _lg, self._caches = fn(
+                    self.base, self._lora,
+                    torch.from_numpy(self._scales).to(self.device),
+                    self._caches, torch.from_numpy(self._tok).to(self.device),
+                    torch.from_numpy(self._pos).to(self.device),
+                )
+                next_tok = next_tok.cpu().numpy()
+            step += 1
+            stats.steps += 1
+            stats.occupancy_sum += len(active)
+            wall = time.perf_counter() - t0
+            for row in active:
+                a = self._rows[row]
+                stats.itl.record(max(0.0, wall - a.last_emit_wall))
+                a.last_emit_wall = wall
+                a.emitted.append(int(next_tok[row]))
+                self._tok[row, 0] = int(next_tok[row])
+                self._pos[row] += 1
+                if len(a.emitted) >= a.request.max_new_tokens:
+                    stats.tokens_emitted += len(a.emitted)
+                    stats.results.append(self._retire(row, step, wall))
+        stats.wall_seconds = time.perf_counter() - t0
+
+    # ---------------- sequential baseline -----------------------------------
+
+    def serve_sequential(self, requests: Sequence[ServeRequest]) -> ServeStats:
+        """One request at a time at batch width 1 (``generate()`` semantics)
+        through the same executor: the baseline continuous batching is held
+        against."""
+        stats = ServeStats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for req in sorted(requests, key=lambda r: (r.arrival, r.request_id)):
+                stats.queue_wait.record(time.perf_counter() - t0)
+                adapter, ameta = self.slot_cache.get(req.adapter_id)
+                scale = self._scale_for(req, ameta)
+                lora1 = self._device_tree(inject_adapter(self._lora1_host, adapter, 0))
+                prompt = np.asarray(req.prompt, np.int32)
+                s_total = prompt.shape[0]
+                scales = torch.full((1,), scale, dtype=torch.float32, device=self.device)
+                pf = self.serve_executor.prefill_fn(self.cfg, 1, kcfg=self.kcfg1)
+                lg, caches = pf(self.base, lora1, scales,
+                                {"tokens": torch.from_numpy(prompt[None, :]).to(self.device)})
+                caches = pad_caches(caches, s_total + req.max_new_tokens)
+                admitted = time.perf_counter() - t0
+                stats.ttft.record(admitted)
+                tok = torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32)
+                out = [int(tok[0])]
+                fn = self.serve_executor.step_fn(self.cfg, 1, kcfg=self.kcfg1)
+                t_prev = time.perf_counter()
+                for i in range(req.max_new_tokens - 1):
+                    pos = torch.tensor(s_total + i, dtype=torch.int64, device=self.device)
+                    tok, _lg, caches = fn(self.base, lora1, scales, caches, tok[:, None], pos)
+                    out.append(int(tok[0]))
+                    stats.steps += 1
+                    stats.occupancy_sum += 1
+                    t_now = time.perf_counter()
+                    stats.itl.record(t_now - t_prev)
+                    t_prev = t_now
+                wall = time.perf_counter() - t0
+                stats.tokens_emitted += len(out)
+                stats.results.append(ServeResult(
+                    request_id=req.request_id, adapter_id=req.adapter_id,
+                    tokens=np.asarray(out, np.int32), n_prompt=s_total, arrival=req.arrival,
+                    admitted_step=stats.steps, finished_step=stats.steps,
+                    admitted_wall=admitted, finished_wall=wall,
+                ))
+        stats.wall_seconds = time.perf_counter() - t0
+        stats.results.sort(key=lambda r: r.request_id)
+        return stats

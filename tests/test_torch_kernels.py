@@ -1,0 +1,145 @@
+"""The port's kernel ops against the JAX package's, on the CPU.
+
+The same numpy inputs go through the JAX function (its Pallas kernel in
+interpret mode, as the JAX package's own tests run it) and through the
+port's counterpart, which on a CPU tensor runs the kernel's plain version.
+Tolerances: f32 rtol/atol 1e-5 (only the order of f32 sums differs); bf16
+rtol/atol 1e-2 (one bf16 rounding of the output may go the other way).
+The hand-written CUDA kernels themselves are held against these plain
+versions on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.fused import fused_matmul as j_fused_matmul
+from repro.kernels.packed_matmul import packed_matmul as j_packed_matmul
+from repro_torch import bridge
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused import fused_matmul
+from repro_torch.kernels.packed_matmul import packed_matmul
+
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(seed, shapes, dtype, stds=None):
+    """numpy f32 arrays rounded to ``dtype``, as (jax, torch) pairs."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, s in enumerate(shapes):
+        a = (rng.standard_normal(s) * (stds[i] if stds else 1.0)).astype(np.float32)
+        j = jnp.asarray(a).astype(JDT[dtype])
+        out.append((j, bridge.to_torch(np.asarray(j), "cpu")))
+    return out
+
+
+def _np(t):
+    return np.asarray(t.float() if isinstance(t, torch.Tensor) else jnp.asarray(t, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "n,m,k,l",
+    [
+        (8, 1, 64, 16),      # decode xA: one token per adapter, rank-wide L
+        (8, 1, 16, 72),      # decode (xA)B: the rank is the whole K
+        (1, 37, 48, 24),     # prefill-like, nothing aligned
+        (3, 20, 36, 52),
+    ],
+)
+def test_packed_matmul_plain_matches_pallas(dtype, n, m, k, l):
+    (jx, tx), (jw, tw) = _inputs(n * 100 + m, [(n, m, k), (n, k, l)], dtype)
+    scale = np.linspace(0.5, 2.0, n).astype(np.float32)
+    want = j_packed_matmul(jx, jw, jnp.asarray(scale), interpret=True)
+    got = packed_matmul(tx, tw, torch.from_numpy(scale))
+    assert got.dtype == TDT[dtype] and got.shape == (n, m, l)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,m,k,l,r", [(8, 1, 64, 40, 16), (1, 33, 48, 24, 8), (2, 5, 40, 130, 24)])
+def test_fused_plain_matches_pallas(dtype, n, m, k, l, r):
+    (jx, tx), (jw, tw), (ja, ta), (jb, tb) = _inputs(
+        n + m + r, [(n, m, k), (k, l), (n, k, r), (n, r, l)], dtype,
+        stds=[1.0, k ** -0.5, k ** -0.5, 1.0],
+    )
+    scale = np.linspace(0.5, 2.0, n).astype(np.float32)
+    want = j_fused_matmul(jx, jw, ja, jb, jnp.asarray(scale), interpret=True)
+    got = fused_matmul(tx, tw, ta, tb, torch.from_numpy(scale))
+    assert got.dtype == TDT[dtype] and got.shape == (n, m, l)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+def _pack(seed, n=3, t=5, d=48, r=16, k=40):
+    (jx, tx), (jw, tw), (ja, ta), (jb, tb) = _inputs(
+        seed, [(n, t, d), (d, k), (n, d, r), (n, r, k)], "float32",
+        stds=[1.0, d ** -0.5, d ** -0.5, 1.0],
+    )
+    alpha = np.array([2.0, 0.5, 1.0][:n], np.float32)
+    return (jx, jw, ja, jb, jnp.asarray(alpha)), (tx, tw, ta, tb, torch.from_numpy(alpha))
+
+
+@pytest.mark.parametrize("ranks", [None, (8, 16, 8)])
+def test_packed_lora_delta_matches_reference(ranks):
+    (jx, _, ja, jb, jal), (tx, _, ta, tb, tal) = _pack(1)
+    want = jops.packed_lora_delta(jx, ja, jb, jal, impl="pallas", ranks=ranks)
+    got = ops.packed_lora_delta(tx, ta, tb, tal, ranks=ranks)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("ranks", [None, (8, 16, 8)])
+def test_fused_lora_linear_matches_reference(ranks):
+    (jx, jw, ja, jb, jal), (tx, tw, ta, tb, tal) = _pack(2)
+    want = jops.fused_lora_linear(jx, jw, ja, jb, jal, impl="fused_pallas", ranks=ranks)
+    got = ops.fused_lora_linear(tx, tw, ta, tb, tal, impl="fused", ranks=ranks)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+def test_rank_padding_is_exactly_zero(impl):
+    """Adapters zero-padded to the bucket rank: whatever the padding rows of
+    B hold, the output is bitwise that of zero padding, and the ragged
+    segments (padding sliced away) agree with it to rounding."""
+    _, (tx, tw, ta, tb, tal) = _pack(3)
+    ranks = (8, 16, 8)
+    mask = (torch.arange(16)[None, :] < torch.tensor(ranks)[:, None]).float()
+    a0 = ta * mask[:, None, :]
+    b0 = tb * mask[:, :, None]
+    b_junk = b0 + (1 - mask[:, :, None]) * 123.0
+
+    def run(b, rk):
+        if impl == "fused":
+            return ops.fused_lora_linear(tx, tw, a0, b, tal, impl=impl, ranks=rk)
+        return ops.packed_lora_delta(tx, a0, b, tal, impl=impl, ranks=rk)
+
+    assert torch.equal(run(b0, None), run(b_junk, None))
+    np.testing.assert_allclose(_np(run(b_junk, ranks)), _np(run(b0, None)), **TOL["float32"])
+
+
+def test_rank_segments_matches_reference():
+    for ranks in [(8,), (16, 8, 16, 8, 32), (8, 8, 8)]:
+        assert ops.rank_segments(ranks) == tuple(jops.rank_segments(ranks))[:2] + (
+            list(jops.rank_segments(ranks)[2]),
+        )
+
+
+def test_unknown_impl_raises():
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.KernelConfig(impl="xla").resolved_impl()
+
+
+@pytest.mark.parametrize("kernel", ["packed_matmul", "fused_matmul"])
+def test_wrapper_takes_plain_version_on_cpu_without_counting(kernel):
+    """On a CPU tensor the wrapper runs the plain version: no launch."""
+    (jx, tx), (jw, tw), (ja, ta), (jb, tb) = _inputs(0, [(2, 3, 8), (2, 8, 4), (8, 4), (2, 4, 4)], "float32")
+    fn = packed_matmul if kernel == "packed_matmul" else fused_matmul
+    before = fn.launches
+    if kernel == "packed_matmul":
+        fn(tx, tw)
+    else:
+        fn(tx, tw[0], tw, tb)
+    assert fn.launches == before
