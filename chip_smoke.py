@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Run the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # everything, on cuda:0
 
@@ -11,8 +11,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``nvcc`` (one process per source, all at once).
 3. kernels -- calls each kernel at the qwen25-7b serving shapes (decode:
    N=8 rows, M=1; prefill: N=1, M=256; r=16; plus a ragged pack of ranks
-   (8, 16)) in bf16 and f32, holds it against its plain version, and times
-   kernel, plain version and one PyTorch library call with CUDA events.
+   (8, 16)) and at its training shapes (N=2 adapters, M=1024 tokens each,
+   r=16: the forward calls, the four backward cases of ``packed_matmul``,
+   the fused dx reading W^T in place, and ``fused_matmul_q`` on int8 and nf4
+   codes, which must also be bit-equal to the dense kernel on the
+   dequantized W), in bf16 and f32; holds each against its plain version,
+   and times kernel, plain version and one PyTorch library call (or the
+   named composition where no single call exists) with CUDA events.
 4. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
    seed), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
@@ -21,11 +26,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode steps are held against the plain-version path on the same
    weights. Then a short drain of each impl runs under ``torch.profiler``
    (device busy share, device time by kernel).
+5. train   -- full-width, full-depth qwen25-7b (bf16 base, random weights
+   from a seed), a pack of 4 adapters of ranks (8, 16, 16, 32) (ragged
+   segments of one and of two adapters), seq 512, 4096 tokens per step,
+   through ``make_packed_step`` under impl="auto", impl="fused", and
+   impl="fused" on an nf4 and on an int8 base. Step 1's per-adapter loss and
+   every LoRA gradient are held against the plain path on the same weights
+   and batch; then 4 steps run with the launch counts zeroed just before and
+   read just after (forward and backward counts must both move). One nf4
+   step then runs under ``torch.profiler``.
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
-``smoke_out/`` (``chip_smoke.json``, ``profile_<impl>.txt``, the nvcc
-logs with ``ptxas -v``).
+``smoke_out/`` (``chip_smoke.json``, ``profile_<impl>.txt``,
+``profile_train_nf4.txt``, the nvcc logs with ``ptxas -v``).
 """
 from __future__ import annotations
 
@@ -58,6 +72,33 @@ LOGIT_TOL = 0.05
 PROJ = [((3584, 3584), 2), ((3584, 512), 2), ((3584, 18944), 2), ((18944, 3584), 1)]
 RANK = 16
 CASES = {"decode": (8, 1), "prefill": (1, 256)}
+TRAIN_CASE = (2, 1024)  # training shapes: N adapters, M = B*S tokens each
+
+# The train phase's pack (alpha = 2r; learning rates inside the paper's
+# 2e-5..4e-4 range): ranks 8 and 32 run as one-adapter segments, the two
+# rank-16 adapters as one segment of two. NB = 8 rows of 512 tokens.
+TRAIN_RANKS = (8, 16, 16, 32)
+TRAIN_LRS = (1e-4, 2e-4, 3e-4, 4e-4)
+TRAIN_BATCH = (1, 2, 1, 2)
+TRAIN_SEQ = 512
+TRAIN_STEPS = 4
+TRAIN_RUNS = (("auto", None), ("fused", None), ("fused", "nf4"), ("fused", "int8"))
+# Step 1 of the kernel path against the plain path on the same weights and
+# batch. bf16 end to end: a 1-ulp difference in one projection's bf16
+# output (the f32 sums run in another order) propagates through 28 layers.
+# The per-adapter loss, a mean over >= 512 tokens, is held at LOSS_RTOL
+# (relative). The LoRA gradients are held per leaf at max |kernel - plain|
+# <= GRAD_TOL_F32 * max |plain| with the base cast to f32: the same kernels
+# and autograd Functions on their f32 paths, where a summation order moves a
+# gradient by f32 rounding grown through the depth while a wrong gradient
+# moves it by O(1). In bf16 that growth takes even the plain path's
+# gradients far from the f32 gradient (printed as
+# step1_grad_err_vs_f32_plain_bf16), so there the kernel path's bf16
+# gradients are held to be no farther from the f32 plain gradient than
+# BF16_GRAD_FACTOR times the plain path's bf16 gradients are.
+LOSS_RTOL = 1e-2
+GRAD_TOL_F32 = 1e-3
+BF16_GRAD_FACTOR = 1.5
 
 RECORDS = []
 
@@ -124,7 +165,8 @@ def kernel_phase(torch, dev):
 
     rows = []
 
-    def check(name, case, call, d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops):
+    def check(name, case, call, d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
+              library, exact=None):
         args = args_fn()
         got = kfn(*args)
         want = pfn(*args)
@@ -134,6 +176,9 @@ def kernel_phase(torch, dev):
         tol = KERNEL_TOL[str(dtype).split(".")[-1]] * max(scale, 1e-30)
         if not (math.isfinite(err) and err <= tol):
             fail(f"{name} {case} {call} ({d_in},{d_out}) {dtype}: max_abs_err {err} > {tol}")
+        if exact is not None and not torch.equal(got, exact(*args)):
+            fail(f"{name} {case} {call} ({d_in},{d_out}) {dtype}: not bit-equal to the dense "
+                 "kernel on the dequantized weight")
         in_bytes = nbytes(*[a for a in args if a is not None]) + nbytes(got)
         sets = [args] + [args_fn() for _ in range(copies_for(in_bytes) - 1)]
         ms = time_ms(torch, kfn, sets)
@@ -144,7 +189,8 @@ def kernel_phase(torch, dev):
         row = {"phase": "kernel", "kernel": name, "case": case, "call": call,
                "d_in": d_in, "d_out": d_out, "dtype": dname, "max_abs_err": err,
                "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": in_bytes, "flops": flops}
+               "library": library, "bound_ms": b_ms, "bound_by": b_by, "bytes": in_bytes,
+               "flops": flops}
         emit(row)
         rows.append(row)
         del sets, args, got, want
@@ -155,6 +201,17 @@ def kernel_phase(torch, dev):
     def lib_fused(x, w, a, b, s):
         return torch.baddbmm(torch.matmul(x, w), torch.bmm(x, a) * s.view(-1, 1, 1).to(x.dtype), b)
 
+    BMM = "torch.bmm"
+    FUSED3 = "baddbmm(x@W, bmm(x,A)*s, B): 3 calls"
+
+    def fused_rows(case, n, m, d_in, d_out, dtype, scale):
+        check("fused_matmul", case, "fused", d_in, d_out, dtype,
+              fused_matmul, fused_matmul_ref, lib_fused,
+              lambda: (rnd((n, m, d_in), dtype), rnd((d_in, d_out), dtype, d_in ** -0.5),
+                       rnd((n, d_in, RANK), dtype, d_in ** -0.5),
+                       rnd((n, RANK, d_out), dtype), scale),
+              2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out), FUSED3)
+
     for dtype in (torch.bfloat16, torch.float32):
         for case, (n, m) in CASES.items():
             for (d_in, d_out), _ in PROJ:
@@ -162,17 +219,12 @@ def kernel_phase(torch, dev):
                 check("packed_matmul", case, "xA", d_in, d_out, dtype,
                       packed_matmul, packed_matmul_ref, lib_bmm,
                       lambda: (rnd((n, m, d_in), dtype), rnd((n, d_in, RANK), dtype, d_in ** -0.5)),
-                      2 * n * m * d_in * RANK)
+                      2 * n * m * d_in * RANK, BMM)
                 check("packed_matmul", case, "xAB", d_in, d_out, dtype,
                       packed_matmul, packed_matmul_ref, lib_bmm,
                       lambda: (rnd((n, m, RANK), dtype), rnd((n, RANK, d_out), dtype), scale),
-                      2 * n * m * RANK * d_out)
-                check("fused_matmul", case, "fused", d_in, d_out, dtype,
-                      fused_matmul, fused_matmul_ref, lib_fused,
-                      lambda: (rnd((n, m, d_in), dtype), rnd((d_in, d_out), dtype, d_in ** -0.5),
-                               rnd((n, d_in, RANK), dtype, d_in ** -0.5),
-                               rnd((n, RANK, d_out), dtype), scale),
-                      2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out))
+                      2 * n * m * RANK * d_out, BMM)
+                fused_rows(case, n, m, d_in, d_out, dtype, scale)
         # a ragged pack: ranks (8, 16) padded to a bucket of 16
         ranks = (8, 16)
         x = rnd((2, 4, 3584), dtype)
@@ -191,7 +243,84 @@ def kernel_phase(torch, dev):
                 fail(f"ragged {name} {dtype}: max_abs_err {err} > {tol}")
             emit({"phase": "ragged", "op": name, "ranks": list(ranks),
                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol})
+        train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows)
     return rows
+
+
+def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows):
+    """Every kernel use of the training step at its shapes: N=2 adapters,
+    M=1024 tokens each, r=16. The backward cases pass transposed views,
+    which the kernels read in place; the library yardstick is ``torch.bmm``
+    on the same views."""
+    from repro_torch.kernels.fused import fused_matmul, fused_matmul_q
+    from repro_torch.kernels.packed_matmul import packed_matmul
+    from repro_torch.kernels.quant import dequantize, quantize_weight
+    from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
+
+    n, m = TRAIN_CASE
+    r = RANK
+    scale = torch.linspace(0.5, 2.0, n, device=dev)
+
+    def bwd(x, w):
+        return packed_matmul(x, w, backward=True)
+
+    def lib_bmm(x, w, s=None):
+        return torch.bmm(x, w)
+
+    def lib_dx(g, wt, bt, at, s):
+        return torch.baddbmm(torch.matmul(g, wt), torch.bmm(g, bt) * s.view(-1, 1, 1).to(g.dtype), at)
+
+    def lib_fused_q(x, codes, scales, a, b, s):
+        w = dequantize({"codes": codes, "scales": scales}, x.dtype)
+        return torch.baddbmm(torch.matmul(x, w), torch.bmm(x, a) * s.view(-1, 1, 1).to(x.dtype), b)
+
+    def dense_on_dequantized(x, codes, scales, a, b, s):
+        return fused_matmul(x, dequantize({"codes": codes, "scales": scales}, x.dtype), a, b, s)
+
+    for (d_in, d_out), _ in PROJ:
+        check("packed_matmul", "train", "xA", d_in, d_out, dtype, packed_matmul,
+              packed_matmul_ref, lib_bmm,
+              lambda: (rnd((n, m, d_in), dtype), rnd((n, d_in, r), dtype, d_in ** -0.5)),
+              2 * n * m * d_in * r, "torch.bmm")
+        check("packed_matmul", "train", "xAB", d_in, d_out, dtype, packed_matmul,
+              packed_matmul_ref, lib_bmm,
+              lambda: (rnd((n, m, r), dtype), rnd((n, r, d_out), dtype), scale),
+              2 * n * m * r * d_out, "torch.bmm")
+        cases = {
+            # case 1: dB = (xA)^T @ g_s   (N, r, d_out), contracting over tokens
+            "bwd1_dB": (lambda: (rnd((n, m, r), dtype).transpose(1, 2), rnd((n, m, d_out), dtype)),
+                        2 * n * r * m * d_out),
+            # case 2: d(xA) = g_s @ B^T   (N, T, r)
+            "bwd2_dxA": (lambda: (rnd((n, m, d_out), dtype), rnd((n, r, d_out), dtype).transpose(1, 2)),
+                         2 * n * m * d_out * r),
+            # case 3: dA = x^T @ d(xA)    (N, d_in, r), contracting over tokens
+            "bwd3_dA": (lambda: (rnd((n, m, d_in), dtype).transpose(1, 2), rnd((n, m, r), dtype)),
+                        2 * n * d_in * m * r),
+            # case 4: dx = d(xA) @ A^T    (N, T, d_in), contracting over the rank
+            "bwd4_dx": (lambda: (rnd((n, m, r), dtype), rnd((n, d_in, r), dtype, d_in ** -0.5).transpose(1, 2)),
+                        2 * n * m * r * d_in),
+        }
+        for call, (args_fn, flops) in cases.items():
+            check("packed_matmul", "train", call, d_in, d_out, dtype, bwd, packed_matmul_ref,
+                  lib_bmm, args_fn, flops, "torch.bmm on the transposed views")
+        fused_rows("train", n, m, d_in, d_out, dtype, scale)
+        # dx = g @ W^T + s * (g @ B^T) @ A^T: W^T a view of the (d_in, d_out) W
+        check("fused_matmul", "train", "dx", d_in, d_out, dtype,
+              lambda g, wt, bt, at, s: fused_matmul(g, wt, bt, at, s, backward=True),
+              fused_matmul_ref, lib_dx,
+              lambda: (rnd((n, m, d_out), dtype), rnd((d_in, d_out), dtype, d_in ** -0.5).t(),
+                       rnd((n, d_out, r), dtype), rnd((n, r, d_in), dtype, d_in ** -0.5), scale),
+              2 * n * m * (d_out * d_in + d_out * r + r * d_in),
+              "baddbmm(g@W^T, bmm(g,B^T)*s, A^T): 3 calls")
+        for mode in ("int8", "nf4"):
+            q = quantize_weight(rnd((d_in, d_out), torch.float32, d_in ** -0.5), mode)
+            check("fused_matmul_q", "train", mode, d_in, d_out, dtype, fused_matmul_q,
+                  fused_matmul_q_ref, lib_fused_q,
+                  lambda: (rnd((n, m, d_in), dtype), q["codes"], q["scales"],
+                           rnd((n, d_in, r), dtype, d_in ** -0.5), rnd((n, r, d_out), dtype), scale),
+                  2 * n * m * (d_in * d_out + d_in * r + r * d_out),
+                  "dequantize(W) then baddbmm(x@W, bmm(x,A)*s, B)", exact=dense_on_dequantized)
+            del q
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +419,6 @@ def profile_serve(torch, cfg, base, adapters, reqs, impl: str, out_dir: Path):
     ``smoke_out/profile_<impl>.txt``."""
     import dataclasses
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ServeEngine
@@ -306,20 +434,30 @@ def profile_serve(torch, cfg, base, adapters, reqs, impl: str, out_dir: Path):
         eng.serve(short)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    emit({"phase": "profile", "impl": impl, **read_profile(prof, wall_ms, out_dir / f"profile_{impl}.txt")})
+
+
+def read_profile(prof, wall_ms: float, table_path: Path) -> dict:
+    """Device time and busy share of a profiled window, and its top device
+    operations; the full table goes to ``table_path``."""
+    from torch.autograd import DeviceType
+
     ka = prof.key_averages()
     # device-side events only (kernels, copies): an operator's own row
     # repeats the time of the kernels it launched
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if device_ms <= 0:
+        fail(f"the profiler saw no device time in {table_path.name}")
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-    (out_dir / f"profile_{impl}.txt").write_text(
-        ka.table(sort_by="self_cuda_time_total", row_limit=40))
-    emit({"phase": "profile", "impl": impl, "wall_ms": wall_ms, "device_ms": device_ms,
-          "device_busy_share": device_ms / wall_ms,
-          "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]})
+    table_path.write_text(ka.table(sort_by="self_cuda_time_total", row_limit=40))
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
 def serve_phase(torch, dev):
+    """Returns the launch counts of each impl's drain, and the base model
+    (the train phase reuses it)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.fused import fused_matmul
     from repro_torch.kernels.packed_matmul import packed_matmul
@@ -390,11 +528,203 @@ def serve_phase(torch, dev):
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
     for impl in ("auto", "fused"):
-        try:
-            profile_serve(torch, cfg, base, adapters, reqs, impl, out_dir)
-        except Exception as e:  # the profile is a reading, not a check: report and go on
-            emit({"phase": "profile", "impl": impl, "error": repr(e)})
+        profile_serve(torch, cfg, base, adapters, reqs, impl, out_dir)
+    return launches, base
+
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+
+def train_lora(torch, cfg, meta, dev):
+    """The pack's LoRA tree in f32 (the leaves that train): A ~ N(0, 1/d_in)
+    and B ~ N(0, 0.25/r) on each adapter's first r columns (zero padding),
+    from a seed. B is non-zero so the deltas and dA are."""
+    from repro_torch.models.model import lora_zeros
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    mask = meta.rank_mask(dev)  # (N, r_bucket)
+    ranks = torch.tensor(meta.ranks, dtype=torch.float32, device=dev)
+
+    def fill(t):
+        if t.shape[-1] == meta.r_bucket and t.shape[-2] != meta.r_bucket:  # a: (.., N, d_in, r)
+            return torch.randn(t.shape, generator=gen, device=dev) * t.shape[-2] ** -0.5 * mask[:, None, :]
+        std = (0.25 / ranks)[:, None, None] ** 0.5  # b: (.., N, r, d_out)
+        return torch.randn(t.shape, generator=gen, device=dev) * std * mask[:, :, None]
+
+    return tree_map(fill, lora_zeros(cfg, meta, torch.float32, dev))
+
+
+def resident_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def train_counts():
+    from repro_torch.kernels.fused import fused_matmul, fused_matmul_q
+    from repro_torch.kernels.packed_matmul import packed_matmul
+
+    return {"packed_matmul": packed_matmul.launches, "packed_matmul_bwd": packed_matmul.bwd_launches,
+            "fused_matmul": fused_matmul.launches, "fused_matmul_dx": fused_matmul.bwd_launches,
+            "fused_matmul_q": fused_matmul_q.launches}
+
+
+def zero_counts():
+    from repro_torch.kernels.fused import fused_matmul, fused_matmul_q
+    from repro_torch.kernels.packed_matmul import packed_matmul
+
+    packed_matmul.launches = packed_matmul.bwd_launches = 0
+    fused_matmul.launches = fused_matmul.bwd_launches = 0
+    fused_matmul_q.launches = 0
+
+
+# the counts a run's impl must move: forward, and backward
+NEEDED = {("auto", None): ("packed_matmul", "packed_matmul_bwd"),
+          ("fused", None): ("fused_matmul", "fused_matmul_dx"),
+          ("fused", "nf4"): ("fused_matmul_q", "fused_matmul_dx"),
+          ("fused", "int8"): ("fused_matmul_q", "fused_matmul_dx")}
+
+
+def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales):
+    """Step 1's per-adapter loss and LoRA gradients, kernel path against the
+    plain path on the same weights and batch: in bf16, and with the base's
+    floating-point leaves cast to f32 (the same kernels and autograd
+    Functions on their f32 paths). Returns the comparison's numbers."""
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.train.trainer import packed_value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    plain = {"auto": "plain", "fused": "fused_plain"}[impl]
+    base32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, base)
+    res = {}
+    for prec, b in (("bf16", base), ("f32", base32)):
+        for path in (impl, plain):
+            _, per, grads = packed_value_and_grad(
+                lora, b, batch, cfg, meta.n, scales, kcfg=KernelConfig(impl=path, ranks=meta.ranks))
+            if not (torch.isfinite(per).all() and all(bool(torch.isfinite(g).all())
+                                                      for g in tree_leaves(grads))):
+                fail(f"impl={impl}: non-finite step-1 loss or gradient on the {path} path ({prec})")
+            res[prec, path] = (per, tree_leaves(grads))
+    del base32
+
+    def loss_rel(a, b):
+        return ((a - b).abs() / b.abs()).max().item()
+
+    def grad_rel(ga, gb):  # per leaf: max |a - b| / max |b|
+        return [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(ga, gb)]
+
+    truth = res["f32", plain][1]
+    return {
+        "step1_loss_kernel": res["bf16", impl][0].tolist(),
+        "step1_loss_plain": res["bf16", plain][0].tolist(),
+        "step1_loss_rel_err": loss_rel(res["bf16", impl][0], res["bf16", plain][0]),
+        "step1_loss_rel_err_f32": loss_rel(res["f32", impl][0], res["f32", plain][0]),
+        "step1_grad_rel_err_f32": max(grad_rel(res["f32", impl][1], truth)),
+        "step1_grad_rel_err_bf16": max(grad_rel(res["bf16", impl][1], res["bf16", plain][1])),
+        # the bf16 gradients' distance from the f32 plain gradient: kernel path, plain path
+        "step1_grad_err_vs_f32_kernel_bf16": max(grad_rel(res["bf16", impl][1], truth)),
+        "step1_grad_err_vs_f32_plain_bf16": max(grad_rel(res["bf16", plain][1], truth)),
+    }
+
+
+def train_phase(torch, dev, base, out_dir: Path):
+    """4 steps of ``make_packed_step`` per run of TRAIN_RUNS on the dense
+    bf16 base ``base`` (quantized per run); returns the launch counts of
+    each run's 4 steps."""
+    from repro_torch.configs import LoraConfig, get_config
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.kernels.quant import quantize_base_params
+    from repro_torch.train.data import packed_batch_iterator
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import make_packed_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("qwen25-7b")
+    configs = [LoraConfig(rank=r, alpha=2.0 * r, learning_rate=lr, batch_size=b, seq_len=TRAIN_SEQ)
+               for r, lr, b in zip(TRAIN_RANKS, TRAIN_LRS, TRAIN_BATCH)]
+    meta = pack_meta(configs)
+    scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
+    nb = meta.n * max(TRAIN_BATCH)
+    lora0 = train_lora(torch, cfg, meta, dev)
+    batches = packed_batch_iterator(cfg, configs, seq=TRAIN_SEQ, seed=SEED, device=dev)
+    batches = [next(batches) for _ in range(TRAIN_STEPS)]
+    emit({"phase": "train_setup", "model": cfg.name, "n_layers": cfg.n_layers, "ranks": list(meta.ranks),
+          "alphas": list(meta.alphas), "lrs": list(meta.learning_rates), "batch_sizes": list(TRAIN_BATCH),
+          "seq": TRAIN_SEQ, "rows": nb, "tokens_per_step": nb * TRAIN_SEQ,
+          "lora_bytes": resident_bytes(lora0)})
+    launches = {}
+    for impl, quant in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        qbase = quantize_base_params(base, quant) if quant else base
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        cmp = compare_step1(torch, cfg, qbase, lora0, batches[0], meta, impl, scales)
+        step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks, base_dtype=quant)
+        lora, opt = lora0, init_opt_state(lora0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        times, losses = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            lora, opt, m = step(qbase, lora, opt, batch, scales, lr_vec, None)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["per_adapter_loss"].tolist())
+        counts = train_counts()
+        key = f"{impl}+{quant}" if quant else impl
+        launches[key] = counts
+        peak = torch.cuda.max_memory_allocated(dev)
+        finite = all(math.isfinite(v) for row in losses for v in row) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(lora))
+        row = {"phase": "train", "impl": impl, "quant": quant, "steps": TRAIN_STEPS,
+               "step_s": times, "step_s_after_first": sum(times[1:]) / (len(times) - 1),
+               "tokens_per_s": nb * TRAIN_SEQ * (len(times) - 1) / sum(times[1:]),
+               "per_adapter_loss": losses, **cmp, "loss_rtol": LOSS_RTOL,
+               "grad_tol_f32": GRAD_TOL_F32, "bf16_grad_factor": BF16_GRAD_FACTOR,
+               "max_memory_allocated": peak, "base_resident_bytes": resident_bytes(qbase),
+               "quantize_s": quant_s, "launches": counts}
+        emit(row)
+        if not finite:
+            fail(f"impl={key}: non-finite loss or LoRA leaf after {TRAIN_STEPS} steps")
+        if not cmp["step1_loss_rel_err"] <= LOSS_RTOL:
+            fail(f"impl={key}: step-1 loss differs from the plain path by "
+                 f"{cmp['step1_loss_rel_err']} > {LOSS_RTOL}")
+        if not cmp["step1_grad_rel_err_f32"] <= GRAD_TOL_F32:
+            fail(f"impl={key}: step-1 LoRA gradient (f32) differs from the plain path by "
+                 f"{cmp['step1_grad_rel_err_f32']} > {GRAD_TOL_F32}")
+        noise = BF16_GRAD_FACTOR * cmp["step1_grad_err_vs_f32_plain_bf16"]
+        if not cmp["step1_grad_err_vs_f32_kernel_bf16"] <= noise:
+            fail(f"impl={key}: step-1 bf16 LoRA gradient is {cmp['step1_grad_err_vs_f32_kernel_bf16']} "
+                 f"from the f32 gradient, more than {BF16_GRAD_FACTOR} x the plain path's")
+        for need in NEEDED[(impl, quant)]:
+            if counts[need] == 0:
+                fail(f"impl={key}: the {need} launch count stayed at 0 over {TRAIN_STEPS} steps")
+        if quant == "nf4":
+            profile_train(torch, cfg, qbase, lora, opt, step, batches[0], meta, out_dir)
+        del qbase, lora, opt, step
+        torch.cuda.empty_cache()
     return launches
+
+
+def profile_train(torch, cfg, base, lora, opt, step, batch, meta, out_dir: Path):
+    """One impl="fused" step on the nf4 base under ``torch.profiler``: the
+    device busy share and the top device operations; the table goes to
+    ``smoke_out/profile_train_nf4.txt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scales, lr_vec = meta.scales(base["embed"]["w"].device), meta.lr_vector(base["embed"]["w"].device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(base, lora, opt, batch, scales, lr_vec, None)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    emit({"phase": "train_profile", "impl": "fused", "quant": "nf4",
+          **read_profile(prof, wall_ms, out_dir / "profile_train_nf4.txt")})
 
 
 # ---------------------------------------------------------------------------
@@ -402,23 +732,51 @@ def serve_phase(torch, dev):
 # ---------------------------------------------------------------------------
 
 
+CSRC = "src/repro_torch/kernels/csrc/"
+# (entry, kernel, the kernel-phase calls it sums, case, source, replaces,
+#  where its launches come from: (path, run, count))
+USES = [
+    ("packed_matmul", "packed_matmul", ("xA", "xAB"), "decode",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("serve", "auto", "packed_matmul")),
+    ("fused_matmul", "fused_matmul", ("fused",), "decode",
+     "fused.cu", "src/repro/kernels/fused.py:275", ("serve", "fused", "fused_matmul")),
+    ("packed_matmul:train_forward", "packed_matmul", ("xA", "xAB"), "train",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("train", "auto", "packed_matmul")),
+    # the N-D backward branch that training runs: cases 2 and 4
+    ("packed_matmul:train_backward", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "train",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
+     ("train", "auto", "packed_matmul_bwd")),
+    ("fused_matmul:train_forward", "fused_matmul", ("fused",), "train",
+     "fused.cu", "src/repro/kernels/fused.py:275", ("train", "fused", "fused_matmul")),
+    ("fused_matmul:train_dx", "fused_matmul", ("dx",), "train",
+     "fused.cu", "src/repro/kernels/fused.py:275 (fused.py:389-401)",
+     ("train", "fused", "fused_matmul_dx")),
+    ("fused_matmul_q:int8", "fused_matmul_q", ("int8",), "train",
+     "fused_q.cu", "src/repro/kernels/fused.py:275 (_fused_kernel_q :133, _dequant_tile :107)",
+     ("train", "fused+int8", "fused_matmul_q")),
+    ("fused_matmul_q:nf4", "fused_matmul_q", ("nf4",), "train",
+     "fused_q.cu", "src/repro/kernels/fused.py:275 (_fused_kernel_q :133, _dequant_tile :107)",
+     ("train", "fused+nf4", "fused_matmul_q")),
+]
+
+
 def summarize(rows, launches):
-    """One entry per kernel for one decoder layer of a bf16 decode step
-    (every projection's calls, weighted by their count per layer)."""
+    """One entry per kernel and use: its bf16 times summed over one decoder
+    layer's projections (weighted by their count per layer) -- of a decode
+    step for the serve entries, of a training step's calls at N=2, M=1024,
+    r=16 for the train ones -- and its launches in its path's run."""
     mult = {shape: k for shape, k in PROJ}
-    src = {"packed_matmul": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
-                             "src/repro/kernels/packed_matmul.py:89"),
-           "fused_matmul": ("src/repro_torch/kernels/csrc/fused.cu",
-                            "src/repro/kernels/fused.py:275")}
     out = []
-    for name, (source, replaces) in src.items():
-        sel = [r for r in rows if r["kernel"] == name and r["case"] == "decode"
-               and r["dtype"] == "bfloat16"]
+    for entry, kernel, calls, case, source, replaces, (path, run, count) in USES:
+        sel = [r for r in rows if r["kernel"] == kernel and r["case"] == case
+               and r["call"] in calls and r["dtype"] == "bfloat16"]
         tot = {k: sum(mult[(r["d_in"], r["d_out"])] * r[k] for r in sel)
                for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
         b_ms, b_by, _, _ = bound(tot["bytes"], tot["flops"], "bfloat16")
-        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches["auto" if name == "packed_matmul" else "fused"][name],
+        out.append({"name": entry, "route": "cuda", "source": CSRC + source, "replaces": replaces,
+                    "launches": launches[path][run][count],
                     "max_abs_err": max(r["max_abs_err"] for r in sel),
                     "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": tot["library_ms"]})
@@ -470,9 +828,12 @@ def main() -> None:
     rows = kernel_phase(torch, dev)
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    launches = serve_phase(torch, dev)
+    serve_launches, base = serve_phase(torch, dev)
     emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
-    summary = summarize(rows, launches)
+    t0 = time.perf_counter()
+    train_launches = train_phase(torch, dev, base, out_dir)
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
+    summary = summarize(rows, {"serve": serve_launches, "train": train_launches})
     (out_dir / "chip_smoke.json").write_text(json.dumps({"records": RECORDS, **summary}, indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,9 @@ def _leaf_to_torch(a, device, dtype):
         t = torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))  # own copy: never aliases the caller's array
-    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+    if dtype is not None and t.is_floating_point():
+        return t.to(device=device, dtype=dtype)
+    return t.to(device)
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -34,8 +36,9 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def to_torch(tree, device, dtype=None):
-    """A numpy (or JAX) parameter tree as torch tensors on ``device``,
-    optionally cast to ``dtype``; same structure and layout."""
+    """A numpy (or JAX) parameter tree as torch tensors on ``device``, its
+    floating-point leaves optionally cast to ``dtype``; same structure and
+    layout."""
     return tree_map(lambda a: _leaf_to_torch(a, device, dtype), tree)
 
 

@@ -55,6 +55,13 @@ class LoraConfig:
     alpha: float = 8.0
     learning_rate: float = 1e-4
     batch_size: int = 1
+    seq_len: int = 1024
+
+    def key(self) -> Tuple:
+        """The fields that identify a configuration: ints and floats only, so
+        ``hash(key())`` -- which seeds its data stream -- is the same in
+        every process (``train/data.py``)."""
+        return (self.rank, self.alpha, self.learning_rate, self.batch_size)
 
 
 def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelConfig:

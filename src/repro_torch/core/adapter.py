@@ -44,18 +44,23 @@ class PackMeta:
             dtype=torch.float32, device=device,
         )
 
+    def lr_vector(self, device=None) -> torch.Tensor:
+        """(N,) f32 per-adapter learning rates."""
+        return torch.tensor(self.learning_rates, dtype=torch.float32, device=device)
+
     def rank_mask(self, device=None) -> torch.Tensor:
         """(N, r_bucket) f32: 1.0 for real rank columns, 0.0 for padding."""
         iota = torch.arange(self.r_bucket, device=device)[None, :]
         ranks = torch.tensor(self.ranks, device=device)[:, None]
         return (iota < ranks).to(torch.float32)
 
-    def kernel_config(self, impl: Optional[str] = None):
+    def kernel_config(self, impl: Optional[str] = None, remat: Optional[str] = None,
+                      base_dtype: Optional[str] = None):
         """Kernel policy for this pack: carries the rank vector down to the
         kernels, so a mixed-rank pack runs as same-rank segments."""
         from repro_torch.kernels.ops import KernelConfig
 
-        return KernelConfig(impl=impl, ranks=self.ranks)
+        return KernelConfig(impl=impl, remat=remat, ranks=self.ranks, base_dtype=base_dtype)
 
 
 def pack_meta(configs: Sequence[LoraConfig]) -> PackMeta:

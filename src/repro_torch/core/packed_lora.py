@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import FUSED, KernelConfig, fused_lora_linear, packed_lora_delta
+from repro_torch.kernels.quant import dequantize, is_quantized, logical_shape
 
 
 def lora_linear(
@@ -27,36 +28,42 @@ def lora_linear(
 ) -> torch.Tensor:
     """y = x @ W (+ bias) + packed-LoRA delta.
 
-    x: (N*B, ..., d_in); params: {"w": (d_in, d_out)[, "b": (d_out,)]};
-    lora: {"a": (N, d_in, r), "b": (N, r, d_out)} or None; scales: (N,);
-    kcfg: the kernel policy (impl, the pack's ranks). With a fused impl the
-    base projection and the delta run as one kernel pass and the bias is
-    added after it; on the two-pass path the bias is added between base and
-    delta — the one reassociation between the two (as in the reference,
-    ``packed_lora.py:67-68`` against ``:73-74``).
+    x: (N*B, ..., d_in); params: {"w": (d_in, d_out)[, "b": (d_out,)]}, the
+    "w" dense or a quantized ``{"codes", "scales"}`` dict
+    (``kernels/quant.py``); lora: {"a": (N, d_in, r), "b": (N, r, d_out)}
+    or None; scales: (N,); kcfg: the kernel policy (impl, remat, the pack's
+    ranks). With a fused impl the base projection and the delta run as one
+    kernel pass -- a quantized W goes to the fused kernel as it is and is
+    dequantized inside it -- and the bias is added after it; on the
+    two-pass path a quantized W is dequantized up front, and the bias is
+    added between base and delta -- the one reassociation between the two
+    (as in the reference, ``packed_lora.py:67-68`` against ``:73-74``).
     """
     kc = kcfg or KernelConfig()
     impl_r = kc.resolved_impl()
     w = params["w"]
-    d_in, d_out = w.shape
+    quant = is_quantized(w)
+    d_in, d_out = (logical_shape(w) if quant else w.shape)[-2:]
     lead = x.shape[:-1]
     if lora is not None:
         xp = x.reshape(n_pack, x.shape[0] // n_pack, -1, d_in)
     if lora is not None and impl_r in FUSED:
         y = fused_lora_linear(
-            xp, w.to(x.dtype), lora["a"].to(x.dtype), lora["b"].to(x.dtype),
-            scales, impl=impl_r, ranks=kc.ranks,
+            xp, w if quant else w.to(x.dtype), lora["a"].to(x.dtype), lora["b"].to(x.dtype),
+            scales, impl=impl_r, remat=kc.remat, ranks=kc.ranks,
         ).reshape(*lead, d_out)
         if "b" in params:
             y = y + params["b"].to(x.dtype)
         return y
+    if quant:
+        w = dequantize(w)
     y = x @ w.to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     if lora is not None:
         delta = packed_lora_delta(
             xp, lora["a"].to(x.dtype), lora["b"].to(x.dtype), scales,
-            impl=impl_r, ranks=kc.ranks,
+            impl=impl_r, remat=kc.remat, ranks=kc.ranks,
         )
         y = y + delta.reshape(*lead, d_out)
     return y

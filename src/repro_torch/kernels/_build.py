@@ -30,11 +30,15 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "packed_matmul": {
         "plora_packed_matmul_workspace": (_LL, [_I] * 4),
-        "plora_packed_matmul": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+        "plora_packed_matmul": (_I, [_P] * 5 + [_I] * 7 + [_P]),
     },
     "fused": {
         "plora_fused_matmul_workspace": (_LL, [_P] * 2 + [_I] * 6),
-        "plora_fused_matmul": (_I, [_P] * 7 + [_I] * 6 + [_P]),
+        "plora_fused_matmul": (_I, [_P] * 7 + [_I] * 7 + [_P]),
+    },
+    "fused_q": {
+        "plora_fused_matmul_q_workspace": (_LL, [_P] * 3 + [_I] * 6),
+        "plora_fused_matmul_q": (_I, [_P] * 8 + [_I] * 8 + [_P]),
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,0 +1,68 @@
+// Fused base + LoRA delta on a quantized W, dequantized inside the K loop:
+// y[n] = x[n] @ deq(W) + scale[n] * (x[n] @ A[n]) @ B[n].
+//
+// Replaces the quantized branch of the Pallas TPU kernel
+// src/repro/kernels/fused.py (fused_matmul with w_scales ->
+// _fused_kernel_q, whose W tiles _dequant_tile dequantizes in registers).
+// W arrives as codes + scales (kernels/quant.py): int8 codes (K, L) with one
+// f32 scale per column (1, L), or nf4 codes (K/2, L) uint8, two K rows per
+// byte (low nibble = the even row), with f32 scales (K/blk, L). Each W
+// element is the f32 product code * scale (nf4: codebook[code] * scale, the
+// codebook in __constant__ memory), rounded once to the compute type as the
+// tile is staged; a dense W is never materialized. Everything else -- the
+// paths, the split plan, the rounding points -- is the dense kernel's
+// (fused.cuh), so a call is bit-equal to the dense kernel on
+// cast(dequantize(W)), the Pallas kernel's contract (fused.py:37-46).
+//
+// What bounds it on an H100. Training (M = B*S = 1024 tokens per adapter):
+// the tensor cores, as for the dense kernel; the dequantization adds one
+// multiply and one rounding per W element per 64-row tile, and the weight
+// bytes read drop 2x (int8) or ~3.6x (nf4). Decode would be bytes-bound on
+// the codes. Known cost, left for later work: W is dequantized once per
+// 64-row tile of x (each block re-dequantizes its W tiles), and the nf4
+// codebook lookup diverges across a warp's constant-memory reads.
+#include "fused.cuh"
+
+using namespace plora;
+
+static bool q_aligned(const void* x, const void* codes, const float* scales) {
+  return aligned_to(x, 16) && aligned_to(codes, 8) && aligned_to(scales, 16);
+}
+
+template <typename T>
+static int run(const void* x, const void* codes, const float* scales, const void* a,
+               const void* b, const float* scale, void* y, float* workspace, int n, int m, int k,
+               int l, int r, int dtype, int mode, int blk, cudaStream_t stream) {
+  const Plan pl = make_plan(q_aligned(x, codes, scales), dtype, n, m, k, l, r);
+  if (mode == 0)
+    return launch_fused<T>(pl, x, Int8W<T>{static_cast<const int8_t*>(codes), scales, l}, a, b,
+                           scale, y, workspace, n, m, k, l, r, stream);
+  return launch_fused<T>(pl, x, Nf4W<T>{static_cast<const uint8_t*>(codes), scales, l, blk}, a,
+                         b, scale, y, workspace, n, m, k, l, r, stream);
+}
+
+// The f32 workspace (elements) a call with these operands needs.
+extern "C" long long plora_fused_matmul_q_workspace(const void* x, const void* codes,
+                                                    const float* scales, int n, int m, int k,
+                                                    int l, int r, int dtype) {
+  return make_plan(q_aligned(x, codes, scales), dtype, n, m, k, l, r).workspace;
+}
+
+// dtype: 0 = float32, 1 = bfloat16; mode: 0 = int8, 1 = nf4 (blk: the rows
+// of one scale block, dividing k). Returns cudaGetLastError() after the
+// launches (0 on success); they are asynchronous on `stream`.
+extern "C" int plora_fused_matmul_q(const void* x, const void* codes, const float* scales,
+                                    const void* a, const void* b, const float* scale, void* y,
+                                    float* workspace, int n, int m, int k, int l, int r,
+                                    int dtype, int mode, int blk, void* stream) {
+  if (const int bad = check_sizes(n, m, k, l, r)) return bad;
+  if (mode != 0 && (mode != 1 || k % 2 || blk <= 0 || k % blk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run<float>(x, codes, scales, a, b, scale, y, workspace, n, m, k, l, r, dtype, mode,
+                      blk, st);
+  if (dtype == 1)
+    return run<bf16>(x, codes, scales, a, b, scale, y, workspace, n, m, k, l, r, dtype, mode, blk,
+                     st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,13 +1,16 @@
 // Shared pieces of the port's hand-written GEMM kernels (packed_matmul.cu,
-// fused.cu): element conversion, register-staged tile loads, one shared-
-// memory tiled product step with plain f32 FMA, and the split-K plan. Each
-// kernel is compiled on its own into a library with a plain C interface
-// (kernels/_build.py), so this header is included once per library.
+// fused.cu, fused_q.cu): element conversion, the operand sources a kernel
+// reads its matrices through (row-major, transposed, or quantized codes),
+// register-staged tile loads, one shared-memory tiled product step with
+// plain f32 FMA, and the split-K plan. Each kernel is compiled on its own
+// into a library with a plain C interface (kernels/_build.py), so this
+// header is included once per library.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace plora {
 
@@ -19,6 +22,72 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);  // round to nearest even, as astype(bf16)
 }
+
+// ---------------------------------------------------------------------------
+// Operand sources. A kernel reads element (i, j) of an (R x C) operand
+// through one of these, so a transposed view or a quantized weight needs no
+// copy. FAST_I says which index is adjacent in memory: the staging loads
+// walk that index across neighbouring threads, so they stay coalesced.
+// ---------------------------------------------------------------------------
+
+// A dense matrix, row-major (p[i * ld + j]) or stored as its transpose
+// (p[j * ld + i]: the (C x R) row-major matrix a transposed view reads).
+template <typename T, bool TRANS>
+struct Dense {
+  const T* p;
+  int ld;
+  static constexpr bool FAST_I = TRANS;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return to_f32(TRANS ? p[(size_t)j * ld + i] : p[(size_t)i * ld + j]);
+  }
+  // the same layout, `elems` elements further on (the next adapter's matrix)
+  __host__ __device__ Dense shift(size_t elems) const { return {p + elems, ld}; }
+};
+
+// Dequantization, as kernels/quant.py's dequantize and then one cast to the
+// compute type T: the f32 product code * scale, rounded to T once. Element
+// (k, l) of a (K x L) weight; shared by every adapter (shift is a no-op).
+__constant__ float NF4_CODEBOOK[16] = {
+    -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
+    -0.28444138169288635f, -0.18477343022823334f, -0.09105003625154495f, 0.0f,
+    0.07958029955625534f, 0.16093020141124725f, 0.24611230194568634f, 0.33791524171829224f,
+    0.44070982933044434f, 0.5626170039176941f, 0.7229568362236023f, 1.0f};
+
+// int8 codes (K, L), one f32 scale per column (1, L).
+template <typename T>
+struct Int8W {
+  const int8_t* codes;
+  const float* scales;
+  int ld;  // L
+  static constexpr bool FAST_I = false;
+  __device__ __forceinline__ T value(int k, int l) const {
+    return from_f32<T>((float)codes[(size_t)k * ld + l] * scales[l]);
+  }
+  __device__ __forceinline__ float operator()(int k, int l) const { return to_f32(value(k, l)); }
+  __host__ __device__ Int8W shift(size_t) const { return *this; }
+};
+
+// nf4 codes (K/2, L) uint8, two K rows per byte (low nibble = even row),
+// looked up in the 16-entry codebook; f32 scales (K/blk, L), one per block
+// of blk rows.
+template <typename T>
+struct Nf4W {
+  const uint8_t* codes;
+  const float* scales;
+  int ld, blk;  // L, rows per scale block
+  static constexpr bool FAST_I = false;
+  __device__ __forceinline__ T value(int k, int l) const {
+    const uint8_t b = codes[(size_t)(k >> 1) * ld + l];
+    const int q = (k & 1) ? (b >> 4) : (b & 15);
+    return from_f32<T>(NF4_CODEBOOK[q] * scales[(size_t)(k / blk) * ld + l]);
+  }
+  __device__ __forceinline__ float operator()(int k, int l) const { return to_f32(value(k, l)); }
+  __host__ __device__ Nf4W shift(size_t) const { return *this; }
+};
+
+// ---------------------------------------------------------------------------
+// Tiles
+// ---------------------------------------------------------------------------
 
 // Geometry of one thread block: a BM x BN output tile, BK deep per step of
 // the K loop; each of the THREADS threads owns TM rows x TN columns. A
@@ -65,47 +134,62 @@ __host__ __device__ inline SplitK split_k(int blocks, int K, int BK) {
 // its global loads (independent, so they overlap in flight), then writes
 // them to shared memory. Loading step k+1 into registers while step k is
 // computed from shared memory hides the load latency behind the FMAs.
-//   x tile: rows [m0, m0+BM) x k in [k0, k0+BK) of a row-major (rows x K)
-//           matrix, into xs[BK][BM+1], transposed (the +1 keeps the
-//           transposing stores free of bank conflicts);
-//   w tile: k in [k0, k0+BK) x columns [l0, l0+BN) of a row-major (K x L)
-//           matrix, into ws[BK][BN].
+//   x tile: rows [m0, m0+BM) x k in [k0, k0+BK) of the (rows x K) operand,
+//           into xs[BK][BM+1], transposed (the +1 keeps the transposing
+//           stores free of bank conflicts);
+//   w tile: k in [k0, k0+BK) x columns [l0, l0+BN) of the (K x L) operand,
+//           into ws[BK][BN+1].
 // Entries with k >= kend (the end of this block's K range), rows >= `rows`
-// or columns >= L are 0.
-template <class TL, typename T>
+// or columns >= L are 0. The element a thread loads follows the operand's
+// adjacent index (FAST_I), so a transposed view loads as coalesced as a
+// row-major one.
+template <class TL, class XS, class WS>
 struct Stager {
   static constexpr int XN = (TL::BM * TL::BK + TL::THREADS - 1) / TL::THREADS;
   static constexpr int WN = (TL::BK * TL::BN + TL::THREADS - 1) / TL::THREADS;
   float xr[XN], wr[WN];
 
-  __device__ __forceinline__ void load(const T* __restrict__ x, int rows, int K, int m0,
-                                       const T* __restrict__ w, int L, int l0, int k0, int kend) {
+  static __device__ __forceinline__ void x_at(int i, int& r, int& kk) {
+    if (XS::FAST_I) { r = i % TL::BM; kk = i / TL::BM; } else { r = i / TL::BK; kk = i % TL::BK; }
+  }
+  static __device__ __forceinline__ void w_at(int i, int& kk, int& c) {
+    if (WS::FAST_I) { kk = i % TL::BK; c = i / TL::BK; } else { kk = i / TL::BN; c = i % TL::BN; }
+  }
+
+  __device__ __forceinline__ void load(const XS& x, int rows, int m0, const WS& w, int L, int l0,
+                                       int k0, int kend) {
 #pragma unroll
     for (int u = 0; u < XN; ++u) {
       const int i = threadIdx.x + u * TL::THREADS;
-      const int r = i / TL::BK, kk = i % TL::BK;
+      int r, kk;
+      x_at(i, r, kk);
       const int gm = m0 + r, gk = k0 + kk;
-      xr[u] = (i < TL::BM * TL::BK && gm < rows && gk < kend) ? to_f32(x[(size_t)gm * K + gk]) : 0.f;
+      xr[u] = (i < TL::BM * TL::BK && gm < rows && gk < kend) ? x(gm, gk) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < WN; ++u) {
       const int i = threadIdx.x + u * TL::THREADS;
-      const int kk = i / TL::BN, c = i % TL::BN;
+      int kk, c;
+      w_at(i, kk, c);
       const int gk = k0 + kk, gl = l0 + c;
-      wr[u] = (i < TL::BK * TL::BN && gk < kend && gl < L) ? to_f32(w[(size_t)gk * L + gl]) : 0.f;
+      wr[u] = (i < TL::BK * TL::BN && gk < kend && gl < L) ? w(gk, gl) : 0.f;
     }
   }
 
-  __device__ __forceinline__ void store(float (*xs)[TL::BM + 1], float (*ws)[TL::BN]) const {
+  __device__ __forceinline__ void store(float (*xs)[TL::BM + 1], float (*ws)[TL::BN + 1]) const {
 #pragma unroll
     for (int u = 0; u < XN; ++u) {
       const int i = threadIdx.x + u * TL::THREADS;
-      if (i < TL::BM * TL::BK) xs[i % TL::BK][i / TL::BK] = xr[u];
+      int r, kk;
+      x_at(i, r, kk);
+      if (i < TL::BM * TL::BK) xs[kk][r] = xr[u];
     }
 #pragma unroll
     for (int u = 0; u < WN; ++u) {
       const int i = threadIdx.x + u * TL::THREADS;
-      if (i < TL::BK * TL::BN) ws[i / TL::BN][i % TL::BN] = wr[u];
+      int kk, c;
+      w_at(i, kk, c);
+      if (i < TL::BK * TL::BN) ws[kk][c] = wr[u];
     }
   }
 };
@@ -113,7 +197,7 @@ struct Stager {
 // acc[i][j] += sum over the staged step of xs[kk][row i] * ws[kk][column j].
 template <class TL>
 __device__ __forceinline__ void fma_step(float (&acc)[TL::TM][TL::TN], float (*xs)[TL::BM + 1],
-                                         float (*ws)[TL::BN], int tr, int tc) {
+                                         float (*ws)[TL::BN + 1], int tr, int tc) {
 #pragma unroll
   for (int kk = 0; kk < TL::BK; ++kk) {
     float xv[TL::TM], wv[TL::TN];
@@ -128,24 +212,26 @@ __device__ __forceinline__ void fma_step(float (&acc)[TL::TM][TL::TN], float (*x
   }
 }
 
-// out[n] = scale[n] * (x[n] @ w[n]) over one K range per block: x (N, M, K),
-// w (N, K, L), row-major. Grid (L tiles, M tiles, N * splits); block z =
-// s * N + n covers K steps [s * steps, (s + 1) * steps). With `part` the
-// block writes its f32 partial sums to part[s][n][m][l] (a second kernel
-// adds the ranges in order); without, it writes cast(acc * scale[n]) to out
-// (scale may be null: 1). Tiles are staged through registers, the next
-// step's loads in flight while the current step is multiplied.
-template <class TL, typename T>
+// out[n] = scale[n] * (x[n] @ w[n]) over one K range per block: x (N, M, K)
+// and w (N, K, L) read through their sources (adapter n's matrices start
+// n * M * K and n * K * L elements in), out (N, M, L) row-major. Grid
+// (L tiles, M tiles, N * splits); block z = s * N + n covers K steps
+// [s * steps, (s + 1) * steps). With `part` the block writes its f32
+// partial sums to part[s][n][m][l] (a second kernel adds the ranges in
+// order); without, it writes cast(acc * scale[n]) to out (scale may be
+// null: 1). Tiles are staged through registers, the next step's loads in
+// flight while the current step is multiplied.
+template <class TL, typename T, class XS, class WS>
 __global__ void __launch_bounds__(TL::THREADS)
-gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ scale,
-            T* __restrict__ out, float* __restrict__ part, int N, int M, int K, int L, int steps) {
+gemm_kernel(XS x, WS w, const float* __restrict__ scale, T* __restrict__ out,
+            float* __restrict__ part, int N, int M, int K, int L, int steps) {
   __shared__ float xs[TL::BK][TL::BM + 1];
-  __shared__ float ws[TL::BK][TL::BN];
+  __shared__ float ws[TL::BK][TL::BN + 1];
   const int n = blockIdx.z % N, s = blockIdx.z / N;
   const int m0 = blockIdx.y * TL::BM, l0 = blockIdx.x * TL::BN;
   const int kb = s * steps * TL::BK, ke = min(K, kb + steps * TL::BK);
-  const T* xn = x + (size_t)n * M * K;
-  const T* wn = w + (size_t)n * K * L;
+  const XS xn = x.shift((size_t)n * M * K);
+  const WS wn = w.shift((size_t)n * K * L);
   const int tr = threadIdx.x / TL::COLS, tc = threadIdx.x % TL::COLS;
 
   float acc[TL::TM][TL::TN];
@@ -154,12 +240,12 @@ gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __res
 #pragma unroll
     for (int j = 0; j < TL::TN; ++j) acc[i][j] = 0.f;
 
-  Stager<TL, T> st;
-  st.load(xn, M, K, m0, wn, L, l0, kb, ke);
+  Stager<TL, XS, WS> st;
+  st.load(xn, M, m0, wn, L, l0, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += TL::BK) {
     st.store(xs, ws);
     __syncthreads();
-    if (k0 + TL::BK < ke) st.load(xn, M, K, m0, wn, L, l0, k0 + TL::BK, ke);
+    if (k0 + TL::BK < ke) st.load(xn, M, m0, wn, L, l0, k0 + TL::BK, ke);
     fma_step<TL>(acc, xs, ws, tr, tc);
     __syncthreads();
   }
@@ -195,20 +281,20 @@ inline SplitK gemm_plan_for(int n, int m, int k, int l) {
 }
 
 // Launch gemm_kernel with the tile and split plan of gemm_plan_for.
-template <typename T>
-inline void launch_gemm(const T* x, const T* w, const float* scale, T* out, float* part, int n,
-                        int m, int k, int l, cudaStream_t stream) {
+template <typename T, class XS, class WS>
+inline void launch_gemm(XS x, WS w, const float* scale, T* out, float* part, int n, int m, int k,
+                        int l, cudaStream_t stream) {
   const SplitK sk = gemm_plan_for(n, m, k, l);
   if (thin_rows(m)) {
     const dim3 grid((l + ThinTile::BN - 1) / ThinTile::BN, (m + ThinTile::BM - 1) / ThinTile::BM,
                     n * sk.splits);
-    gemm_kernel<ThinTile, T><<<grid, ThinTile::THREADS, 0, stream>>>(x, w, scale, out, part, n, m,
-                                                                      k, l, sk.steps);
+    gemm_kernel<ThinTile, T, XS, WS><<<grid, ThinTile::THREADS, 0, stream>>>(
+        x, w, scale, out, part, n, m, k, l, sk.steps);
   } else {
     const dim3 grid((l + WideTile::BN - 1) / WideTile::BN, (m + WideTile::BM - 1) / WideTile::BM,
                     n * sk.splits);
-    gemm_kernel<WideTile, T><<<grid, WideTile::THREADS, 0, stream>>>(x, w, scale, out, part, n, m,
-                                                                      k, l, sk.steps);
+    gemm_kernel<WideTile, T, XS, WS><<<grid, WideTile::THREADS, 0, stream>>>(
+        x, w, scale, out, part, n, m, k, l, sk.steps);
   }
 }
 

@@ -1,9 +1,20 @@
-"""Public ops for packed-LoRA computation (forward only in this slice).
+"""Public ops for packed-LoRA computation, differentiable.
 
 ``packed_lora_delta(x, a, b, alpha)`` computes ``alpha_n * (x_n @ A_n) @ B_n``
 for N packed adapters as two grouped products (``packed_matmul``), and
 ``fused_lora_linear(x, w, a, b, alpha)`` computes
-``x @ W + alpha_n * (x_n @ A_n) @ B_n`` in one fused pass (``fused_matmul``).
+``x @ W + alpha_n * (x_n @ A_n) @ B_n`` in one fused pass (``fused_matmul``,
+or ``fused_matmul_q`` on a quantized W). Each is a ``torch.autograd.Function``
+whose backward is the reference's (``repro/kernels/ops.py:_bwd`` and
+``repro/kernels/fused.py:_bwd``) and launches the same kernels on transposed
+operands, so gradients reach the LoRA leaves through the kernel path:
+
+  case 1  dB    = (xA)^T @ g_s     case 3  dA = x^T @ d(xA)
+  case 2  d(xA) = g_s @ B^T        case 4  dx = d(xA) @ A^T
+
+(g_s = alpha * g). For 3-D x all four cases run through the grouped
+kernel; for N-D x (what ``lora_linear`` passes: (N, B, S, d)) cases 2 and 4
+do, and dA, dB are einsums over every token dim, as in the reference.
 
 Backend selection (``KernelConfig.impl`` / the ``impl=`` argument):
   "auto", "pallas"        two passes through the packed_matmul kernel
@@ -16,9 +27,16 @@ The two "plain" names run the plain versions on any device; they are the
 yardstick a check on the card compares the kernel path with. Any other name
 raises.
 
+Backward xA policy (``remat``): "save" keeps the (N, ..., r) xA of the
+forward for the backward, "recompute" recomputes it; the two are
+bit-identical (the same deterministic kernel on the same inputs). The
+fused kernel keeps xA in f32 inside the kernel, so its backward always
+recomputes a rounded xA, as the reference's Pallas path does.
+
 Heterogeneous-rank packs: pass ``ranks=`` (the pack's per-adapter rank
-tuple) and same-rank adapters run as ragged segments at their own rank, the
-padding columns sliced off before the kernel sees them.
+tuple) and same-rank adapters run as ragged segments at their own rank: a
+permutation gather, then per-segment slices of A and B at the true rank, so
+the padding columns are never read and their gradients are structurally 0.
 """
 from __future__ import annotations
 
@@ -28,11 +46,17 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.fused import fused_matmul
+from repro_torch.kernels.fused import _FusedLora
 from repro_torch.kernels.packed_matmul import packed_matmul
+from repro_torch.kernels.quant import is_quantized
 
 IMPLS = ("auto", "pallas", "fused", "fused_pallas", "plain", "fused_plain")
 FUSED = ("fused_pallas", "fused_plain")
+REMATS = ("save", "recompute")
+# "save" costs one (N, ..., r <= 128) residual per projection, block-local
+# under the checkpointed stack, and spares the backward a GEMM over the full
+# d_in; the reference measured it the faster policy (ops.py:65-76).
+DEFAULT_REMAT = "save"
 
 
 def _resolve(impl: Optional[str]) -> str:
@@ -44,21 +68,37 @@ def _resolve(impl: Optional[str]) -> str:
     return {"auto": "pallas", "fused": "fused_pallas"}.get(impl, impl)
 
 
+def _resolve_remat(remat: Optional[str]) -> str:
+    remat = remat or DEFAULT_REMAT
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; known: {REMATS}")
+    return remat
+
+
 @dataclass(frozen=True)
 class KernelConfig:
     """Kernel policy threaded down to every ``lora_linear`` call.
 
-    impl  : backend name from ``IMPLS`` (None -> "auto")
-    ranks : the pack's per-adapter rank tuple; a heterogeneous tuple runs the
-            delta as ragged same-rank segments (None -> every adapter at the
-            bucket rank)
+    impl       : backend name from ``IMPLS`` (None -> "auto")
+    remat      : backward xA policy "save" | "recompute" (None -> DEFAULT_REMAT)
+    ranks      : the pack's per-adapter rank tuple; a heterogeneous tuple runs
+                 the delta as ragged same-rank segments (None -> every adapter
+                 at the bucket rank)
+    base_dtype : the frozen base's storage, None (dense) or "int8"/"nf4"
+                 (kernels/quant.py); dispatch follows the weights themselves,
+                 this names the policy a step was built for
     """
 
     impl: Optional[str] = None
+    remat: Optional[str] = None
     ranks: Optional[Tuple[int, ...]] = None
+    base_dtype: Optional[str] = None
 
     def resolved_impl(self) -> str:
         return _resolve(self.impl)
+
+    def resolved_remat(self) -> str:
+        return _resolve_remat(self.remat)
 
 
 def rank_segments(
@@ -81,21 +121,61 @@ def rank_segments(
     return order, inv, segments
 
 
-def grouped_matmul(x, w, scale=None, *, impl: Optional[str] = None):
+def grouped_matmul(x, w, scale=None, *, impl: Optional[str] = None, backward: bool = False):
     """out[n] = scale[n] * x[n] @ w[n]. x may carry extra token dims
-    (N, ..., K); they are flattened around the 3-D kernel."""
+    (N, ..., K); they are flattened around the 3-D kernel. x and w may be
+    transposed views of contiguous tensors (the kernel reads them in
+    place). ``backward`` counts a launch as a backward case."""
     lead = x.shape[1:-1]
     if _resolve(impl) in ("plain", "fused_plain"):
         return _ref.packed_matmul_ref(x, w, scale)
-    x3 = x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
-    out = packed_matmul(x3, w.contiguous(), scale)
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+    out = packed_matmul(x3, w, scale, backward=backward)
     return out.reshape(x.shape[0], *lead, w.shape[-1])
+
+
+def _bcast(alpha: torch.Tensor, ndim: int) -> torch.Tensor:
+    return alpha.reshape(alpha.shape[0], *([1] * (ndim - 1)))
+
+
+class _PackedLoraDelta(torch.autograd.Function):
+    """alpha_n * (x_n @ A_n) @ B_n with the reference's backward
+    (``ops.py:208-246``); forward(x, a, b, alpha, impl, remat) with impl
+    "pallas" (the kernel) or "plain"."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, alpha, impl, remat):
+        xa = grouped_matmul(x, a, impl=impl)
+        out = grouped_matmul(xa, b, alpha, impl=impl)
+        ctx.save_for_backward(x, a, b, alpha, xa if remat == "save" else None)
+        ctx.impl = impl
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b, alpha, saved_xa = ctx.saved_tensors
+        impl = ctx.impl
+        g = g.to(x.dtype).contiguous()
+        xa = saved_xa if saved_xa is not None else grouped_matmul(x, a, impl=impl)
+        g_s = g * _bcast(alpha, g.ndim).to(g.dtype)
+        if x.dim() == 3:
+            db = grouped_matmul(xa.transpose(1, 2), g_s, impl=impl, backward=True)  # case 1
+            dxa = grouped_matmul(g_s, b.transpose(1, 2), impl=impl, backward=True)  # case 2
+            da = grouped_matmul(x.transpose(1, 2), dxa, impl=impl, backward=True)  # case 3
+            dx = grouped_matmul(dxa, a.transpose(1, 2), impl=impl, backward=True)  # case 4
+            return dx, da, db, None, None, None
+        db = torch.einsum("n...r,n...k->nrk", xa, g_s)
+        dxa = grouped_matmul(g_s, b.transpose(1, 2), impl=impl, backward=True)
+        da = torch.einsum("n...d,n...r->ndr", x, dxa)
+        dx = grouped_matmul(dxa, a.transpose(1, 2), impl=impl, backward=True)
+        return dx, da.to(a.dtype), db.to(b.dtype), None, None, None
 
 
 def _ragged_call(fn, x, a, b, alpha, ranks):
     """Run ``fn(x_seg, a_seg, b_seg, alpha_seg)`` over same-rank segments,
     each segment's weights sliced to its true rank (made contiguous for the
-    kernels), and reassemble the outputs in slot order."""
+    kernels), and reassemble the outputs in slot order. Every step is
+    differentiable, and the sliced-off padding gets exactly zero gradient."""
     if len(ranks) != x.shape[0]:
         raise ValueError(f"ranks {ranks} do not match pack size {x.shape[0]}")
     order, inv, segments = rank_segments(ranks)
@@ -114,61 +194,56 @@ def _ragged_call(fn, x, a, b, alpha, ranks):
     return torch.cat(outs, dim=0)[torch.tensor(inv, device=dev)]
 
 
-def _delta(x, a, b, alpha, impl):
-    xa = grouped_matmul(x, a, impl=impl)
-    return grouped_matmul(xa, b, alpha, impl=impl)
-
-
 def packed_lora_delta(
     x, a, b, alpha, *,
     impl: Optional[str] = None,
+    remat: Optional[str] = None,
     ranks: Optional[Tuple[int, ...]] = None,
 ):
     """alpha_n * (x_n @ A_n) @ B_n for N packed adapters, two grouped
     products with xA rounded to ``x.dtype`` between them.
 
-    x: (N, T, d); a: (N, d, r); b: (N, r, k); alpha: (N,) -> (N, T, k)."""
+    x: (N, T, d) or (N, ..., d); a: (N, d, r); b: (N, r, k); alpha: (N,)
+    -> (N, ..., k). ``remat`` picks the backward xA policy."""
     impl_r = {"fused_pallas": "pallas", "fused_plain": "plain"}.get(
         _resolve(impl), _resolve(impl)
     )
+    remat_r = _resolve_remat(remat)
     alpha = alpha.to(torch.float32).contiguous()
+
+    def delta(xs, as_, bs, als):
+        return _PackedLoraDelta.apply(xs.contiguous(), as_, bs, als, impl_r, remat_r)
+
     if ranks is not None and len(set(ranks)) > 1:
-        return _ragged_call(
-            lambda xs, as_, bs, als: _delta(xs, as_, bs, als, impl_r),
-            x, a, b, alpha, ranks,
-        )
-    return _delta(x, a, b, alpha, impl_r)
-
-
-def _fused(x, w, a, b, alpha, impl):
-    lead = x.shape[1:-1]
-    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-    if impl == "fused_plain":
-        out = _ref.fused_matmul_ref(x3, w, a, b, alpha)
-    else:
-        out = fused_matmul(
-            x3.contiguous(), w.contiguous(), a.contiguous(), b.contiguous(), alpha
-        )
-    return out.reshape(x.shape[0], *lead, w.shape[-1])
+        return _ragged_call(delta, x, a, b, alpha, ranks)
+    return delta(x, a.contiguous(), b.contiguous(), alpha)
 
 
 def fused_lora_linear(
     x, w, a, b, alpha, *,
     impl: Optional[str] = None,
+    remat: Optional[str] = None,
     ranks: Optional[Tuple[int, ...]] = None,
 ):
     """Fused ``x @ W + alpha_n * (x_n @ A_n) @ B_n`` with the same ragged-rank
     segmentation as :func:`packed_lora_delta` (each same-rank segment runs
     its own fused pass).
 
-    x: (N, ..., d_in); w: (d_in, d_out); a/b/alpha as usual."""
+    x: (N, ..., d_in); w: (d_in, d_out) dense, or a quantized ``{"codes",
+    "scales"}`` dict (dequantized inside the kernel); a/b/alpha as usual."""
     impl_r = {"pallas": "fused_pallas", "plain": "fused_plain"}.get(
         _resolve(impl), _resolve(impl)
     )
+    remat_r = _resolve_remat(remat)
     alpha = alpha.to(torch.float32).contiguous()
+    wq = w if is_quantized(w) else None
+    wd = None if wq is not None else w.contiguous()
+
+    def fused(xs, as_, bs, als):
+        x3 = xs.reshape(xs.shape[0], -1, xs.shape[-1]).contiguous()
+        y = _FusedLora.apply(x3, wd, as_, bs, als, wq, impl_r, remat_r)
+        return y.reshape(*xs.shape[:-1], y.shape[-1])
+
     if ranks is not None and len(set(ranks)) > 1:
-        return _ragged_call(
-            lambda xs, as_, bs, als: _fused(xs, w, as_, bs, als, impl_r),
-            x, a, b, alpha, ranks,
-        )
-    return _fused(x, w, a, b, alpha, impl_r)
+        return _ragged_call(fused, x, a, b, alpha, ranks)
+    return fused(x, a.contiguous(), b.contiguous(), alpha)

@@ -8,12 +8,19 @@ replaces rounds. On a CPU tensor the kernel wrappers run these; on the card
   w     : (N, K, L)
   scale : (N,) f32 or None
   out   : (N, M, L)   out[n] = scale[n] * x[n] @ w[n]
+
+The backward uses of ``packed_matmul`` are the same grouped product on
+transposed operands, so ``packed_matmul_ref`` is their plain version too;
+``packed_lora_delta_bwd_ref`` spells out the four cases of the reference's
+``ops.py:_bwd`` together.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.quant import dequantize
 
 
 def _bcast(scale: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -42,6 +49,22 @@ def packed_lora_delta_ref(
     return packed_matmul_ref(xa, b, scale=alpha)
 
 
+def packed_lora_delta_bwd_ref(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor
+):
+    """(dx, dA, dB) of alpha_n * (x_n @ A_n) @ B_n for 3-D x (N, T, d), as
+    the reference's backward computes them (``ops.py:221-236``): g scaled by
+    alpha in g's type, xA recomputed, then the four grouped cases."""
+    g = g.to(x.dtype)
+    g_s = g * _bcast(alpha, g.ndim).to(g.dtype)
+    xa = packed_matmul_ref(x, a)
+    db = packed_matmul_ref(xa.transpose(1, 2), g_s)  # case 1: (xA)^T g_s
+    dxa = packed_matmul_ref(g_s, b.transpose(1, 2))  # case 2: g_s B^T
+    da = packed_matmul_ref(x.transpose(1, 2), dxa)  # case 3: x^T d(xA)
+    dx = packed_matmul_ref(dxa, a.transpose(1, 2))  # case 4: d(xA) A^T
+    return dx, da, db
+
+
 def fused_matmul_ref(
     x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     scale: Optional[torch.Tensor] = None,
@@ -61,3 +84,14 @@ def fused_matmul_ref(
         delta = delta * _bcast(scale.float(), delta.ndim)
     y = (base + delta).to(x.dtype)
     return y.reshape(x.shape[0], *lead, w.shape[-1])
+
+
+def fused_matmul_q_ref(
+    x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, a: torch.Tensor,
+    b: torch.Tensor, scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``fused_matmul_ref`` on the dequantized weight, each element the f32
+    product code * scale cast once to ``x.dtype``, as the Pallas kernel's
+    ``_dequant_tile`` rounds (``fused.py:107-130``)."""
+    w = dequantize({"codes": codes, "scales": scales}, x.dtype)
+    return fused_matmul_ref(x, w, a, b, scale)

@@ -85,15 +85,17 @@ def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=Non
 
 
 def forward(base, lora, scales, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            n_pack: int = 1, chunk_q: int = 512, make_cache: bool = False, kcfg=None):
-    """batch: {"tokens": (NB, S)}. Returns (hidden (NB, S, d), caches|None)."""
+            n_pack: int = 1, chunk_q: int = 512, make_cache: bool = False, kcfg=None,
+            remat: bool = True):
+    """batch: {"tokens": (NB, S)}. Returns (hidden (NB, S, d), caches|None).
+    ``remat``: checkpoint each block when grad mode is on (training)."""
     tokens = batch["tokens"]
     x = base["embed"]["w"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, caches = apply_stack(
         base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
         layer_specs(cfg), n_pack=n_pack, rope_cache=make_rope_cache(cfg, positions),
-        make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg,
+        make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg, remat=remat,
     )
     return apply_norm(base["final_norm"], x), caches
 

@@ -3,7 +3,9 @@
 Layers are grouped as in the reference: the per-layer spec sequence has a
 minimal period p, the L//p repeats are stacked under ``"blocks"`` (every
 leaf gains a leading block axis) and the remainder sits under ``"rest"``.
-The stack runs as a Python loop over blocks where the reference scans.
+The stack runs as a Python loop over blocks where the reference scans; in
+training each block is checkpointed (``torch.utils.checkpoint``) where the
+reference wraps the scanned block in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.attention import apply_gqa, init_gqa
@@ -108,11 +111,15 @@ def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, devic
 def apply_stack(
     params, lora, scales, x, cfg: ModelConfig, specs: List[LayerSpec], *,
     n_pack: int, rope_cache, caches=None, pos=None, make_cache: bool = False,
-    chunk_q: int = 512, kcfg=None,
+    chunk_q: int = 512, kcfg=None, remat: bool = True,
 ):
     """Run the whole stack. Returns (x, new_caches): with ``caches`` given
     (decode) they are updated in place and returned; with ``make_cache``
-    (prefill) the per-layer k/v come back in the cache tree layout."""
+    (prefill) the per-layer k/v come back in the cache tree layout. With
+    ``remat`` and grad mode on, each block keeps only its input for the
+    backward and recomputes the rest (``transformer.py:403`` of the
+    reference); the kernels are deterministic, so the recompute equals the
+    forward."""
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
     kw = dict(cfg=cfg, n_pack=n_pack, rope_cache=rope_cache, pos=pos,
@@ -128,11 +135,17 @@ def apply_stack(
                 new_c[f"l{i}"] = c
         return x, new_c
 
+    checkpointed = remat and torch.is_grad_enabled() and caches is None and not make_cache
     block_caches = []
     for bi in range(n_blocks):
+        bp = tree_index(params["blocks"], bi)
         bl = tree_index(lora["blocks"], bi) if lora.get("blocks") else None
         bc = tree_index(caches["blocks"], bi) if caches is not None else None
-        x, c = run(x, tree_index(params["blocks"], bi), bl, bc, p)
+        if checkpointed:
+            x = checkpoint(lambda h, bp=bp, bl=bl: run(h, bp, bl, None, p)[0], x,
+                           use_reentrant=False)
+            continue
+        x, c = run(x, bp, bl, bc, p)
         block_caches.append(c)
     x, rest_c = run(x, params["rest"], lora.get("rest"), caches["rest"] if caches else None, n_rest)
     if caches is not None:

@@ -1,0 +1,148 @@
+"""Packed-LoRA training step and loop (the port of ``repro/train/trainer.py``).
+
+A step runs the forward with packed-LoRA deltas, the chunked CE with
+per-adapter reduction, the gradients with respect to the LoRA leaves only
+(``requires_grad`` on them, never on the base: no base grads, no base
+moments), and AdamW with the per-adapter learning-rate vector. The dense
+decoders of the port have no auxiliary loss, so the loss is the CE total.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adapter import PackMeta
+from repro_torch.kernels.ops import KernelConfig
+from repro_torch.models.model import forward, unembed_w
+from repro_torch.train.losses import chunked_cross_entropy
+from repro_torch.train.optimizer import adamw_update, init_opt_state
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def packed_loss_fn(
+    lora, base, batch, cfg: ModelConfig, n_pack: int, scales, *,
+    chunk_q: int = 512, vocab_chunk: int = 512, kcfg: Optional[KernelConfig] = None,
+):
+    """(total, per-adapter (N,)) loss of a pack, ``scales`` (alpha/r) a
+    runtime tensor; ``kcfg`` the kernel policy."""
+    h, _ = forward(base, lora, scales, batch, cfg, n_pack=n_pack, chunk_q=chunk_q, kcfg=kcfg)
+    per_adapter, total = chunked_cross_entropy(
+        h, unembed_w(base, cfg), batch["labels"], n_pack, chunk=vocab_chunk, vocab=cfg.vocab_size,
+    )
+    return total, per_adapter
+
+
+def loss_fn(
+    lora, base, batch, cfg: ModelConfig, meta: PackMeta, *,
+    chunk_q: int = 512, vocab_chunk: int = 512, kcfg: Optional[KernelConfig] = None,
+):
+    return packed_loss_fn(
+        lora, base, batch, cfg, meta.n, meta.scales(batch["tokens"].device),
+        chunk_q=chunk_q, vocab_chunk=vocab_chunk,
+        kcfg=kcfg if kcfg is not None else meta.kernel_config(),
+    )
+
+
+def packed_value_and_grad(
+    lora, base, batch, cfg: ModelConfig, n_pack: int, scales, *,
+    chunk_q: int = 512, vocab_chunk: int = 512, kcfg: Optional[KernelConfig] = None,
+):
+    """(total, per-adapter loss, grads): the gradient of the total with
+    respect to every LoRA leaf, in the LoRA tree's layout. Raises if a leaf
+    received none: the graph from that leaf to the loss was cut."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), lora)
+    total, per_adapter = packed_loss_fn(
+        leaves, base, batch, cfg, n_pack, scales,
+        chunk_q=chunk_q, vocab_chunk=vocab_chunk, kcfg=kcfg,
+    )
+    total.backward()
+    if any(t.grad is None for t in tree_leaves(leaves)):
+        raise RuntimeError("a LoRA leaf received no gradient: its path to the loss is cut")
+    return total.detach(), per_adapter.detach(), tree_map(lambda t: t.grad, leaves)
+
+
+def make_packed_step(
+    cfg: ModelConfig,
+    n_pack: int,
+    *,
+    chunk_q: int = 512,
+    vocab_chunk: int = 512,
+    weight_decay: float = 0.0,
+    impl: Optional[str] = None,
+    remat: Optional[str] = None,
+    ranks: Optional[tuple] = None,
+    base_dtype: Optional[str] = None,
+):
+    """A packed train step whose per-adapter vectors -- ``scales``
+    (alpha/r), ``lr_vec`` and ``budgets`` (per-adapter step caps, or None)
+    -- are runtime tensors, so one step serves every pack of the same shape.
+
+    ``impl``/``remat`` select the kernel backend and backward xA policy
+    (kernels/ops.py); ``ranks`` is the pack's per-adapter rank tuple, which
+    runs a mixed-rank pack as ragged same-rank segments (a homogeneous tuple
+    normalizes to None: it computes the same); ``base_dtype`` names a
+    quantized base ("int8"/"nf4"), whose "w" slots then hold
+    ``{"codes", "scales"}`` dicts.
+
+    ``train_step(base, lora, opt_state, batch, scales, lr_vec, budgets)``
+    returns (new lora, new opt_state, {"loss", "per_adapter_loss"})."""
+    ranks = tuple(ranks) if ranks and len(set(ranks)) > 1 else None
+    kcfg = KernelConfig(impl=impl, remat=remat, ranks=ranks, base_dtype=base_dtype)
+
+    def train_step(base, lora, opt_state, batch, scales, lr_vec, budgets):
+        total, per_adapter, grads = packed_value_and_grad(
+            lora, base, batch, cfg, n_pack, scales,
+            chunk_q=chunk_q, vocab_chunk=vocab_chunk, kcfg=kcfg,
+        )
+        lora_new, opt_state = adamw_update(
+            grads, opt_state, lora, lr_vec, weight_decay=weight_decay, step_budget=budgets,
+        )
+        return lora_new, opt_state, {"loss": total, "per_adapter_loss": per_adapter}
+
+    return train_step
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    meta: PackMeta,
+    *,
+    chunk_q: int = 512,
+    vocab_chunk: int = 512,
+    weight_decay: float = 0.0,
+    step_budgets=None,  # (N,) per-adapter max step counts
+    impl: Optional[str] = None,
+    remat: Optional[str] = None,
+    base_dtype: Optional[str] = None,
+):
+    """The step for one pack, its hyperparameter vectors closed over:
+    ``train_step(base, lora, opt_state, batch)``."""
+    step = make_packed_step(
+        cfg, meta.n, chunk_q=chunk_q, vocab_chunk=vocab_chunk, weight_decay=weight_decay,
+        impl=impl, remat=remat, ranks=meta.ranks, base_dtype=base_dtype,
+    )
+
+    def train_step(base, lora, opt_state, batch):
+        dev = batch["tokens"].device
+        budgets = (torch.tensor(step_budgets, dtype=torch.int32, device=dev)
+                   if step_budgets is not None else None)
+        return step(base, lora, opt_state, batch, meta.scales(dev), meta.lr_vector(dev), budgets)
+
+    return train_step
+
+
+def train_loop(
+    base, lora, cfg: ModelConfig, meta: PackMeta, data_iter, n_steps: int, *,
+    chunk_q: int = 512, vocab_chunk: int = 512, log_every: int = 0,
+) -> Dict[str, Any]:
+    """Run n_steps; returns the final state and the per-adapter loss history."""
+    step_fn = make_train_step(cfg, meta, chunk_q=chunk_q, vocab_chunk=vocab_chunk)
+    opt_state = init_opt_state(lora)
+    history = []
+    for i in range(n_steps):
+        lora, opt_state, m = step_fn(base, lora, opt_state, next(data_iter))
+        history.append(m["per_adapter_loss"].cpu().numpy())
+        if log_every and i % log_every == 0:
+            print(f"step {i}: loss={float(m['loss']):.4f}")
+    return {"lora": lora, "opt_state": opt_state, "history": history}

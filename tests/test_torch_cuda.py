@@ -7,12 +7,20 @@ mode); this file imports only torch, so it runs where JAX is not installed:
 
 Tolerance: max |kernel - plain| <= tol * max |plain|, tol 5e-5 for f32 (the
 order of f32 sums) and 2^-7 for bf16 (one bf16 rounding of the output).
+The quantized fused kernel is held bit-equal to the dense one on the
+dequantized weight (``torch.equal``): the two stage identical tile values.
 """
 import pytest
 import torch
 
-from repro_torch.kernels.fused import fused_matmul
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused import fused_matmul, fused_matmul_q
 from repro_torch.kernels.packed_matmul import packed_matmul
+from repro_torch.kernels.quant import dequantize, quantize_weight
+from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
+
+TOL = {torch.float32: 5e-5, torch.bfloat16: 2 ** -7}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @pytest.fixture
@@ -21,6 +29,16 @@ def cuda():
         pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _rnd(g, shape, dt, std=1.0):
+    return (torch.randn(shape, generator=g, device=g.device) * std).to(dt)
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs().max()
+    assert torch.isfinite(got.float()).all()
+    assert err <= TOL[want.dtype] * want.float().abs().max(), float(err)
 
 
 @pytest.mark.gpu
@@ -36,22 +54,145 @@ def cuda():
     ],
 )
 def test_cuda_kernels_match_plain(cuda, dtype, n, m, k, l, r):
-    from repro_torch.kernels.ref import fused_matmul_ref, packed_matmul_ref
-
     g = torch.Generator(device=cuda).manual_seed(0)
-    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
-    x = torch.randn((n, m, k), generator=g, device=cuda).to(dt)
-    w = (torch.randn((k, l), generator=g, device=cuda) * k ** -0.5).to(dt)
-    a = (torch.randn((n, k, r), generator=g, device=cuda) * k ** -0.5).to(dt)
-    b = torch.randn((n, r, l), generator=g, device=cuda).to(dt)
+    dt = DTYPES[dtype]
+    x = _rnd(g, (n, m, k), dt)
+    w = _rnd(g, (k, l), dt, k ** -0.5)
+    a = _rnd(g, (n, k, r), dt, k ** -0.5)
+    b = _rnd(g, (n, r, l), dt)
     s = torch.linspace(0.5, 2.0, n, device=cuda)
-    tol = 5e-5 if dtype == "float32" else 2 ** -7
     n0 = packed_matmul.launches
     got, want = packed_matmul(x, a, s), packed_matmul_ref(x, a, s)
     assert packed_matmul.launches == n0 + 1
-    assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
-    got, want = fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s)
-    assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
+    _close(got, want)
+    _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
     strided = torch.empty((n, m, 2 * k), device=cuda, dtype=dt)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         packed_matmul(strided, a, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "n,t,d,k,r",
+    [
+        (2, 1, 96, 40, 8),        # one token per adapter
+        (1, 130, 200, 72, 128),   # the largest rank, ragged edges
+        (3, 64, 256, 120, 16),
+        (2, 256, 512, 384, 32),   # long contraction over tokens: split K
+    ],
+)
+def test_backward_cases_match_plain(cuda, dtype, n, t, d, k, r):
+    """The four backward cases of the two-pass delta: the grouped kernel on
+    transposed views, read in place."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dt = DTYPES[dtype]
+    x, a = _rnd(g, (n, t, d), dt), _rnd(g, (n, d, r), dt, d ** -0.5)
+    b, gs = _rnd(g, (n, r, k), dt), _rnd(g, (n, t, k), dt)
+    xa, dxa = _rnd(g, (n, t, r), dt), _rnd(g, (n, t, r), dt)
+    n0 = packed_matmul.bwd_launches
+    for lhs, rhs in ((xa.transpose(1, 2), gs), (gs, b.transpose(1, 2)),
+                     (x.transpose(1, 2), dxa), (dxa, a.transpose(1, 2))):
+        _close(packed_matmul(lhs, rhs, backward=True), packed_matmul_ref(lhs, rhs))
+    assert packed_matmul.bwd_launches == n0 + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "n,m,d_in,d_out,r",
+    [
+        (2, 128, 256, 192, 16),  # bf16: tensor-core tile, W^T staged column by column
+        (1, 70, 96, 40, 8),      # tensor-core tile with ragged rows / FMA tile
+        (3, 5, 64, 48, 24),      # FMA tile, rows of several adapters per tile
+    ],
+)
+def test_fused_dx_reads_w_transposed(cuda, dtype, n, m, d_in, d_out, r):
+    """dx = g @ W^T + s * (g @ B^T) @ A^T through the fused kernel, W^T a
+    transposed view of W: no copy."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    dt = DTYPES[dtype]
+    g = _rnd(gen, (n, m, d_out), dt)
+    w = _rnd(gen, (d_in, d_out), dt, d_in ** -0.5)
+    bt = _rnd(gen, (n, r, d_out), dt).transpose(1, 2).contiguous()
+    at = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5).transpose(1, 2).contiguous()
+    s = torch.linspace(0.5, 2.0, n, device=cuda)
+    n0 = fused_matmul.bwd_launches
+    _close(fused_matmul(g, w.t(), bt, at, s, backward=True), fused_matmul_ref(g, w.t(), bt, at, s))
+    assert fused_matmul.bwd_launches == n0 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "n,m,k,l,r",
+    [
+        (2, 128, 256, 192, 16),   # bf16: tensor-core tile
+        (1, 100, 512, 64, 24),    # bf16: tensor-core tile with split K
+        (8, 1, 384, 80, 16),      # decode rows: FMA tile, split K
+        (3, 17, 96, 40, 8),       # FMA tile
+    ],
+)
+def test_fused_q_bit_equal_to_dense_on_dequantized(cuda, mode, dtype, n, m, k, l, r):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt = DTYPES[dtype]
+    x, a, b = _rnd(g, (n, m, k), dt), _rnd(g, (n, k, r), dt, k ** -0.5), _rnd(g, (n, r, l), dt)
+    q = quantize_weight(_rnd(g, (k, l), torch.float32, k ** -0.5), mode)
+    s = torch.linspace(0.5, 2.0, n, device=cuda)
+    n0 = fused_matmul_q.launches
+    got = fused_matmul_q(x, q["codes"], q["scales"], a, b, s)
+    assert fused_matmul_q.launches == n0 + 1
+    assert torch.equal(got, fused_matmul(x, dequantize(q, dt), a, b, s))
+    _close(got, fused_matmul_q_ref(x, q["codes"], q["scales"], a, b, s))
+
+
+@pytest.mark.gpu
+def test_raw_wrappers_raise_on_inputs_that_require_grad(cuda):
+    """The kernels' outputs carry no graph: rather than return one that cuts
+    the LoRA leaves off the loss, the wrappers raise under grad mode."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x, w = _rnd(g, (2, 8, 32), torch.float32), _rnd(g, (32, 16), torch.float32)
+    a = _rnd(g, (2, 32, 8), torch.float32).requires_grad_(True)
+    b = _rnd(g, (2, 8, 16), torch.float32)
+    q = quantize_weight(w, "int8")
+    calls = [lambda: packed_matmul(x, a), lambda: fused_matmul(x, w, a, b),
+             lambda: fused_matmul_q(x, q["codes"], q["scales"], a, b)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+@pytest.mark.parametrize("xdim", [3, 4])
+def test_autograd_through_kernels_matches_plain(cuda, impl, xdim):
+    """Gradients reach A and B through the kernels' autograd Functions, in
+    both branches of the two-pass backward and for a ragged pack, and agree
+    with the plain path."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ranks = (8, 16, 8)
+    x = _rnd(g, (3, 2, 64, 128) if xdim == 4 else (3, 128, 128), torch.float32)
+    w = _rnd(g, (128, 96), torch.float32, 128 ** -0.5)
+    al = torch.tensor([2.0, 0.5, 1.0], device=cuda)
+    grads = {}
+    for path in (impl, "plain" if impl == "auto" else "fused_plain"):
+        a = _rnd(torch.Generator(device=cuda).manual_seed(6), (3, 128, 16), torch.float32, 0.1)
+        b = _rnd(torch.Generator(device=cuda).manual_seed(7), (3, 16, 96), torch.float32)
+        a.requires_grad_(True)
+        b.requires_grad_(True)
+        n0 = (packed_matmul.bwd_launches, fused_matmul.bwd_launches)
+        if impl == "auto":
+            y = ops.packed_lora_delta(x, a, b, al, impl=path, ranks=ranks)
+        else:
+            y = ops.fused_lora_linear(x, w, a, b, al, impl=path, ranks=ranks)
+        (y.float() ** 2).sum().backward()
+        if path == impl:
+            assert (packed_matmul.bwd_launches, fused_matmul.bwd_launches) != n0
+        assert a.grad is not None and b.grad is not None
+        assert (a.grad[0, :, 8:] == 0).all() and (b.grad[2, 8:] == 0).all()
+        grads[path] = (a.grad, b.grad)
+    for got, want in zip(*grads.values()):
+        _close(got, want)

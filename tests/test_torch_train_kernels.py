@@ -1,0 +1,237 @@
+"""Gradients of the port's kernel ops and its quantized base, on the CPU.
+
+The same numpy inputs go through the JAX function (the Pallas kernels in
+interpret mode, as the JAX package's own tests run them) and through the
+port's autograd Functions, whose backward on a CPU tensor runs the kernels'
+plain versions. Tolerance f32 1e-5, relative to the largest value of each
+compared array (only the order of f32 sums differs). Invariants inside the
+port are exact: save and recompute give bit-identical gradients, padding
+columns of a ragged pack get exactly zero gradient, and a quantized base
+gives bit-identical outputs and gradients to its dequantized dense form.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import quant as jquant
+from repro.kernels.fused import fused_lora as j_fused_lora
+from repro_torch import bridge
+from repro_torch.kernels import ops, quant, ref
+
+RTOL = 1e-5
+
+
+def _close(got, want, rtol=RTOL):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * max(np.abs(want).max(), 1e-30))
+
+
+def _arrays(seed, shapes, stds):
+    rng = np.random.RandomState(seed)
+    return [(rng.standard_normal(s) * sd).astype(np.float32) for s, sd in zip(shapes, stds)]
+
+
+def _torch_grads(fn, *arrays):
+    ts = [torch.from_numpy(a.copy()).requires_grad_(True) for a in arrays]
+    y = fn(*ts)
+    return y.detach(), torch.autograd.grad(y, ts, grad_outputs=torch.ones_like(y))
+
+
+def _jax_grads(fn, *arrays):
+    y, vjp = jax.vjp(fn, *[jnp.asarray(a) for a in arrays])
+    return y, vjp(jnp.ones_like(y))
+
+
+# ---------------------------------------------------------------------------
+# the two-pass delta and the fused primitive against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+
+def _delta_inputs(seed, xdim):
+    n, d, r, k = 2, 48, 16, 40
+    xs = (n, 10, d) if xdim == 3 else (n, 2, 5, d)
+    return _arrays(seed, [xs, (n, d, r), (n, r, k)], [1.0, d ** -0.5, 1.0])
+
+
+@pytest.mark.parametrize("xdim", [3, 4])
+@pytest.mark.parametrize("ranks", [None, (8, 16)])
+def test_packed_lora_delta_grads_match_pallas(xdim, ranks):
+    """Both branches of the backward: 3-D x runs the four grouped cases,
+    N-D x runs cases 2 and 4 and einsums for dA, dB."""
+    x, a, b = _delta_inputs(xdim + 10, xdim)
+    alpha = np.array([2.0, 0.5], np.float32)
+    y_j, g_j = _jax_grads(
+        lambda x, a, b: jops.packed_lora_delta(x, a, b, jnp.asarray(alpha), impl="pallas",
+                                               ranks=ranks), x, a, b)
+    y_t, g_t = _torch_grads(
+        lambda x, a, b: ops.packed_lora_delta(x, a, b, torch.from_numpy(alpha), impl="auto",
+                                              ranks=ranks), x, a, b)
+    _close(y_t, y_j)
+    for got, want in zip(g_t, g_j):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("wkind", ["dense", "int8", "nf4"])
+@pytest.mark.parametrize("ranks", [None, (8, 16)])
+def test_fused_grads_match_pallas(wkind, ranks):
+    x, w, a, b = _arrays(3, [(2, 12, 64), (64, 40), (2, 64, 16), (2, 16, 40)],
+                         [1.0, 0.125, 0.125, 1.0])
+    alpha = np.array([2.0, 0.5], np.float32)
+    wj = jnp.asarray(w) if wkind == "dense" else jquant.quantize_weight(w, wkind)
+    wt = torch.from_numpy(w) if wkind == "dense" else bridge.to_torch(wj, "cpu")
+    y_j, g_j = _jax_grads(
+        lambda x, a, b: (jops.fused_lora_linear(x, wj, a, b, jnp.asarray(alpha),
+                                                impl="fused_pallas", ranks=ranks)
+                         if ranks else
+                         j_fused_lora(x, wj, a, b, jnp.asarray(alpha), impl="fused_pallas")),
+        x, a, b)
+    y_t, g_t = _torch_grads(
+        lambda x, a, b: ops.fused_lora_linear(x, wt, a, b, torch.from_numpy(alpha),
+                                              impl="fused", ranks=ranks), x, a, b)
+    _close(y_t, y_j)
+    for got, want in zip(g_t, g_j):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("op", ["delta", "fused"])
+@pytest.mark.parametrize("xdim", [3, 4])
+def test_remat_save_equals_recompute_bitwise(op, xdim):
+    x, a, b = _delta_inputs(7, xdim)
+    w = _arrays(8, [(48, 40)], [48 ** -0.5])[0]
+    alpha = torch.tensor([2.0, 0.5])
+    grads = {}
+    for impl in (("auto", "plain") if op == "delta" else ("fused", "fused_plain")):
+        for remat in ("save", "recompute"):
+            if op == "delta":
+                fn = lambda x, a, b: ops.packed_lora_delta(  # noqa: E731
+                    x, a, b, alpha, impl=impl, remat=remat, ranks=(8, 16))
+            else:
+                fn = lambda x, a, b: ops.fused_lora_linear(  # noqa: E731
+                    x, torch.from_numpy(w), a, b, alpha, impl=impl, remat=remat, ranks=(8, 16))
+            grads[impl, remat] = _torch_grads(fn, x, a, b)[1]
+        for s, r in zip(grads[impl, "save"], grads[impl, "recompute"]):
+            assert torch.equal(s, r)
+
+
+@pytest.mark.parametrize("op", ["delta", "fused"])
+def test_ragged_padding_gradients_are_exactly_zero(op):
+    """Ranks (8, 16) in a bucket of 16: adapter 0's padding columns of A and
+    rows of B are sliced off before any kernel, so their gradient is 0."""
+    x, a, b = _delta_inputs(9, 3)
+    w = torch.from_numpy(_arrays(10, [(48, 40)], [48 ** -0.5])[0])
+    alpha = torch.tensor([2.0, 0.5])
+    if op == "delta":
+        fn = lambda x, a, b: ops.packed_lora_delta(x, a, b, alpha, ranks=(8, 16))  # noqa: E731
+    else:
+        fn = lambda x, a, b: ops.fused_lora_linear(  # noqa: E731
+            x, w, a, b, alpha, impl="fused", ranks=(8, 16))
+    _, (_, da, db) = _torch_grads(fn, x, a, b)
+    assert (da[0, :, 8:] == 0).all() and (db[0, 8:, :] == 0).all()
+    assert (da[0, :, :8] != 0).any() and (db[1] != 0).any()
+
+
+@pytest.mark.parametrize("xdim", [3, 4])
+def test_explicit_backward_equals_autograd_of_plain_forward(xdim):
+    """The Functions' own backward (plain versions on the CPU) against
+    autograd through the plain forward, for the delta and the fused op."""
+    x, a, b = _delta_inputs(11, xdim)
+    w = torch.from_numpy(_arrays(12, [(48, 40)], [48 ** -0.5])[0])
+    alpha = torch.tensor([2.0, 0.5])
+
+    def flat(x):
+        return x.reshape(x.shape[0], -1, x.shape[-1])
+
+    pairs = [
+        (lambda x, a, b: ops.packed_lora_delta(x, a, b, alpha, impl="plain"),
+         lambda x, a, b: ref.packed_lora_delta_ref(x, a, b, alpha)),
+        (lambda x, a, b: ops.fused_lora_linear(x, w, a, b, alpha, impl="fused_plain"),
+         lambda x, a, b: ref.fused_matmul_ref(flat(x), w, a, b, alpha).reshape(
+             *x.shape[:-1], w.shape[1])),
+    ]
+    for fn, plain in pairs:
+        y1, g1 = _torch_grads(fn, x, a, b)
+        y2, g2 = _torch_grads(plain, x, a, b)
+        _close(y1, y2.numpy())
+        for got, want in zip(g1, g2):
+            _close(got, want.numpy())
+
+
+def test_backward_cases_plain_version_matches_autograd():
+    """``packed_lora_delta_bwd_ref`` (the four cases spelled out) is the
+    gradient of the plain delta."""
+    x, a, b = _delta_inputs(13, 3)
+    alpha = torch.tensor([2.0, 0.5])
+    ct = torch.from_numpy(_arrays(14, [(2, 10, 40)], [1.0])[0])
+    ts = [torch.from_numpy(v.copy()).requires_grad_(True) for v in (x, a, b)]
+    want = torch.autograd.grad(ref.packed_lora_delta_ref(*ts, alpha), ts, grad_outputs=ct)
+    got = ref.packed_lora_delta_bwd_ref(*[t.detach() for t in ts], alpha, ct)
+    for g, w in zip(got, want):
+        _close(g, w.numpy())
+
+
+# ---------------------------------------------------------------------------
+# quantization
+# ---------------------------------------------------------------------------
+
+
+def _quant_weights():
+    rng = np.random.RandomState(0)
+    w = (rng.standard_normal((2, 128, 24)) * 0.1).astype(np.float32)
+    w[0, :, 0] = 0.0  # an all-zero column: scale 1, codes 0
+    w[0, :, 1] = np.arange(128, dtype=np.float32) - 63.5  # int8 ties: scale 1, codes x.5
+    w[0, 0, 1] = 127.0
+    w[1, :64, 2] = 0.0  # an all-zero nf4 block
+    cb = jquant.NF4_CODEBOOK
+    w[1, :, 3] = np.tile(np.concatenate([cb, (cb[:-1] + cb[1:]) / 2]), 5)[:128]  # codebook, midpoints
+    return w
+
+
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+def test_quantize_and_dequantize_bit_exact_vs_reference(mode):
+    w = _quant_weights()
+    want = jquant.quantize_weight(w, mode)
+    got = quant.quantize_weight(torch.from_numpy(w), mode)
+    for key in ("codes", "scales"):
+        assert got[key].dtype == bridge.to_torch(want[key], "cpu").dtype
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    np.testing.assert_array_equal(quant.dequantize(got).numpy(),
+                                  np.asarray(jquant.dequantize(want)))
+    assert quant.logical_shape(got) == jquant.logical_shape(want)
+    assert quant.quantized_nbytes(got) == jquant.quantized_nbytes(want)
+
+
+def test_quantize_base_params_matches_reference():
+    tree = {"embed": {"w": np.ones((8, 4), np.float32)},
+            "blocks": {"q": {"w": _quant_weights(), "b": np.zeros((2, 24), np.float32)},
+                       "norm": {"scale": np.ones((2, 24), np.float32)}}}
+    want = jquant.quantize_base_params(tree, "nf4")
+    got = quant.quantize_base_params(bridge.to_torch(tree, "cpu"), "nf4")
+    assert quant.is_quantized(got["blocks"]["q"]["w"]) and not quant.is_quantized(got["embed"])
+    for g, w in zip(jax.tree_util.tree_leaves(bridge.to_numpy(got)), jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    back = quant.dequantize_base_params(got)
+    np.testing.assert_array_equal(back["blocks"]["q"]["w"].numpy(),
+                                  jquant.dequantize_base_params(want)["blocks"]["q"]["w"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["fused", "fused_plain"])
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+def test_quantized_equals_dequantized_fwd_bwd_bitwise(mode, impl, dtype):
+    """As the reference's ``test_quant.py:139-176``: the quantized base and
+    its dequantized dense form give bit-identical y, dx, dA and dB."""
+    x, w, a, b = _arrays(15, [(2, 9, 64), (64, 40), (2, 64, 8), (2, 8, 40)], [1.0, 0.125, 0.125, 1.0])
+    q = quant.quantize_weight(torch.from_numpy(w), mode)
+    wd = quant.dequantize(q, dtype)
+    alpha = torch.tensor([2.0, 0.5])
+    outs = []
+    for wv in (q, wd):
+        ts = [torch.from_numpy(v).to(dtype).requires_grad_(True) for v in (x, a, b)]
+        y = ops.fused_lora_linear(ts[0], wv, ts[1], ts[2], alpha, impl=impl)
+        outs.append((y,) + torch.autograd.grad((y.float() ** 2).sum(), ts))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
