@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device  -- needs ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` reports them; turns TF32 off.
 2. build   -- compiles every kernel of ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` (one process per source, all at once).
+   ``nvcc`` (one process per source, all at once), and prints ``ptxas -v``'s
+   registers, shared memory and spills of each ``fused_wgmma_kernel``.
 3. kernels -- calls each kernel at the qwen25-7b serving shapes (decode:
    N=8 rows, M=1; prefill: N=1, M=256; r=16; plus a ragged pack of ranks
    (8, 16)) and at its training shapes (N=2 adapters, M=1024 tokens each,
@@ -17,7 +18,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    codes, which must also be bit-equal to the dense kernel on the
    dequantized W), in bf16 and f32; holds each against its plain version,
    and times kernel, plain version and one PyTorch library call (or the
-   named composition where no single call exists) with CUDA events.
+   named composition where no single call exists) with CUDA events. Each
+   fused row carries the ``path`` its plan took (``wgmma`` or ``split3``,
+   from ``csrc/fused.cuh``'s plan); a bf16 training-shape row of
+   ``fused_matmul`` or ``fused_matmul_q`` off the ``wgmma`` path fails.
 4. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
    seed), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
@@ -154,7 +158,7 @@ def nbytes(*ts) -> int:
 
 def kernel_phase(torch, dev):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused import fused_matmul
+    from repro_torch.kernels.fused import fused_matmul, fused_matmul_path
     from repro_torch.kernels.packed_matmul import packed_matmul
     from repro_torch.kernels.ref import fused_matmul_ref, packed_matmul_ref
 
@@ -166,8 +170,9 @@ def kernel_phase(torch, dev):
     rows = []
 
     def check(name, case, call, d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
-              library, exact=None):
+              library, exact=None, path_fn=None):
         args = args_fn()
+        path = path_fn(*args) if path_fn is not None else None
         got = kfn(*args)
         want = pfn(*args)
         torch.cuda.synchronize()
@@ -191,6 +196,8 @@ def kernel_phase(torch, dev):
                "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "library": library, "bound_ms": b_ms, "bound_by": b_by, "bytes": in_bytes,
                "flops": flops}
+        if path is not None:
+            row["path"] = path
         emit(row)
         rows.append(row)
         del sets, args, got, want
@@ -210,7 +217,8 @@ def kernel_phase(torch, dev):
               lambda: (rnd((n, m, d_in), dtype), rnd((d_in, d_out), dtype, d_in ** -0.5),
                        rnd((n, d_in, RANK), dtype, d_in ** -0.5),
                        rnd((n, RANK, d_out), dtype), scale),
-              2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out), FUSED3)
+              2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out), FUSED3,
+              path_fn=lambda x, w, a, b, s: fused_matmul_path(x, w, a.shape[2]))
 
     for dtype in (torch.bfloat16, torch.float32):
         for case, (n, m) in CASES.items():
@@ -244,6 +252,11 @@ def kernel_phase(torch, dev):
             emit({"phase": "ragged", "op": name, "ranks": list(ranks),
                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol})
         train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows)
+    off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
+           if r["case"] == "train" and r["dtype"] == "bfloat16" and "path" in r
+           and r["path"] != "wgmma"]
+    if off:
+        fail(f"training-shape fused rows off the wgmma path: {off}")
     return rows
 
 
@@ -252,7 +265,12 @@ def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows):
     M=1024 tokens each, r=16. The backward cases pass transposed views,
     which the kernels read in place; the library yardstick is ``torch.bmm``
     on the same views."""
-    from repro_torch.kernels.fused import fused_matmul, fused_matmul_q
+    from repro_torch.kernels.fused import (
+        fused_matmul,
+        fused_matmul_path,
+        fused_matmul_q,
+        fused_matmul_q_path,
+    )
     from repro_torch.kernels.packed_matmul import packed_matmul
     from repro_torch.kernels.quant import dequantize, quantize_weight
     from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
@@ -311,7 +329,8 @@ def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows):
               lambda: (rnd((n, m, d_out), dtype), rnd((d_in, d_out), dtype, d_in ** -0.5).t(),
                        rnd((n, d_out, r), dtype), rnd((n, r, d_in), dtype, d_in ** -0.5), scale),
               2 * n * m * (d_out * d_in + d_out * r + r * d_in),
-              "baddbmm(g@W^T, bmm(g,B^T)*s, A^T): 3 calls")
+              "baddbmm(g@W^T, bmm(g,B^T)*s, A^T): 3 calls",
+              path_fn=lambda g, wt, bt, at, s: fused_matmul_path(g, wt, bt.shape[2]))
         for mode in ("int8", "nf4"):
             q = quantize_weight(rnd((d_in, d_out), torch.float32, d_in ** -0.5), mode)
             check("fused_matmul_q", "train", mode, d_in, d_out, dtype, fused_matmul_q,
@@ -319,7 +338,8 @@ def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows):
                   lambda: (rnd((n, m, d_in), dtype), q["codes"], q["scales"],
                            rnd((n, d_in, r), dtype, d_in ** -0.5), rnd((n, r, d_out), dtype), scale),
                   2 * n * m * (d_in * d_out + d_in * r + r * d_out),
-                  "dequantize(W) then baddbmm(x@W, bmm(x,A)*s, B)", exact=dense_on_dequantized)
+                  "dequantize(W) then baddbmm(x@W, bmm(x,A)*s, B)", exact=dense_on_dequantized,
+                  path_fn=lambda x, c, sc, a, b, s: fused_matmul_q_path(x, c, sc, a.shape[2]))
             del q
 
 
@@ -732,6 +752,22 @@ def profile_train(torch, cfg, base, lora, opt, step, batch, meta, out_dir: Path)
 # ---------------------------------------------------------------------------
 
 
+def ptxas_entries(log: str, name: str):
+    """``nvcc -Xptxas -v``'s lines for each compiled kernel whose mangled
+    name contains ``name``: registers, static shared memory (the wgmma
+    kernel's ring is dynamic: ``WgCfg::SMEM`` in fused.cuh), stack and
+    spills."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"entry": ln.split("'")[1]} if name in ln else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None and ("spill" in ln or "Used" in ln):
+            cur.setdefault("ptxas", []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 CSRC = "src/repro_torch/kernels/csrc/"
 # (entry, kernel, the kernel-phase calls it sums, case, source, replaces,
 #  where its launches come from: (path, run, count))
@@ -823,6 +859,11 @@ def main() -> None:
                                 if "spill" in ln and not ln.strip().startswith("0 bytes")]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libs": [p.name for p in libs],
           "spill_lines": spills})
+    for lib in libs:
+        log = lib.with_suffix(".log")
+        if log.exists():
+            for entry in ptxas_entries(log.read_text(), "fused_wgmma_kernel"):
+                emit({"phase": "ptxas", "lib": lib.stem, **entry})
 
     t0 = time.perf_counter()
     rows = kernel_phase(torch, dev)

@@ -33,10 +33,12 @@ SIGNATURES = {
         "plora_packed_matmul": (_I, [_P] * 5 + [_I] * 7 + [_P]),
     },
     "fused": {
+        "plora_fused_matmul_path": (_I, [_P] * 2 + [_I] * 6),
         "plora_fused_matmul_workspace": (_LL, [_P] * 2 + [_I] * 6),
         "plora_fused_matmul": (_I, [_P] * 7 + [_I] * 7 + [_P]),
     },
     "fused_q": {
+        "plora_fused_matmul_q_path": (_I, [_P] * 3 + [_I] * 6),
         "plora_fused_matmul_q_workspace": (_LL, [_P] * 3 + [_I] * 6),
         "plora_fused_matmul_q": (_I, [_P] * 8 + [_I] * 8 + [_P]),
     },

@@ -14,9 +14,12 @@
 // W for 8 rows, about 2 FLOP per weight byte: bytes-bound (W once per
 // step). Prefill (M = 256) and training (M = B*S = 1024 tokens per adapter,
 // 2-4 adapters) do 256 to 4096 FLOP per weight byte, above the card's bf16
-// ridge (~295): there the tensor cores are the limit. Known cost, left for
-// later work: mma.sync rather than wgmma/TMA, no pipelining beyond register
-// staging, plain FMA off the tensor-core path, and three launches in decode.
+// ridge (~295): there the tensor cores are the limit, and the design is
+// fused.cuh's warp-specialised wgmma kernel fed by TMA. The forward's
+// row-major W tile is wgmma's MN-major B operand (transpose bit set); dx's
+// W^T tile, loaded by TMA from W's own storage, is its K-major B operand.
+// Known cost, left for later work: plain FMA off the tensor-core path (f32,
+// odd shapes), and three launches in decode.
 #include "fused.cuh"
 
 using namespace plora;
@@ -36,6 +39,12 @@ static int run(const void* x, const void* w, const void* a, const void* b, const
                            stream);
   return launch_fused<T>(pl, x, Dense<T, false>{wp, l}, a, b, scale, y, workspace, n, m, k, l, r,
                          stream);
+}
+
+// The path a call with these operands takes: PATH_SPLIT3 or PATH_WGMMA.
+extern "C" int plora_fused_matmul_path(const void* x, const void* w, int n, int m, int k, int l,
+                                       int r, int dtype) {
+  return dense_plan(x, w, dtype, n, m, k, l, r).path;
 }
 
 // The f32 workspace (elements) a call with these operands needs.

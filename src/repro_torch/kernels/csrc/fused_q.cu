@@ -7,20 +7,21 @@
 // W arrives as codes + scales (kernels/quant.py): int8 codes (K, L) with one
 // f32 scale per column (1, L), or nf4 codes (K/2, L) uint8, two K rows per
 // byte (low nibble = the even row), with f32 scales (K/blk, L). Each W
-// element is the f32 product code * scale (nf4: codebook[code] * scale, the
-// codebook in __constant__ memory), rounded once to the compute type as the
-// tile is staged; a dense W is never materialized. Everything else -- the
-// paths, the split plan, the rounding points -- is the dense kernel's
-// (fused.cuh), so a call is bit-equal to the dense kernel on
-// cast(dequantize(W)), the Pallas kernel's contract (fused.py:37-46).
+// element is the f32 product code * scale (nf4: codebook[code] * scale),
+// rounded once to the compute type as the tile is staged; a dense W is never
+// materialized. On the wgmma path the producer warpgroup of fused.cuh's
+// kernel loads the codes one K step ahead, looks nf4 codes up in a 16-entry
+// shared-memory table, and writes each dequantized tile into the layout the
+// dense kernel's TMA load gives. Everything else -- the paths, the split
+// plan, the wgmma sequence, the rounding points -- is the dense kernel's, so
+// a call is bit-equal to the dense kernel on cast(dequantize(W)), the Pallas
+// kernel's contract (fused.py:37-46).
 //
 // What bounds it on an H100. Training (M = B*S = 1024 tokens per adapter):
 // the tensor cores, as for the dense kernel; the dequantization adds one
-// multiply and one rounding per W element per 64-row tile, and the weight
-// bytes read drop 2x (int8) or ~3.6x (nf4). Decode would be bytes-bound on
-// the codes. Known cost, left for later work: W is dequantized once per
-// 64-row tile of x (each block re-dequantizes its W tiles), and the nf4
-// codebook lookup diverges across a warp's constant-memory reads.
+// multiply and one rounding per W element per 128-row block, done by the
+// producer while the consumers multiply, and the weight bytes read drop 2x
+// (int8) or ~3.6x (nf4). Decode would be bytes-bound on the codes.
 #include "fused.cuh"
 
 using namespace plora;
@@ -39,6 +40,12 @@ static int run(const void* x, const void* codes, const float* scales, const void
                            scale, y, workspace, n, m, k, l, r, stream);
   return launch_fused<T>(pl, x, Nf4W<T>{static_cast<const uint8_t*>(codes), scales, l, blk}, a,
                          b, scale, y, workspace, n, m, k, l, r, stream);
+}
+
+// The path a call with these operands takes: PATH_SPLIT3 or PATH_WGMMA.
+extern "C" int plora_fused_matmul_q_path(const void* x, const void* codes, const float* scales,
+                                         int n, int m, int k, int l, int r, int dtype) {
+  return make_plan(q_aligned(x, codes, scales), dtype, n, m, k, l, r).path;
 }
 
 // The f32 workspace (elements) a call with these operands needs.

@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace plora {
 
@@ -298,8 +299,18 @@ inline void launch_gemm(XS x, WS w, const float* scale, T* out, float* part, int
   }
 }
 
+// Returned when a TMA descriptor cannot be encoded: ERR_TENSOR_MAP + the
+// driver's CUresult (ERR_TENSOR_MAP alone: no cuTensorMapEncodeTiled).
+constexpr int ERR_TENSOR_MAP = 100000;
+
 }  // namespace plora
 
 extern "C" const char* plora_error_string(int code) {
+  if (code >= plora::ERR_TENSOR_MAP) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             code - plora::ERR_TENSOR_MAP);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

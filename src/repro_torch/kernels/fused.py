@@ -36,6 +36,7 @@ from repro_torch.kernels.packed_matmul import (
 from repro_torch.kernels.quant import dequantize
 
 MAX_RANK = 128  # RMAX of csrc/fused.cuh
+PATHS = ("split3", "wgmma")  # PATH_SPLIT3, PATH_WGMMA of csrc/fused.cuh
 QUANT_MODES = {torch.int8: 0, torch.uint8: 1}  # the codes' dtype -> mode of csrc/fused_q.cu
 
 
@@ -156,6 +157,29 @@ def fused_matmul_q(
 
 
 fused_matmul_q.launches = 0
+
+
+def fused_matmul_path(x: torch.Tensor, w: torch.Tensor, r: int) -> str:
+    """Which path ``csrc/fused.cuh``'s plan gives :func:`fused_matmul` on
+    these CUDA operands (x (N, M, K), w (K, L), rank r): "wgmma" or
+    "split3". The plan reads only shapes, dtype and alignment."""
+    check_cuda("fused_matmul_path", x)
+    n, m, k = x.shape
+    code = _build.load("fused").plora_fused_matmul_path(
+        x.data_ptr(), w.data_ptr(), n, m, k, w.shape[1], r, DTYPE_CODES[x.dtype]
+    )
+    return PATHS[code]
+
+
+def fused_matmul_q_path(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, r: int) -> str:
+    """:func:`fused_matmul_path` for :func:`fused_matmul_q`: the same plan."""
+    check_cuda("fused_matmul_q_path", x)
+    n, m, k = x.shape
+    code = _build.load("fused_q").plora_fused_matmul_q_path(
+        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), n, m, k, codes.shape[1], r,
+        DTYPE_CODES[x.dtype],
+    )
+    return PATHS[code]
 
 
 def xa_rounded(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

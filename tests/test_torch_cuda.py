@@ -14,7 +14,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused import fused_matmul, fused_matmul_q
+from repro_torch.kernels.fused import (
+    fused_matmul,
+    fused_matmul_path,
+    fused_matmul_q,
+    fused_matmul_q_path,
+)
 from repro_torch.kernels.packed_matmul import packed_matmul
 from repro_torch.kernels.quant import dequantize, quantize_weight
 from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
@@ -145,6 +150,57 @@ def test_fused_q_bit_equal_to_dense_on_dequantized(cuda, mode, dtype, n, m, k, l
     assert fused_matmul_q.launches == n0 + 1
     assert torch.equal(got, fused_matmul(x, dequantize(q, dt), a, b, s))
     _close(got, fused_matmul_q_ref(x, q["codes"], q["scales"], a, b, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "n,m,k,l,r,scaled",
+    [
+        (3, 64, 200, 136, 8, True),     # two adapters per 128-row block; K, L off the tile
+        (2, 192, 328, 264, 16, False),  # block 1 spans both adapters; scale=None
+        (2, 64, 256, 200, 32, True),
+        (2, 128, 256, 256, 12, True),   # rank not a multiple of 8: A staged by threads
+        (1, 300, 136, 520, 128, True),  # rows off the tile; the widest rank, 128-wide tile
+        (2, 128, 4096, 256, 16, True),  # few output tiles: K split in 16 ranges
+    ],
+)
+def test_wgmma_path_matches_plain(cuda, n, m, k, l, r, scaled):
+    """bf16 training-like shapes take the warp-specialised wgmma kernel: the
+    forward and dx (W^T read in place) against the plain versions, and
+    int8/nf4 bit-equal to the dense kernel on the dequantized W."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    dt = torch.bfloat16
+    x, w = _rnd(gen, (n, m, k), dt), _rnd(gen, (k, l), dt, k ** -0.5)
+    a, b = _rnd(gen, (n, k, r), dt, k ** -0.5), _rnd(gen, (n, r, l), dt)
+    s = torch.linspace(0.5, 2.0, n, device=cuda) if scaled else None
+    assert fused_matmul_path(x, w, r) == "wgmma"
+    _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+    w_store = _rnd(gen, (l, k), dt, k ** -0.5)  # dx reads its transpose in place
+    assert fused_matmul_path(x, w_store.t(), r) == "wgmma"
+    _close(fused_matmul(x, w_store.t(), a, b, s, backward=True),
+           fused_matmul_ref(x, w_store.t(), a, b, s))
+    for mode in ("int8", "nf4"):
+        q = quantize_weight(_rnd(gen, (k, l), torch.float32, k ** -0.5), mode)
+        assert fused_matmul_q_path(x, q["codes"], q["scales"], r) == "wgmma"
+        got = fused_matmul_q(x, q["codes"], q["scales"], a, b, s)
+        assert torch.equal(got, fused_matmul(x, dequantize(q, dt), a, b, s))
+        _close(got, fused_matmul_q_ref(x, q["codes"], q["scales"], a, b, s))
+
+
+@pytest.mark.gpu
+def test_wgmma_split_k_is_deterministic_and_paths_follow_shapes(cuda):
+    """A split-K call gives the same bits twice (fixed-order partial sums);
+    decode rows and f32 take the three-launch path, bf16 training rows the
+    wgmma kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    dt = torch.bfloat16
+    x, w = _rnd(gen, (2, 1024, 3584), dt), _rnd(gen, (3584, 512), dt, 3584 ** -0.5)
+    a, b = _rnd(gen, (2, 3584, 16), dt, 3584 ** -0.5), _rnd(gen, (2, 16, 512), dt)
+    s = torch.tensor([0.5, 2.0], device=cuda)
+    assert fused_matmul_path(x, w, 16) == "wgmma"
+    assert torch.equal(fused_matmul(x, w, a, b, s), fused_matmul(x, w, a, b, s))
+    assert fused_matmul_path(x[:, :1], w, 16) == "split3"  # 2 rows
+    assert fused_matmul_path(x.float(), w.float(), 16) == "split3"
 
 
 @pytest.mark.gpu
