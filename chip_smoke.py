@@ -22,6 +22,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fused row carries the ``path`` its plan took (``wgmma`` or ``split3``,
    from ``csrc/fused.cuh``'s plan); a bf16 training-shape row of
    ``fused_matmul`` or ``fused_matmul_q`` off the ``wgmma`` path fails.
+   Each ``packed_matmul`` row carries its ``path`` (``mma`` or ``fma``,
+   ``packed_matmul_path``), ``device_ms`` and ``library_device_ms`` (a CUDA
+   graph of 20 calls replayed: the host out of the loop) and ``host_us`` and
+   ``library_host_us`` (host time per call, not synchronised); a bf16
+   training row of xA, xAB, case 2 or case 4, or a bf16 prefill row, off
+   the ``mma`` path fails.
 4. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
    seed), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
@@ -37,13 +43,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    impl="fused" on an nf4 and on an int8 base. Step 1's per-adapter loss and
    every LoRA gradient are held against the plain path on the same weights
    and batch; then 4 steps run with the launch counts zeroed just before and
-   read just after (forward and backward counts must both move). One nf4
-   step then runs under ``torch.profiler``.
+   read just after (forward and backward counts must both move). One auto
+   step and one nf4 step then run under ``torch.profiler``; the auto step's
+   record carries ``packed_matmul``'s share of its device time.
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
 ``smoke_out/`` (``chip_smoke.json``, ``profile_<impl>.txt``,
-``profile_train_nf4.txt``, the nvcc logs with ``ptxas -v``).
+``profile_train_auto.txt``, ``profile_train_nf4.txt``, the nvcc logs with
+``ptxas -v``).
 """
 from __future__ import annotations
 
@@ -138,6 +146,52 @@ def time_ms(torch, fn, arg_sets, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, arg_sets, iters: int = 20, reps: int = 3) -> float:
+    """Device ms per call with the host out of the loop: ``iters`` calls
+    (cycling through ``arg_sets``) captured into one CUDA graph, whose
+    replay is timed with CUDA events (mean over ``reps`` replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        for args in arg_sets[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def host_us(torch, fn, arg_sets, iters: int = 50, rounds: int = 3) -> float:
+    """Host µs per call: ``time.perf_counter`` over ``iters`` calls that do
+    not synchronise, after a warm-up (the device catches up after each
+    round); the least of ``rounds`` rounds, so a stall of the shared host
+    in one round does not count."""
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e6 * best / iters
+
+
 def copies_for(nbytes: int) -> int:
     return max(1, min(32, math.ceil(100e6 / max(nbytes, 1))))
 
@@ -155,11 +209,46 @@ def nbytes(*ts) -> int:
 # kernel phase
 # ---------------------------------------------------------------------------
 
+# (case, call) of the packed_matmul rows that must take the tensor-core
+# ("mma") path in bf16: the training calls of the N-D delta and prefill.
+MMA_ROWS = {("train", c) for c in ("xA", "xAB", "bwd2_dxA", "bwd4_dx")} | {
+    ("prefill", "xA"), ("prefill", "xAB")}
+
+
+def packed_calls(rnd, dtype, n, m, d_in, d_out, r, scale, backward_cases=False):
+    """``packed_matmul``'s uses at one projection shape, as (call, args_fn,
+    flops, backward): the forward's xA and (xA)B and, with
+    ``backward_cases``, the four backward cases on transposed views (read in
+    place)."""
+    calls = [
+        ("xA", lambda: (rnd((n, m, d_in), dtype), rnd((n, d_in, r), dtype, d_in ** -0.5)),
+         2 * n * m * d_in * r, False),
+        ("xAB", lambda: (rnd((n, m, r), dtype), rnd((n, r, d_out), dtype), scale),
+         2 * n * m * r * d_out, False),
+    ]
+    if backward_cases:
+        calls += [
+            # case 1: dB = (xA)^T @ g_s   (N, r, d_out), contracting over tokens
+            ("bwd1_dB", lambda: (rnd((n, m, r), dtype).transpose(1, 2), rnd((n, m, d_out), dtype)),
+             2 * n * r * m * d_out, True),
+            # case 2: d(xA) = g_s @ B^T   (N, T, r)
+            ("bwd2_dxA", lambda: (rnd((n, m, d_out), dtype), rnd((n, r, d_out), dtype).transpose(1, 2)),
+             2 * n * m * d_out * r, True),
+            # case 3: dA = x^T @ d(xA)    (N, d_in, r), contracting over tokens
+            ("bwd3_dA", lambda: (rnd((n, m, d_in), dtype).transpose(1, 2), rnd((n, m, r), dtype)),
+             2 * n * d_in * m * r, True),
+            # case 4: dx = d(xA) @ A^T    (N, T, d_in), contracting over the rank
+            ("bwd4_dx", lambda: (rnd((n, m, r), dtype), rnd((n, d_in, r), dtype, d_in ** -0.5).transpose(1, 2)),
+             2 * n * m * r * d_in, True),
+        ]
+    return calls
+
+
 
 def kernel_phase(torch, dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused import fused_matmul, fused_matmul_path
-    from repro_torch.kernels.packed_matmul import packed_matmul
+    from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_path
     from repro_torch.kernels.ref import fused_matmul_ref, packed_matmul_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -170,7 +259,7 @@ def kernel_phase(torch, dev):
     rows = []
 
     def check(name, case, call, d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
-              library, exact=None, path_fn=None):
+              library, exact=None, path_fn=None, split_times=False):
         args = args_fn()
         path = path_fn(*args) if path_fn is not None else None
         got = kfn(*args)
@@ -198,12 +287,19 @@ def kernel_phase(torch, dev):
                "flops": flops}
         if path is not None:
             row["path"] = path
+        if split_times:  # device time with the host out of the loop, and host time
+            row.update(device_ms=device_ms(torch, kfn, sets),
+                       library_device_ms=device_ms(torch, lfn, sets),
+                       host_us=host_us(torch, kfn, sets), library_host_us=host_us(torch, lfn, sets))
         emit(row)
         rows.append(row)
         del sets, args, got, want
 
     def lib_bmm(x, w, s=None):
         return torch.bmm(x, w)
+
+    def packed_bwd(x, w):
+        return packed_matmul(x, w, backward=True)
 
     def lib_fused(x, w, a, b, s):
         return torch.baddbmm(torch.matmul(x, w), torch.bmm(x, a) * s.view(-1, 1, 1).to(x.dtype), b)
@@ -220,18 +316,19 @@ def kernel_phase(torch, dev):
               2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out), FUSED3,
               path_fn=lambda x, w, a, b, s: fused_matmul_path(x, w, a.shape[2]))
 
+    def packed_rows(case, n, m, d_in, d_out, dtype, scale, backward_cases=False):
+        for call, args_fn, flops, bwd in packed_calls(rnd, dtype, n, m, d_in, d_out, RANK, scale,
+                                                      backward_cases):
+            check("packed_matmul", case, call, d_in, d_out, dtype,
+                  packed_bwd if bwd else packed_matmul, packed_matmul_ref, lib_bmm, args_fn, flops,
+                  BMM + (" on the transposed views" if bwd else ""),
+                  path_fn=lambda x, w, s=None: packed_matmul_path(x, w), split_times=True)
+
     for dtype in (torch.bfloat16, torch.float32):
         for case, (n, m) in CASES.items():
             for (d_in, d_out), _ in PROJ:
                 scale = torch.linspace(0.5, 2.0, n, device=dev)
-                check("packed_matmul", case, "xA", d_in, d_out, dtype,
-                      packed_matmul, packed_matmul_ref, lib_bmm,
-                      lambda: (rnd((n, m, d_in), dtype), rnd((n, d_in, RANK), dtype, d_in ** -0.5)),
-                      2 * n * m * d_in * RANK, BMM)
-                check("packed_matmul", case, "xAB", d_in, d_out, dtype,
-                      packed_matmul, packed_matmul_ref, lib_bmm,
-                      lambda: (rnd((n, m, RANK), dtype), rnd((n, RANK, d_out), dtype), scale),
-                      2 * n * m * RANK * d_out, BMM)
+                packed_rows(case, n, m, d_in, d_out, dtype, scale)
                 fused_rows(case, n, m, d_in, d_out, dtype, scale)
         # a ragged pack: ranks (8, 16) padded to a bucket of 16
         ranks = (8, 16)
@@ -251,16 +348,21 @@ def kernel_phase(torch, dev):
                 fail(f"ragged {name} {dtype}: max_abs_err {err} > {tol}")
             emit({"phase": "ragged", "op": name, "ranks": list(ranks),
                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol})
-        train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows)
+        train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, packed_rows)
     off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
-           if r["case"] == "train" and r["dtype"] == "bfloat16" and "path" in r
+           if r["case"] == "train" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
            and r["path"] != "wgmma"]
     if off:
         fail(f"training-shape fused rows off the wgmma path: {off}")
+    off = [(r["case"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
+           if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16"
+           and (r["case"], r["call"]) in MMA_ROWS and r["path"] != "mma"]
+    if off:
+        fail(f"bf16 training or prefill packed_matmul rows off the mma path: {off}")
     return rows
 
 
-def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows):
+def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, packed_rows):
     """Every kernel use of the training step at its shapes: N=2 adapters,
     M=1024 tokens each, r=16. The backward cases pass transposed views,
     which the kernels read in place; the library yardstick is ``torch.bmm``
@@ -271,19 +373,12 @@ def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows):
         fused_matmul_q,
         fused_matmul_q_path,
     )
-    from repro_torch.kernels.packed_matmul import packed_matmul
     from repro_torch.kernels.quant import dequantize, quantize_weight
-    from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
+    from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref
 
     n, m = TRAIN_CASE
     r = RANK
     scale = torch.linspace(0.5, 2.0, n, device=dev)
-
-    def bwd(x, w):
-        return packed_matmul(x, w, backward=True)
-
-    def lib_bmm(x, w, s=None):
-        return torch.bmm(x, w)
 
     def lib_dx(g, wt, bt, at, s):
         return torch.baddbmm(torch.matmul(g, wt), torch.bmm(g, bt) * s.view(-1, 1, 1).to(g.dtype), at)
@@ -296,31 +391,7 @@ def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows):
         return fused_matmul(x, dequantize({"codes": codes, "scales": scales}, x.dtype), a, b, s)
 
     for (d_in, d_out), _ in PROJ:
-        check("packed_matmul", "train", "xA", d_in, d_out, dtype, packed_matmul,
-              packed_matmul_ref, lib_bmm,
-              lambda: (rnd((n, m, d_in), dtype), rnd((n, d_in, r), dtype, d_in ** -0.5)),
-              2 * n * m * d_in * r, "torch.bmm")
-        check("packed_matmul", "train", "xAB", d_in, d_out, dtype, packed_matmul,
-              packed_matmul_ref, lib_bmm,
-              lambda: (rnd((n, m, r), dtype), rnd((n, r, d_out), dtype), scale),
-              2 * n * m * r * d_out, "torch.bmm")
-        cases = {
-            # case 1: dB = (xA)^T @ g_s   (N, r, d_out), contracting over tokens
-            "bwd1_dB": (lambda: (rnd((n, m, r), dtype).transpose(1, 2), rnd((n, m, d_out), dtype)),
-                        2 * n * r * m * d_out),
-            # case 2: d(xA) = g_s @ B^T   (N, T, r)
-            "bwd2_dxA": (lambda: (rnd((n, m, d_out), dtype), rnd((n, r, d_out), dtype).transpose(1, 2)),
-                         2 * n * m * d_out * r),
-            # case 3: dA = x^T @ d(xA)    (N, d_in, r), contracting over tokens
-            "bwd3_dA": (lambda: (rnd((n, m, d_in), dtype).transpose(1, 2), rnd((n, m, r), dtype)),
-                        2 * n * d_in * m * r),
-            # case 4: dx = d(xA) @ A^T    (N, T, d_in), contracting over the rank
-            "bwd4_dx": (lambda: (rnd((n, m, r), dtype), rnd((n, d_in, r), dtype, d_in ** -0.5).transpose(1, 2)),
-                        2 * n * m * r * d_in),
-        }
-        for call, (args_fn, flops) in cases.items():
-            check("packed_matmul", "train", call, d_in, d_out, dtype, bwd, packed_matmul_ref,
-                  lib_bmm, args_fn, flops, "torch.bmm on the transposed views")
+        packed_rows("train", n, m, d_in, d_out, dtype, scale, backward_cases=True)
         fused_rows("train", n, m, d_in, d_out, dtype, scale)
         # dx = g @ W^T + s * (g @ B^T) @ A^T: W^T a view of the (d_in, d_out) W
         check("fused_matmul", "train", "dx", d_in, d_out, dtype,
@@ -650,27 +721,33 @@ def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales):
     }
 
 
-def train_phase(torch, dev, base, out_dir: Path):
-    """4 steps of ``make_packed_step`` per run of TRAIN_RUNS on the dense
-    bf16 base ``base`` (quantized per run); returns the launch counts of
-    each run's 4 steps."""
+def train_setup(torch, dev):
+    """The train phase's model config, pack, initial LoRA tree and
+    TRAIN_STEPS batches, all from seeds."""
     from repro_torch.configs import LoraConfig, get_config
     from repro_torch.core.adapter import pack_meta
-    from repro_torch.kernels.quant import quantize_base_params
     from repro_torch.train.data import packed_batch_iterator
-    from repro_torch.train.optimizer import init_opt_state
-    from repro_torch.train.trainer import make_packed_step
-    from repro_torch.tree import tree_leaves
 
     cfg = get_config("qwen25-7b")
     configs = [LoraConfig(rank=r, alpha=2.0 * r, learning_rate=lr, batch_size=b, seq_len=TRAIN_SEQ)
                for r, lr, b in zip(TRAIN_RANKS, TRAIN_LRS, TRAIN_BATCH)]
     meta = pack_meta(configs)
+    batches = packed_batch_iterator(cfg, configs, seq=TRAIN_SEQ, seed=SEED, device=dev)
+    return cfg, meta, train_lora(torch, cfg, meta, dev), [next(batches) for _ in range(TRAIN_STEPS)]
+
+
+def train_phase(torch, dev, base, out_dir: Path):
+    """4 steps of ``make_packed_step`` per run of TRAIN_RUNS on the dense
+    bf16 base ``base`` (quantized per run); returns the launch counts of
+    each run's 4 steps."""
+    from repro_torch.kernels.quant import quantize_base_params
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import make_packed_step
+    from repro_torch.tree import tree_leaves
+
+    cfg, meta, lora0, batches = train_setup(torch, dev)
     scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
     nb = meta.n * max(TRAIN_BATCH)
-    lora0 = train_lora(torch, cfg, meta, dev)
-    batches = packed_batch_iterator(cfg, configs, seq=TRAIN_SEQ, seed=SEED, device=dev)
-    batches = [next(batches) for _ in range(TRAIN_STEPS)]
     emit({"phase": "train_setup", "model": cfg.name, "n_layers": cfg.n_layers, "ranks": list(meta.ranks),
           "alphas": list(meta.alphas), "lrs": list(meta.learning_rates), "batch_sizes": list(TRAIN_BATCH),
           "seq": TRAIN_SEQ, "rows": nb, "tokens_per_step": nb * TRAIN_SEQ,
@@ -723,28 +800,46 @@ def train_phase(torch, dev, base, out_dir: Path):
         for need in NEEDED[(impl, quant)]:
             if counts[need] == 0:
                 fail(f"impl={key}: the {need} launch count stayed at 0 over {TRAIN_STEPS} steps")
-        if quant == "nf4":
-            profile_train(torch, cfg, qbase, lora, opt, step, batches[0], meta, out_dir)
+        if quant == "nf4" or impl == "auto":
+            profile_train(torch, step, qbase, lora, opt, batches[0], meta, out_dir, impl, quant)
         del qbase, lora, opt, step
         torch.cuda.empty_cache()
     return launches
 
 
-def profile_train(torch, cfg, base, lora, opt, step, batch, meta, out_dir: Path):
-    """One impl="fused" step on the nf4 base under ``torch.profiler``: the
-    device busy share and the top device operations; the table goes to
-    ``smoke_out/profile_train_nf4.txt``."""
+def is_packed_kernel(name: str) -> bool:
+    """A device kernel of ``packed_matmul`` (``csrc/packed_matmul.cu``: its
+    products in namespace ``plora`` and its split-K reduction). Under
+    impl="auto" no other kernel of the port runs in a train step."""
+    return "plora::" in name or name.startswith("void reduce_kernel<")
+
+
+def profile_train(torch, step, base, lora, opt, batch, meta, out_dir: Path, impl: str, quant):
+    """One step under ``torch.profiler``: the device busy share, the top
+    device operations and, under impl="auto", ``packed_matmul``'s share of
+    the device time; the table goes to
+    ``smoke_out/profile_train_<quant or impl>.txt``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    scales, lr_vec = meta.scales(base["embed"]["w"].device), meta.lr_vector(base["embed"]["w"].device)
+    dev = base["embed"]["w"].device
+    scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(base, lora, opt, batch, scales, lr_vec, None)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    emit({"phase": "train_profile", "impl": "fused", "quant": "nf4",
-          **read_profile(prof, wall_ms, out_dir / "profile_train_nf4.txt")})
+    res = read_profile(prof, wall_ms, out_dir / f"profile_train_{quant or impl}.txt")
+    if impl == "auto":
+        packed = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation and is_packed_kernel(e.key)]
+        res["packed_matmul_device_ms"] = sum(e.self_device_time_total for e in packed) / 1e3
+        res["packed_matmul_launches"] = sum(e.count for e in packed)
+        res["packed_matmul_device_share"] = res["packed_matmul_device_ms"] / res["device_ms"]
+    row = {"phase": "train_profile", "impl": impl, "quant": quant, **res}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -802,7 +897,9 @@ def summarize(rows, launches):
     """One entry per kernel and use: its bf16 times summed over one decoder
     layer's projections (weighted by their count per layer) -- of a decode
     step for the serve entries, of a training step's calls at N=2, M=1024,
-    r=16 for the train ones -- and its launches in its path's run."""
+    r=16 for the train ones -- and its launches in its path's run. For
+    ``packed_matmul``'s uses it also emits the layer sums of its device and
+    host times (a ``layer_sums`` record)."""
     mult = {shape: k for shape, k in PROJ}
     out = []
     for entry, kernel, calls, case, source, replaces, (path, run, count) in USES:
@@ -810,6 +907,11 @@ def summarize(rows, launches):
                and r["call"] in calls and r["dtype"] == "bfloat16"]
         tot = {k: sum(mult[(r["d_in"], r["d_out"])] * r[k] for r in sel)
                for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+        if kernel == "packed_matmul":  # the same layer sums with the host out of the loop
+            emit({"phase": "layer_sums", "use": entry, "ms": tot["ms"],
+                  "library_ms": tot["library_ms"],
+                  **{k: sum(mult[(r["d_in"], r["d_out"])] * r[k] for r in sel)
+                     for k in ("device_ms", "library_device_ms", "host_us", "library_host_us")}})
         b_ms, b_by, _, _ = bound(tot["bytes"], tot["flops"], "bfloat16")
         out.append({"name": entry, "route": "cuda", "source": CSRC + source, "replaces": replaces,
                     "launches": launches[path][run][count],

@@ -29,8 +29,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source -> its C functions: (return type, argument types)
 SIGNATURES = {
     "packed_matmul": {
-        "plora_packed_matmul_workspace": (_LL, [_I] * 4),
-        "plora_packed_matmul": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+        "plora_packed_matmul_path": (_I, [_I] * 8),
+        "plora_packed_matmul_workspace": (_LL, [_I] * 8),
+        "plora_packed_matmul": (_I, [ctypes.c_char_p]),  # one block of 13 int64
     },
     "fused": {
         "plora_fused_matmul_path": (_I, [_P] * 2 + [_I] * 6),

@@ -21,21 +21,35 @@
 // once and produce r columns (~2r/elt FLOP per byte: bytes-bound); cases 1
 // and 3 contract over the T tokens.
 //
-// Design: the adapter is the grid's z axis and each block owns a BM x BN
-// output tile of one adapter, looping over K inside the block (the TPU's
-// sequential K grid axis becomes that loop). Tiles are staged through
-// registers into shared memory as f32 (the next step's loads in flight
-// while the current step is multiplied) and multiplied with plain FMA; a
-// transposed operand is staged with its adjacent index across neighbouring
-// threads, so its loads stay coalesced. No padding of K, L or the rank to
-// 128 lanes: every edge is masked, so M = 1 (decode) is as right as a tile
-// multiple. A call with a long K and few output tiles (xA, dB, dA) splits K
-// across blocks (tile.cuh: SplitK): each range writes f32 partial sums and a
-// second kernel adds them in a fixed order, then scales and casts once --
-// the rounding stays the TPU kernel's, and the result is deterministic.
-// Known cost, left for later work: no tensor cores, scalar loads, and a
-// 64-column tile that is three quarters idle when the output is r = 16
-// wide (cases 2 and 3).
+// Two paths, chosen by one plan (skinny.cuh's skinny_plan) that reads only
+// shapes, dtype, layouts and alignment:
+//
+// "mma" -- bf16 calls with more than 16 rows per adapter (training and
+// prefill), every leading dimension a multiple of 8 elements and x, w, out
+// 16-byte aligned, where L or K is at most 128 (a rank): the tensor-core
+// kernels of skinny.cuh. Narrow output (xA, case 2, case 3: L = r) splits
+// the long K across the blocks of a cluster, which add their f32 partial
+// sums in a fixed order through distributed shared memory; short K (xA @
+// B, case 4: K = r) writes wide tiles through 16-byte stores. Operands
+// arrive by cp.async into a ring of shared-memory stages and are
+// multiplied by mma.sync. One launch per call, no workspace.
+//
+// "fma" -- everything else (decode's few rows, f32, ranks not a multiple of
+// 8, case 1 whose rows are the rank): the adapter is the grid's z axis and
+// each block owns a BM x BN output tile of one adapter, looping over K
+// inside the block (the TPU's sequential K grid axis becomes that loop).
+// Tiles are staged through registers into shared memory as f32 (the next
+// step's loads in flight while the current step is multiplied) and
+// multiplied with plain FMA; a transposed operand is staged with its
+// adjacent index across neighbouring threads, so its loads stay coalesced.
+// No padding of K, L or the rank to 128 lanes: every edge is masked, so
+// M = 1 (decode) is as right as a tile multiple. A call with a long K and
+// few output tiles splits K across blocks (tile.cuh: SplitK): each range
+// writes f32 partial sums, which reduce_kernel below adds in a fixed order.
+//
+// Either way the rounding stays the TPU kernel's (f32 sums, f32 scale, one
+// cast) and the result is deterministic, bit for bit from call to call.
+#include "skinny.cuh"
 #include "tile.cuh"
 
 using namespace plora;
@@ -54,6 +68,8 @@ __global__ void reduce_kernel(const float* __restrict__ part, const float* __res
   }
 }
 
+// --- "fma": tile.cuh's FMA kernel --------------------------------------------
+
 template <typename T, bool TX, bool TW>
 static void launch_tr(const void* x, const void* w, const float* scale, void* out, float* part,
                       int n, int m, int k, int l, cudaStream_t stream) {
@@ -63,11 +79,12 @@ static void launch_tr(const void* x, const void* w, const float* scale, void* ou
 }
 
 template <typename T>
-static int launch(const void* x, const void* w, const float* scale, void* out, float* part,
-                  int n, int m, int k, int l, bool trans_x, bool trans_w, cudaStream_t stream) {
+static int launch_fma(const void* x, const void* w, const float* scale, void* out, float* part,
+                      int n, int m, int k, int l, bool trans_x, bool trans_w, cudaStream_t stream) {
   const SplitK sk = gemm_plan_for(n, m, k, l);
   if (sk.splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
   if ((long long)n * sk.splits > 65535) return (int)cudaErrorInvalidValue;
+  if ((m + ThinTile::BM - 1) / ThinTile::BM > 65535) return (int)cudaErrorInvalidValue;
   float* p = sk.splits > 1 ? part : nullptr;
   if (trans_x && trans_w)
     launch_tr<T, true, true>(x, w, scale, out, p, n, m, k, l, stream);
@@ -86,26 +103,142 @@ static int launch(const void* x, const void* w, const float* scale, void* out, f
   return (int)cudaGetLastError();
 }
 
-// The f32 workspace (elements) a call of these sizes needs: the partial
-// sums of its K ranges, or 0 when K is not split.
-extern "C" long long plora_packed_matmul_workspace(int n, int m, int k, int l) {
+// --- "mma": skinny.cuh's tensor-core kernels ------------------------------------
+
+template <int BL, bool TX, bool TW>
+static cudaError_t launch_narrow(const bf16* x, const bf16* w, const float* scale, bf16* out,
+                                 int n, int m, int k, int l, const SkinnyPlan& p,
+                                 cudaStream_t stream) {
+  using C = Narrow<BL, TX, TW>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      narrow_kernel<BL, TX, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  (void)attr;
+  // the K ranges of one row tile form one cluster (1 x 1 x splits)
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = p.splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((m + NW_BM - 1) / NW_BM, n, p.splits);
+  cfg.blockDim = dim3(NW_THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, narrow_kernel<BL, TX, TW>, x, w, scale, out, m, k, l, p.steps);
+}
+
+template <int RK, bool TX, bool TW>
+static void launch_short_k(const bf16* x, const bf16* w, const float* scale, bf16* out, int n,
+                           int m, int k, int l, cudaStream_t stream) {
+  using C = ShortK<RK, TX, TW>;
+  // resident blocks per SM at this kernel's registers and shared memory
+  static const int per_sm = [] {
+    cudaFuncSetAttribute(short_k_kernel<RK, TX, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         C::SMEM);
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, short_k_kernel<RK, TX, TW>, SK_THREADS,
+                                                  C::SMEM);
+    return b > 0 ? b : 1;
+  }();
+  // one wave of resident blocks, each walking a run of column tiles
+  const int rows = (m + SK_BM - 1) / SK_BM, tiles = (l + SK_BN - 1) / SK_BN;
+  const long long target = (long long)SMS * per_sm;
+  const long long total = (long long)n * rows * tiles;
+  int tpb = (int)((total + target - 1) / target);
+  tpb = tpb < tiles ? tpb : tiles;
+  const dim3 grid((tiles + tpb - 1) / tpb, rows, n);
+  short_k_kernel<RK, TX, TW><<<grid, SK_THREADS, C::SMEM, stream>>>(x, w, scale, out, m, k, l, tpb);
+}
+
+template <bool TX, bool TW>
+static cudaError_t launch_mma_tr(const bf16* x, const bf16* w, const float* scale, bf16* out,
+                                 int n, int m, int k, int l, const SkinnyPlan& p,
+                                 cudaStream_t st) {
+  if (p.cls == CLASS_NARROW) {
+    switch (p.width) {
+      case 16: return launch_narrow<16, TX, TW>(x, w, scale, out, n, m, k, l, p, st);
+      case 32: return launch_narrow<32, TX, TW>(x, w, scale, out, n, m, k, l, p, st);
+      case 64: return launch_narrow<64, TX, TW>(x, w, scale, out, n, m, k, l, p, st);
+      default: return launch_narrow<128, TX, TW>(x, w, scale, out, n, m, k, l, p, st);
+    }
+  }
+  switch (p.width) {
+    case 16: launch_short_k<16, TX, TW>(x, w, scale, out, n, m, k, l, st); break;
+    case 32: launch_short_k<32, TX, TW>(x, w, scale, out, n, m, k, l, st); break;
+    case 64: launch_short_k<64, TX, TW>(x, w, scale, out, n, m, k, l, st); break;
+    default: launch_short_k<128, TX, TW>(x, w, scale, out, n, m, k, l, st); break;
+  }
+  return cudaSuccess;
+}
+
+static int launch_mma(const void* x, const void* w, const float* scale, void* out, int n, int m,
+                      int k, int l, bool tx, bool tw, const SkinnyPlan& p, cudaStream_t st) {
+  const long long rows = p.cls == CLASS_NARROW ? n : (m + SK_BM - 1) / SK_BM;
+  if (rows > 65535 || (p.cls != CLASS_NARROW && n > 65535)) return (int)cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  cudaError_t err;
+  if (tx && tw)
+    err = launch_mma_tr<true, true>(xb, wb, scale, ob, n, m, k, l, p, st);
+  else if (tx)
+    err = launch_mma_tr<true, false>(xb, wb, scale, ob, n, m, k, l, p, st);
+  else if (tw)
+    err = launch_mma_tr<false, true>(xb, wb, scale, ob, n, m, k, l, p, st);
+  else
+    err = launch_mma_tr<false, false>(xb, wb, scale, ob, n, m, k, l, p, st);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+static bool aligned16(const void* x, const void* w, const void* out) {
+  return (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15) == 0;
+}
+
+// --- C interface -------------------------------------------------------------
+// dtype: 0 = float32, 1 = bfloat16; trans_x / trans_w: 1 when that operand is
+// stored transposed (see the top of this file); aligned: 1 when x, w and
+// out all start on 16 bytes (what the launch finds from its pointers).
+
+// The path the plan gives a call: 0 "fma", 1 "mma".
+extern "C" int plora_packed_matmul_path(int n, int m, int k, int l, int dtype, int trans_x,
+                                        int trans_w, int aligned) {
+  return skinny_plan(n, m, k, l, dtype, trans_x != 0, trans_w != 0, aligned != 0).path;
+}
+
+// The f32 workspace (elements) a call needs: the partial sums of the FMA
+// path's K ranges, or 0 (K not split, or the "mma" path: its clusters add
+// their partial sums in shared memory).
+extern "C" long long plora_packed_matmul_workspace(int n, int m, int k, int l, int dtype,
+                                                   int trans_x, int trans_w, int aligned) {
+  const SkinnyPlan p = skinny_plan(n, m, k, l, dtype, trans_x != 0, trans_w != 0, aligned != 0);
+  if (p.path == PATH_MMA) return 0;
   const SplitK sk = gemm_plan_for(n, m, k, l);
   return sk.splits > 1 ? (long long)sk.splits * n * m * l : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16; trans_x / trans_w: 1 when that
-// operand is stored transposed (see the top of this file). Returns
-// cudaGetLastError() after the launches (0 on success); they are
+// One call: its arguments come as one block of 13 int64 -- x, w, scale, out,
+// workspace (addresses; 0 for no scale or no workspace), n, m, k, l, dtype,
+// trans_x, trans_w, stream -- because ctypes converts each argument of a
+// call on the host, and 13 of them cost about as much as the launch.
+// Returns cudaGetLastError() after the launches (0 on success); they are
 // asynchronous on `stream`.
-extern "C" int plora_packed_matmul(const void* x, const void* w, const float* scale, void* out,
-                                   float* workspace, int n, int m, int k, int l, int dtype,
-                                   int trans_x, int trans_w, void* stream) {
+extern "C" int plora_packed_matmul(const long long* a) {
+  const void* x = reinterpret_cast<const void*>(a[0]);
+  const void* w = reinterpret_cast<const void*>(a[1]);
+  const float* scale = reinterpret_cast<const float*>(a[2]);
+  void* out = reinterpret_cast<void*>(a[3]);
+  float* workspace = reinterpret_cast<float*>(a[4]);
+  const int n = (int)a[5], m = (int)a[6], k = (int)a[7], l = (int)a[8], dtype = (int)a[9];
+  const bool tx = a[10] != 0, tw = a[11] != 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(a[12]);
   if (n <= 0 || m <= 0 || k <= 0 || l <= 0) return (int)cudaErrorInvalidValue;
-  if ((m + ThinTile::BM - 1) / ThinTile::BM > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool tx = trans_x != 0, tw = trans_w != 0;
-  if (dtype == 0) return launch<float>(x, w, scale, out, workspace, n, m, k, l, tx, tw, st);
+  const SkinnyPlan p = skinny_plan(n, m, k, l, dtype, tx, tw, aligned16(x, w, out));
+  if (p.path == PATH_MMA) return launch_mma(x, w, scale, out, n, m, k, l, tx, tw, p, st);
+  if (dtype == 0) return launch_fma<float>(x, w, scale, out, workspace, n, m, k, l, tx, tw, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, scale, out, workspace, n, m, k, l, tx, tw, st);
+    return launch_fma<__nv_bfloat16>(x, w, scale, out, workspace, n, m, k, l, tx, tw, st);
   return (int)cudaErrorInvalidValue;
 }

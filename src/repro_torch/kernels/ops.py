@@ -126,12 +126,12 @@ def grouped_matmul(x, w, scale=None, *, impl: Optional[str] = None, backward: bo
     (N, ..., K); they are flattened around the 3-D kernel. x and w may be
     transposed views of contiguous tensors (the kernel reads them in
     place). ``backward`` counts a launch as a backward case."""
-    lead = x.shape[1:-1]
-    if _resolve(impl) in ("plain", "fused_plain"):
+    if impl != "pallas" and _resolve(impl) in ("plain", "fused_plain"):
         return _ref.packed_matmul_ref(x, w, scale)
-    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-    out = packed_matmul(x3, w, scale, backward=backward)
-    return out.reshape(x.shape[0], *lead, w.shape[-1])
+    if x.dim() == 3:
+        return packed_matmul(x, w, scale, backward=backward)
+    out = packed_matmul(x.reshape(x.shape[0], -1, x.shape[-1]), w, scale, backward=backward)
+    return out.view(*x.shape[:-1], w.shape[-1])
 
 
 def _bcast(alpha: torch.Tensor, ndim: int) -> torch.Tensor:

@@ -12,9 +12,16 @@ x and w may each be a transposed view of a contiguous tensor (``t.transpose(1,
 The wrapper builds no autograd graph, so on CUDA it refuses inputs that
 require grad while grad mode is on; ``kernels/ops.py``'s autograd Functions
 call it from their forward and backward, where grad mode is off.
+
+``packed_matmul_path(x, w)`` names the path the kernel's plan takes for a
+call: "mma" (tensor cores, bf16 training and prefill shapes) or "fma".
+The plan and its workspace size are asked once per shape and cached, so a
+launch is one ctypes call, whose arguments go as one packed block.
 """
 from __future__ import annotations
 
+import functools
+import struct
 from typing import Optional
 
 import torch
@@ -41,10 +48,25 @@ def layout(t: torch.Tensor, name: str, shape, dtype, device) -> bool:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
+    return bool(_transposed(t, name))
+
+
+def _transposed(t: torch.Tensor, name: str) -> int:
+    """0 when ``t`` (2-D or more) is contiguous, 1 when it is the transpose
+    of its last two dims of a contiguous tensor (the kernels read both in
+    place); raise otherwise. The strides say it without building a view,
+    dims of size 1 ignored, as ``is_contiguous`` does."""
     if t.is_contiguous():
-        return False
-    if t.transpose(-1, -2).is_contiguous():
-        return True
+        return 0
+    *lead, a, b = t.shape
+    *lead_strides, s1, s2 = t.stride()
+    ok = (a == 1 or s1 == 1) and (b == 1 or s2 == a)
+    expect = a * b
+    for size, stride in zip(reversed(lead), reversed(lead_strides)):
+        ok = ok and (size == 1 or stride == expect)
+        expect *= size
+    if ok:
+        return 1
     raise ValueError(f"{name}: must be contiguous (or the transpose of a contiguous tensor)")
 
 
@@ -76,6 +98,59 @@ def scale_ptr(scale: Optional[torch.Tensor], n: int, device) -> Optional[int]:
     return scale.data_ptr()
 
 
+PATHS = ("fma", "mma")  # PATH_FMA, PATH_MMA of csrc/skinny.cuh
+# plora_packed_matmul's one argument: a block of 13 int64 (csrc/packed_matmul.cu)
+_ARGS = struct.Struct("<13q")
+_lib = _launch = None  # the library and its launch function, once loaded
+
+
+def _library():
+    global _lib, _launch
+    if _lib is None:
+        _lib = _build.load("packed_matmul")
+        _launch = _lib.plora_packed_matmul
+    return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n: int, m: int, k: int, l: int, code: int, tx: int, tw: int, aligned: int):
+    """(path, f32 workspace elements) of a call, from ``csrc/skinny.cuh``'s
+    plan -- the one the launch reads. It reads only these sizes, the
+    dtype, the layouts and the 16-byte alignment of x and w (the output is
+    a fresh, aligned allocation), so it is asked once per shape."""
+    lib = _library()
+    return (lib.plora_packed_matmul_path(n, m, k, l, code, tx, tw, aligned),
+            lib.plora_packed_matmul_workspace(n, m, k, l, code, tx, tw, aligned))
+
+
+def _key(x: torch.Tensor, w: torch.Tensor, dev: int, name: str):
+    """The plan's inputs for x (N, M, K) and w (N, K, L) on CUDA device
+    ``dev``, after the checks that refuse what the kernel does not take."""
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)} must be 3-D")
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported")
+    n, m, k = x.shape
+    nw, kw, l = w.shape
+    if nw != n or kw != k:
+        raise ValueError(f"w: shape {tuple(w.shape)}, expected {(n, k, l)}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"w: dtype {w.dtype}, expected {x.dtype}")
+    if w.get_device() != dev:
+        raise ValueError(f"w: on {w.device}, expected {x.device}")
+    aligned = int((x.data_ptr() | w.data_ptr()) % 16 == 0)
+    return n, m, k, l, code, _transposed(x, "x"), _transposed(w, "w"), aligned
+
+
+def _device(x: torch.Tensor, name: str) -> int:
+    """x's CUDA device index; raise unless it is the current device."""
+    dev = x.get_device()
+    if dev < 0 or dev != torch.cuda.current_device():
+        check_cuda(name, x)  # raises, naming the device
+    return dev
+
+
 def packed_matmul(
     x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor] = None, *,
     backward: bool = False,
@@ -86,32 +161,32 @@ def packed_matmul(
     contiguous tensor; scale: (N,) f32 or None; bf16 or f32. ``backward``
     marks a launch for a backward case: it is counted in
     ``packed_matmul.bwd_launches`` instead of ``packed_matmul.launches``."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return packed_matmul_ref(x, w, scale)
-    check_cuda("packed_matmul", x)
-    check_no_graph("packed_matmul", x, w, scale)
-    if x.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"packed_matmul: x {tuple(x.shape)}, w {tuple(w.shape)} must be 3-D")
-    if x.dtype not in DTYPE_CODES:
-        raise TypeError(f"packed_matmul: dtype {x.dtype} not supported")
-    n, m, k = x.shape
-    l = w.shape[2]
-    trans_x = layout(x, "x", (n, m, k), x.dtype, x.device)
-    trans_w = layout(w, "w", (n, k, l), x.dtype, x.device)
-    s = scale_ptr(scale, n, x.device)
-    out = torch.empty((n, m, l), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    dev = _device(x, "packed_matmul")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or (scale is not None and scale.requires_grad)):
+        check_no_graph("packed_matmul", x, w, scale)  # raises
+    n, m, k, l, code, tx, tw, aligned = _key(x, w, dev, "packed_matmul")
+    s = 0
+    if scale is not None:
+        if scale.dtype != torch.float32 or scale.shape != (n,) or scale.get_device() != dev \
+                or not scale.is_contiguous():
+            check_operand(scale, "scale", (n,), torch.float32, x.device)  # raises, saying why
+        s = scale.data_ptr()
+    out = torch.empty((n, m, l), dtype=x.dtype, device=dev)
+    if n * m * l == 0:
         return out
-    lib = _build.load("packed_matmul")
-    n_ws = lib.plora_packed_matmul_workspace(n, m, k, l)
-    # f32 partial sums of a split K loop (see csrc/tile.cuh)
-    ws = torch.empty((n_ws,), dtype=torch.float32, device=x.device) if n_ws else None
-    rc = lib.plora_packed_matmul(
-        x.data_ptr(), w.data_ptr(), s, out.data_ptr(), ws.data_ptr() if ws is not None else None,
-        n, m, k, l, DTYPE_CODES[x.dtype], int(trans_x), int(trans_w),
-        torch.cuda.current_stream().cuda_stream,
-    )
-    _build.check(lib, rc, "packed_matmul")
+    _, n_ws = _plan(n, m, k, l, code, tx, tw, aligned)
+    # f32 partial sums of the FMA path's split K loop (csrc/tile.cuh)
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=dev) if n_ws else None
+    rc = (_launch or _library().plora_packed_matmul)(_ARGS.pack(
+        x.data_ptr(), w.data_ptr(), s, out.data_ptr(), ws.data_ptr() if n_ws else 0,
+        n, m, k, l, code, tx, tw,
+        torch._C._cuda_getCurrentRawStream(dev),  # the current stream, as an int
+    ))
+    if rc:
+        _build.check(_lib, rc, "packed_matmul")
     if backward:
         packed_matmul.bwd_launches += 1
     else:
@@ -121,3 +196,12 @@ def packed_matmul(
 
 packed_matmul.launches = 0
 packed_matmul.bwd_launches = 0
+
+
+def packed_matmul_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which path ``csrc/skinny.cuh``'s plan gives :func:`packed_matmul` on
+    these CUDA operands: "mma" (the tensor-core kernels: bf16, more than 16
+    rows per adapter, L or K at most 128, leading dimensions and pointers
+    aligned to 16 bytes) or "fma" (``csrc/tile.cuh``'s FMA kernel). The plan
+    reads only shapes, dtype, layouts and alignment."""
+    return PATHS[_plan(*_key(x, w, _device(x, "packed_matmul_path"), "packed_matmul_path"))[0]]

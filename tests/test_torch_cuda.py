@@ -20,7 +20,7 @@ from repro_torch.kernels.fused import (
     fused_matmul_q,
     fused_matmul_q_path,
 )
-from repro_torch.kernels.packed_matmul import packed_matmul
+from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_path
 from repro_torch.kernels.quant import dequantize, quantize_weight
 from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
 
@@ -252,3 +252,90 @@ def test_autograd_through_kernels_matches_plain(cuda, impl, xdim):
         grads[path] = (a.grad, b.grad)
     for got, want in zip(*grads.values()):
         _close(got, want)
+
+
+def _operand(g, shape, trans, std=1.0):
+    """A bf16 (N, R, C) operand, stored as is or as the transpose of a
+    contiguous (N, C, R) tensor (read in place by the kernel)."""
+    n, r, c = shape
+    if trans:
+        return _rnd(g, (n, c, r), torch.bfloat16, std).transpose(1, 2)
+    return _rnd(g, shape, torch.bfloat16, std)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("r", [8, 16, 32, 64, 128])
+def test_mma_path_matches_plain(cuda, r, n, scaled):
+    """bf16 calls with more than 16 rows take the tensor-core kernels, in
+    all four operand layouts, at ragged shapes (M off the 64- and 128-row
+    tiles, K = 3592 off the 64-deep step, L = 3592 off the 128-column tile):
+    the narrow class (L = r: xA, case 2 reading B^T, case 3 reading x^T) and
+    the short-K class (K = r: (xA)B, case 4 reading A^T)."""
+    g = torch.Generator(device=cuda).manual_seed(10 + r + n)
+    d = 3592
+    s = torch.linspace(0.5, 2.0, n, device=cuda) if scaled else None
+    for tx in (False, True):
+        m = 304 if tx else 300  # a transposed x's rows are its leading dimension
+        for tw in (False, True):
+            for k, l in ((d, r), (r, d)):  # narrow, short K
+                x = _operand(g, (n, m, k), tx)
+                w = _operand(g, (n, k, l), tw, k ** -0.5)
+                assert packed_matmul_path(x, w) == "mma", (tx, tw, k, l)
+                _close(packed_matmul(x, w, s), packed_matmul_ref(x, w, s))
+
+
+@pytest.mark.gpu
+def test_mma_split_k_is_deterministic(cuda):
+    """xA and case 2 at the training shapes split K over blocks; the f32
+    partial sums are added in a fixed order, so a call gives the same bits
+    twice (what remat="save" == "recompute" rests on)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = _rnd(g, (2, 1024, 18944), torch.bfloat16)
+    a = _rnd(g, (2, 18944, 16), torch.bfloat16, 18944 ** -0.5)
+    bt = _rnd(g, (2, 16, 18944), torch.bfloat16).transpose(1, 2)
+    s = torch.tensor([0.5, 2.0], device=cuda)
+    for w in (a, bt):
+        assert packed_matmul_path(x, w) == "mma"
+        assert torch.equal(packed_matmul(x, w, s), packed_matmul(x, w, s))
+
+
+@pytest.mark.gpu
+def test_packed_matmul_path_follows_shapes(cuda):
+    """Decode rows, f32 and ranks off a multiple of 8 keep the FMA kernel;
+    the bf16 training and prefill calls take the tensor-core kernels."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = _rnd(g, (2, 1024, 3584), torch.bfloat16)
+    a = _rnd(g, (2, 3584, 16), torch.bfloat16)
+    xa, b = _rnd(g, (2, 1024, 16), torch.bfloat16), _rnd(g, (2, 16, 3584), torch.bfloat16)
+    assert packed_matmul_path(x, a) == "mma"  # xA
+    assert packed_matmul_path(xa, b) == "mma"  # (xA)B
+    assert packed_matmul_path(x[:1, :256].contiguous(), a[:1]) == "mma"  # prefill
+    assert packed_matmul_path(x[:, :16].contiguous(), a) == "fma"  # 16 rows: decode
+    assert packed_matmul_path(x.float(), a.float()) == "fma"  # f32
+    a12 = _rnd(g, (2, 3584, 12), torch.bfloat16)
+    assert packed_matmul_path(x, a12) == "fma"  # rank 12
+    assert packed_matmul_path(xa.transpose(1, 2), x) == "fma"  # case 1: rows = rank, long K
+
+
+@pytest.mark.gpu
+def test_remat_save_equals_recompute_on_the_card(cuda):
+    """remat="save" keeps the forward's xA, "recompute" recomputes it: the
+    same deterministic kernels on the same inputs, so the output and both
+    LoRA gradients are bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = _rnd(g, (2, 2, 256, 1024), torch.bfloat16)
+    a0 = _rnd(g, (2, 1024, 16), torch.bfloat16, 1024 ** -0.5)
+    b0 = _rnd(g, (2, 16, 768), torch.bfloat16)
+    al = torch.tensor([2.0, 0.5], device=cuda)
+    res = {}
+    for remat in ("save", "recompute"):
+        a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        n0 = packed_matmul.bwd_launches
+        y = ops.packed_lora_delta(x, a, b, al, remat=remat)
+        (y.float() ** 2).sum().backward()
+        assert packed_matmul.bwd_launches > n0
+        res[remat] = (y, a.grad, b.grad)
+    for got, want in zip(res["save"], res["recompute"]):
+        assert torch.equal(got, want)

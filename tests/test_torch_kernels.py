@@ -8,6 +8,9 @@ rtol/atol 1e-2 (one bf16 rounding of the output may go the other way).
 The hand-written CUDA kernels themselves are held against these plain
 versions on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,9 +20,10 @@ from repro.kernels import ops as jops
 from repro.kernels.fused import fused_matmul as j_fused_matmul
 from repro.kernels.packed_matmul import packed_matmul as j_packed_matmul
 from repro_torch import bridge
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import packed_matmul as packed_module
 from repro_torch.kernels.fused import fused_matmul
-from repro_torch.kernels.packed_matmul import packed_matmul
+from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_path
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -143,3 +147,50 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(kernel):
     else:
         fn(tx, tw[0], tw, tb)
     assert fn.launches == before
+
+
+def test_packed_matmul_path_raises_on_cpu():
+    """The path query reads the CUDA library's plan: a CPU tensor has none."""
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        packed_matmul_path(torch.zeros(2, 32, 16), torch.zeros(2, 16, 8))
+
+
+WRAPPERS = {"packed_matmul.py": ("packed_matmul",), "fused.py": ("fused", "fused_q")}
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPERS))
+def test_signatures_name_every_c_function_the_wrapper_calls(wrapper):
+    """Every C function a wrapper calls has its ctypes signature in
+    ``_build.SIGNATURES`` under a library the wrapper loads (without one,
+    ctypes would pass each pointer as a 32-bit int), and every declared
+    function is defined by that library's source."""
+    kdir = Path(packed_module.__file__).parent
+    libs = WRAPPERS[wrapper]
+    assert set(re.findall(r'_build\.load\("(\w+)"\)', (kdir / wrapper).read_text())) == set(libs)
+    called = set(re.findall(r"\b(plora_\w+)\(", (kdir / wrapper).read_text()))
+    declared = {f for lib in libs for f in _build.SIGNATURES[lib]}
+    assert called and called <= declared, called - declared
+    for lib in libs:
+        src = (kdir / "csrc" / f"{lib}.cu").read_text()
+        for fname in _build.SIGNATURES[lib]:
+            assert re.search(r'extern "C" [^(]*\b' + fname + r"\(", src), (lib, fname)
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 5, 7), (1, 5, 7), (2, 1, 7), (2, 5, 1), (1, 1, 1), (3, 4, 4), (5, 7), (2, 3, 5, 7)]
+)
+def test_transposed_layout_reads_the_strides(shape):
+    """The wrappers tell a transposed view of a contiguous tensor from the
+    strides alone, as ``transpose(-1, -2).is_contiguous()`` would (size-1
+    dims included; a view that is contiguous as well counts as
+    contiguous), and refuse any other layout."""
+    *lead, a, b = shape
+    views = [torch.zeros(shape), torch.zeros(*lead, b, a).transpose(-1, -2),
+             torch.zeros(*lead, a, 2 * b)[..., ::2], torch.zeros(*lead, 2 * a, b)[..., ::2, :]]
+    for v in views:
+        if v.is_contiguous() or v.transpose(-1, -2).is_contiguous():
+            assert packed_module._transposed(v, "t") == int(not v.is_contiguous())
+        else:
+            with pytest.raises(ValueError, match="contiguous"):
+                packed_module._transposed(v, "t")
+    assert packed_module._transposed(views[1], "t") == int(a > 1 and b > 1)
