@@ -9,25 +9,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and power limit as ``nvidia-smi`` reports them; turns TF32 off.
 2. build   -- compiles every kernel of ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, all at once), and prints ``ptxas -v``'s
-   registers, shared memory and spills of each ``fused_wgmma_kernel``.
+   registers, shared memory and spills of each ``fused_wgmma_kernel`` and
+   ``decode_kernel``.
 3. kernels -- calls each kernel at the qwen25-7b serving shapes (decode:
    N=8 rows, M=1; prefill: N=1, M=256; r=16; plus a ragged pack of ranks
    (8, 16)) and at its training shapes (N=2 adapters, M=1024 tokens each,
    r=16: the forward calls, the four backward cases of ``packed_matmul``,
    the fused dx reading W^T in place, and ``fused_matmul_q`` on int8 and nf4
    codes, which must also be bit-equal to the dense kernel on the
-   dequantized W), in bf16 and f32; holds each against its plain version,
-   and times kernel, plain version and one PyTorch library call (or the
-   named composition where no single call exists) with CUDA events. Each
-   fused row carries the ``path`` its plan took (``wgmma`` or ``split3``,
-   from ``csrc/fused.cuh``'s plan); a bf16 training-shape row of
-   ``fused_matmul`` or ``fused_matmul_q`` off the ``wgmma`` path fails.
-   Each ``packed_matmul`` row carries its ``path`` (``mma`` or ``fma``,
+   dequantized W; ``fused_matmul_q`` also at the decode shapes), in bf16 and
+   f32; holds each against its plain version, and times kernel, plain
+   version and one PyTorch library call (or the named composition where no
+   single call exists) with CUDA events. Each row carries the ``path`` its
+   plan took (fused: ``decode``, ``wgmma`` or ``split3``, from
+   ``csrc/fused.cuh``'s plan; ``packed_matmul``: ``mma`` or ``fma``,
    ``packed_matmul_path``), ``device_ms`` and ``library_device_ms`` (a CUDA
    graph of 20 calls replayed: the host out of the loop) and ``host_us`` and
-   ``library_host_us`` (host time per call, not synchronised); a bf16
-   training row of xA, xAB, case 2 or case 4, or a bf16 prefill row, off
-   the ``mma`` path fails.
+   ``library_host_us`` (host time per call, not synchronised). The run fails
+   if a bf16 training-shape row of ``fused_matmul`` or ``fused_matmul_q`` is
+   off ``wgmma``, a bf16 decode row of either is off ``decode``, or a bf16
+   training row of xA, xAB, case 2 or case 4, or a bf16 prefill row, of
+   ``packed_matmul`` is off ``mma``. Then the sync check: ragged
+   ``packed_lora_delta`` and ``fused_lora_linear`` (ranks out of order, and
+   sorted), forward and backward, under
+   ``torch.cuda.set_sync_debug_mode("error")``, their output and LoRA
+   gradients ``torch.equal`` to the gather/scatter formulation's.
 4. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
    seed), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
@@ -43,15 +49,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    impl="fused" on an nf4 and on an int8 base. Step 1's per-adapter loss and
    every LoRA gradient are held against the plain path on the same weights
    and batch; then 4 steps run with the launch counts zeroed just before and
-   read just after (forward and backward counts must both move). One auto
-   step and one nf4 step then run under ``torch.profiler``; the auto step's
-   record carries ``packed_matmul``'s share of its device time.
+   read just after (forward and backward counts must both move). One auto,
+   one fused and one nf4 step then run under ``torch.profiler``; the auto
+   step's record carries ``packed_matmul``'s share of its device time. On
+   the dense base, one ``make_train_step`` call of each impl runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (after one that builds its
+   per-device vectors).
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
 ``smoke_out/`` (``chip_smoke.json``, ``profile_<impl>.txt``,
-``profile_train_auto.txt``, ``profile_train_nf4.txt``, the nvcc logs with
-``ptxas -v``).
+``profile_train_{auto,fused,nf4}.txt``, the nvcc logs with ``ptxas -v``).
 """
 from __future__ import annotations
 
@@ -247,11 +255,24 @@ def packed_calls(rnd, dtype, n, m, d_in, d_out, r, scale, backward_cases=False):
 
 def kernel_phase(torch, dev):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused import fused_matmul, fused_matmul_path
+    from repro_torch.kernels.fused import (
+        fused_matmul,
+        fused_matmul_path,
+        fused_matmul_q,
+        fused_matmul_q_path,
+    )
     from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_path
-    from repro_torch.kernels.ref import fused_matmul_ref, packed_matmul_ref
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.quant import dequantize, quantize_weight
+    from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    # The library yardstick of fused_matmul_q dequantizes W first, and
+    # dequantize copies its nf4 codebook from the host on every call, which
+    # a CUDA graph capture (device_ms) refuses: for this phase the codebook
+    # lies on the card (restored before the serve and train phases).
+    codebook = quant.NF4_CODEBOOK
+    quant.NF4_CODEBOOK = codebook.to(dev)
 
     def rnd(shape, dtype, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
@@ -304,6 +325,12 @@ def kernel_phase(torch, dev):
     def lib_fused(x, w, a, b, s):
         return torch.baddbmm(torch.matmul(x, w), torch.bmm(x, a) * s.view(-1, 1, 1).to(x.dtype), b)
 
+    def lib_fused_q(x, codes, scales, a, b, s):
+        return lib_fused(x, dequantize({"codes": codes, "scales": scales}, x.dtype), a, b, s)
+
+    def dense_on_dequantized(x, codes, scales, a, b, s):
+        return fused_matmul(x, dequantize({"codes": codes, "scales": scales}, x.dtype), a, b, s)
+
     BMM = "torch.bmm"
     FUSED3 = "baddbmm(x@W, bmm(x,A)*s, B): 3 calls"
 
@@ -314,7 +341,24 @@ def kernel_phase(torch, dev):
                        rnd((n, d_in, RANK), dtype, d_in ** -0.5),
                        rnd((n, RANK, d_out), dtype), scale),
               2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out), FUSED3,
-              path_fn=lambda x, w, a, b, s: fused_matmul_path(x, w, a.shape[2]))
+              path_fn=lambda x, w, a, b, s: fused_matmul_path(x, w, a.shape[2], a, b),
+              split_times=True)
+
+    def fused_q_rows(case, n, m, d_in, d_out, dtype, scale):
+        """``fused_matmul_q`` on int8 and nf4 codes, bit-equal to the dense
+        kernel on the dequantized W; every call set quantizes a W of its own."""
+        for mode in ("int8", "nf4"):
+            def args_fn(mode=mode):
+                q = quantize_weight(rnd((d_in, d_out), torch.float32, d_in ** -0.5), mode)
+                return (rnd((n, m, d_in), dtype), q["codes"], q["scales"],
+                        rnd((n, d_in, RANK), dtype, d_in ** -0.5), rnd((n, RANK, d_out), dtype), scale)
+
+            check("fused_matmul_q", case, mode, d_in, d_out, dtype, fused_matmul_q,
+                  fused_matmul_q_ref, lib_fused_q, args_fn,
+                  2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out),
+                  "dequantize(W) then baddbmm(x@W, bmm(x,A)*s, B)", exact=dense_on_dequantized,
+                  path_fn=lambda x, c, sc, a, b, s: fused_matmul_q_path(x, c, sc, a.shape[2], a, b),
+                  split_times=True)
 
     def packed_rows(case, n, m, d_in, d_out, dtype, scale, backward_cases=False):
         for call, args_fn, flops, bwd in packed_calls(rnd, dtype, n, m, d_in, d_out, RANK, scale,
@@ -330,6 +374,8 @@ def kernel_phase(torch, dev):
                 scale = torch.linspace(0.5, 2.0, n, device=dev)
                 packed_rows(case, n, m, d_in, d_out, dtype, scale)
                 fused_rows(case, n, m, d_in, d_out, dtype, scale)
+                if case == "decode":
+                    fused_q_rows(case, n, m, d_in, d_out, dtype, scale)
         # a ragged pack: ranks (8, 16) padded to a bucket of 16
         ranks = (8, 16)
         x = rnd((2, 4, 3584), dtype)
@@ -348,33 +394,33 @@ def kernel_phase(torch, dev):
                 fail(f"ragged {name} {dtype}: max_abs_err {err} > {tol}")
             emit({"phase": "ragged", "op": name, "ranks": list(ranks),
                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol})
-        train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, packed_rows)
+        train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, fused_q_rows, packed_rows)
     off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] == "train" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
            and r["path"] != "wgmma"]
     if off:
         fail(f"training-shape fused rows off the wgmma path: {off}")
+    off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
+           if r["case"] == "decode" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
+           and r["path"] != "decode"]
+    if off:
+        fail(f"bf16 decode rows of fused_matmul or fused_matmul_q off the decode path: {off}")
     off = [(r["case"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16"
            and (r["case"], r["call"]) in MMA_ROWS and r["path"] != "mma"]
     if off:
         fail(f"bf16 training or prefill packed_matmul rows off the mma path: {off}")
+    quant.NF4_CODEBOOK = codebook
     return rows
 
 
-def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, packed_rows):
+def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, fused_q_rows, packed_rows):
     """Every kernel use of the training step at its shapes: N=2 adapters,
     M=1024 tokens each, r=16. The backward cases pass transposed views,
     which the kernels read in place; the library yardstick is ``torch.bmm``
     on the same views."""
-    from repro_torch.kernels.fused import (
-        fused_matmul,
-        fused_matmul_path,
-        fused_matmul_q,
-        fused_matmul_q_path,
-    )
-    from repro_torch.kernels.quant import dequantize, quantize_weight
-    from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref
+    from repro_torch.kernels.fused import fused_matmul, fused_matmul_path
+    from repro_torch.kernels.ref import fused_matmul_ref
 
     n, m = TRAIN_CASE
     r = RANK
@@ -382,13 +428,6 @@ def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, packed_rows):
 
     def lib_dx(g, wt, bt, at, s):
         return torch.baddbmm(torch.matmul(g, wt), torch.bmm(g, bt) * s.view(-1, 1, 1).to(g.dtype), at)
-
-    def lib_fused_q(x, codes, scales, a, b, s):
-        w = dequantize({"codes": codes, "scales": scales}, x.dtype)
-        return torch.baddbmm(torch.matmul(x, w), torch.bmm(x, a) * s.view(-1, 1, 1).to(x.dtype), b)
-
-    def dense_on_dequantized(x, codes, scales, a, b, s):
-        return fused_matmul(x, dequantize({"codes": codes, "scales": scales}, x.dtype), a, b, s)
 
     for (d_in, d_out), _ in PROJ:
         packed_rows("train", n, m, d_in, d_out, dtype, scale, backward_cases=True)
@@ -401,17 +440,106 @@ def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, packed_rows):
                        rnd((n, d_out, r), dtype), rnd((n, r, d_in), dtype, d_in ** -0.5), scale),
               2 * n * m * (d_out * d_in + d_out * r + r * d_in),
               "baddbmm(g@W^T, bmm(g,B^T)*s, A^T): 3 calls",
-              path_fn=lambda g, wt, bt, at, s: fused_matmul_path(g, wt, bt.shape[2]))
-        for mode in ("int8", "nf4"):
-            q = quantize_weight(rnd((d_in, d_out), torch.float32, d_in ** -0.5), mode)
-            check("fused_matmul_q", "train", mode, d_in, d_out, dtype, fused_matmul_q,
-                  fused_matmul_q_ref, lib_fused_q,
-                  lambda: (rnd((n, m, d_in), dtype), q["codes"], q["scales"],
-                           rnd((n, d_in, r), dtype, d_in ** -0.5), rnd((n, r, d_out), dtype), scale),
-                  2 * n * m * (d_in * d_out + d_in * r + r * d_out),
-                  "dequantize(W) then baddbmm(x@W, bmm(x,A)*s, B)", exact=dense_on_dequantized,
-                  path_fn=lambda x, c, sc, a, b, s: fused_matmul_q_path(x, c, sc, a.shape[2]))
-            del q
+              path_fn=lambda g, wt, bt, at, s: fused_matmul_path(g, wt, bt.shape[2]),
+              split_times=True)
+        fused_q_rows("train", n, m, d_in, d_out, dtype, scale)
+
+
+# ---------------------------------------------------------------------------
+# sync phase: no host wait in the ragged ops or a train step
+# ---------------------------------------------------------------------------
+
+# a pack's ranks out of order (the ragged ops gather by a permutation), and
+# the train phase's sorted ranks (no permutation)
+SYNC_RANKS = ((32, 8, 16, 8), TRAIN_RANKS)
+
+
+def sync_free(torch, fn, what: str):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any call
+    that makes the host wait on the device (a blocking copy, ``.item()``, a
+    stream synchronize) raises, and the run fails."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        fail(f"{what}: the host waited on the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+def gather_scatter_call(torch, fn, x, a, b, alpha, ranks):
+    """The ragged segmentation as ``ops._ragged_call`` had it before its
+    index tensors were cached: a gather by a fresh index tensor (a blocking
+    copy) on every call, sorted ranks or not, and a scatter back."""
+    from repro_torch.kernels.ops import rank_segments
+
+    order, inv, segments = rank_segments(ranks)
+    o = torch.tensor(order, device=x.device)
+    xs, a_s, b_s, al_s = x[o], a[o], b[o], alpha[o]
+    outs = [fn(xs[lo:hi].contiguous(), a_s[lo:hi, :, :r].contiguous(),
+               b_s[lo:hi, :r, :].contiguous(), al_s[lo:hi].contiguous()) for lo, hi, r in segments]
+    return torch.cat(outs, dim=0)[torch.tensor(inv, device=x.device)]
+
+
+def sync_phase(torch, dev):
+    """Ragged ``packed_lora_delta`` and ``fused_lora_linear``, forward and
+    backward, bf16 at the width of qwen25-7b's k projection, with ranks
+    out of order and sorted: after one warm-up call, one call under
+    ``sync_free``; its output and LoRA gradients must be ``torch.equal``
+    to the gather/scatter formulation's on the same inputs."""
+    import functools
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    d_in, d_out, rb = 3584, 512, 32
+    w = (torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5).to(torch.bfloat16)
+    for ranks in SYNC_RANKS:
+        n = len(ranks)
+        mask = (torch.arange(rb, device=dev)[None, :] < torch.tensor(ranks, device=dev)[:, None])
+        x = torch.randn((n, 2, 64, d_in), generator=gen, device=dev).to(torch.bfloat16)
+        a0 = (torch.randn((n, d_in, rb), generator=gen, device=dev) * d_in ** -0.5 * mask[:, None]).to(torch.bfloat16)
+        b0 = (torch.randn((n, rb, d_out), generator=gen, device=dev) * mask[:, :, None]).to(torch.bfloat16)
+        al = torch.linspace(0.5, 2.0, n, device=dev)
+        for name in ("packed_lora_delta", "fused_lora_linear"):
+            def run(name=name):
+                a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+                if name == "packed_lora_delta":
+                    y = ops.packed_lora_delta(x, a, b, al, impl="auto", ranks=ranks)
+                else:
+                    y = ops.fused_lora_linear(x, w, a, b, al, impl="fused", ranks=ranks)
+                (y.float() ** 2).sum().backward()
+                return y, a.grad, b.grad
+
+            run()  # warm-up: plans, kernel attributes, the index tensors
+            got = sync_free(torch, run, f"ragged {name} {ranks}")
+            real = ops._ragged_call
+            ops._ragged_call = functools.partial(gather_scatter_call, torch)
+            try:
+                want = run()
+            finally:
+                ops._ragged_call = real
+            equal = all(bool(torch.equal(g, h)) for g, h in zip(got, want))
+            emit({"phase": "sync", "op": name, "ranks": list(ranks), "synchronisations": 0,
+                  "equal_to_gather_scatter": equal})
+            if not equal:
+                fail(f"ragged {name} {ranks}: output or LoRA gradients differ from the "
+                     "gather/scatter formulation")
+
+
+def sync_free_train_step(torch, cfg, meta, base, lora, opt, batch, impl: str):
+    """One ``make_train_step`` call on the full model under ``sync_free``,
+    after one call that makes its per-device vectors and index tensors."""
+    from repro_torch.train.trainer import make_train_step
+
+    step = make_train_step(cfg, meta, impl=impl)
+    _, _, m1 = step(base, lora, opt, batch)
+    _, _, m2 = sync_free(torch, lambda: step(base, lora, opt, batch), f"make_train_step impl={impl}")
+    emit({"phase": "sync_train_step", "impl": impl, "synchronisations": 0,
+          "loss_equal_to_first_call": bool(torch.equal(m1["per_adapter_loss"], m2["per_adapter_loss"]))})
 
 
 # ---------------------------------------------------------------------------
@@ -800,8 +928,10 @@ def train_phase(torch, dev, base, out_dir: Path):
         for need in NEEDED[(impl, quant)]:
             if counts[need] == 0:
                 fail(f"impl={key}: the {need} launch count stayed at 0 over {TRAIN_STEPS} steps")
-        if quant == "nf4" or impl == "auto":
+        if quant in (None, "nf4"):
             profile_train(torch, step, qbase, lora, opt, batches[0], meta, out_dir, impl, quant)
+        if quant is None:
+            sync_free_train_step(torch, cfg, meta, qbase, lora, opt, batches[0], impl)
         del qbase, lora, opt, step
         torch.cuda.empty_cache()
     return launches
@@ -893,26 +1023,41 @@ USES = [
 ]
 
 
+# uses with layer sums but no entry in the kernels line: fused_matmul_q at
+# decode rows, which no main path runs (serve runs a dense base)
+EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decode"),
+              ("fused_matmul_q:decode_nf4", "fused_matmul_q", ("nf4",), "decode")]
+
+
+def layer_sums(rows, kernel, calls, case):
+    """A use's bf16 rows and their times summed over one decoder layer's
+    projections, weighted by their count per layer."""
+    mult = {shape: k for shape, k in PROJ}
+    sel = [r for r in rows if r["kernel"] == kernel and r["case"] == case
+           and r["call"] in calls and r["dtype"] == "bfloat16"]
+    keys = ("ms", "plain_ms", "library_ms", "bytes", "flops", "device_ms", "library_device_ms",
+            "host_us", "library_host_us")
+    return sel, {k: sum(mult[(r["d_in"], r["d_out"])] * r[k] for r in sel) for k in keys}
+
+
 def summarize(rows, launches):
     """One entry per kernel and use: its bf16 times summed over one decoder
     layer's projections (weighted by their count per layer) -- of a decode
     step for the serve entries, of a training step's calls at N=2, M=1024,
-    r=16 for the train ones -- and its launches in its path's run. For
-    ``packed_matmul``'s uses it also emits the layer sums of its device and
-    host times (a ``layer_sums`` record)."""
-    mult = {shape: k for shape, k in PROJ}
+    r=16 for the train ones -- and its launches in its path's run. For every
+    use, and for EXTRA_SUMS, it also emits those layer sums with the device
+    and host times (a ``layer_sums`` record)."""
     out = []
+    for entry, kernel, calls, case in EXTRA_SUMS:
+        _, tot = layer_sums(rows, kernel, calls, case)
+        emit({"phase": "layer_sums", "use": entry,
+              "bound_ms": bound(tot["bytes"], tot["flops"], "bfloat16")[0],
+              **{k: v for k, v in tot.items() if k not in ("bytes", "flops")}})
     for entry, kernel, calls, case, source, replaces, (path, run, count) in USES:
-        sel = [r for r in rows if r["kernel"] == kernel and r["case"] == case
-               and r["call"] in calls and r["dtype"] == "bfloat16"]
-        tot = {k: sum(mult[(r["d_in"], r["d_out"])] * r[k] for r in sel)
-               for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
-        if kernel == "packed_matmul":  # the same layer sums with the host out of the loop
-            emit({"phase": "layer_sums", "use": entry, "ms": tot["ms"],
-                  "library_ms": tot["library_ms"],
-                  **{k: sum(mult[(r["d_in"], r["d_out"])] * r[k] for r in sel)
-                     for k in ("device_ms", "library_device_ms", "host_us", "library_host_us")}})
+        sel, tot = layer_sums(rows, kernel, calls, case)
         b_ms, b_by, _, _ = bound(tot["bytes"], tot["flops"], "bfloat16")
+        emit({"phase": "layer_sums", "use": entry, "bound_ms": b_ms,
+              **{k: v for k, v in tot.items() if k not in ("bytes", "flops")}})
         out.append({"name": entry, "route": "cuda", "source": CSRC + source, "replaces": replaces,
                     "launches": launches[path][run][count],
                     "max_abs_err": max(r["max_abs_err"] for r in sel),
@@ -964,12 +1109,14 @@ def main() -> None:
     for lib in libs:
         log = lib.with_suffix(".log")
         if log.exists():
-            for entry in ptxas_entries(log.read_text(), "fused_wgmma_kernel"):
-                emit({"phase": "ptxas", "lib": lib.stem, **entry})
+            for kernel in ("fused_wgmma_kernel", "decode_kernel"):
+                for entry in ptxas_entries(log.read_text(), kernel):
+                    emit({"phase": "ptxas", "lib": lib.stem, **entry})
 
     t0 = time.perf_counter()
     rows = kernel_phase(torch, dev)
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
+    sync_phase(torch, dev)
     t0 = time.perf_counter()
     serve_launches, base = serve_phase(torch, dev)
     emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})

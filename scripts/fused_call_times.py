@@ -1,112 +1,231 @@
 #!/usr/bin/env python3
-"""Per-call times of the port's fused base+LoRA kernels at the qwen25-7b
-training shapes, on one CUDA card.
+"""Device and host time per call of the port's fused base+LoRA kernels at the
+qwen25-7b shapes, and optionally profiled train steps, on one CUDA card.
 
-    python3 scripts/fused_call_times.py                  # this checkout
-    python3 scripts/fused_call_times.py --src OTHER/src  # another tree's port
+    python3 scripts/fused_call_times.py                   # this checkout
+    python3 scripts/fused_call_times.py --src OTHER/src   # another tree's port
+    python3 scripts/fused_call_times.py --cases decode    # some cases only
+    python3 scripts/fused_call_times.py --train           # + auto and fused train steps
+    python3 scripts/fused_call_times.py --cases decode --host  # + a host-time breakdown
 
-For each projection shape (d_in, d_out) of a qwen25-7b layer at N=2
-adapters x M=1024 tokens, r=16, bf16, it times with CUDA events (inputs
-cycled through enough copies to miss the 50 MB L2): ``fused_matmul``'s
-forward and dx (W^T read in place), ``fused_matmul_q`` on int8 and nf4
-codes, and the library composition ``baddbmm(x@W, bmm(x,A)*s, B)``. Each
-kernel is also held against its plain version (max |err| / max |plain|).
-Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
-per shape. Comparing two trees means one call of this script per tree in
-one session on one card, in turns (a, b, b, a).
+bf16, r=16, for each projection (d_in, d_out) of a layer: decode (N=8
+adapters x M=1 token) ``fused_matmul`` and ``fused_matmul_q`` on int8 and
+nf4 codes; prefill (N=1, M=256) ``fused_matmul``; train (N=2, M=1024) the
+forward, dx (W^T read in place), int8 and nf4. Each row holds the kernel
+against its plain version (``rel_err``), ``fused_matmul_q`` bit-equal to
+``fused_matmul`` on the dequantized W, and names the plan's ``path``; for
+the kernel and for the library composition ``baddbmm(x@W, bmm(x,A)*s, B)``
+(after ``dequantize`` for int8/nf4) it carries ``ms`` (20 calls back to
+back, CUDA events), ``device_ms`` (a CUDA graph of 20 calls replayed: the
+host out of the loop) and ``host_us`` (host time per call, not
+synchronised). Every call set holds its own copy of every operand, W
+included, enough copies to miss the 50 MB L2. Then one ``layer_sums``
+line: per use, the times summed over a layer's projections (weighted by
+their count per layer).
+
+``--host`` (this tree's wrapper only): the host µs of one decode call
+broken down into the C call (its launches), the allocation and the rest,
+beside one ``torch.bmm``.
+
+``--train``: chip_smoke.py's train pack on full-width, full-depth qwen25-7b
+with random weights, for impl="auto" and impl="fused": 3 steps (the last
+two timed), then one under ``torch.profiler`` (device time and busy share;
+tables under ``<out>/<label>/``).
+
+The measuring code is this checkout's ``chip_smoke.py`` whatever ``--src``
+says, so two trees are measured alike. Prints the card's ``nvidia-smi``
+name and power limit, then one JSON line per row. Comparing two trees means
+one call of this script per tree on one card, in turns (a, b, b, a).
 """
 from __future__ import annotations
 
 import argparse
-import json
-import math
-import subprocess
 import sys
+import time
 from pathlib import Path
 
-PROJ = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
-N, M, R = 2, 1024, 16
-
-
-def time_ms(torch, fn, arg_sets, iters: int) -> float:
-    for args in arg_sets[:2]:
-        fn(*args)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+ROOT = Path(__file__).resolve().parent.parent
+CASES = {"decode": (8, 1), "prefill": (1, 256), "train": (2, 1024)}
+CALLS = {"decode": ("fused", "int8", "nf4"), "prefill": ("fused",),
+         "train": ("fused", "dx", "int8", "nf4")}
+KEYS = ("ms", "device_ms", "host_us", "library_ms", "library_device_ms", "library_host_us",
+        "bound_ms")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--src", default=str(Path(__file__).resolve().parent.parent / "src"),
-                    help="the src/ directory whose repro_torch is timed")
-    ap.add_argument("--label", default="", help="a name for this tree in the output")
-    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--src", default=str(ROOT / "src"), help="the src/ directory whose repro_torch is timed")
+    ap.add_argument("--label", default="this", help="a name for this tree in the output")
+    ap.add_argument("--cases", default=",".join(CASES), help="comma-separated cases to time")
+    ap.add_argument("--train", action="store_true", help="also profile auto and fused train steps")
+    ap.add_argument("--host", action="store_true",
+                    help="also break down the host time of one decode call (this tree's wrapper)")
+    ap.add_argument("--out", default=str(ROOT / "smoke_out"), help="where the profile tables go")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
+    sys.path.insert(1, str(ROOT))
     import torch
+
+    import chip_smoke as cs
 
     if not torch.cuda.is_available():
         print("fused_call_times: needs a CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import fused as F
+    from repro_torch.kernels import quant
     from repro_torch.kernels.quant import dequantize, quantize_weight
-    from repro_torch.kernels.ref import fused_matmul_ref
+    from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
+    smi = cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                            capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    dt, r = torch.bfloat16, cs.RANK
+    # the library yardstick dequantizes W first, and dequantize copies its
+    # nf4 codebook from the host on every call, which a CUDA graph capture
+    # refuses: the codebook is placed on the card once
+    quant.NF4_CODEBOOK = quant.NF4_CODEBOOK.to(dev)
 
-    def rnd(shape, std=1.0, dtype=dt):
+    def rnd(shape, dtype=dt, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
     def lib(x, w, a, b, s):
         return torch.baddbmm(torch.matmul(x, w), torch.bmm(x, a) * s.view(-1, 1, 1).to(x.dtype), b)
 
-    def rel(got, want):
-        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    def lib_q(x, codes, scales, a, b, s):
+        return lib(x, dequantize({"codes": codes, "scales": scales}, x.dtype), a, b, s)
 
-    s = torch.linspace(0.5, 2.0, N, device=dev)
-    for d_in, d_out in PROJ:
-        nbytes = 2 * (N * M * (d_in + d_out) + d_in * d_out)
-        copies = max(1, min(16, math.ceil(100e6 / nbytes)))
-        fwd = [(rnd((N, M, d_in)), rnd((d_in, d_out), d_in ** -0.5), rnd((N, d_in, R), d_in ** -0.5),
-                rnd((N, R, d_out)), s) for _ in range(copies)]
-        dx = [(rnd((N, M, d_out)), rnd((d_in, d_out), d_in ** -0.5).t(), rnd((N, d_out, R)),
-               rnd((N, R, d_in), d_in ** -0.5), s) for _ in range(copies)]
-        row = {"label": args.label, "d_in": d_in, "d_out": d_out, "n": N, "m": M, "r": R,
-               "copies": copies}
-        if hasattr(F, "fused_matmul_path"):
-            row["path"] = F.fused_matmul_path(*fwd[0][:2], R)
-        row["fwd_rel_err"] = rel(F.fused_matmul(*fwd[0]), fused_matmul_ref(*fwd[0]))
-        row["dx_rel_err"] = rel(F.fused_matmul(*dx[0], backward=True), fused_matmul_ref(*dx[0]))
-        row["fwd_ms"] = time_ms(torch, F.fused_matmul, fwd, args.iters)
-        row["dx_ms"] = time_ms(torch, lambda *a: F.fused_matmul(*a, backward=True), dx, args.iters)
-        row["library_fwd_ms"] = time_ms(torch, lib, fwd, args.iters)
-        row["library_dx_ms"] = time_ms(torch, lib, dx, args.iters)
-        del dx
-        for mode in ("int8", "nf4"):
-            q = [quantize_weight(rnd((d_in, d_out), d_in ** -0.5, torch.float32), mode)
-                 for _ in range(min(copies, 4))]
-            sets = [(f[0], qq["codes"], qq["scales"], f[2], f[3], s) for f, qq in zip(fwd, q)]
-            got = F.fused_matmul_q(*sets[0])
-            dense = F.fused_matmul(sets[0][0], dequantize(q[0], dt), *sets[0][3:])
-            row[f"{mode}_bit_equal_dense"] = bool(torch.equal(got, dense))
-            row[f"{mode}_ms"] = time_ms(torch, F.fused_matmul_q, sets, args.iters)
-            del q, sets
-        print(json.dumps(row), flush=True)
-        del fwd
-        torch.cuda.empty_cache()
+    def call_spec(call, n, m, d_in, d_out, s):
+        """(args_fn, kernel, plain, library, flops, path_fn) of one row."""
+        flops = 2 * n * m * (d_in * d_out + d_in * r + r * d_out)
+        if call == "fused":
+            return (lambda: (rnd((n, m, d_in)), rnd((d_in, d_out), std=d_in ** -0.5),
+                             rnd((n, d_in, r), std=d_in ** -0.5), rnd((n, r, d_out)), s),
+                    F.fused_matmul, fused_matmul_ref, lib, flops,
+                    lambda x, w, a, b, s: F.fused_matmul_path(x, w, r))
+        if call == "dx":  # dx = g @ W^T + s * (g @ B^T) @ A^T, W^T a view of the (d_in, d_out) W
+            return (lambda: (rnd((n, m, d_out)), rnd((d_in, d_out), std=d_in ** -0.5).t(),
+                             rnd((n, d_out, r)), rnd((n, r, d_in), std=d_in ** -0.5), s),
+                    lambda *a: F.fused_matmul(*a, backward=True), fused_matmul_ref, lib, flops,
+                    lambda g, wt, bt, at, s: F.fused_matmul_path(g, wt, r))
+
+        def q_args(mode=call):
+            q = quantize_weight(rnd((d_in, d_out), torch.float32, d_in ** -0.5), mode)
+            return (rnd((n, m, d_in)), q["codes"], q["scales"], rnd((n, d_in, r), std=d_in ** -0.5),
+                    rnd((n, r, d_out)), s)
+
+        return (q_args, F.fused_matmul_q, fused_matmul_q_ref, lib_q, flops,
+                lambda x, c, sc, a, b, s: F.fused_matmul_q_path(x, c, sc, r))
+
+    rows = []
+    for case in args.cases.split(","):
+        n, m = CASES[case]
+        s = torch.linspace(0.5, 2.0, n, device=dev)
+        for (d_in, d_out), _ in cs.PROJ:
+            for call in CALLS[case]:
+                args_fn, kfn, pfn, lfn, flops, path_fn = call_spec(call, n, m, d_in, d_out, s)
+                first = args_fn()
+                got, want = kfn(*first), pfn(*first)
+                in_bytes = cs.nbytes(*first[:-1]) + cs.nbytes(got)
+                sets = [first] + [args_fn() for _ in range(cs.copies_for(in_bytes) - 1)]
+                row = {"label": args.label, "case": case, "call": call, "d_in": d_in,
+                       "d_out": d_out, "n": n, "m": m, "r": r, "copies": len(sets),
+                       "path": path_fn(*first),
+                       "rel_err": ((got.float() - want.float()).abs().max()
+                                   / want.float().abs().max().clamp_min(1e-30)).item(),
+                       "bound_ms": cs.bound(in_bytes, flops, "bfloat16")[0]}
+                if call in ("int8", "nf4"):
+                    x, codes, scales, a, b, _ = first
+                    dense = F.fused_matmul(x, dequantize({"codes": codes, "scales": scales}, dt), a, b, s)
+                    row["bit_equal_dense"] = bool(torch.equal(got, dense))
+                for key, fn in (("", kfn), ("library_", lfn)):
+                    row[key + "ms"] = cs.time_ms(torch, fn, sets)
+                    row[key + "device_ms"] = cs.device_ms(torch, fn, sets)
+                    row[key + "host_us"] = cs.host_us(torch, fn, sets)
+                print(cs.json.dumps(row), flush=True)
+                rows.append(row)
+                del sets, first, got, want
+            torch.cuda.empty_cache()
+    print(cs.json.dumps(summary(cs, rows, args.label)), flush=True)
+    if args.host:
+        host_breakdown(torch, cs, F, rnd, args.label)
+    if args.train:
+        train_profiles(torch, cs, dev, Path(args.out) / args.label, args.label)
     return 0
+
+
+def summary(cs, rows, label: str) -> dict:
+    """Per use (case and call): the times summed over one decoder layer's
+    projections, weighted by their count per layer, and the mean host µs
+    per call over the use's rows."""
+    mult = dict(cs.PROJ)
+    out = {"label": label, "phase": "layer_sums"}
+    for case, calls in CALLS.items():
+        for call in calls:
+            sel = [x for x in rows if x["case"] == case and x["call"] == call]
+            if sel:
+                use = out[f"{case}_{call}"] = {
+                    k: sum(mult[(x["d_in"], x["d_out"])] * x[k] for x in sel) for k in KEYS}
+                use["mean_host_us"] = sum(x["host_us"] for x in sel) / len(sel)
+                use["mean_library_host_us"] = sum(x["library_host_us"] for x in sel) / len(sel)
+    return out
+
+
+def host_breakdown(torch, cs, F, rnd, label: str) -> None:
+    """Host µs of one bf16 decode call of ``fused_matmul`` at q's shape
+    (N=8, M=1, 3584 x 3584, r=16), the least of 5 rounds of 200 calls: the
+    whole call, under no_grad, the C call alone (the plan's launches), the
+    allocation of y and xA, and one ``torch.bmm`` of the same x for scale."""
+    n, k, r = 8, 3584, 16
+    x, w = rnd((n, 1, k)), rnd((k, k), std=k ** -0.5)
+    a, b = rnd((n, k, r), std=k ** -0.5), rnd((n, r, k))
+    s = torch.ones(n, device=x.device)
+
+    def us(fn):
+        return cs.host_us(torch, fn, [()], iters=200, rounds=5)
+
+    row = {"label": label, "phase": "host_breakdown", "call": us(lambda: F.fused_matmul(x, w, a, b, s))}
+    with torch.no_grad():
+        row["call_no_grad"] = us(lambda: F.fused_matmul(x, w, a, b, s))
+    path, n_ws = F._plan("fused", n, 1, k, k, r, 1, 1, 1)
+    y, ws, keep = F._outputs(n, 1, k, path, n_ws, x.dtype, 0)
+    block = F._ARGS.pack(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), s.data_ptr(),
+                         y.data_ptr(), ws, n, 1, k, k, r, 1, 0,
+                         torch._C._cuda_getCurrentRawStream(0))
+    launch = F._build.load("fused").plora_fused_matmul
+    row["c_call"] = us(lambda: launch(block))
+    row["outputs"] = us(lambda: F._outputs(n, 1, k, path, n_ws, x.dtype, 0))
+    row["bmm"] = us(lambda: torch.bmm(x, a))
+    print(cs.json.dumps(row), flush=True)
+
+
+def train_profiles(torch, cs, dev, out_dir: Path, label: str) -> None:
+    from repro_torch.models.model import init_model
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import make_packed_step
+
+    cfg, meta, lora0, batches = cs.train_setup(torch, dev)
+    base, _ = init_model(cs.SEED, cfg, None, dtype=torch.bfloat16, device=dev)
+    scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for impl in ("auto", "fused"):
+        step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks)
+        lora, opt = lora0, init_opt_state(lora0)
+        times = []
+        for batch in batches[:3]:
+            t0 = time.perf_counter()
+            lora, opt, _ = step(base, lora, opt, batch, scales, lr_vec, None)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        row = cs.profile_train(torch, step, base, lora, opt, batches[3], meta, out_dir, impl, None)
+        print(cs.json.dumps({"label": label, "phase": "train_step", "impl": impl, "step_s": times,
+                             "step_s_after_first": sum(times[1:]) / 2,
+                             "profiled_wall_ms": row["wall_ms"], "device_ms": row["device_ms"],
+                             "device_busy_share": row["device_busy_share"]}), flush=True)
+        del step, lora, opt
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

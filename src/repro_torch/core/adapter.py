@@ -20,6 +20,12 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _f32_vector(values, device) -> torch.Tensor:
+    """(N,) f32 on ``device``, copied from the host without blocking: a
+    blocking copy of a fresh host tensor ends in a stream synchronize."""
+    return torch.tensor(values, dtype=torch.float32).to(device, non_blocking=True)
+
+
 @dataclass(frozen=True)
 class PackMeta:
     """Static description of a pack of LoRA configurations."""
@@ -39,14 +45,11 @@ class PackMeta:
 
     def scales(self, device=None) -> torch.Tensor:
         """(N,) f32 effective multipliers alpha_n / r_n."""
-        return torch.tensor(
-            [a / r for a, r in zip(self.alphas, self.ranks)],
-            dtype=torch.float32, device=device,
-        )
+        return _f32_vector([a / r for a, r in zip(self.alphas, self.ranks)], device)
 
     def lr_vector(self, device=None) -> torch.Tensor:
         """(N,) f32 per-adapter learning rates."""
-        return torch.tensor(self.learning_rates, dtype=torch.float32, device=device)
+        return _f32_vector(self.learning_rates, device)
 
     def rank_mask(self, device=None) -> torch.Tensor:
         """(N, r_bucket) f32: 1.0 for real rank columns, 0.0 for padding."""

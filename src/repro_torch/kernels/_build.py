@@ -34,14 +34,13 @@ SIGNATURES = {
         "plora_packed_matmul": (_I, [ctypes.c_char_p]),  # one block of 13 int64
     },
     "fused": {
-        "plora_fused_matmul_path": (_I, [_P] * 2 + [_I] * 6),
-        "plora_fused_matmul_workspace": (_LL, [_P] * 2 + [_I] * 6),
-        "plora_fused_matmul": (_I, [_P] * 7 + [_I] * 7 + [_P]),
+        # the path; the workspace through the pointer
+        "plora_fused_matmul_plan": (_I, [_I] * 8 + [ctypes.POINTER(_LL)]),
+        "plora_fused_matmul": (_I, [ctypes.c_char_p]),  # one block of 15 int64
     },
     "fused_q": {
-        "plora_fused_matmul_q_path": (_I, [_P] * 3 + [_I] * 6),
-        "plora_fused_matmul_q_workspace": (_LL, [_P] * 3 + [_I] * 6),
-        "plora_fused_matmul_q": (_I, [_P] * 8 + [_I] * 8 + [_P]),
+        "plora_fused_matmul_q_plan": (_I, [_I] * 8 + [ctypes.POINTER(_LL)]),
+        "plora_fused_matmul_q": (_I, [ctypes.c_char_p]),  # one block of 17 int64
     },
 }
 SOURCES = tuple(SIGNATURES)

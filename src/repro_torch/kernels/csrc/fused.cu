@@ -11,28 +11,23 @@
 // paths are in fused.cuh.
 //
 // What bounds it on an H100. Decode (N = 8 rows, M = 1) reads the whole of
-// W for 8 rows, about 2 FLOP per weight byte: bytes-bound (W once per
-// step). Prefill (M = 256) and training (M = B*S = 1024 tokens per adapter,
+// W for 8 rows, about 8 FLOP per weight byte: bytes-bound (W once per
+// step); there the design is decode.cuh's weight-streaming kernel. Prefill (M = 256) and training (M = B*S = 1024 tokens per adapter,
 // 2-4 adapters) do 256 to 4096 FLOP per weight byte, above the card's bf16
 // ridge (~295): there the tensor cores are the limit, and the design is
 // fused.cuh's warp-specialised wgmma kernel fed by TMA. The forward's
 // row-major W tile is wgmma's MN-major B operand (transpose bit set); dx's
 // W^T tile, loaded by TMA from W's own storage, is its K-major B operand.
-// Known cost, left for later work: plain FMA off the tensor-core path (f32,
-// odd shapes), and three launches in decode.
+// Known cost, left for later work: plain FMA in three launches off both
+// paths (f32, odd shapes).
 #include "fused.cuh"
 
 using namespace plora;
 
-static Plan dense_plan(const void* x, const void* w, int dtype, int n, int m, int k, int l, int r) {
-  return make_plan(aligned_to(x, 16) && aligned_to(w, 16), dtype, n, m, k, l, r);
-}
-
 template <typename T>
-static int run(const void* x, const void* w, const void* a, const void* b, const float* scale,
-               void* y, float* workspace, int n, int m, int k, int l, int r, int dtype,
+static int run(const Plan& pl, const void* x, const void* w, const void* a, const void* b,
+               const float* scale, void* y, float* workspace, int n, int m, int k, int l, int r,
                bool trans_w, cudaStream_t stream) {
-  const Plan pl = dense_plan(x, w, dtype, n, m, k, l, r);
   const T* wp = static_cast<const T*>(w);
   if (trans_w)  // W^T (k x l) read from W stored (l x k)
     return launch_fused<T>(pl, x, Dense<T, true>{wp, k}, a, b, scale, y, workspace, n, m, k, l, r,
@@ -41,29 +36,44 @@ static int run(const void* x, const void* w, const void* a, const void* b, const
                          stream);
 }
 
-// The path a call with these operands takes: PATH_SPLIT3 or PATH_WGMMA.
-extern "C" int plora_fused_matmul_path(const void* x, const void* w, int n, int m, int k, int l,
-                                       int r, int dtype) {
-  return dense_plan(x, w, dtype, n, m, k, l, r).path;
+// The plan of a call from its sizes and its operands' flags -- aligned: x
+// and W start on 16 bytes; decode_ok: W is row-major (not trans_w) and A and
+// B start on 16 bytes. Returns the path (PATH_SPLIT3, PATH_WGMMA or
+// PATH_DECODE) and stores the f32 workspace (elements) it needs.
+extern "C" int plora_fused_matmul_plan(int n, int m, int k, int l, int r, int dtype, int aligned,
+                                       int decode_ok, long long* workspace) {
+  const Plan pl = make_plan(aligned != 0, decode_ok != 0, dtype, n, m, k, l, r);
+  *workspace = pl.workspace;
+  return pl.path;
 }
 
-// The f32 workspace (elements) a call with these operands needs.
-extern "C" long long plora_fused_matmul_workspace(const void* x, const void* w, int n, int m,
-                                                  int k, int l, int r, int dtype) {
-  return dense_plan(x, w, dtype, n, m, k, l, r).workspace;
-}
-
-// dtype: 0 = float32, 1 = bfloat16; trans_w: 1 when the (k x l) W operand
-// is W^T of a row-major (l x k) array. Returns cudaGetLastError() after the
-// launches (0 on success); they are asynchronous on `stream`.
-extern "C" int plora_fused_matmul(const void* x, const void* w, const void* a, const void* b,
-                                  const float* scale, void* y, float* workspace, int n, int m,
-                                  int k, int l, int r, int dtype, int trans_w, void* stream) {
+// One call: its arguments come as one block of 15 int64 -- x, w, a, b,
+// scale, y, workspace (addresses; 0 for no scale or no workspace), n, m, k,
+// l, r, dtype (0 float32, 1 bfloat16), trans_w (1 when the (k x l) W operand
+// is W^T of a row-major (l x k) array), stream -- because ctypes converts
+// each argument of a call on the host. The plan is made from the pointers
+// as plora_fused_matmul_plan makes it from their flags. Returns
+// cudaGetLastError() after the launches (0 on success); they are
+// asynchronous on `stream`.
+extern "C" int plora_fused_matmul(const long long* args) {
+  const void* x = reinterpret_cast<const void*>(args[0]);
+  const void* w = reinterpret_cast<const void*>(args[1]);
+  const void* a = reinterpret_cast<const void*>(args[2]);
+  const void* b = reinterpret_cast<const void*>(args[3]);
+  const float* scale = reinterpret_cast<const float*>(args[4]);
+  void* y = reinterpret_cast<void*>(args[5]);
+  float* workspace = reinterpret_cast<float*>(args[6]);
+  const int n = (int)args[7], m = (int)args[8], k = (int)args[9], l = (int)args[10];
+  const int r = (int)args[11], dtype = (int)args[12];
+  const bool trans_w = args[13] != 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[14]);
   if (const int bad = check_sizes(n, m, k, l, r)) return bad;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan pl = make_plan(aligned_to(x, 16) && aligned_to(w, 16),
+                            !trans_w && aligned_to(a, 16) && aligned_to(b, 16), dtype, n, m, k,
+                            l, r);
   if (dtype == 0)
-    return run<float>(x, w, a, b, scale, y, workspace, n, m, k, l, r, dtype, trans_w != 0, st);
+    return run<float>(pl, x, w, a, b, scale, y, workspace, n, m, k, l, r, trans_w, st);
   if (dtype == 1)
-    return run<bf16>(x, w, a, b, scale, y, workspace, n, m, k, l, r, dtype, trans_w != 0, st);
+    return run<bf16>(pl, x, w, a, b, scale, y, workspace, n, m, k, l, r, trans_w, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,7 +31,11 @@
 //    epilogue stages xA (f32) and the B tile in shared memory and writes
 //    y = cast(base + scale * sum_q xA[q] * B[q]) (f32 FMAs in q order)
 //    with 16-byte stores.
-//  * Otherwise -- decode's 8 rows of 8 adapters, f32, odd shapes: three
+//  * bf16, at most 16 rows in all (decode's 8 rows of 8 adapters), K and L
+//    multiples of 8, W row-major, x, W, A, B 16-byte aligned (8 for the
+//    codes): decode.cuh's weight-streaming kernel, two launches (xA, then
+//    the base and the epilogue in one pass over W).
+//  * Otherwise -- f32, the backward's W^T at few rows, odd shapes: three
 //    launches: xA as f32 partial sums (tile.cuh's gemm_kernel over the
 //    adapters, K split across blocks), the base product as f32 partials
 //    (split K when the output tiles are few), and fused_epilogue, which adds
@@ -238,6 +242,12 @@ __device__ __forceinline__ void load_f8(const float* p, float (&s)[8]) {
   s[0] = s0.x; s[1] = s0.y; s[2] = s0.z; s[3] = s0.w;
   s[4] = s1.x; s[5] = s1.y; s[6] = s1.z; s[7] = s1.w;
 }
+
+}  // namespace plora
+
+#include "decode.cuh"  // PATH_DECODE's kernel: uses deq_int8, deq_nf4 and load_f8 above
+
+namespace plora {
 
 // The producer's dequantizing stage of a quantized W. The codes of a K step
 // (64 rows x BN bytes for int8, 32 x BN for nf4's two rows a byte) arrive
@@ -570,7 +580,7 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 // Plan and launch
 // ---------------------------------------------------------------------------
 
-enum { PATH_SPLIT3 = 0, PATH_WGMMA = 1 };
+enum { PATH_SPLIT3 = 0, PATH_WGMMA = 1, PATH_DECODE = 2 };
 
 // Whether a call takes the wgmma path (see fused_wgmma_kernel).
 // `aligned`: x and every W array can be read with the kernel's TMA and
@@ -578,6 +588,13 @@ enum { PATH_SPLIT3 = 0, PATH_WGMMA = 1 };
 inline bool use_wgmma(bool aligned, int dtype, int n, int m, int k, int l) {
   return dtype == 1 && n * m > ThinTile::BM && (n == 1 || m % 64 == 0) && k % 8 == 0 &&
          l % 8 == 0 && aligned;
+}
+
+// Whether a call takes the decode path (decode.cuh): bf16, at most 16 rows
+// in all, K and L multiples of 8, W row-major (`decode_ok`: not the
+// backward's W^T, and A and B 16-byte aligned) and read by vector loads.
+inline bool use_decode(bool aligned, bool decode_ok, int dtype, int n, int m, int k, int l) {
+  return dtype == 1 && n * m <= DEC_MAX_ROWS && k % 8 == 0 && l % 8 == 0 && aligned && decode_ok;
 }
 
 inline bool aligned_to(const void* p, uintptr_t a) {
@@ -601,22 +618,37 @@ inline SplitK plan_wgmma(int rows, int k, int l, int bn) {
 
 // The plan of a call: its path, the wgmma kernel's padded rank and tile
 // width, the K ranges of the base product and of xA, and the f32 workspace
-// (elements) for their partial sums (0: none needed).
+// (elements) for their partial sums (0: none needed). On the decode path:
+// rp, bn, splits_y and steps are the main kernel's rows (RM), column threads,
+// K ranges and row pairs per range, xa_* and splits_xa the xA pass's, and
+// the workspace is xA itself (rows x r f32).
 struct Plan {
   int path, rp, bn, splits_y, splits_xa, steps;
   long long workspace;
+  int xa_rm, xa_ct, xa_pairs;
 };
 
-inline Plan make_plan(bool aligned, int dtype, int n, int m, int k, int l, int r) {
+inline Plan make_plan(bool aligned, bool decode_ok, int dtype, int n, int m, int k, int l,
+                      int r) {
   const int rows = n * m;
+  if (use_decode(aligned, decode_ok, dtype, n, m, k, l)) {
+    const DecodeGeom g = decode_geom(k, l, 1, 4, 32, DEC_SLOTS);
+    // the xA pass takes what the main kernel's blocks leave of the card
+    // (its blocks hold two thirds of the main kernel's shared memory)
+    const long long left = 2 * (DEC_SLOTS - g.blocks);
+    const DecodeGeom ga = decode_geom(k, r, n, dec_xa_ct(r), dec_xa_ct(r), left > n ? left : n);
+    return {PATH_DECODE, dec_rm(rows), g.ct, g.splits, ga.splits, g.pairs,
+            (long long)rows * r, dec_rm(m), ga.ct, ga.pairs};
+  }
   if (use_wgmma(aligned, dtype, n, m, k, l)) {
     const int rp = rank_pad(r), bn = wg_bn(rp);
     const SplitK sk = plan_wgmma(rows, k, l, bn);
     return {PATH_WGMMA, rp, bn, sk.splits, sk.splits, sk.steps,
-            sk.splits > 1 ? (long long)sk.splits * rows * (l + r) : 0};
+            sk.splits > 1 ? (long long)sk.splits * rows * (l + r) : 0, 0, 0, 0};
   }
   const int sy = gemm_plan_for(1, rows, k, l).splits, sx = gemm_plan_for(n, m, k, r).splits;
-  return {PATH_SPLIT3, 0, 0, sy, sx, 0, (long long)sy * rows * l + (long long)sx * rows * r};
+  return {PATH_SPLIT3, 0, 0, sy, sx, 0, (long long)sy * rows * l + (long long)sx * rows * r,
+          0, 0, 0};
 }
 
 inline int check_sizes(int n, int m, int k, int l, int r) {
@@ -747,8 +779,34 @@ inline int launch_wgmma(const Plan& pl, const CUtensorMap& tx, const CUtensorMap
   return (int)cudaGetLastError();
 }
 
+// The decode path's two launches (decode.cuh): xA of every adapter into
+// `xa` (rows x r f32), then the weight-streaming kernel.
+template <class WS>
+inline int launch_decode(const Plan& pl, const void* x, const WS& w, const void* a, const void* b,
+                         const float* scale, void* y, float* xa, int n, int m, int k, int l,
+                         int r, cudaStream_t stream) {
+  using S = typename DecodeSource<WS>::type;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const DecA as{static_cast<const bf16*>(a), r, (int)(r % 8 == 0 && aligned_to(a, 16)),
+                (long long)k * r};
+  const dim3 xa_grid(1, n, pl.splits_xa);
+  cudaError_t e = pl.xa_rm <= 8
+      ? launch_xa_ct<8>(pl.xa_ct, xa_grid, xb, as, xa, m, k, r, pl.xa_pairs, stream)
+      : launch_xa_ct<16>(pl.xa_ct, xa_grid, xb, as, xa, m, k, r, pl.xa_pairs, stream);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((l + 8 * pl.bn - 1) / (8 * pl.bn), 1, pl.splits_y);
+  const S ws = DecodeSource<WS>::make(w);
+  e = pl.rp <= 8 ? launch_main_ct<S, 8>(pl.bn, grid, xb, ws, b, scale, y, xa, m, k, l, r, n * m,
+                                        pl.steps, stream)
+                 : launch_main_ct<S, 16>(pl.bn, grid, xb, ws, b, scale, y, xa, m, k, l, r, n * m,
+                                         pl.steps, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // One call of the fused function on the plan `pl`, W read through `w`
-// (element (k, l) of the (K x L) weight; tile.cuh's sources).
+// (element (k, l) of the (K x L) weight; tile.cuh's sources). `workspace`:
+// the plan's f32 workspace (on the decode path, xA).
 template <typename T, class WS>
 inline int launch_fused(const Plan& pl, const void* x, const WS& w, const void* a, const void* b,
                         const float* scale, void* y, float* workspace, int n, int m, int k,
@@ -757,6 +815,10 @@ inline int launch_fused(const Plan& pl, const void* x, const WS& w, const void* 
   float* part_y = workspace;
   float* part_xa = workspace ? workspace + (long long)pl.splits_y * rows * l : nullptr;
   if (pl.workspace > 0 && workspace == nullptr) return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, bf16>::value && DecodeSource<WS>::OK) {
+    if (pl.path == PATH_DECODE)
+      return launch_decode(pl, x, w, a, b, scale, y, workspace, n, m, k, l, r, stream);
+  }
   if constexpr (std::is_same<T, bf16>::value) {
     if (pl.path == PATH_WGMMA) {
       if (pl.splits_y > 65535) return (int)cudaErrorInvalidValue;

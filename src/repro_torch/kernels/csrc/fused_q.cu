@@ -21,7 +21,10 @@
 // the tensor cores, as for the dense kernel; the dequantization adds one
 // multiply and one rounding per W element per 128-row block, done by the
 // producer while the consumers multiply, and the weight bytes read drop 2x
-// (int8) or ~3.6x (nf4). Decode would be bytes-bound on the codes.
+// (int8) or ~3.6x (nf4). Decode (at most 16 rows) is bytes-bound on the
+// codes: decode.cuh's weight-streaming kernel loads them in 8-byte vectors
+// and dequantizes each row pair before it multiplies it, in the dense call's
+// order of sums.
 #include "fused.cuh"
 
 using namespace plora;
@@ -31,10 +34,9 @@ static bool q_aligned(const void* x, const void* codes, const float* scales) {
 }
 
 template <typename T>
-static int run(const void* x, const void* codes, const float* scales, const void* a,
-               const void* b, const float* scale, void* y, float* workspace, int n, int m, int k,
-               int l, int r, int dtype, int mode, int blk, cudaStream_t stream) {
-  const Plan pl = make_plan(q_aligned(x, codes, scales), dtype, n, m, k, l, r);
+static int run(const Plan& pl, const void* x, const void* codes, const float* scales,
+               const void* a, const void* b, const float* scale, void* y, float* workspace, int n,
+               int m, int k, int l, int r, int mode, int blk, cudaStream_t stream) {
   if (mode == 0)
     return launch_fused<T>(pl, x, Int8W<T>{static_cast<const int8_t*>(codes), scales, l}, a, b,
                            scale, y, workspace, n, m, k, l, r, stream);
@@ -42,34 +44,45 @@ static int run(const void* x, const void* codes, const float* scales, const void
                          b, scale, y, workspace, n, m, k, l, r, stream);
 }
 
-// The path a call with these operands takes: PATH_SPLIT3 or PATH_WGMMA.
-extern "C" int plora_fused_matmul_q_path(const void* x, const void* codes, const float* scales,
-                                         int n, int m, int k, int l, int r, int dtype) {
-  return make_plan(q_aligned(x, codes, scales), dtype, n, m, k, l, r).path;
+// The plan of a call from its sizes and its operands' flags -- aligned: x
+// and the scales start on 16 bytes, the codes on 8; decode_ok: A and B start
+// on 16 bytes. The same plan as the dense kernel's (fused.cu), so a call
+// takes the path and the order of sums of the dense call on the dequantized
+// W. Returns the path and stores the f32 workspace (elements) it needs.
+extern "C" int plora_fused_matmul_q_plan(int n, int m, int k, int l, int r, int dtype,
+                                         int aligned, int decode_ok, long long* workspace) {
+  const Plan pl = make_plan(aligned != 0, decode_ok != 0, dtype, n, m, k, l, r);
+  *workspace = pl.workspace;
+  return pl.path;
 }
 
-// The f32 workspace (elements) a call with these operands needs.
-extern "C" long long plora_fused_matmul_q_workspace(const void* x, const void* codes,
-                                                    const float* scales, int n, int m, int k,
-                                                    int l, int r, int dtype) {
-  return make_plan(q_aligned(x, codes, scales), dtype, n, m, k, l, r).workspace;
-}
-
-// dtype: 0 = float32, 1 = bfloat16; mode: 0 = int8, 1 = nf4 (blk: the rows
-// of one scale block, dividing k). Returns cudaGetLastError() after the
-// launches (0 on success); they are asynchronous on `stream`.
-extern "C" int plora_fused_matmul_q(const void* x, const void* codes, const float* scales,
-                                    const void* a, const void* b, const float* scale, void* y,
-                                    float* workspace, int n, int m, int k, int l, int r,
-                                    int dtype, int mode, int blk, void* stream) {
+// One call: its arguments come as one block of 17 int64 -- x, codes,
+// scales, a, b, scale, y, workspace (addresses; 0 for no scale or no
+// workspace), n, m, k, l, r, dtype (0 float32, 1 bfloat16), mode (0 int8,
+// 1 nf4), blk (nf4: the rows of one scale block, dividing k), stream.
+// Returns cudaGetLastError() after the launches (0 on success); they are
+// asynchronous on `stream`.
+extern "C" int plora_fused_matmul_q(const long long* args) {
+  const void* x = reinterpret_cast<const void*>(args[0]);
+  const void* codes = reinterpret_cast<const void*>(args[1]);
+  const float* scales = reinterpret_cast<const float*>(args[2]);
+  const void* a = reinterpret_cast<const void*>(args[3]);
+  const void* b = reinterpret_cast<const void*>(args[4]);
+  const float* scale = reinterpret_cast<const float*>(args[5]);
+  void* y = reinterpret_cast<void*>(args[6]);
+  float* workspace = reinterpret_cast<float*>(args[7]);
+  const int n = (int)args[8], m = (int)args[9], k = (int)args[10], l = (int)args[11];
+  const int r = (int)args[12], dtype = (int)args[13], mode = (int)args[14], blk = (int)args[15];
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[16]);
   if (const int bad = check_sizes(n, m, k, l, r)) return bad;
   if (mode != 0 && (mode != 1 || k % 2 || blk <= 0 || k % blk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan pl = make_plan(q_aligned(x, codes, scales), aligned_to(a, 16) && aligned_to(b, 16),
+                            dtype, n, m, k, l, r);
   if (dtype == 0)
-    return run<float>(x, codes, scales, a, b, scale, y, workspace, n, m, k, l, r, dtype, mode,
-                      blk, st);
+    return run<float>(pl, x, codes, scales, a, b, scale, y, workspace, n, m, k, l, r, mode, blk,
+                      st);
   if (dtype == 1)
-    return run<bf16>(x, codes, scales, a, b, scale, y, workspace, n, m, k, l, r, dtype, mode, blk,
+    return run<bf16>(pl, x, codes, scales, a, b, scale, y, workspace, n, m, k, l, r, mode, blk,
                      st);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,11 +14,23 @@ kernel's K loop. On a CUDA tensor they launch ``csrc/fused.cu`` and
 raises, and so does one that requires grad while grad mode is on (the
 kernels build no graph).
 
+A call takes one of three paths of ``csrc/fused.cuh``'s plan, which reads
+only shapes, dtype, W's layout and alignment (``fused_matmul_path`` names
+it): "decode" (bf16, at most 16 rows in all: the weight-streaming kernel of
+``csrc/decode.cuh``), "wgmma" (bf16, more rows: the warp-specialised
+tensor-core kernel) or "split3" (f32, the backward's W^T at few rows, odd
+shapes). The plan is asked once per shape and cached, and a launch is one
+ctypes call whose arguments go as one packed block. The decode path's one
+workspace, xA (rows x r f32), lies behind y in y's own allocation.
+
 ``_FusedLora`` is the autograd Function around them: its backward is the
 reference's ``_bwd`` (``fused.py:354-431``), with dx through the kernel.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import struct
 from typing import Optional
 
 import torch
@@ -27,7 +39,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.packed_matmul import (
     DTYPE_CODES,
-    check_cuda,
+    _device,
+    _transposed,
     check_no_graph,
     check_operand,
     layout,
@@ -36,8 +49,16 @@ from repro_torch.kernels.packed_matmul import (
 from repro_torch.kernels.quant import dequantize
 
 MAX_RANK = 128  # RMAX of csrc/fused.cuh
-PATHS = ("split3", "wgmma")  # PATH_SPLIT3, PATH_WGMMA of csrc/fused.cuh
+# PATH_SPLIT3, PATH_WGMMA, PATH_DECODE of csrc/fused.cuh: "split3" three FMA
+# launches (f32, odd shapes), "wgmma" the warp-specialised tensor-core kernel
+# (bf16, more than 16 rows), "decode" the weight-streaming kernel of
+# csrc/decode.cuh (bf16, at most 16 rows in all)
+PATHS = ("split3", "wgmma", "decode")
+DECODE = PATHS.index("decode")
 QUANT_MODES = {torch.int8: 0, torch.uint8: 1}  # the codes' dtype -> mode of csrc/fused_q.cu
+# each launch's one argument: a block of 15 (dense) or 17 (quantized) int64
+_ARGS = struct.Struct("<15q")
+_ARGS_Q = struct.Struct("<17q")
 
 
 def _check_lora(name, x, a, b, l):
@@ -57,9 +78,63 @@ def _check_lora(name, x, a, b, l):
     return n, m, k, r
 
 
-def _workspace(n_ws: int, device) -> Optional[torch.Tensor]:
-    # f32 partial sums of the base and of xA (see csrc/fused.cuh)
-    return torch.empty((n_ws,), dtype=torch.float32, device=device) if n_ws else None
+def _scale(scale: Optional[torch.Tensor], n: int, dev: int) -> int:
+    """The (N,) f32 scale's address, or 0 (no scale: the kernel scales by 1)."""
+    if scale is None:
+        return 0
+    if (scale.dtype != torch.float32 or scale.shape != (n,) or scale.get_device() != dev
+            or not scale.is_contiguous()):
+        return scale_ptr(scale, n, torch.device("cuda", dev))  # raises, saying why
+    return scale.data_ptr()
+
+
+def _aligned16(*ts) -> bool:
+    addr = 0
+    for t in ts:
+        addr |= t.data_ptr()
+    return addr % 16 == 0
+
+
+def _q_aligned(x, codes, scales) -> bool:
+    """x and the scales on 16 bytes, the codes on 8: the quantized kernels' loads."""
+    return (x.data_ptr() | scales.data_ptr()) % 16 == 0 and codes.data_ptr() % 8 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(lib_name: str, n: int, m: int, k: int, l: int, r: int, code: int, aligned: int,
+          decode_ok: int):
+    """(path, f32 workspace elements) of a call, from ``csrc/fused.cuh``'s
+    plan -- the one the launch makes from the pointers. It reads only these
+    sizes, the dtype and two flags (``aligned``: x and W can be read by the
+    kernels' TMA and vector loads; ``decode_ok``: W is row-major and A, B are
+    16-byte aligned), so it is asked once per shape."""
+    ws = ctypes.c_longlong(0)
+    if lib_name == "fused":
+        path = _build.load("fused").plora_fused_matmul_plan(
+            n, m, k, l, r, code, aligned, decode_ok, ctypes.byref(ws))
+    else:
+        path = _build.load("fused_q").plora_fused_matmul_q_plan(
+            n, m, k, l, r, code, aligned, decode_ok, ctypes.byref(ws))
+    return path, ws.value
+
+
+def _outputs(n: int, m: int, l: int, path: int, n_ws: int, dtype, dev: int):
+    """y (N, M, L), the workspace's address (0: none) and the tensor that
+    holds it. On the decode path the workspace is xA (rows x r f32), kept
+    behind y in y's own allocation, so the call allocates once; else it is a
+    tensor of its own, kept until the launch is queued."""
+    if path == DECODE:
+        off = -(-n * m * l // 8) * 8  # xA starts on 16 bytes
+        buf = torch.empty((off + 2 * n_ws,), dtype=dtype, device=dev)
+        return buf.as_strided((n, m, l), (m * l, l, 1)), buf.data_ptr() + 2 * off, buf
+    y = torch.empty((n, m, l), dtype=dtype, device=dev)
+    if not n_ws:
+        return y, 0, None
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=dev)
+    return y, ws.data_ptr(), ws
+
+
+_launch = {}  # library name -> its launch function, once loaded
 
 
 def fused_matmul(
@@ -73,30 +148,47 @@ def fused_matmul(
     None; bf16 or f32, r <= 128. ``backward`` marks the backward's dx call:
     it is counted in ``fused_matmul.bwd_launches`` instead of
     ``fused_matmul.launches``."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return _ref.fused_matmul_ref(x, w, a, b, scale)
-    check_cuda("fused_matmul", x)
-    check_no_graph("fused_matmul", x, w, a, b, scale)
+    dev = _device(x, "fused_matmul")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or a.requires_grad
+                                    or b.requires_grad
+                                    or (scale is not None and scale.requires_grad)):
+        check_no_graph("fused_matmul", x, w, a, b, scale)  # raises
     if w.dim() != 2:
         raise ValueError(f"fused_matmul: w {tuple(w.shape)} must be 2-D")
-    l = w.shape[1]
-    n, m, k, r = _check_lora("fused_matmul", x, a, b, l)
-    trans_w = layout(w, "w", (k, l), x.dtype, x.device)
-    s = scale_ptr(scale, n, x.device)
-    y = torch.empty((n, m, l), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    lib = _build.load("fused")
-    code = DTYPE_CODES[x.dtype]
-    ws = _workspace(
-        lib.plora_fused_matmul_workspace(x.data_ptr(), w.data_ptr(), n, m, k, l, r, code), x.device
-    )
-    rc = lib.plora_fused_matmul(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), s, y.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        n, m, k, l, r, code, int(trans_w), torch.cuda.current_stream().cuda_stream,
-    )
-    _build.check(lib, rc, "fused_matmul")
+    kw, l = w.shape
+    dt = x.dtype
+    # the checks that pass in the common case, cheaply; _check_lora and
+    # layout run, and raise with the reason, only when one fails
+    if not (x.dim() == 3 and a.dim() == 3 and b.dim() == 3 and dt in DTYPE_CODES
+            and a.dtype == dt and b.dtype == dt and w.dtype == dt
+            and a.get_device() == dev and b.get_device() == dev and w.get_device() == dev
+            and x.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
+        _check_lora("fused_matmul", x, a, b, l)
+    n, m, k = x.shape
+    na, ka, r = a.shape
+    if (na, ka) != (n, k) or b.shape != (n, r, l) or not 1 <= r <= MAX_RANK:
+        _check_lora("fused_matmul", x, a, b, l)
+    if kw != k or w.dtype != dt or w.get_device() != dev:
+        layout(w, "w", (k, l), dt, x.device)  # raises, saying why
+    trans_w = _transposed(w, "w")
+    s = _scale(scale, n, dev)
+    if n * m * l == 0:
+        return torch.empty((n, m, l), dtype=dt, device=dev)
+    code = DTYPE_CODES[dt]
+    xp, wp, ap, bp = x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr()
+    path, n_ws = _plan("fused", n, m, k, l, r, code, int((xp | wp) % 16 == 0),
+                       int(not trans_w and (ap | bp) % 16 == 0))
+    y, ws, keep = _outputs(n, m, l, path, n_ws, dt, dev)
+    launch = _launch.get("fused")
+    if launch is None:
+        launch = _launch["fused"] = _build.load("fused").plora_fused_matmul
+    rc = launch(_ARGS.pack(xp, wp, ap, bp, s, y.data_ptr(), ws, n, m, k, l, r, code, trans_w,
+                           torch._C._cuda_getCurrentRawStream(dev)))
+    del keep
+    if rc:
+        _build.check(_build.load("fused"), rc, "fused_matmul")
     if backward:
         fused_matmul.bwd_launches += 1
     else:
@@ -108,18 +200,9 @@ fused_matmul.launches = 0
 fused_matmul.bwd_launches = 0
 
 
-def fused_matmul_q(
-    x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, a: torch.Tensor,
-    b: torch.Tensor, scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """y[n] = x[n] @ deq(W) + scale[n] * (x[n] @ a[n]) @ b[n], W given as
-    int8 codes (K, L) + f32 scales (1, L), or nf4 codes (K/2, L) uint8 + f32
-    block scales (K/blk, L); each W element is the f32 product code * scale
-    cast once to x's dtype. Other operands as :func:`fused_matmul`."""
-    if x.device.type == "cpu":
-        return _ref.fused_matmul_q_ref(x, codes, scales, a, b, scale)
-    check_cuda("fused_matmul_q", x)
-    check_no_graph("fused_matmul_q", x, a, b, scale)
+def _q_operands(x, codes, scales, a, b):
+    """(n, m, k, l, r, mode, blk) of a quantized call, after the checks that
+    refuse what the kernel does not take."""
     if codes.dtype not in QUANT_MODES or codes.dim() != 2 or scales.dim() != 2:
         raise ValueError(
             f"fused_matmul_q: codes {codes.dtype} {tuple(codes.shape)}, scales "
@@ -134,24 +217,42 @@ def fused_matmul_q(
     blk = 0 if mode == 0 else k // n_blocks
     check_operand(codes, "codes", (k if mode == 0 else k // 2, l), codes.dtype, x.device)
     check_operand(scales, "scales", (n_blocks, l), torch.float32, x.device)
-    s = scale_ptr(scale, n, x.device)
-    y = torch.empty((n, m, l), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    lib = _build.load("fused_q")
+    return n, m, k, l, r, mode, blk
+
+
+def fused_matmul_q(
+    x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, a: torch.Tensor,
+    b: torch.Tensor, scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """y[n] = x[n] @ deq(W) + scale[n] * (x[n] @ a[n]) @ b[n], W given as
+    int8 codes (K, L) + f32 scales (1, L), or nf4 codes (K/2, L) uint8 + f32
+    block scales (K/blk, L); each W element is the f32 product code * scale
+    cast once to x's dtype. Other operands as :func:`fused_matmul`."""
+    if x.is_cpu:
+        return _ref.fused_matmul_q_ref(x, codes, scales, a, b, scale)
+    dev = _device(x, "fused_matmul_q")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, a, b, scale)):
+        check_no_graph("fused_matmul_q", x, a, b, scale)  # raises
+    n, m, k, l, r, mode, blk = _q_operands(x, codes, scales, a, b)
+    s = _scale(scale, n, dev)
+    if n * m * l == 0:
+        return torch.empty((n, m, l), dtype=x.dtype, device=dev)
     code = DTYPE_CODES[x.dtype]
-    ws = _workspace(
-        lib.plora_fused_matmul_q_workspace(
-            x.data_ptr(), codes.data_ptr(), scales.data_ptr(), n, m, k, l, r, code
-        ),
-        x.device,
-    )
-    rc = lib.plora_fused_matmul_q(
+    path, n_ws = _plan("fused_q", n, m, k, l, r, code, int(_q_aligned(x, codes, scales)),
+                       int(_aligned16(a, b)))
+    y, ws, keep = _outputs(n, m, l, path, n_ws, x.dtype, dev)
+    launch = _launch.get("fused_q")
+    if launch is None:
+        launch = _launch["fused_q"] = _build.load("fused_q").plora_fused_matmul_q
+    rc = launch(_ARGS_Q.pack(
         x.data_ptr(), codes.data_ptr(), scales.data_ptr(), a.data_ptr(), b.data_ptr(), s,
-        y.data_ptr(), ws.data_ptr() if ws is not None else None,
-        n, m, k, l, r, code, mode, blk, torch.cuda.current_stream().cuda_stream,
-    )
-    _build.check(lib, rc, "fused_matmul_q")
+        y.data_ptr(), ws, n, m, k, l, r, code, mode, blk,
+        torch._C._cuda_getCurrentRawStream(dev),
+    ))
+    del keep
+    if rc:
+        _build.check(_build.load("fused_q"), rc, "fused_matmul_q")
     fused_matmul_q.launches += 1
     return y
 
@@ -159,27 +260,30 @@ def fused_matmul_q(
 fused_matmul_q.launches = 0
 
 
-def fused_matmul_path(x: torch.Tensor, w: torch.Tensor, r: int) -> str:
+def fused_matmul_path(x: torch.Tensor, w: torch.Tensor, r: int,
+                      a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None) -> str:
     """Which path ``csrc/fused.cuh``'s plan gives :func:`fused_matmul` on
-    these CUDA operands (x (N, M, K), w (K, L), rank r): "wgmma" or
-    "split3". The plan reads only shapes, dtype and alignment."""
-    check_cuda("fused_matmul_path", x)
+    these CUDA operands (x (N, M, K), w (K, L), rank r): "decode", "wgmma"
+    or "split3". The plan reads only shapes, dtype, W's layout and
+    alignment; A and B, when not given, count as 16-byte aligned (as a
+    fresh allocation is)."""
+    _device(x, "fused_matmul_path")
     n, m, k = x.shape
-    code = _build.load("fused").plora_fused_matmul_path(
-        x.data_ptr(), w.data_ptr(), n, m, k, w.shape[1], r, DTYPE_CODES[x.dtype]
-    )
-    return PATHS[code]
+    trans_w = _transposed(w, "w")
+    ab = _aligned16(*(t for t in (a, b) if t is not None))
+    return PATHS[_plan("fused", n, m, k, w.shape[1], r, DTYPE_CODES[x.dtype],
+                       int(_aligned16(x, w)), int(not trans_w and ab))[0]]
 
 
-def fused_matmul_q_path(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, r: int) -> str:
+def fused_matmul_q_path(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, r: int,
+                        a: Optional[torch.Tensor] = None,
+                        b: Optional[torch.Tensor] = None) -> str:
     """:func:`fused_matmul_path` for :func:`fused_matmul_q`: the same plan."""
-    check_cuda("fused_matmul_q_path", x)
+    _device(x, "fused_matmul_q_path")
     n, m, k = x.shape
-    code = _build.load("fused_q").plora_fused_matmul_q_path(
-        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), n, m, k, codes.shape[1], r,
-        DTYPE_CODES[x.dtype],
-    )
-    return PATHS[code]
+    ab = _aligned16(*(t for t in (a, b) if t is not None))
+    return PATHS[_plan("fused_q", n, m, k, codes.shape[1], r, DTYPE_CODES[x.dtype],
+                       int(_q_aligned(x, codes, scales)), int(ab))[0]]
 
 
 def xa_rounded(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -37,9 +37,13 @@ Heterogeneous-rank packs: pass ``ranks=`` (the pack's per-adapter rank
 tuple) and same-rank adapters run as ragged segments at their own rank: a
 permutation gather, then per-segment slices of A and B at the true rank, so
 the padding columns are never read and their gradients are structurally 0.
+The permutation's index tensors are made once per (ranks, device), and a
+rank tuple that is already sorted skips the gather and the scatter: no call
+waits on the host.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -171,17 +175,46 @@ class _PackedLoraDelta(torch.autograd.Function):
         return dx, da.to(a.dtype), db.to(b.dtype), None, None, None
 
 
+@functools.lru_cache(maxsize=None)
+def _ragged_plan(ranks: Tuple[int, ...]):
+    """``rank_segments(ranks)`` as tuples, and whether ``order`` is the
+    identity (the ranks already sorted), once per rank tuple."""
+    order, inv, segments = rank_segments(ranks)
+    return order, inv, tuple(segments), order == tuple(range(len(ranks)))
+
+
+_INDEX = {}  # (ranks, device) -> (order, inv) as int64 tensors on the device
+
+
+def ragged_index(ranks: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (order, inv) permutation of ``rank_segments(ranks)`` as index
+    tensors on ``device``, made on the first call for this (ranks, device)
+    and the same tensors on every later one. The host-to-device copy is
+    queued without blocking: a blocking copy of a fresh host tensor ends in a
+    stream synchronize."""
+    key = (tuple(int(r) for r in ranks), torch.device(device))
+    idx = _INDEX.get(key)
+    if idx is None:
+        order, inv, _, _ = _ragged_plan(key[0])
+        idx = _INDEX[key] = tuple(
+            torch.tensor(v, dtype=torch.int64).to(key[1], non_blocking=True) for v in (order, inv))
+    return idx
+
+
 def _ragged_call(fn, x, a, b, alpha, ranks):
     """Run ``fn(x_seg, a_seg, b_seg, alpha_seg)`` over same-rank segments,
     each segment's weights sliced to its true rank (made contiguous for the
     kernels), and reassemble the outputs in slot order. Every step is
-    differentiable, and the sliced-off padding gets exactly zero gradient."""
+    differentiable, and the sliced-off padding gets exactly zero gradient.
+    Sorted ranks need no permutation: the segments are slices of the pack."""
     if len(ranks) != x.shape[0]:
         raise ValueError(f"ranks {ranks} do not match pack size {x.shape[0]}")
-    order, inv, segments = rank_segments(ranks)
-    dev = x.device
-    o = torch.tensor(order, device=dev)
-    xs, a_s, b_s, al_s = x[o], a[o], b[o], alpha[o]
+    _, _, segments, identity = _ragged_plan(tuple(ranks))
+    if identity:
+        xs, a_s, b_s, al_s = x, a, b, alpha
+    else:
+        o, inv = ragged_index(ranks, x.device)
+        xs, a_s, b_s, al_s = x[o], a[o], b[o], alpha[o]
     outs = [
         fn(
             xs[lo:hi].contiguous(),
@@ -191,7 +224,8 @@ def _ragged_call(fn, x, a, b, alpha, ranks):
         )
         for lo, hi, r in segments
     ]
-    return torch.cat(outs, dim=0)[torch.tensor(inv, device=dev)]
+    out = torch.cat(outs, dim=0)
+    return out if identity else out[inv]
 
 
 def packed_lora_delta(

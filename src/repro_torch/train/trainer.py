@@ -117,17 +117,23 @@ def make_train_step(
     base_dtype: Optional[str] = None,
 ):
     """The step for one pack, its hyperparameter vectors closed over:
-    ``train_step(base, lora, opt_state, batch)``."""
+    ``train_step(base, lora, opt_state, batch)``. The vectors (scales,
+    learning rates, step budgets) are made on the first step on a device and
+    reused, so a step copies nothing from the host."""
     step = make_packed_step(
         cfg, meta.n, chunk_q=chunk_q, vocab_chunk=vocab_chunk, weight_decay=weight_decay,
         impl=impl, remat=remat, ranks=meta.ranks, base_dtype=base_dtype,
     )
+    vectors = {}  # device -> (scales, lr_vec, budgets)
 
     def train_step(base, lora, opt_state, batch):
         dev = batch["tokens"].device
-        budgets = (torch.tensor(step_budgets, dtype=torch.int32, device=dev)
-                   if step_budgets is not None else None)
-        return step(base, lora, opt_state, batch, meta.scales(dev), meta.lr_vector(dev), budgets)
+        vec = vectors.get(dev)
+        if vec is None:
+            budgets = (torch.tensor(step_budgets, dtype=torch.int32).to(dev, non_blocking=True)
+                       if step_budgets is not None else None)
+            vec = vectors[dev] = (meta.scales(dev), meta.lr_vector(dev), budgets)
+        return step(base, lora, opt_state, batch, *vec)
 
     return train_step
 

@@ -51,7 +51,7 @@ def _close(got, want):
 @pytest.mark.parametrize(
     "n,m,k,l,r",
     [
-        (8, 1, 3584, 512, 16),   # decode: thin tile, split K
+        (8, 1, 3584, 512, 16),   # decode: thin tile, split K; fused bf16: the decode kernel
         (1, 70, 300, 200, 8),    # K not a multiple of 8: FMA tile
         (3, 17, 64, 33, 24),     # rows of several adapters in one tile
         (1, 100, 256, 64, 24),   # bf16: tensor-core tile, split K, rank padded to 32
@@ -135,7 +135,7 @@ def test_fused_dx_reads_w_transposed(cuda, dtype, n, m, d_in, d_out, r):
     [
         (2, 128, 256, 192, 16),   # bf16: tensor-core tile
         (1, 100, 512, 64, 24),    # bf16: tensor-core tile with split K
-        (8, 1, 384, 80, 16),      # decode rows: FMA tile, split K
+        (8, 1, 384, 80, 16),      # decode rows: bf16 the decode kernel, f32 FMA tile
         (3, 17, 96, 40, 8),       # FMA tile
     ],
 )
@@ -190,8 +190,9 @@ def test_wgmma_path_matches_plain(cuda, n, m, k, l, r, scaled):
 @pytest.mark.gpu
 def test_wgmma_split_k_is_deterministic_and_paths_follow_shapes(cuda):
     """A split-K call gives the same bits twice (fixed-order partial sums);
-    decode rows and f32 take the three-launch path, bf16 training rows the
-    wgmma kernel."""
+    bf16 decode rows take the weight-streaming kernel, f32 and the
+    backward's W^T at decode rows the three-launch path, bf16 training rows
+    the wgmma kernel."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     dt = torch.bfloat16
     x, w = _rnd(gen, (2, 1024, 3584), dt), _rnd(gen, (3584, 512), dt, 3584 ** -0.5)
@@ -199,7 +200,9 @@ def test_wgmma_split_k_is_deterministic_and_paths_follow_shapes(cuda):
     s = torch.tensor([0.5, 2.0], device=cuda)
     assert fused_matmul_path(x, w, 16) == "wgmma"
     assert torch.equal(fused_matmul(x, w, a, b, s), fused_matmul(x, w, a, b, s))
-    assert fused_matmul_path(x[:, :1], w, 16) == "split3"  # 2 rows
+    assert fused_matmul_path(x[:, :1], w, 16) == "decode"  # 2 rows, bf16
+    assert fused_matmul_path(x[:, :1].float(), w.float(), 16) == "split3"  # 2 rows, f32
+    assert fused_matmul_path(x[:, :1], w.t().contiguous().t(), 16) == "split3"  # dx's W^T
     assert fused_matmul_path(x.float(), w.float(), 16) == "split3"
 
 
@@ -339,3 +342,102 @@ def test_remat_save_equals_recompute_on_the_card(cuda):
         res[remat] = (y, a.grad, b.grad)
     for got, want in zip(res["save"], res["recompute"]):
         assert torch.equal(got, want)
+
+
+DECODE_SHAPES = [  # (n, m, k, l, r), bf16
+    (1, 1, 392, 80, 1),        # one row; rank 1: A read an element at a time; ragged strips
+    (8, 1, 392, 80, 8),
+    (16, 1, 392, 80, 16),      # 16 rows: the 16-row tile
+    (4, 4, 392, 80, 128),      # 4 adapters x 4 rows; the widest rank
+    (2, 8, 392, 80, 12),       # a rank off a multiple of 8
+    (8, 1, 4104, 80, 16),      # K split over a cluster of 8, the last range short
+    (16, 1, 18944, 512, 32),   # 16 rows, K staged in several chunks
+    (8, 1, 3584, 3584, 16),    # qwen25-7b q, o
+    (8, 1, 3584, 512, 16),     # k, v
+    (8, 1, 3584, 18944, 16),   # gate, up
+    (8, 1, 18944, 3584, 16),   # down
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,k,l,r", DECODE_SHAPES)
+def test_decode_path_matches_plain(cuda, n, m, k, l, r):
+    """bf16 decode rows take the weight-streaming kernel (csrc/decode.cuh):
+    against the plain version with a scale and without, the same bits on a
+    second call, and int8/nf4 ``torch.equal`` to the dense kernel on the
+    dequantized W."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    dt = torch.bfloat16
+    x, w = _rnd(gen, (n, m, k), dt), _rnd(gen, (k, l), dt, k ** -0.5)
+    a, b = _rnd(gen, (n, k, r), dt, k ** -0.5), _rnd(gen, (n, r, l), dt)
+    s = torch.linspace(0.5, 2.0, n, device=cuda)
+    assert fused_matmul_path(x, w, r, a, b) == "decode"
+    n0 = fused_matmul.launches
+    y = fused_matmul(x, w, a, b, s)
+    assert fused_matmul.launches == n0 + 1 and y.shape == (n, m, l) and y.is_contiguous()
+    _close(y, fused_matmul_ref(x, w, a, b, s))
+    assert torch.equal(y, fused_matmul(x, w, a, b, s))
+    _close(fused_matmul(x, w, a, b), fused_matmul_ref(x, w, a, b))
+    for mode in ("int8", "nf4"):
+        q = quantize_weight(_rnd(gen, (k, l), torch.float32, k ** -0.5), mode)
+        assert fused_matmul_q_path(x, q["codes"], q["scales"], r, a, b) == "decode"
+        got = fused_matmul_q(x, q["codes"], q["scales"], a, b, s)
+        assert torch.equal(got, fused_matmul(x, dequantize(q, dt), a, b, s))
+        assert torch.equal(got, fused_matmul_q(x, q["codes"], q["scales"], a, b, s))
+        _close(got, fused_matmul_q_ref(x, q["codes"], q["scales"], a, b, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+def test_ragged_ops_and_train_step_never_synchronise(cuda, impl):
+    """Ragged ``packed_lora_delta``/``fused_lora_linear``, forward and
+    backward, with ranks out of order and sorted, and one ``make_train_step``
+    step of a reduced qwen25-7b, run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host wait raises) once a
+    first call has made their plans, vectors and index tensors; the checked
+    call gives the first call's bits."""
+    from repro_torch.configs import LoraConfig, get_config, reduced
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.models.model import init_model
+    from repro_torch.train.data import packed_batch_iterator
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import make_train_step
+
+    def sync_free(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    dt = torch.bfloat16
+    w = _rnd(gen, (256, 96), dt, 256 ** -0.5)
+    for ranks in ((32, 8, 16, 8), (8, 16, 16, 32)):
+        x = _rnd(gen, (4, 2, 16, 256), dt)
+        a0, b0 = _rnd(gen, (4, 256, 32), dt, 256 ** -0.5), _rnd(gen, (4, 32, 96), dt)
+        al = torch.tensor([2.0, 0.5, 1.0, 1.5], device=cuda)
+
+        def run():
+            a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+            if impl == "auto":
+                y = ops.packed_lora_delta(x, a, b, al, impl=impl, ranks=ranks)
+            else:
+                y = ops.fused_lora_linear(x, w, a, b, al, impl=impl, ranks=ranks)
+            (y.float() ** 2).sum().backward()
+            return y, a.grad, b.grad
+
+        first = run()
+        for got, want in zip(sync_free(run), first):
+            assert torch.equal(got, want)
+    cfg = reduced(get_config("qwen25-7b"))
+    configs = [LoraConfig(rank=r, alpha=2.0 * r, batch_size=1) for r in (32, 8, 16, 8)]
+    meta = pack_meta(configs)
+    base, lora = init_model(0, cfg, meta, dtype=dt, device=cuda)
+    batch = next(packed_batch_iterator(cfg, configs, seq=32, device=cuda))
+    step = make_train_step(cfg, meta, step_budgets=(4, 4, 2, 4), impl=impl)
+    opt = init_opt_state(lora)
+    _, _, m1 = step(base, lora, opt, batch)
+    _, _, m2 = sync_free(lambda: step(base, lora, opt, batch))
+    assert torch.equal(m1["per_adapter_loss"], m2["per_adapter_loss"])

@@ -235,3 +235,134 @@ def test_quantized_equals_dequantized_fwd_bwd_bitwise(mode, impl, dtype):
         outs.append((y,) + torch.autograd.grad((y.float() ** 2).sum(), ts))
     for got, want in zip(*outs):
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# ragged packs: the permutation made once, and no permutation for sorted ranks
+# ---------------------------------------------------------------------------
+
+RAGGED_RANKS = [(32, 8, 16, 8), (8, 16, 16, 32)]  # unsorted; sorted (chip_smoke.py's pack)
+
+
+def _gather_scatter_call(fn, x, a, b, alpha, ranks):
+    """The ragged segmentation as ``ops._ragged_call`` first wrote it: a
+    gather by a fresh index tensor on every call, whether the ranks are
+    sorted or not, and a scatter back. The reference the cached, slicing
+    version must equal bit for bit."""
+    order, inv, segments = ops.rank_segments(ranks)
+    o = torch.tensor(order, device=x.device)
+    xs, a_s, b_s, al_s = x[o], a[o], b[o], alpha[o]
+    outs = [
+        fn(xs[lo:hi].contiguous(), a_s[lo:hi, :, :r].contiguous(),
+           b_s[lo:hi, :r, :].contiguous(), al_s[lo:hi].contiguous())
+        for lo, hi, r in segments
+    ]
+    return torch.cat(outs, dim=0)[torch.tensor(inv, device=x.device)]
+
+
+def _ragged_inputs(seed, ranks):
+    """x (N, 2, 5, 48), A and B in a bucket of 32 with zero padding past each
+    adapter's rank, W (48, 40), alpha (N,)."""
+    n, d, k, rb = len(ranks), 48, 40, 32
+    x, a, b, w = _arrays(seed, [(n, 2, 5, d), (n, d, rb), (n, rb, k), (d, k)],
+                         [1.0, d ** -0.5, 1.0, d ** -0.5])
+    mask = (np.arange(rb)[None, :] < np.array(ranks)[:, None]).astype(np.float32)
+    return x, a * mask[:, None, :], b * mask[:, :, None], w, np.linspace(0.5, 2.0, n).astype(np.float32)
+
+
+def _ragged_op(op, ranks, w, alpha, impl=None):
+    al, wt = torch.from_numpy(alpha), torch.from_numpy(w)
+    if op == "delta":
+        return lambda x, a, b: ops.packed_lora_delta(x, a, b, al, impl=impl or "auto", ranks=ranks)
+    return lambda x, a, b: ops.fused_lora_linear(x, wt, a, b, al, impl=impl or "fused", ranks=ranks)
+
+
+@pytest.mark.parametrize("ranks", RAGGED_RANKS)
+@pytest.mark.parametrize("op", ["delta", "fused"])
+def test_ragged_call_equals_gather_scatter_bitwise(op, ranks, monkeypatch):
+    """The cached permutation (unsorted ranks) and the plain slices (sorted
+    ranks) give outputs and gradients ``torch.equal`` to the gather/scatter
+    formulation, and the padding still gets exactly zero gradient."""
+    x, a, b, w, alpha = _ragged_inputs(21, ranks)
+    fn = _ragged_op(op, ranks, w, alpha)
+    y, grads = _torch_grads(fn, x, a, b)
+    with monkeypatch.context() as mp:
+        mp.setattr(ops, "_ragged_call", _gather_scatter_call)
+        y_old, grads_old = _torch_grads(fn, x, a, b)
+    assert torch.equal(y, y_old)
+    for got, want in zip(grads, grads_old):
+        assert torch.equal(got, want)
+    da, db = grads[1], grads[2]
+    for i, r in enumerate(ranks):
+        assert (da[i, :, r:] == 0).all() and (db[i, r:, :] == 0).all()
+
+
+@pytest.mark.parametrize("ranks", RAGGED_RANKS)
+@pytest.mark.parametrize("op", ["delta", "fused"])
+def test_ragged_ranks_match_pallas(op, ranks):
+    """Sorted and unsorted rank tuples against the JAX package's ragged ops
+    (Pallas in interpret mode) on the same numpy inputs: outputs and the
+    gradients of x, A and B within 1e-5 of the largest value."""
+    x, a, b, w, alpha = _ragged_inputs(22, ranks)
+    ja = jnp.asarray(alpha)
+    if op == "delta":
+        jfn = lambda x, a, b: jops.packed_lora_delta(  # noqa: E731
+            x, a, b, ja, impl="pallas", ranks=ranks)
+    else:
+        jfn = lambda x, a, b: jops.fused_lora_linear(  # noqa: E731
+            x, jnp.asarray(w), a, b, ja, impl="fused_pallas", ranks=ranks)
+    y_j, g_j = _jax_grads(jfn, x, a, b)
+    y_t, g_t = _torch_grads(_ragged_op(op, ranks, w, alpha), x, a, b)
+    _close(y_t, y_j)
+    for got, want in zip(g_t, g_j):
+        _close(got, want)
+
+
+def test_ragged_index_is_made_once_per_ranks_and_device():
+    """The permutation's index tensors are built on the first call for a
+    (ranks, device) and are the same tensors on the next; sorted ranks are
+    known to need none."""
+    o1, i1 = ops.ragged_index((32, 8, 16, 8), "cpu")
+    o2, i2 = ops.ragged_index([32, 8, 16, 8], torch.device("cpu"))
+    assert o1 is o2 and i1 is i2
+    order, inv, _ = ops.rank_segments((32, 8, 16, 8))
+    assert o1.tolist() == list(order) and i1.tolist() == list(inv)
+    assert ops._ragged_plan((8, 16, 16, 32))[3] and not ops._ragged_plan((32, 8, 16, 8))[3]
+
+
+def test_make_train_step_makes_no_host_tensor_per_step(monkeypatch):
+    """``make_train_step`` builds its scales, learning rates and step budgets
+    (and the ragged pack's index tensors) on the first step and reuses them:
+    steps 2 and 3 construct no ``torch.tensor`` at all, which on the card
+    would each be a blocking host-to-device copy."""
+    from repro_torch.configs import LoraConfig, get_config, reduced
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.models.model import init_model
+    from repro_torch.train.data import packed_batch_iterator
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = reduced(get_config("qwen25-7b"))
+    configs = [LoraConfig(rank=r, alpha=2.0 * r, learning_rate=1e-3, batch_size=1)
+               for r in (32, 8, 16, 8)]
+    meta = pack_meta(configs)
+    base, lora = init_model(0, cfg, meta, device="cpu")
+    it = packed_batch_iterator(cfg, configs, seq=16, device="cpu")
+    batches = [next(it) for _ in range(3)]
+    step = make_train_step(cfg, meta, step_budgets=(3, 3, 2, 3))
+    opt = init_opt_state(lora)
+    made = []
+    real = torch.tensor
+
+    def counting(*args, **kwargs):
+        made.append(kwargs.get("device"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "tensor", counting)
+    per_step = []
+    for batch in batches:
+        n0 = len(made)
+        lora, opt, m = step(base, lora, opt, batch)
+        per_step.append(len(made) - n0)
+    assert per_step[0] > 0 and per_step[1:] == [0, 0], per_step
+    assert torch.isfinite(m["per_adapter_loss"]).all()
