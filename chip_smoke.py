@@ -20,14 +20,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dequantized W; ``fused_matmul_q`` also at the decode shapes), in bf16 and
    f32; holds each against its plain version, and times kernel, plain
    version and one PyTorch library call (or the named composition where no
-   single call exists) with CUDA events. Each row carries the ``path`` its
+   single call exists) with CUDA events. At the decode shapes the delta's
+   two passes also run as one ``packed_matmul_pair`` call (call "pair",
+   against two ``torch.bmm`` calls). Each row carries the ``path`` its
    plan took (fused: ``decode``, ``wgmma`` or ``split3``, from
-   ``csrc/fused.cuh``'s plan; ``packed_matmul``: ``mma`` or ``fma``,
-   ``packed_matmul_path``), ``device_ms`` and ``library_device_ms`` (a CUDA
-   graph of 20 calls replayed: the host out of the loop) and ``host_us`` and
-   ``library_host_us`` (host time per call, not synchronised). The run fails
-   if a bf16 training-shape row of ``fused_matmul`` or ``fused_matmul_q`` is
-   off ``wgmma``, a bf16 decode row of either is off ``decode``, or a bf16
+   ``csrc/fused.cuh``'s plan; ``packed_matmul``: ``decode``, ``mma`` or
+   ``fma``, ``packed_matmul_path``), ``device_ms`` and ``library_device_ms``
+   (a CUDA graph of 20 calls replayed: the host out of the loop; the
+   library yardstick of ``fused_matmul_q`` dequantizes W inside the
+   graph) and ``host_us`` and ``library_host_us`` (host time per call, not
+   synchronised). The run fails if a bf16 training-shape row of
+   ``fused_matmul`` or ``fused_matmul_q`` is off ``wgmma``, a bf16 decode
+   row of either or of ``packed_matmul`` is off ``decode``, or a bf16
    training row of xA, xAB, case 2 or case 4, or a bf16 prefill row, of
    ``packed_matmul`` is off ``mma``. Then the sync check: ragged
    ``packed_lora_delta`` and ``fused_lora_linear`` (ranks out of order, and
@@ -52,9 +56,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    read just after (forward and backward counts must both move). One auto,
    one fused and one nf4 step then run under ``torch.profiler``; the auto
    step's record carries ``packed_matmul``'s share of its device time. On
-   the dense base, one ``make_train_step`` call of each impl runs under
-   ``torch.cuda.set_sync_debug_mode("error")`` (after one that builds its
-   per-device vectors).
+   the dense base (each impl) and on the nf4 base, one ``make_train_step``
+   call runs under ``torch.cuda.set_sync_debug_mode("error")`` (after one
+   that builds its per-device vectors).
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
@@ -252,6 +256,32 @@ def packed_calls(rnd, dtype, n, m, d_in, d_out, r, scale, backward_cases=False):
     return calls
 
 
+def pair_call(torch, rnd, dtype, n, m, d_in, d_out, r, scale):
+    """The delta's two passes as one ``packed_matmul_pair`` call, as
+    (args_fn, kernel, plain, library, flops, path_fn): the library yardstick
+    is two ``torch.bmm`` calls, the plain version two plain calls. Its path
+    is "decode" when both passes take it (one C call), else both paths."""
+    from repro_torch.kernels.packed_matmul import packed_matmul_pair, packed_matmul_path
+    from repro_torch.kernels.ref import packed_matmul_ref
+
+    def kfn(x, a, b, s):
+        return packed_matmul_pair(x, a, b, s)[0]
+
+    def pfn(x, a, b, s):
+        return packed_matmul_ref(packed_matmul_ref(x, a), b, s)
+
+    def lfn(x, a, b, s):
+        return torch.bmm(torch.bmm(x, a), b)
+
+    def path_fn(x, a, b, s):
+        p1 = packed_matmul_path(x, a)
+        p2 = packed_matmul_path(x.new_empty((n, m, r)), b)
+        return p1 if p1 == p2 == "decode" else f"{p1}/{p2}"
+
+    return ((lambda: (rnd((n, m, d_in), dtype), rnd((n, d_in, r), dtype, d_in ** -0.5),
+                      rnd((n, r, d_out), dtype), scale)),
+            kfn, pfn, lfn, 2 * n * m * r * (d_in + d_out), path_fn)
+
 
 def kernel_phase(torch, dev):
     from repro_torch.kernels import ops
@@ -262,17 +292,10 @@ def kernel_phase(torch, dev):
         fused_matmul_q_path,
     )
     from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_path
-    from repro_torch.kernels import quant
     from repro_torch.kernels.quant import dequantize, quantize_weight
     from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    # The library yardstick of fused_matmul_q dequantizes W first, and
-    # dequantize copies its nf4 codebook from the host on every call, which
-    # a CUDA graph capture (device_ms) refuses: for this phase the codebook
-    # lies on the card (restored before the serve and train phases).
-    codebook = quant.NF4_CODEBOOK
-    quant.NF4_CODEBOOK = codebook.to(dev)
 
     def rnd(shape, dtype, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
@@ -367,6 +390,11 @@ def kernel_phase(torch, dev):
                   packed_bwd if bwd else packed_matmul, packed_matmul_ref, lib_bmm, args_fn, flops,
                   BMM + (" on the transposed views" if bwd else ""),
                   path_fn=lambda x, w, s=None: packed_matmul_path(x, w), split_times=True)
+        if case == "decode":  # both passes of the delta as one call
+            args_fn, kfn, pfn, lfn, flops, path_fn = pair_call(torch, rnd, dtype, n, m, d_in, d_out,
+                                                               RANK, scale)
+            check("packed_matmul", case, "pair", d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
+                  "2 calls: bmm(bmm(x, A), B)", path_fn=path_fn, split_times=True)
 
     for dtype in (torch.bfloat16, torch.float32):
         for case, (n, m) in CASES.items():
@@ -410,7 +438,11 @@ def kernel_phase(torch, dev):
            and (r["case"], r["call"]) in MMA_ROWS and r["path"] != "mma"]
     if off:
         fail(f"bf16 training or prefill packed_matmul rows off the mma path: {off}")
-    quant.NF4_CODEBOOK = codebook
+    off = [(r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
+           if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16" and r["case"] == "decode"
+           and r["path"] != "decode"]
+    if off:
+        fail(f"bf16 decode rows of packed_matmul off the decode path: {off}")
     return rows
 
 
@@ -530,15 +562,17 @@ def sync_phase(torch, dev):
                      "gather/scatter formulation")
 
 
-def sync_free_train_step(torch, cfg, meta, base, lora, opt, batch, impl: str):
+def sync_free_train_step(torch, cfg, meta, base, lora, opt, batch, impl: str, quant=None):
     """One ``make_train_step`` call on the full model under ``sync_free``,
-    after one call that makes its per-device vectors and index tensors."""
+    after one call that makes its per-device vectors, index tensors and the
+    nf4 codebook's copy on the card."""
     from repro_torch.train.trainer import make_train_step
 
     step = make_train_step(cfg, meta, impl=impl)
     _, _, m1 = step(base, lora, opt, batch)
-    _, _, m2 = sync_free(torch, lambda: step(base, lora, opt, batch), f"make_train_step impl={impl}")
-    emit({"phase": "sync_train_step", "impl": impl, "synchronisations": 0,
+    _, _, m2 = sync_free(torch, lambda: step(base, lora, opt, batch),
+                         f"make_train_step impl={impl} quant={quant}")
+    emit({"phase": "sync_train_step", "impl": impl, "quant": quant, "synchronisations": 0,
           "loss_equal_to_first_call": bool(torch.equal(m1["per_adapter_loss"], m2["per_adapter_loss"]))})
 
 
@@ -930,8 +964,7 @@ def train_phase(torch, dev, base, out_dir: Path):
                 fail(f"impl={key}: the {need} launch count stayed at 0 over {TRAIN_STEPS} steps")
         if quant in (None, "nf4"):
             profile_train(torch, step, qbase, lora, opt, batches[0], meta, out_dir, impl, quant)
-        if quant is None:
-            sync_free_train_step(torch, cfg, meta, qbase, lora, opt, batches[0], impl)
+            sync_free_train_step(torch, cfg, meta, qbase, lora, opt, batches[0], impl, quant)
         del qbase, lora, opt, step
         torch.cuda.empty_cache()
     return launches
@@ -1024,9 +1057,13 @@ USES = [
 
 
 # uses with layer sums but no entry in the kernels line: fused_matmul_q at
-# decode rows, which no main path runs (serve runs a dense base)
+# decode rows, which no main path runs (serve runs a dense base), and
+# packed_matmul's decode pair (the serve entry's kernels, launched by one
+# call)
 EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decode"),
-              ("fused_matmul_q:decode_nf4", "fused_matmul_q", ("nf4",), "decode")]
+              ("fused_matmul_q:decode_nf4", "fused_matmul_q", ("nf4",), "decode"),
+              # the delta's two decode passes as one packed_matmul_pair call, which serve runs
+              ("packed_matmul:decode_pair", "packed_matmul", ("pair",), "decode")]
 
 
 def layer_sums(rows, kernel, calls, case):

@@ -5,7 +5,8 @@ qwen25-7b shapes, and optionally profiled train steps, on one CUDA card.
     python3 scripts/fused_call_times.py                   # this checkout
     python3 scripts/fused_call_times.py --src OTHER/src   # another tree's port
     python3 scripts/fused_call_times.py --cases decode    # some cases only
-    python3 scripts/fused_call_times.py --train           # + auto and fused train steps
+    python3 scripts/fused_call_times.py --train auto,fused,nf4  # + profiled train steps
+    python3 scripts/fused_call_times.py --src OLD/src --no-library  # kernels only
     python3 scripts/fused_call_times.py --cases decode --host  # + a host-time breakdown
 
 bf16, r=16, for each projection (d_in, d_out) of a layer: decode (N=8
@@ -27,10 +28,12 @@ their count per layer).
 broken down into the C call (its launches), the allocation and the rest,
 beside one ``torch.bmm``.
 
-``--train``: chip_smoke.py's train pack on full-width, full-depth qwen25-7b
-with random weights, for impl="auto" and impl="fused": 3 steps (the last
+``--train RUNS``: chip_smoke.py's train pack on full-width, full-depth
+qwen25-7b with random weights, for each of the runs named (impl="auto",
+impl="fused", and "nf4": impl="fused" on an nf4 base): 3 steps (the last
 two timed), then one under ``torch.profiler`` (device time and busy share;
-tables under ``<out>/<label>/``).
+tables under ``<out>/<label>/``). ``--no-library`` leaves out the library
+yardstick's times.
 
 The measuring code is this checkout's ``chip_smoke.py`` whatever ``--src``
 says, so two trees are measured alike. Prints the card's ``nvidia-smi``
@@ -57,7 +60,11 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"), help="the src/ directory whose repro_torch is timed")
     ap.add_argument("--label", default="this", help="a name for this tree in the output")
     ap.add_argument("--cases", default=",".join(CASES), help="comma-separated cases to time")
-    ap.add_argument("--train", action="store_true", help="also profile auto and fused train steps")
+    ap.add_argument("--train", default="", help="also profile train steps of these runs "
+                    "(comma-separated: auto, fused, nf4 = fused on an nf4 base)")
+    ap.add_argument("--no-library", action="store_true",
+                    help="time the kernels only, not the library yardstick (a tree whose "
+                    "dequantize copies from the host cannot be captured in a CUDA graph)")
     ap.add_argument("--host", action="store_true",
                     help="also break down the host time of one decode call (this tree's wrapper)")
     ap.add_argument("--out", default=str(ROOT / "smoke_out"), help="where the profile tables go")
@@ -72,7 +79,6 @@ def main() -> int:
         print("fused_call_times: needs a CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import fused as F
-    from repro_torch.kernels import quant
     from repro_torch.kernels.quant import dequantize, quantize_weight
     from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref
 
@@ -83,10 +89,6 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     dt, r = torch.bfloat16, cs.RANK
-    # the library yardstick dequantizes W first, and dequantize copies its
-    # nf4 codebook from the host on every call, which a CUDA graph capture
-    # refuses: the codebook is placed on the card once
-    quant.NF4_CODEBOOK = quant.NF4_CODEBOOK.to(dev)
 
     def rnd(shape, dtype=dt, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
@@ -140,7 +142,7 @@ def main() -> int:
                     x, codes, scales, a, b, _ = first
                     dense = F.fused_matmul(x, dequantize({"codes": codes, "scales": scales}, dt), a, b, s)
                     row["bit_equal_dense"] = bool(torch.equal(got, dense))
-                for key, fn in (("", kfn), ("library_", lfn)):
+                for key, fn in (("", kfn),) + (() if args.no_library else (("library_", lfn),)):
                     row[key + "ms"] = cs.time_ms(torch, fn, sets)
                     row[key + "device_ms"] = cs.device_ms(torch, fn, sets)
                     row[key + "host_us"] = cs.host_us(torch, fn, sets)
@@ -152,7 +154,7 @@ def main() -> int:
     if args.host:
         host_breakdown(torch, cs, F, rnd, args.label)
     if args.train:
-        train_profiles(torch, cs, dev, Path(args.out) / args.label, args.label)
+        train_profiles(torch, cs, dev, Path(args.out) / args.label, args.label, args.train.split(","))
     return 0
 
 
@@ -167,9 +169,11 @@ def summary(cs, rows, label: str) -> dict:
             sel = [x for x in rows if x["case"] == case and x["call"] == call]
             if sel:
                 use = out[f"{case}_{call}"] = {
-                    k: sum(mult[(x["d_in"], x["d_out"])] * x[k] for x in sel) for k in KEYS}
-                use["mean_host_us"] = sum(x["host_us"] for x in sel) / len(sel)
-                use["mean_library_host_us"] = sum(x["library_host_us"] for x in sel) / len(sel)
+                    k: sum(mult[(x["d_in"], x["d_out"])] * x[k] for x in sel) for k in KEYS
+                    if k in sel[0]}
+                for k in ("host_us", "library_host_us"):
+                    if k in sel[0]:
+                        use["mean_" + k] = sum(x[k] for x in sel) / len(sel)
     return out
 
 
@@ -201,7 +205,8 @@ def host_breakdown(torch, cs, F, rnd, label: str) -> None:
     print(cs.json.dumps(row), flush=True)
 
 
-def train_profiles(torch, cs, dev, out_dir: Path, label: str) -> None:
+def train_profiles(torch, cs, dev, out_dir: Path, label: str, runs) -> None:
+    from repro_torch.kernels.quant import quantize_base_params
     from repro_torch.models.model import init_model
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.trainer import make_packed_step
@@ -210,21 +215,24 @@ def train_profiles(torch, cs, dev, out_dir: Path, label: str) -> None:
     base, _ = init_model(cs.SEED, cfg, None, dtype=torch.bfloat16, device=dev)
     scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for impl in ("auto", "fused"):
-        step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks)
+    for run in runs:
+        impl, quant = ("fused", "nf4") if run == "nf4" else (run, None)
+        qbase = quantize_base_params(base, quant) if quant else base
+        step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks, base_dtype=quant)
         lora, opt = lora0, init_opt_state(lora0)
         times = []
         for batch in batches[:3]:
             t0 = time.perf_counter()
-            lora, opt, _ = step(base, lora, opt, batch, scales, lr_vec, None)
+            lora, opt, _ = step(qbase, lora, opt, batch, scales, lr_vec, None)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        row = cs.profile_train(torch, step, base, lora, opt, batches[3], meta, out_dir, impl, None)
-        print(cs.json.dumps({"label": label, "phase": "train_step", "impl": impl, "step_s": times,
+        row = cs.profile_train(torch, step, qbase, lora, opt, batches[3], meta, out_dir, impl, quant)
+        print(cs.json.dumps({"label": label, "phase": "train_step", "impl": impl, "quant": quant,
+                             "step_s": times,
                              "step_s_after_first": sum(times[1:]) / 2,
                              "profiled_wall_ms": row["wall_ms"], "device_ms": row["device_ms"],
                              "device_busy_share": row["device_busy_share"]}), flush=True)
-        del step, lora, opt
+        del step, lora, opt, qbase
         torch.cuda.empty_cache()
 
 

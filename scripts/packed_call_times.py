@@ -6,10 +6,13 @@ card.
     python3 scripts/packed_call_times.py                  # this checkout
     python3 scripts/packed_call_times.py --src OTHER/src  # another tree's port
     python3 scripts/packed_call_times.py --no-train       # kernel rows only
+    python3 scripts/packed_call_times.py --cases decode   # some shapes only
 
 bf16, r=16, at the training shapes (N=2 adapters x M=1024 tokens: xA,
 (xA)B and the four backward cases on transposed views), prefill (N=1,
-M=256) and decode (N=8, M=1), for each projection (d_in, d_out) of a layer.
+M=256) and decode (N=8, M=1), for each projection (d_in, d_out) of a layer;
+at decode also both passes as one ``packed_matmul_pair`` call ("pair",
+against two ``torch.bmm`` calls) where the tree has it.
 Each row holds the kernel against its plain version and carries, for the
 kernel and for ``torch.bmm`` on the same operands: ``ms`` (20 calls back to
 back, CUDA events), ``device_ms`` (a CUDA graph of 20 calls replayed: the
@@ -44,6 +47,7 @@ def main() -> int:
     ap.add_argument("--label", default="this", help="a name for this tree in the output")
     ap.add_argument("--out", default=str(ROOT / "smoke_out"), help="where the profile table goes")
     ap.add_argument("--no-train", action="store_true", help="skip the profiled train step")
+    ap.add_argument("--cases", default=",".join(CASES), help="comma-separated shapes to time")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     sys.path.insert(1, str(ROOT))
@@ -72,16 +76,26 @@ def main() -> int:
         return torch.bmm(x, w)
 
     rows = []
-    for case, (n, m) in CASES.items():
+    for case in args.cases.split(","):
+        n, m = CASES[case]
         scale = torch.linspace(0.5, 2.0, n, device=dev)
         for (d_in, d_out), _ in cs.PROJ:
+            specs = []
             for call, args_fn, flops, bwd in cs.packed_calls(rnd, dt, n, m, d_in, d_out, cs.RANK, scale,
                                                              backward_cases=case == "train"):
                 def kfn(x, w, s=None, bwd=bwd):
                     return P.packed_matmul(x, w, s, backward=bwd)
 
+                path_fn = (lambda x, w, s=None: P.packed_matmul_path(x, w)) \
+                    if hasattr(P, "packed_matmul_path") else None
+                specs.append((call, args_fn, kfn, packed_matmul_ref, lib, flops, path_fn))
+            if case == "decode" and hasattr(P, "packed_matmul_pair"):
+                args_fn, kfn, pfn, lfn, flops, path_fn = cs.pair_call(torch, rnd, dt, n, m, d_in, d_out,
+                                                                      cs.RANK, scale)
+                specs.append(("pair", args_fn, kfn, pfn, lfn, flops, path_fn))
+            for call, args_fn, kfn, pfn, lfn, flops, path_fn in specs:
                 first = args_fn()
-                got, want = kfn(*first), packed_matmul_ref(*first)
+                got, want = kfn(*first), pfn(*first)
                 in_bytes = cs.nbytes(*[a for a in first if a is not None]) + cs.nbytes(got)
                 sets = [first] + [args_fn() for _ in range(cs.copies_for(in_bytes) - 1)]
                 row = {"label": args.label, "case": case, "call": call, "d_in": d_in, "d_out": d_out,
@@ -89,9 +103,9 @@ def main() -> int:
                        "rel_err": ((got.float() - want.float()).abs().max()
                                    / want.float().abs().max().clamp_min(1e-30)).item(),
                        "bound_ms": cs.bound(in_bytes, flops, "bfloat16")[0]}
-                if hasattr(P, "packed_matmul_path"):
-                    row["path"] = P.packed_matmul_path(*first[:2])
-                for key, fn in (("", kfn), ("library_", lib)):
+                if path_fn is not None:
+                    row["path"] = path_fn(*first)
+                for key, fn in (("", kfn), ("library_", lfn)):
                     row[key + "ms"] = cs.time_ms(torch, fn, sets)
                     row[key + "device_ms"] = cs.device_ms(torch, fn, sets)
                     row[key + "host_us"] = cs.host_us(torch, fn, sets)
@@ -106,7 +120,8 @@ def main() -> int:
 
 
 # the calls of a layer's use, as chip_smoke.py's kernels line groups them
-USES = {"decode": ("decode", ("xA", "xAB")), "prefill": ("prefill", ("xA", "xAB")),
+USES = {"decode": ("decode", ("xA", "xAB")), "decode_pair": ("decode", ("pair",)),
+        "prefill": ("prefill", ("xA", "xAB")),
         "train_forward": ("train", ("xA", "xAB")), "train_backward": ("train", ("bwd2_dxA", "bwd4_dx"))}
 KEYS = ("ms", "device_ms", "host_us", "library_ms", "library_device_ms", "library_host_us", "bound_ms")
 

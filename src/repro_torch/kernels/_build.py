@@ -32,6 +32,7 @@ SIGNATURES = {
         "plora_packed_matmul_path": (_I, [_I] * 8),
         "plora_packed_matmul_workspace": (_LL, [_I] * 8),
         "plora_packed_matmul": (_I, [ctypes.c_char_p]),  # one block of 13 int64
+        "plora_packed_lora_delta": (_I, [ctypes.c_char_p]),  # one block of 12 int64
     },
     "fused": {
         # the path; the workspace through the pointer

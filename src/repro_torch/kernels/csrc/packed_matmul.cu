@@ -21,8 +21,17 @@
 // once and produce r columns (~2r/elt FLOP per byte: bytes-bound); cases 1
 // and 3 contract over the T tokens.
 //
-// Two paths, chosen by one plan (skinny.cuh's skinny_plan) that reads only
+// Three paths, chosen by one plan (skinny.cuh's skinny_plan) that reads only
 // shapes, dtype, layouts and alignment:
+//
+// "decode" -- bf16 calls with at most 16 rows per adapter (serving's decode
+// steps), x and w row-major, K and L multiples of 8, x, w and out 16-byte
+// aligned, where L or K is at most 128: decode_rows.cuh's streaming kernels,
+// one launch each. xA (L = r) streams A once, its long K split over a
+// thread-block cluster whose blocks add their f32 sums in rank order; (xA)B
+// (K = r) streams B once, in one wave of blocks over column strips.
+// plora_packed_lora_delta below runs both passes of a delta in one call, the
+// second as a programmatic dependent launch of the first.
 //
 // "mma" -- bf16 calls with more than 16 rows per adapter (training and
 // prefill), every leading dimension a multiple of 8 elements and x, w, out
@@ -34,8 +43,9 @@
 // arrive by cp.async into a ring of shared-memory stages and are
 // multiplied by mma.sync. One launch per call, no workspace.
 //
-// "fma" -- everything else (decode's few rows, f32, ranks not a multiple of
-// 8, case 1 whose rows are the rank): the adapter is the grid's z axis and
+// "fma" -- everything else (f32, ranks not a multiple of 8, transposed
+// operands at few rows, case 1 whose rows are the rank): the adapter is the
+// grid's z axis and
 // each block owns a BM x BN output tile of one adapter, looping over K
 // inside the block (the TPU's sequential K grid axis becomes that loop).
 // Tiles are staged through registers into shared memory as f32 (the next
@@ -49,6 +59,7 @@
 //
 // Either way the rounding stays the TPU kernel's (f32 sums, f32 scale, one
 // cast) and the result is deterministic, bit for bit from call to call.
+#include "decode_rows.cuh"
 #include "skinny.cuh"
 #include "tile.cuh"
 
@@ -202,19 +213,19 @@ static bool aligned16(const void* x, const void* w, const void* out) {
 // stored transposed (see the top of this file); aligned: 1 when x, w and
 // out all start on 16 bytes (what the launch finds from its pointers).
 
-// The path the plan gives a call: 0 "fma", 1 "mma".
+// The path the plan gives a call: 0 "fma", 1 "mma", 2 "decode".
 extern "C" int plora_packed_matmul_path(int n, int m, int k, int l, int dtype, int trans_x,
                                         int trans_w, int aligned) {
   return skinny_plan(n, m, k, l, dtype, trans_x != 0, trans_w != 0, aligned != 0).path;
 }
 
 // The f32 workspace (elements) a call needs: the partial sums of the FMA
-// path's K ranges, or 0 (K not split, or the "mma" path: its clusters add
-// their partial sums in shared memory).
+// path's K ranges, or 0 (K not split, or the "mma" and "decode" paths: their
+// clusters add their partial sums in shared memory).
 extern "C" long long plora_packed_matmul_workspace(int n, int m, int k, int l, int dtype,
                                                    int trans_x, int trans_w, int aligned) {
   const SkinnyPlan p = skinny_plan(n, m, k, l, dtype, trans_x != 0, trans_w != 0, aligned != 0);
-  if (p.path == PATH_MMA) return 0;
+  if (p.path != PATH_FMA) return 0;
   const SplitK sk = gemm_plan_for(n, m, k, l);
   return sk.splits > 1 ? (long long)sk.splits * n * m * l : 0;
 }
@@ -236,9 +247,47 @@ extern "C" int plora_packed_matmul(const long long* a) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(a[12]);
   if (n <= 0 || m <= 0 || k <= 0 || l <= 0) return (int)cudaErrorInvalidValue;
   const SkinnyPlan p = skinny_plan(n, m, k, l, dtype, tx, tw, aligned16(x, w, out));
+  if (p.path == PATH_DECODE) {
+    const cudaError_t err = launch_decode_rows(static_cast<const bf16*>(x),
+                                               static_cast<const bf16*>(w), scale,
+                                               static_cast<bf16*>(out), n, m, k, l, p, st);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : last);
+  }
   if (p.path == PATH_MMA) return launch_mma(x, w, scale, out, n, m, k, l, tx, tw, p, st);
   if (dtype == 0) return launch_fma<float>(x, w, scale, out, workspace, n, m, k, l, tx, tw, st);
   if (dtype == 1)
     return launch_fma<__nv_bfloat16>(x, w, scale, out, workspace, n, m, k, l, tx, tw, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The two passes of one LoRA delta, out = scale[n] * (x[n] @ a[n]) @ b[n],
+// when both take the "decode" path: xa = cast(x @ a) (bf16, what the first
+// of two packed_matmul calls returns) and then out from xa, the second
+// launch a programmatic dependent of the first. The same kernels and plans
+// as two plora_packed_matmul calls, so the same bits. Arguments: one block
+// of 12 int64 -- x, a, b, scale, xa, out (addresses; 0 for no scale), n, m,
+// k (d_in), r, l (d_out), stream. Returns cudaErrorInvalidValue, launching
+// nothing, unless both passes plan to "decode"; else cudaGetLastError()
+// after the launches.
+extern "C" int plora_packed_lora_delta(const long long* a) {
+  const bf16* x = reinterpret_cast<const bf16*>(a[0]);
+  const bf16* wa = reinterpret_cast<const bf16*>(a[1]);
+  const bf16* wb = reinterpret_cast<const bf16*>(a[2]);
+  const float* scale = reinterpret_cast<const float*>(a[3]);
+  bf16* xa = reinterpret_cast<bf16*>(a[4]);
+  bf16* out = reinterpret_cast<bf16*>(a[5]);
+  const int n = (int)a[6], m = (int)a[7], k = (int)a[8], r = (int)a[9], l = (int)a[10];
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(a[11]);
+  if (n <= 0 || m <= 0 || k <= 0 || r <= 0 || l <= 0 || n > 65535) return (int)cudaErrorInvalidValue;
+  const SkinnyPlan p1 = skinny_plan(n, m, k, r, 1, false, false, aligned16(x, wa, xa));
+  const SkinnyPlan p2 = skinny_plan(n, m, r, l, 1, false, false, aligned16(xa, wb, out));
+  if (p1.path != PATH_DECODE || p2.path != PATH_DECODE) return (int)cudaErrorInvalidValue;
+  cudaError_t e = launch_decode_rows(x, wa, nullptr, xa, n, m, k, r, p1, st);
+  if (e == cudaSuccess)
+    e = p2.cls == CLASS_SHORT_K
+            ? launch_decode_short_k(xa, wb, scale, out, n, m, r, l, p2, true, st)
+            : launch_decode_rows(xa, wb, scale, out, n, m, r, l, p2, st);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }

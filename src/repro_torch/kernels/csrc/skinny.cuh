@@ -1,7 +1,8 @@
 // Tensor-core kernels of packed_matmul.cu for bf16 calls with more than 16
 // rows per adapter (training and prefill): out[n] = scale[n] * (x[n] @ w[n]),
-// where one of the product's two outer sizes is a LoRA rank. Two shape
-// classes of one design:
+// where one of the product's two outer sizes is a LoRA rank; and the plan of
+// every packed_matmul call (skinny_plan), which sends bf16 calls of at most
+// 16 rows per adapter to decode_rows.cuh. Two shape classes of one design:
 //
 //   narrow  -- L <= 128, K long: xA (x @ A), case 2 (g_s @ B^T, B^T read in
 //              place) and case 3 (x^T @ d(xA), x^T read in place). A block
@@ -166,12 +167,21 @@ struct WTile {
 
 // --- the plan ------------------------------------------------------------------
 
-enum { PATH_FMA = 0, PATH_MMA = 1 };
+enum { PATH_FMA = 0, PATH_MMA = 1, PATH_DECODE = 2 };
 enum { CLASS_NARROW = 0, CLASS_SHORT_K = 1 };
 
 constexpr int SMS = 132;  // an H100 SXM's SMs
-constexpr int MMA_MIN_ROWS = 17;  // decode's <= 16 rows keep tile.cuh's thin FMA tile
+constexpr int MMA_MIN_ROWS = 17;  // decode's <= 16 rows take decode_rows.cuh's kernels
 constexpr int MMA_MAX_RANK = 128;
+// the decode path (decode_rows.cuh): K ranges of the narrow class's cluster,
+// at most; A bytes per range, at least; short-K blocks in one wave (one per
+// SM); bytes of a short-K block's strip of B, at most; its 16-byte copies,
+// at least (chosen by measurement at qwen25-7b's decode shapes, PERF.md)
+constexpr int DR_MAX_SPLITS = 8;  // the portable cluster size
+constexpr int DR_MIN_RANGE_BYTES = 8192;
+constexpr int DR_SLOTS = SMS;
+constexpr int DR_MAX_STRIP = 65536;
+constexpr int DR_MIN_COPIES = 128;
 
 // narrow class: 64 rows x the width, 64 deep per stage, 4 warps
 constexpr int NW_BM = 64, NW_BK = 64, NW_THREADS = 128, NW_STAGES = 4;
@@ -183,21 +193,55 @@ constexpr int SK_BM = 128, SK_BN = 128, SK_THREADS = 256, SK_STAGES = 3;
 
 struct SkinnyPlan {
   int path, cls, width;  // width: L (narrow) or K (short K) rounded up to 16, 32, 64 or 128
-  int splits, steps;     // narrow: K ranges (the cluster's blocks) and NW_BK steps per range
+  // "mma", narrow: K ranges (the cluster's blocks) and NW_BK steps per range;
+  // "decode": see decode_rows_plan
+  int splits, steps;
 };
 
 __host__ __device__ inline int width_class(int v) {
   return v <= 16 ? 16 : v <= 32 ? 32 : v <= 64 ? 64 : 128;
 }
 
+// The decode path's geometry, in skinny_plan's SkinnyPlan: narrow -- splits
+// K ranges (the cluster) of `steps` rows each (a multiple of 16), enough
+// blocks for the card; short K -- `splits` strips per adapter of `steps`
+// 8-column vectors each, one wave of DR_SLOTS blocks.
+__host__ __device__ inline SkinnyPlan decode_rows_plan(int n, int k, int l, bool narrow) {
+  if (narrow) {
+    const int bl = width_class(l);
+    const int min_rows = DR_MIN_RANGE_BYTES / (2 * bl);
+    int s = (SMS + n - 1) / n;
+    s = s < k / min_rows ? s : k / min_rows;
+    s = s < DR_MAX_SPLITS ? s : DR_MAX_SPLITS;
+    s = s > 1 ? s : 1;
+    const int rows = ((k + s - 1) / s + 15) / 16 * 16;
+    return {PATH_DECODE, CLASS_NARROW, bl, (k + rows - 1) / rows, rows};
+  }
+  const int nv = l / 8;
+  const int per = DR_SLOTS / n > 1 ? DR_SLOTS / n : 1;  // blocks per adapter
+  const int cap = DR_MAX_STRIP / (16 * k);
+  int vb = (nv + per - 1) / per;
+  vb = vb > (DR_MIN_COPIES + k - 1) / k ? vb : (DR_MIN_COPIES + k - 1) / k;
+  vb = vb < cap ? vb : cap;
+  vb = vb > 1 ? vb : 1;
+  return {PATH_DECODE, CLASS_SHORT_K, width_class(k), (nv + vb - 1) / vb, vb};
+}
+
 // The plan of one call: reads only shapes, dtype, the two layouts and
-// whether x, w and out are 16-byte aligned. dtype: 0 f32, 1 bf16.
+// whether x, w and out are 16-byte aligned. dtype: 0 f32, 1 bf16. bf16 with
+// both operands row-major, every size a multiple of 8 and L or K a rank:
+// at most 16 rows per adapter "decode" (decode_rows.cuh), more "mma" (the
+// kernels below, which also read transposed operands). Else "fma".
 __host__ __device__ inline SkinnyPlan skinny_plan(int n, int m, int k, int l, int dtype, bool tx,
                                                   bool tw, bool aligned) {
   SkinnyPlan p{PATH_FMA, 0, 0, 1, 0};
   // every leading dimension and adapter stride a multiple of 8 elements
   const bool lds = k % 8 == 0 && l % 8 == 0 && (!tx || m % 8 == 0);
-  if (dtype != 1 || m < MMA_MIN_ROWS || !aligned || !lds) return p;
+  if (dtype != 1 || !aligned || !lds) return p;
+  if (m < MMA_MIN_ROWS) {
+    if (tx || tw || (l > MMA_MAX_RANK && k > MMA_MAX_RANK)) return p;
+    return decode_rows_plan(n, k, l, l <= MMA_MAX_RANK);
+  }
   if (l <= MMA_MAX_RANK) {
     const int tiles = n * ((m + NW_BM - 1) / NW_BM);
     const int ksteps = (k + NW_BK - 1) / NW_BK;

@@ -51,7 +51,7 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fused import _FusedLora
-from repro_torch.kernels.packed_matmul import packed_matmul
+from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_pair
 from repro_torch.kernels.quant import is_quantized
 
 IMPLS = ("auto", "pallas", "fused", "fused_pallas", "plain", "fused_plain")
@@ -149,8 +149,14 @@ class _PackedLoraDelta(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, a, b, alpha, impl, remat):
-        xa = grouped_matmul(x, a, impl=impl)
-        out = grouped_matmul(xa, b, alpha, impl=impl)
+        if impl == "pallas":  # both passes in one wrapper call
+            x3 = x if x.dim() == 3 else x.reshape(x.shape[0], -1, x.shape[-1])
+            out, xa = packed_matmul_pair(x3, a, b, alpha)
+            if x.dim() != 3:
+                out, xa = out.view(*x.shape[:-1], b.shape[-1]), xa.view(*x.shape[:-1], a.shape[-1])
+        else:
+            xa = grouped_matmul(x, a, impl=impl)
+            out = grouped_matmul(xa, b, alpha, impl=impl)
         ctx.save_for_backward(x, a, b, alpha, xa if remat == "save" else None)
         ctx.impl = impl
         return out

@@ -14,9 +14,16 @@ require grad while grad mode is on; ``kernels/ops.py``'s autograd Functions
 call it from their forward and backward, where grad mode is off.
 
 ``packed_matmul_path(x, w)`` names the path the kernel's plan takes for a
-call: "mma" (tensor cores, bf16 training and prefill shapes) or "fma".
+call: "decode" (bf16 at most 16 rows per adapter: one-launch streaming
+kernels), "mma" (tensor cores, bf16 training and prefill shapes) or "fma".
 The plan and its workspace size are asked once per shape and cached, so a
 launch is one ctypes call, whose arguments go as one packed block.
+
+``packed_matmul_pair(x, a, b, scale)`` returns both products of a LoRA
+delta, ``xa = x @ a`` and ``out = scale * (xa @ b)``, bit for bit what two
+``packed_matmul`` calls return; when both take the "decode" path it is one
+ctypes call whose two launches overlap (the second is a programmatic
+dependent launch of the first).
 """
 from __future__ import annotations
 
@@ -98,18 +105,32 @@ def scale_ptr(scale: Optional[torch.Tensor], n: int, device) -> Optional[int]:
     return scale.data_ptr()
 
 
-PATHS = ("fma", "mma")  # PATH_FMA, PATH_MMA of csrc/skinny.cuh
-# plora_packed_matmul's one argument: a block of 13 int64 (csrc/packed_matmul.cu)
+PATHS = ("fma", "mma", "decode")  # PATH_FMA, PATH_MMA, PATH_DECODE of csrc/skinny.cuh
+DECODE = PATHS.index("decode")
+# plora_packed_matmul's one argument: a block of 13 int64, and
+# plora_packed_lora_delta's, of 12 (csrc/packed_matmul.cu)
 _ARGS = struct.Struct("<13q")
-_lib = _launch = None  # the library and its launch function, once loaded
+_PAIR_ARGS = struct.Struct("<12q")
+_lib = _launch = _launch_pair = None  # the library and its launch functions, once loaded
 
 
 def _library():
-    global _lib, _launch
+    global _lib, _launch, _launch_pair
     if _lib is None:
         _lib = _build.load("packed_matmul")
         _launch = _lib.plora_packed_matmul
+        _launch_pair = _lib.plora_packed_lora_delta
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_decodes(n: int, m: int, k: int, r: int, l: int, aligned: int) -> bool:
+    """Whether both bf16 passes of a delta, x (N, M, K) @ a (N, K, r) and
+    then (N, M, r) @ b (N, r, L), take the "decode" path: x, a and b
+    row-major, b on 16 bytes, x and a too with ``aligned`` (xa and out are
+    fresh, aligned allocations)."""
+    return (_plan(n, m, k, r, 1, 0, 0, aligned)[0] == DECODE
+            and _plan(n, m, r, l, 1, 0, 0, 1)[0] == DECODE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,12 +189,7 @@ def packed_matmul(
                                     or (scale is not None and scale.requires_grad)):
         check_no_graph("packed_matmul", x, w, scale)  # raises
     n, m, k, l, code, tx, tw, aligned = _key(x, w, dev, "packed_matmul")
-    s = 0
-    if scale is not None:
-        if scale.dtype != torch.float32 or scale.shape != (n,) or scale.get_device() != dev \
-                or not scale.is_contiguous():
-            check_operand(scale, "scale", (n,), torch.float32, x.device)  # raises, saying why
-        s = scale.data_ptr()
+    s = _scale_address(scale, n, dev, x)
     out = torch.empty((n, m, l), dtype=x.dtype, device=dev)
     if n * m * l == 0:
         return out
@@ -198,10 +214,61 @@ packed_matmul.launches = 0
 packed_matmul.bwd_launches = 0
 
 
+def _scale_address(scale: Optional[torch.Tensor], n: int, dev: int, x: torch.Tensor) -> int:
+    """The (N,) f32 scale's address on CUDA device ``dev``, 0 for None."""
+    if scale is None:
+        return 0
+    if scale.dtype != torch.float32 or scale.shape != (n,) or scale.get_device() != dev \
+            or not scale.is_contiguous():
+        check_operand(scale, "scale", (n,), torch.float32, x.device)  # raises, saying why
+    return scale.data_ptr()
+
+
+def packed_matmul_pair(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale: Optional[torch.Tensor] = None,
+):
+    """(out, xa) of a LoRA delta's two grouped products: xa = x @ a, rounded
+    to x.dtype, and out[n] = scale[n] * (xa[n] @ b[n]) -- what
+    ``packed_matmul(x, a)`` and then ``packed_matmul(xa, b, scale)`` return,
+    bit for bit. x: (N, M, K); a: (N, K, r); b: (N, r, L).
+
+    On CUDA, when both passes take the "decode" path, one ctypes call
+    launches both kernels (the second a programmatic dependent launch that
+    streams b while the first runs) and counts two launches; otherwise it
+    makes the two calls."""
+    if x.is_cpu:
+        xa = packed_matmul_ref(x, a)
+        return packed_matmul_ref(xa, b, scale), xa
+    dev = _device(x, "packed_matmul_pair")
+    if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad or b.requires_grad
+                                    or (scale is not None and scale.requires_grad)):
+        check_no_graph("packed_matmul_pair", x, a, b, scale)  # raises
+    n, m, k, r, code, tx, ta, aligned = _key(x, a, dev, "packed_matmul_pair")
+    l = b.shape[-1]
+    if code != 1 or tx or ta or b.shape != (n, r, l) or b.dtype != x.dtype \
+            or b.get_device() != dev or not b.is_contiguous() or b.data_ptr() % 16 \
+            or not _pair_decodes(n, m, k, r, l, aligned):
+        xa = packed_matmul(x, a)
+        return packed_matmul(xa, b, scale), xa
+    s = _scale_address(scale, n, dev, x)
+    out = torch.empty((n, m, l), dtype=x.dtype, device=dev)
+    xa = torch.empty((n, m, r), dtype=x.dtype, device=dev)
+    rc = (_launch_pair or _library().plora_packed_lora_delta)(_PAIR_ARGS.pack(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), s, xa.data_ptr(), out.data_ptr(),
+        n, m, k, r, l, torch._C._cuda_getCurrentRawStream(dev),
+    ))
+    if rc:
+        _build.check(_lib, rc, "packed_matmul_pair")
+    packed_matmul.launches += 2
+    return out, xa
+
+
 def packed_matmul_path(x: torch.Tensor, w: torch.Tensor) -> str:
     """Which path ``csrc/skinny.cuh``'s plan gives :func:`packed_matmul` on
-    these CUDA operands: "mma" (the tensor-core kernels: bf16, more than 16
-    rows per adapter, L or K at most 128, leading dimensions and pointers
-    aligned to 16 bytes) or "fma" (``csrc/tile.cuh``'s FMA kernel). The plan
-    reads only shapes, dtype, layouts and alignment."""
+    these CUDA operands: "decode" (``csrc/decode_rows.cuh``'s streaming
+    kernels: bf16, at most 16 rows per adapter, x and w row-major, K and L
+    multiples of 8, L or K at most 128, pointers aligned to 16 bytes),
+    "mma" (the tensor-core kernels: the same with more than 16 rows, either
+    operand also transposed) or "fma" (``csrc/tile.cuh``'s FMA kernel). The
+    plan reads only shapes, dtype, layouts and alignment."""
     return PATHS[_plan(*_key(x, w, _device(x, "packed_matmul_path"), "packed_matmul_path"))[0]]

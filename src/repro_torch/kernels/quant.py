@@ -55,6 +55,20 @@ NF4_CODEBOOK = torch.tensor(
 # elements of the nf4 codebook search's f32 temporary per slab (~1 GB)
 _NF4_SLAB = 1 << 28
 
+_CODEBOOKS = {}  # torch.device -> NF4_CODEBOOK on that device
+
+
+def nf4_codebook(device) -> torch.Tensor:
+    """``NF4_CODEBOOK`` on ``device``, copied on the first call for that
+    device and the same tensor on every later one. The copy is queued
+    without blocking: a blocking copy of a host tensor ends in a stream
+    synchronize, which a CUDA graph capture refuses."""
+    key = torch.device(device)
+    cb = _CODEBOOKS.get(key)
+    if cb is None:
+        cb = _CODEBOOKS[key] = NF4_CODEBOOK.to(key, non_blocking=True)
+    return cb
+
 
 def is_quantized(w) -> bool:
     """True when ``w`` is a quantized-weight dict (vs a dense tensor)."""
@@ -118,7 +132,7 @@ def quantize_weight(w: torch.Tensor, mode: str) -> dict:
     absmax = wb.abs().amax(dim=-2, keepdim=True)
     scales = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
     normed = (wb / scales).reshape(-1, d_out)  # (rows, d_out), in [-1, 1]
-    cb = NF4_CODEBOOK.to(w.device)
+    cb = nf4_codebook(w.device)
     idx = torch.empty(normed.shape, dtype=torch.uint8, device=w.device)
     step = max(1, _NF4_SLAB // (16 * d_out))
     for r0 in range(0, normed.shape[0], step):
@@ -138,7 +152,7 @@ def dequantize(w: dict, dtype=torch.float32) -> torch.Tensor:
     lead = codes.shape[:-2]
     d_in, d_out = 2 * codes.shape[-2], codes.shape[-1]
     idx = torch.stack([codes & 0xF, codes >> 4], dim=-2).reshape(*lead, d_in, d_out)
-    vals = NF4_CODEBOOK.to(codes.device)[idx.long()]
+    vals = nf4_codebook(codes.device)[idx.long()]
     nb = scales.shape[-2]
     vb = vals.reshape(*lead, nb, d_in // nb, d_out)
     return (vb * scales[..., :, None, :]).reshape(*lead, d_in, d_out).to(dtype)

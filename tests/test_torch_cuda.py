@@ -20,7 +20,7 @@ from repro_torch.kernels.fused import (
     fused_matmul_q,
     fused_matmul_q_path,
 )
-from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_path
+from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_pair, packed_matmul_path
 from repro_torch.kernels.quant import dequantize, quantize_weight
 from repro_torch.kernels.ref import fused_matmul_q_ref, fused_matmul_ref, packed_matmul_ref
 
@@ -51,7 +51,7 @@ def _close(got, want):
 @pytest.mark.parametrize(
     "n,m,k,l,r",
     [
-        (8, 1, 3584, 512, 16),   # decode: thin tile, split K; fused bf16: the decode kernel
+        (8, 1, 3584, 512, 16),   # decode: f32 thin tile, split K; bf16: the decode kernels
         (1, 70, 300, 200, 8),    # K not a multiple of 8: FMA tile
         (3, 17, 64, 33, 24),     # rows of several adapters in one tile
         (1, 100, 256, 64, 24),   # bf16: tensor-core tile, split K, rank padded to 32
@@ -306,8 +306,9 @@ def test_mma_split_k_is_deterministic(cuda):
 
 @pytest.mark.gpu
 def test_packed_matmul_path_follows_shapes(cuda):
-    """Decode rows, f32 and ranks off a multiple of 8 keep the FMA kernel;
-    the bf16 training and prefill calls take the tensor-core kernels."""
+    """Decode rows take the streaming kernels; f32 and ranks off a multiple
+    of 8 keep the FMA kernel; the bf16 training and prefill calls take the
+    tensor-core kernels."""
     g = torch.Generator(device=cuda).manual_seed(12)
     x = _rnd(g, (2, 1024, 3584), torch.bfloat16)
     a = _rnd(g, (2, 3584, 16), torch.bfloat16)
@@ -315,7 +316,7 @@ def test_packed_matmul_path_follows_shapes(cuda):
     assert packed_matmul_path(x, a) == "mma"  # xA
     assert packed_matmul_path(xa, b) == "mma"  # (xA)B
     assert packed_matmul_path(x[:1, :256].contiguous(), a[:1]) == "mma"  # prefill
-    assert packed_matmul_path(x[:, :16].contiguous(), a) == "fma"  # 16 rows: decode
+    assert packed_matmul_path(x[:, :16].contiguous(), a) == "decode"  # 16 rows: decode
     assert packed_matmul_path(x.float(), a.float()) == "fma"  # f32
     a12 = _rnd(g, (2, 3584, 12), torch.bfloat16)
     assert packed_matmul_path(x, a12) == "fma"  # rank 12
@@ -441,3 +442,139 @@ def test_ragged_ops_and_train_step_never_synchronise(cuda, impl):
     _, _, m1 = step(base, lora, opt, batch)
     _, _, m2 = sync_free(lambda: step(base, lora, opt, batch))
     assert torch.equal(m1["per_adapter_loss"], m2["per_adapter_loss"])
+
+
+# (K, L) of the decode path's calls at rank r: xA (L = r) and (xA)B (K = r)
+def _decode_kl(r):
+    return [(r, r), (40, r), (3584, r), (r, 40), (r, 3584)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [8, 16, 64, 128])
+@pytest.mark.parametrize("m", [1, 5, 8, 16])
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_packed_matmul_decode_path_matches_plain(cuda, n, m, r):
+    """bf16 calls of at most 16 rows per adapter take the streaming kernels
+    of csrc/decode_rows.cuh: against the plain version with a scale and
+    without, the same bits on a second call, one launch a call; (xA)B also
+    at qwen25-7b's widest output."""
+    g = torch.Generator(device=cuda).manual_seed(20 + 100 * n + 10 * m + r)
+    shapes = _decode_kl(r) + ([(r, 18944)] if (n, m) == (8, 1) else [])
+    for k, l in shapes:
+        x, w = _rnd(g, (n, m, k), torch.bfloat16), _rnd(g, (n, k, l), torch.bfloat16, k ** -0.5)
+        assert packed_matmul_path(x, w) == "decode", (k, l)
+        for s in (torch.linspace(0.5, 2.0, n, device=cuda), None):
+            n0 = packed_matmul.launches
+            got = packed_matmul(x, w, s)
+            assert packed_matmul.launches == n0 + 1
+            _close(got, packed_matmul_ref(x, w, s))
+            assert torch.equal(got, packed_matmul(x, w, s)), (k, l)
+
+
+@pytest.mark.gpu
+def test_decode_path_rows_do_not_depend_on_the_row_count(cuda):
+    """A row's bits are the same whether its call has 1 row per adapter or
+    16 (one summation order for every M): xA and (xA)B at qwen25-7b's k and
+    gate widths."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    s = torch.linspace(0.5, 2.0, 8, device=cuda)
+    for k, l in ((3584, 16), (18944, 16), (16, 512), (16, 18944)):
+        x, w = _rnd(g, (8, 16, k), torch.bfloat16), _rnd(g, (8, k, l), torch.bfloat16, k ** -0.5)
+        full = packed_matmul(x, w, s)
+        for i in (0, 7, 15):
+            assert torch.equal(full[:, i:i + 1], packed_matmul(x[:, i:i + 1].contiguous(), w, s))
+
+
+@pytest.mark.gpu
+def test_decode_path_is_taken_exactly_where_the_plan_says(cuda):
+    """"decode" for bf16, at most 16 rows, x and w row-major, K and L
+    multiples of 8, 16-byte aligned pointers, L or K at most 128; "fma" or
+    "mma" for every call that misses one of them."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    bf = torch.bfloat16
+    x, a = _rnd(g, (8, 16, 3584), bf), _rnd(g, (8, 3584, 16), bf)
+    xa, b = _rnd(g, (8, 16, 16), bf), _rnd(g, (8, 16, 3584), bf)
+    assert packed_matmul_path(x, a) == "decode"  # xA
+    assert packed_matmul_path(xa, b) == "decode"  # (xA)B
+    assert packed_matmul_path(x[:, :1].contiguous(), a) == "decode"  # one row
+    assert packed_matmul_path(x.float(), a.float()) == "fma"  # f32
+    assert packed_matmul_path(xa.float(), b.float()) == "fma"
+    x17 = _rnd(g, (8, 17, 3584), bf)
+    assert packed_matmul_path(x17, a) == "mma"  # 17 rows
+    assert packed_matmul_path(_rnd(g, (8, 3584, 16), bf).transpose(1, 2), a) == "fma"  # x^T
+    assert packed_matmul_path(xa, _rnd(g, (8, 3584, 16), bf).transpose(1, 2)) == "fma"  # w^T
+    assert packed_matmul_path(_rnd(g, (8, 16, 3580), bf), _rnd(g, (8, 3580, 16), bf)) == "fma"  # K
+    assert packed_matmul_path(x, _rnd(g, (8, 3584, 12), bf)) == "fma"  # L = 12
+    assert packed_matmul_path(x, _rnd(g, (8, 3584, 136), bf)) == "fma"  # L and K > 128
+    off = torch.empty(8 * 16 * 3584 + 1, dtype=bf, device=cuda)[1:].view(8, 16, 3584)
+    assert packed_matmul_path(off, a) == "fma"  # x off 16 bytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["save", "recompute"])
+@pytest.mark.parametrize("xdim", [3, 4])
+def test_paired_delta_equals_two_calls(cuda, remat, xdim):
+    """At decode rows the delta's two passes run as one call (the second a
+    programmatic dependent launch): out and xa ``torch.equal`` to two
+    ``packed_matmul`` calls, two launches counted, and the delta's output
+    and LoRA gradients equal under remat "save" and "recompute"."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    n, r = 8, 16
+    for d_in, d_out in ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)):
+        x = _rnd(g, (n, 1, d_in) if xdim == 3 else (n, 1, 1, d_in), torch.bfloat16)
+        a0 = _rnd(g, (n, d_in, r), torch.bfloat16, d_in ** -0.5)
+        b0 = _rnd(g, (n, r, d_out), torch.bfloat16)
+        s = torch.linspace(0.5, 2.0, n, device=cuda)
+        x3 = x.reshape(n, -1, d_in)
+        n0 = packed_matmul.launches
+        out, xa = packed_matmul_pair(x3, a0, b0, s)
+        assert packed_matmul.launches == n0 + 2
+        want_xa = packed_matmul(x3, a0)
+        assert torch.equal(xa, want_xa) and torch.equal(out, packed_matmul(want_xa, b0, s))
+        a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        y = ops.packed_lora_delta(x, a, b, s, remat=remat)
+        assert torch.equal(y.reshape(out.shape), out)
+        (y.float() ** 2).sum().backward()
+        a2, b2 = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        y2 = ops.packed_lora_delta(x, a2, b2, s, impl="plain")
+        (y2.float() ** 2).sum().backward()
+        _close(y, y2)
+        _close(a.grad, a2.grad)
+        _close(b.grad, b2.grad)
+        other = {"save": "recompute", "recompute": "save"}[remat]
+        a3, b3 = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        y3 = ops.packed_lora_delta(x, a3, b3, s, remat=other)
+        (y3.float() ** 2).sum().backward()
+        assert torch.equal(y, y3) and torch.equal(a.grad, a3.grad) and torch.equal(b.grad, b3.grad)
+
+
+@pytest.mark.gpu
+def test_nf4_dequantize_and_delta_never_synchronise(cuda):
+    """``dequantize`` keeps the nf4 codebook on the card after its first
+    call: ``lora_linear`` on an nf4 base under impl="auto" (``dequantize``,
+    then the paired delta at decode rows), forward and backward, runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host wait raises) and
+    gives the first call's bits."""
+    from repro_torch.core.packed_lora import lora_linear
+
+    g = torch.Generator(device=cuda).manual_seed(24)
+    q = quantize_weight(_rnd(g, (3584, 512), torch.float32, 3584 ** -0.5), "nf4")
+    x = _rnd(g, (8, 1, 3584), torch.bfloat16)
+    a0, b0 = _rnd(g, (8, 3584, 16), torch.bfloat16, 3584 ** -0.5), _rnd(g, (8, 16, 512), torch.bfloat16)
+    s = torch.linspace(0.5, 2.0, 8, device=cuda)
+
+    def run():
+        a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        y = lora_linear(x, {"w": q}, {"a": a, "b": b}, s, 8, kcfg=ops.KernelConfig(impl="auto"))
+        (y.float() ** 2).sum().backward()
+        return dequantize(q, torch.bfloat16), y, a.grad, b.grad
+
+    first = run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for u, v in zip(got, first):
+        assert torch.equal(u, v)

@@ -23,7 +23,7 @@ from repro_torch import bridge
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import packed_matmul as packed_module
 from repro_torch.kernels.fused import fused_matmul
-from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_path
+from repro_torch.kernels.packed_matmul import packed_matmul, packed_matmul_pair, packed_matmul_path
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -93,6 +93,42 @@ def test_packed_lora_delta_matches_reference(ranks):
     want = jops.packed_lora_delta(jx, ja, jb, jal, impl="pallas", ranks=ranks)
     got = ops.packed_lora_delta(tx, ta, tb, tal, ranks=ranks)
     np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ranks", [None, (8, 16, 8, 16, 16, 8, 16, 8)])
+def test_packed_lora_delta_at_decode_rows_matches_reference(dtype, ranks):
+    """The delta at decode rows (N = 8 adapters x M = 1 row, K = 64, r = 16;
+    and a ragged pack of ranks 8 and 16), where the kernel path runs both
+    passes as one ``packed_matmul_pair`` call, against the JAX package's
+    Pallas kernel in interpret mode."""
+    n, k, r, l = 8, 64, 16, 72
+    (jx, tx), (ja, ta), (jb, tb) = _inputs(
+        5, [(n, 1, k), (n, k, r), (n, r, l)], dtype, stds=[1.0, k ** -0.5, 1.0])
+    alpha = np.linspace(0.5, 2.0, n).astype(np.float32)
+    want = jops.packed_lora_delta(jx, ja, jb, jnp.asarray(alpha), impl="pallas", ranks=ranks)
+    got = ops.packed_lora_delta(tx, ta, tb, torch.from_numpy(alpha), ranks=ranks)
+    assert got.dtype == TDT[dtype] and got.shape == (n, 1, l)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_matmul_pair_equals_two_calls_and_pallas(dtype):
+    """``packed_matmul_pair`` returns what ``packed_matmul(x, a)`` and then
+    ``packed_matmul(xa, b, scale)`` return, bit for bit, and out agrees with
+    the Pallas kernel applied twice (interpret mode)."""
+    n, k, r, l = 8, 64, 16, 40
+    (jx, tx), (ja, ta), (jb, tb) = _inputs(
+        6, [(n, 1, k), (n, k, r), (n, r, l)], dtype, stds=[1.0, k ** -0.5, 1.0])
+    scale = np.linspace(0.5, 2.0, n).astype(np.float32)
+    out, xa = packed_matmul_pair(tx, ta, tb, torch.from_numpy(scale))
+    want_xa = packed_matmul(tx, ta)
+    assert torch.equal(xa, want_xa)
+    assert torch.equal(out, packed_matmul(want_xa, tb, torch.from_numpy(scale)))
+    jxa = j_packed_matmul(jx, ja, jnp.ones((n,), jnp.float32), interpret=True)
+    want = j_packed_matmul(jxa, jb, jnp.asarray(scale), interpret=True)
+    np.testing.assert_allclose(_np(xa), _np(jxa), **TOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(want), **TOL[dtype])
 
 
 @pytest.mark.parametrize("ranks", [None, (8, 16, 8)])

@@ -204,6 +204,27 @@ def test_quantize_and_dequantize_bit_exact_vs_reference(mode):
     assert quant.quantized_nbytes(got) == jquant.quantized_nbytes(want)
 
 
+def test_dequantize_keeps_one_codebook_per_device(monkeypatch):
+    """``dequantize`` gives the values it gave when it copied the nf4
+    codebook on every call (code * scale from ``NF4_CODEBOOK`` itself), and
+    its codebook is made once per device: the same tensor on the next call,
+    so on the card no call after the first copies from the host."""
+    monkeypatch.setattr(quant, "_CODEBOOKS", {})
+    q = quant.quantize_weight(torch.from_numpy(_quant_weights()), "nf4")
+    codes, scales = q["codes"], q["scales"]
+    idx = torch.stack([codes & 0xF, codes >> 4], dim=-2).reshape(2, 128, 24)
+    vals = quant.NF4_CODEBOOK[idx.long()].reshape(2, scales.shape[-2], -1, 24)
+    want = (vals * scales[..., :, None, :]).reshape(2, 128, 24)
+    first = quant.dequantize(q)
+    cb = quant.nf4_codebook("cpu")
+    assert torch.equal(first, want) and torch.equal(quant.dequantize(q), want)
+    assert torch.equal(quant.dequantize(q, torch.bfloat16), want.to(torch.bfloat16))
+    assert quant.nf4_codebook(torch.device("cpu")) is cb and list(quant._CODEBOOKS) == [torch.device("cpu")]
+    meta = quant.nf4_codebook("meta")
+    assert meta is quant.nf4_codebook(torch.device("meta")) and meta.device.type == "meta"
+    assert len(quant._CODEBOOKS) == 2
+
+
 def test_quantize_base_params_matches_reference():
     tree = {"embed": {"w": np.ones((8, 4), np.float32)},
             "blocks": {"q": {"w": _quant_weights(), "b": np.zeros((2, 24), np.float32)},
