@@ -18,7 +18,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the fused dx reading W^T in place, and ``fused_matmul_q`` on int8 and nf4
    codes, which must also be bit-equal to the dense kernel on the
    dequantized W; ``fused_matmul_q`` also at the decode shapes), in bf16 and
-   f32; holds each against its plain version, and times kernel, plain
+   f32, and ``packed_matmul``'s training calls (xA, xAB, backward cases 2
+   and 4) at the sweep's shapes in bf16 (each same-rank segment of each
+   job the sweep phase plans: N, M = rows per adapter x 512 and r of that
+   segment, r 8-128); holds each against its plain version, and times
+   kernel, plain
    version and one PyTorch library call (or the named composition where no
    single call exists) with CUDA events. At the decode shapes the delta's
    two passes also run as one ``packed_matmul_pair`` call (call "pair",
@@ -60,10 +64,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    call runs under ``torch.cuda.set_sync_debug_mode("error")`` (after one
    that builds its per-device vectors).
 
+6. sweep   -- the planner-driven sweep on the same base: the 9
+   configurations of ``default_search_space(300, seq_len=512)[::37]``
+   planned on one card with the ``H100`` cost-model preset, then every job
+   run by ``ExecutionEngine.run_local`` through a ``ClusterRunner`` and a
+   ``SliceExecutor`` whose cache unit is one captured CUDA graph of the
+   whole step (impl="auto", 4 steps per job, every adapter saved to a
+   ``CheckpointPool`` under ``smoke_pool/``, removed at the end). Prints
+   the plan, each job's predicted and measured seconds per iteration, peak
+   allocated memory against the cost model's ``job_mem_bytes``, the graph's
+   pool bytes, planned and measured makespan beside ``min_gpu_schedule``'s,
+   the step cache's builds and hits, ``packed_matmul``'s launches (zeroed
+   just before the run and read just after; a replay counts the launches
+   its graph recorded) and a fit of the preset's ``sat_tokens`` /
+   ``layer_overhead`` to the measured iterations. Fails unless every
+   configuration's adapter is in the pool with a finite loss, each job's
+   final losses and adapters equal a ``SliceExecutor(capture=False)`` run
+   on the same pack, initial weights and batches (bit for bit, or else the
+   losses within LOSS_RTOL), a further pack of the last job's shape (job
+   1; the executor keeps one graph) with other learning rates and alphas
+   hits the cache and equals its eager run step by step, the launches
+   equal what the eager runs' steps launch (a warm-up step and 4 replays a
+   job), and extract -> inject -> extract of an adapter is bit-exact on
+   the card. The last captured replay of the cache hit and the last eager
+   step of that shape run under ``torch.profiler``.
+
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
 ``smoke_out/`` (``chip_smoke.json``, ``profile_<impl>.txt``,
-``profile_train_{auto,fused,nf4}.txt``, the nvcc logs with ``ptxas -v``).
+``profile_train_{auto,fused,nf4}.txt``, ``profile_sweep_{captured,eager}.txt``,
+the nvcc logs with ``ptxas -v``).
 """
 from __future__ import annotations
 
@@ -303,7 +333,7 @@ def kernel_phase(torch, dev):
     rows = []
 
     def check(name, case, call, d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
-              library, exact=None, path_fn=None, split_times=False):
+              library, exact=None, path_fn=None, split_times=False, extra=None):
         args = args_fn()
         path = path_fn(*args) if path_fn is not None else None
         got = kfn(*args)
@@ -328,7 +358,7 @@ def kernel_phase(torch, dev):
                "d_in": d_in, "d_out": d_out, "dtype": dname, "max_abs_err": err,
                "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "library": library, "bound_ms": b_ms, "bound_by": b_by, "bytes": in_bytes,
-               "flops": flops}
+               "flops": flops, **(extra or {})}
         if path is not None:
             row["path"] = path
         if split_times:  # device time with the host out of the loop, and host time
@@ -383,13 +413,17 @@ def kernel_phase(torch, dev):
                   path_fn=lambda x, c, sc, a, b, s: fused_matmul_q_path(x, c, sc, a.shape[2], a, b),
                   split_times=True)
 
-    def packed_rows(case, n, m, d_in, d_out, dtype, scale, backward_cases=False):
-        for call, args_fn, flops, bwd in packed_calls(rnd, dtype, n, m, d_in, d_out, RANK, scale,
+    def packed_rows(case, n, m, d_in, d_out, dtype, scale, backward_cases=False, rank=RANK,
+                    only=None, split_times=True, extra=None):
+        for call, args_fn, flops, bwd in packed_calls(rnd, dtype, n, m, d_in, d_out, rank, scale,
                                                       backward_cases):
+            if only is not None and call not in only:
+                continue
             check("packed_matmul", case, call, d_in, d_out, dtype,
                   packed_bwd if bwd else packed_matmul, packed_matmul_ref, lib_bmm, args_fn, flops,
                   BMM + (" on the transposed views" if bwd else ""),
-                  path_fn=lambda x, w, s=None: packed_matmul_path(x, w), split_times=True)
+                  path_fn=lambda x, w, s=None: packed_matmul_path(x, w), split_times=split_times,
+                  extra=extra)
         if case == "decode":  # both passes of the delta as one call
             args_fn, kfn, pfn, lfn, flops, path_fn = pair_call(torch, rnd, dtype, n, m, d_in, d_out,
                                                                RANK, scale)
@@ -423,6 +457,13 @@ def kernel_phase(torch, dev):
             emit({"phase": "ragged", "op": name, "ranks": list(ranks),
                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol})
         train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, fused_q_rows, packed_rows)
+    # the sweep's own shapes: each same-rank segment of each planned job
+    for job, n, m, r in sweep_segments(sweep_plan().jobs):
+        for (d_in, d_out), _ in PROJ:
+            packed_rows("sweep", n, m, d_in, d_out, torch.bfloat16,
+                        torch.linspace(0.5, 2.0, n, device=dev), backward_cases=True, rank=r,
+                        only=SWEEP_CALLS, split_times=False,
+                        extra={"job": job, "n": n, "m": m, "rank": r})
     off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] == "train" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
            and r["path"] != "wgmma"]
@@ -817,21 +858,16 @@ def resident_bytes(tree) -> int:
 
 
 def train_counts():
-    from repro_torch.kernels.fused import fused_matmul, fused_matmul_q
-    from repro_torch.kernels.packed_matmul import packed_matmul
+    """Each kernel's launches (a captured graph's replays included)."""
+    from repro_torch.kernels import launches
 
-    return {"packed_matmul": packed_matmul.launches, "packed_matmul_bwd": packed_matmul.bwd_launches,
-            "fused_matmul": fused_matmul.launches, "fused_matmul_dx": fused_matmul.bwd_launches,
-            "fused_matmul_q": fused_matmul_q.launches}
+    return launches.read()
 
 
 def zero_counts():
-    from repro_torch.kernels.fused import fused_matmul, fused_matmul_q
-    from repro_torch.kernels.packed_matmul import packed_matmul
+    from repro_torch.kernels import launches
 
-    packed_matmul.launches = packed_matmul.bwd_launches = 0
-    fused_matmul.launches = fused_matmul.bwd_launches = 0
-    fused_matmul_q.launches = 0
+    launches.zero()
 
 
 # the counts a run's impl must move: forward, and backward
@@ -977,12 +1013,22 @@ def is_packed_kernel(name: str) -> bool:
     return "plora::" in name or name.startswith("void reduce_kernel<")
 
 
+def packed_share(prof, device_ms: float) -> dict:
+    """``packed_matmul``'s device time, launches and share of a profile."""
+    from torch.autograd import DeviceType
+
+    packed = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and is_packed_kernel(e.key)]
+    ms = sum(e.self_device_time_total for e in packed) / 1e3
+    return {"packed_matmul_device_ms": ms, "packed_matmul_launches": sum(e.count for e in packed),
+            "packed_matmul_device_share": ms / device_ms}
+
+
 def profile_train(torch, step, base, lora, opt, batch, meta, out_dir: Path, impl: str, quant):
     """One step under ``torch.profiler``: the device busy share, the top
     device operations and, under impl="auto", ``packed_matmul``'s share of
     the device time; the table goes to
     ``smoke_out/profile_train_<quant or impl>.txt``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = base["embed"]["w"].device
@@ -995,14 +1041,307 @@ def profile_train(torch, step, base, lora, opt, batch, meta, out_dir: Path, impl
         wall_ms = 1e3 * (time.perf_counter() - t0)
     res = read_profile(prof, wall_ms, out_dir / f"profile_train_{quant or impl}.txt")
     if impl == "auto":
-        packed = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation and is_packed_kernel(e.key)]
-        res["packed_matmul_device_ms"] = sum(e.self_device_time_total for e in packed) / 1e3
-        res["packed_matmul_launches"] = sum(e.count for e in packed)
-        res["packed_matmul_device_share"] = res["packed_matmul_device_ms"] / res["device_ms"]
+        res.update(packed_share(prof, res["device_ms"]))
     row = {"phase": "train_profile", "impl": impl, "quant": quant, **res}
     emit(row)
     return row
+
+
+# ---------------------------------------------------------------------------
+# sweep phase
+# ---------------------------------------------------------------------------
+
+# default_search_space(300, seq_len=512)[::37]: 9 configurations, ranks
+# 8-128, batch sizes 1-4, alpha r/4-4r, learning rates 2e-5-4e-4
+SWEEP_SEQ = 512
+SWEEP_EVERY = 37
+SWEEP_STEPS = 4
+# packed_matmul's calls in a train step under impl="auto": the delta's two
+# passes and the N-D backward's cases 2 and 4
+SWEEP_CALLS = ("xA", "xAB", "bwd2_dxA", "bwd4_dx")
+
+
+def sweep_plan():
+    """The sweep's space, cost model, plan and ``min_gpu_schedule`` (pure
+    Python, milliseconds: the kernel phase reads the plan's shapes too)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import default_search_space, get_config
+    from repro_torch.sched import H100, CostModel, min_gpu_schedule, plan
+
+    cfg = get_config("qwen25-7b")
+    space = default_search_space(300, seq_len=SWEEP_SEQ)[::SWEEP_EVERY]
+    cm = CostModel(cfg, H100)
+    t0 = time.perf_counter()
+    sched = plan(cm, space, 1, SWEEP_SEQ, SWEEP_STEPS)
+    plan_s = time.perf_counter() - t0
+    return SimpleNamespace(
+        cfg=cfg, space=space, cm=cm, sched=sched, plan_s=plan_s,
+        mingpu=min_gpu_schedule(cm, space, 1, SWEEP_SEQ, SWEEP_STEPS),
+        jobs=[[space[i] for i in j.config_ids] for j in sched.jobs])
+
+
+def sweep_segments(jobs):
+    """(job, N, M, r) of each group of ``packed_matmul`` calls that one
+    step of each job makes: one per same-rank segment of its pack
+    (``ops.rank_segments``; a pack of one rank is one segment), M = the
+    pack's rows per adapter times SWEEP_SEQ tokens."""
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.kernels.ops import rank_segments
+
+    out = []
+    for job, configs in enumerate(jobs):
+        meta = pack_meta(configs)
+        out += [(job, hi - lo, meta.max_batch * SWEEP_SEQ, r)
+                for lo, hi, r in rank_segments(meta.ranks)[2]]
+    return out
+
+
+def fit_preset(cm, timings, jobs, seq: int) -> dict:
+    """``sat_tokens`` and ``layer_overhead`` of the cost model's hardware
+    spec fitted to the measured seconds per iteration of the planned jobs:
+    for each ``sat_tokens`` of a log grid, the least-squares ``layer_overhead
+    >= 0`` of the relative errors, and the grid point with the least sum of
+    squared relative errors."""
+    layers = cm.cfg.n_layers
+    best = None
+    for sat in np.logspace(0, 6, 241):
+        probe = type(cm)(cm.cfg, cm.hw.scaled(sat_tokens=float(sat), layer_overhead=0.0))
+        base = [probe.iter_time(jc, 1, seq) for jc in jobs]
+        w = [1.0 / t ** 2 for t in timings]
+        lo = max(0.0, sum(wi * (t - b) for wi, t, b in zip(w, timings, base))
+                 / (layers * sum(w)))
+        err = sum(((b + layers * lo) / t - 1.0) ** 2 for b, t in zip(base, timings))
+        if best is None or err < best["sum_sq_rel_err"]:
+            best = {"sat_tokens": float(sat), "layer_overhead": lo, "sum_sq_rel_err": err,
+                    "predicted_s_per_iter": [b + layers * lo for b in base]}
+    return best
+
+
+class StepWindow:
+    """A ``train_pack`` step callback: each step's per-adapter loss, the
+    seconds between the ends of consecutive steps (it synchronises after
+    every step) and, with ``profile_step``, that one step under
+    ``torch.profiler`` (started at the end of the step before it; its table
+    goes to ``table``), read into ``profile``."""
+
+    def __init__(self, torch, dev, profile_step=None, table=None):
+        self.torch, self.dev, self.profile_step, self.table = torch, dev, profile_step, table
+        self.losses, self.seconds, self.profile = [], [], None
+        self._t = self._prof = None
+
+    def __call__(self, i, metrics):
+        self.torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        if self._prof is not None:  # the profiled step has ended
+            self._prof.stop()
+            self.profile = read_profile(self._prof, 1e3 * (now - self._t), self.table)
+            self.profile.update(packed_share(self._prof, self.profile["device_ms"]))
+            self._prof = None
+        elif self._t is not None:
+            self.seconds.append(now - self._t)
+        self.losses.append(metrics["per_adapter_loss"].clone())
+        if i + 1 == self.profile_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self._prof.start()
+        self._t = time.perf_counter()
+
+
+def compare_runs(torch, what: str, cap_losses, eager_losses, cap_adapters, eager_lora, ranks):
+    """Captured against eager: per-adapter losses and the adapters' weights,
+    bit for bit; if not, the losses are held at LOSS_RTOL (step 1's
+    tolerance). Returns the comparison's numbers."""
+    from repro_torch.core.packed_lora import extract_adapter
+    from repro_torch.tree import tree_leaves
+
+    cap, eag = torch.as_tensor(np.asarray(cap_losses)), eager_losses.cpu()
+    loss_equal = bool(torch.equal(cap, eag))
+    loss_rel = ((cap - eag).abs() / eag.abs()).max().item()
+    w_equal, w_rel = True, 0.0
+    for slot, ad in enumerate(cap_adapters):
+        ref = extract_adapter(eager_lora, slot, ranks)
+        for a, b in zip(tree_leaves(ad), tree_leaves(ref)):
+            w_equal &= bool(np.array_equal(a, b))
+            w_rel = max(w_rel, float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+    res = {"bitwise": loss_equal and w_equal, "loss_equal": loss_equal,
+           "loss_rel_err": loss_rel, "weights_equal": w_equal, "weights_rel_err": w_rel}
+    if not res["bitwise"] and not loss_rel <= LOSS_RTOL:
+        fail(f"{what}: captured losses differ from the eager run's by {loss_rel} > {LOSS_RTOL}")
+    return res
+
+
+def sweep_phase(torch, dev, base, out_dir: Path):
+    """The planner-driven sweep on full qwen25-7b: plan the space on the H100
+    preset, run every job through ``ExecutionEngine.run_local`` with the
+    captured executor (impl="auto"), then hold each job, and a cache hit of
+    the last job's shape, against runs of an eager executor
+    (``SliceExecutor(capture=False)``). Returns the launch counts of the
+    run."""
+    import shutil
+
+    from repro_torch.sched import H100
+    from repro_torch.train.checkpoint import CheckpointPool
+
+    sw = sweep_plan()
+    emit({"phase": "sweep_plan", "hw": H100.name, "configs": [
+              {"id": i, "rank": c.rank, "alpha": c.alpha, "lr": c.learning_rate,
+               "batch_size": c.batch_size} for i, c in enumerate(sw.space)],
+          "jobs": [{"config_ids": list(j.config_ids), "start": j.start, "end": j.end,
+                    "predicted_s_per_iter": sw.cm.iter_time(jc, 1, SWEEP_SEQ),
+                    "job_mem_bytes": sw.cm.job_mem_bytes(jc, 1, SWEEP_SEQ)}
+                   for j, jc in zip(sw.sched.jobs, sw.jobs)],
+          "kernel_segments": sweep_segments(sw.jobs),
+          "planned_makespan_s": sw.sched.makespan, "setup_s_per_job": sw.cm.setup_time,
+          "min_gpu_makespan_s": sw.mingpu.makespan, "plan_s": sw.plan_s})
+    if len(sw.sched.jobs) < 2:
+        fail(f"the planner made {len(sw.sched.jobs)} job(s) of the sweep space; the phase "
+             "needs two shapes for its cache checks")
+    # GBs of f32 adapters: kept out of smoke_out/ and removed when the phase ends
+    pool_dir = ROOT / "smoke_pool"
+    shutil.rmtree(pool_dir, ignore_errors=True)
+    try:
+        return _sweep(torch, dev, base, out_dir, sw, CheckpointPool(str(pool_dir)))
+    finally:
+        shutil.rmtree(pool_dir, ignore_errors=True)
+
+
+def _sweep(torch, dev, base, out_dir, sw, pool):
+    from repro_torch.cluster import ClusterRunner, DevicePool, SliceExecutor
+    from repro_torch.cluster.executor import WARMUP_STEPS
+    from repro_torch.configs import LoraConfig
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.core.packed_lora import extract_adapter, inject_adapter
+    from repro_torch.models.model import lora_zeros
+    from repro_torch.obs import MetricsTracer
+    from repro_torch.sched import H100, ExecutionEngine, plan
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, space, cm, sched, jobs = sw.cfg, sw.space, sw.cm, sw.sched, sw.jobs
+    tracer = MetricsTracer()
+    ex = SliceExecutor(tracer=tracer)
+    runner = ClusterRunner(ex, DevicePool([dev]), tracer=tracer)
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    records, makespan = ExecutionEngine(cm, 1, tracer=tracer).run_local(
+        sched, space, cfg, base, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, pool=pool, runner=runner,
+        impl="auto")
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = train_counts()
+    timings = {t.job_id: t for t in runner.last_result.timings}
+    rows = []
+    for job_id, (j, rec) in enumerate(zip(sched.jobs, records)):
+        t, m = timings[job_id], pack_meta(jobs[job_id])
+        cap = ex.captures[job_id] if job_id < len(ex.captures) else {}
+        rows.append({"job": job_id, "config_ids": list(j.config_ids),
+                     "ranks": list(m.ranks), "rows": m.n * m.max_batch,
+                     "tokens_per_step": m.n * m.max_batch * SWEEP_SEQ,
+                     "predicted_s_per_iter": t.predicted_iter, "measured_s_per_iter": t.measured_iter,
+                     "drift": t.drift, "wall_s": rec.wall_seconds,
+                     "final_losses": [float(x) for x in rec.final_losses],
+                     "peak_allocated_bytes": rec.peak_bytes,
+                     "job_mem_bytes": cm.job_mem_bytes(jobs[job_id], 1, SWEEP_SEQ),
+                     "graph_pool_bytes": cap.get("pool_bytes"),
+                     "graph_static_bytes": cap.get("static_bytes"),
+                     "warmup_transient_bytes": cap.get("transient_bytes"),
+                     "capture_s": cap.get("seconds")})
+    names = pool.list()
+    metas = {n: pool.load_meta(n) for n in names}
+    fit = fit_preset(cm, [r["measured_s_per_iter"] for r in rows], jobs, SWEEP_SEQ)
+    fitted = type(cm)(cfg, H100.scaled(sat_tokens=fit["sat_tokens"],
+                                        layer_overhead=fit["layer_overhead"]))
+    fit["plan_config_ids"] = [list(j.config_ids) for j in plan(
+        fitted, space, 1, SWEEP_SEQ, SWEEP_STEPS).jobs]
+    builds, hits = ex.n_builds, ex.n_hits
+    emit({"phase": "sweep", "jobs": rows, "wall_s": wall, "measured_makespan_s": makespan,
+          "planned_makespan_s": sched.makespan, "min_gpu_makespan_s": sw.mingpu.makespan,
+          "planned_compute_s": sum(cm.iter_time(jc, 1, SWEEP_SEQ) * SWEEP_STEPS for jc in jobs),
+          "executor_builds": builds, "executor_hits": hits, "launches": launches,
+          "graph_replays": SWEEP_STEPS * len(records), "metrics": tracer.metrics.to_json(),
+          "pool": names, "h100_fit": fit})
+    want = [f"adapter_{i:04d}" for i in range(len(space))]
+    if names != want:
+        fail(f"the pool holds {names}, not the sweep's {len(want)} adapters")
+    if not all(math.isfinite(m["final_loss"]) for m in metas.values()):
+        fail("an adapter in the pool has a non-finite final loss")
+    for need in ("packed_matmul", "packed_matmul_bwd"):
+        if launches[need] == 0:
+            fail(f"the sweep launched {need} no time")
+    if (builds, hits) != (len(records), 0) or len(ex.captures) != len(records):
+        fail(f"the sweep built {builds} steps and hit {hits} for {len(records)} job shapes")
+
+    # a further pack of job 1's shape (the last job, whose graph the cache
+    # holds), with other learning rates and alphas: the cache must hit, and
+    # its steps equal the eager run's. Its last replay runs under the profiler.
+    hit_cfgs = [LoraConfig(rank=c.rank, alpha=2.0 * c.alpha, learning_rate=0.5 * c.learning_rate,
+                           batch_size=c.batch_size, seq_len=SWEEP_SEQ) for c in jobs[-1]]
+    meta = pack_meta(hit_cfgs)
+    slice_ = DevicePool([dev]).acquire(1)
+    hit = StepWindow(torch, dev, SWEEP_STEPS - 1, out_dir / "profile_sweep_captured.txt")
+    res = ex.train_pack(cfg, hit_cfgs, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, base=base,
+                        slice_=slice_, step_callback=hit)
+    if (ex.n_builds, ex.n_hits) != (builds, hits + 1) or len(ex.captures) != len(records):
+        fail(f"job {len(jobs) - 1}'s shape did not hit the step cache ({ex.n_builds} builds, "
+             f"{ex.n_hits} hits)")
+    hit_adapters = [extract_adapter(res.lora, s, meta.ranks) for s in range(meta.n)]
+    # extract -> inject of one adapter, on the card: into a one-adapter pack
+    # of zeros, back to the card, and out again
+    slot = meta.n - 1
+    one = pack_meta([hit_cfgs[slot]])
+    packed = inject_adapter(lora_zeros(cfg, one, torch.float32, "cpu"), hit_adapters[slot], 0)
+    again = extract_adapter(tree_map(lambda a: torch.from_numpy(a).to(dev), packed), 0, one.ranks)
+    roundtrip = all(np.array_equal(a, b) for a, b in zip(tree_leaves(again),
+                                                          tree_leaves(hit_adapters[slot])))
+    del res
+    ex.clear()
+    torch.cuda.empty_cache()
+
+    # the eager executor from the same initial weights (the captured one's
+    # templates), budgets and data; its last step of job 1 under the profiler
+    eager = SliceExecutor(capture=False)
+    checks, eager_launches = [], []
+    for job_id, jc in enumerate(jobs):
+        m = pack_meta(jc)
+        win = StepWindow(torch, dev, SWEEP_STEPS - 1 if job_id == len(jobs) - 1 else None,
+                         out_dir / "profile_sweep_eager.txt")
+        zero_counts()
+        res = eager.train_pack(cfg, jc, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, base=base,
+                               lora=ex.pack_template(cfg, jc, 0, dev)[0], slice_=slice_,
+                               budgets=np.full((m.n,), SWEEP_STEPS, np.int32), step_callback=win)
+        eager_launches.append(train_counts())
+        cap_ads = [pool.load_adapter(f"adapter_{i:04d}") for i in sched.jobs[job_id].config_ids]
+        cmp = compare_runs(torch, f"sweep job {job_id}", [records[job_id].final_losses],
+                           torch.stack(win.losses[-1:]), cap_ads, res.lora, m.ranks)
+        checks.append({"job": job_id, **cmp, "eager_step_s": win.seconds,
+                       "captured_step_s": rows[job_id]["measured_s_per_iter"],
+                       "eager_peak_allocated_bytes": res.peak_bytes,
+                       **({"eager_profile": win.profile} if win.profile else {})})
+        del res
+        torch.cuda.empty_cache()
+    # each job: a warm-up step and SWEEP_STEPS replays, each launching what
+    # one eager step launches
+    expect = {k: sum(c[k] for c in eager_launches) * (WARMUP_STEPS + SWEEP_STEPS) // SWEEP_STEPS
+              for k in launches}
+    win = StepWindow(torch, dev)
+    res = eager.train_pack(cfg, hit_cfgs, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, base=base,
+                           lora=ex.pack_template(cfg, hit_cfgs, 0, dev)[0], slice_=slice_,
+                           step_callback=win)
+    hit_cmp = compare_runs(torch, "the cache hit", torch.stack(hit.losses).cpu().numpy(),
+                           torch.stack(win.losses), hit_adapters, res.lora, meta.ranks)
+    del res
+    emit({"phase": "sweep_checks", "jobs": checks,
+          "cache_hit": {**hit_cmp, "captured_step_s": hit.seconds, "eager_step_s": win.seconds},
+          "extract_inject_bit_exact": roundtrip, "captured_profile": hit.profile,
+          "launches_expected_from_eager": expect})
+    if not roundtrip:
+        fail("extract -> inject -> extract of an adapter on the card is not bit-exact")
+    if launches != expect:
+        fail(f"the sweep counted {launches} launches; its eager steps make {expect}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1053,6 +1392,15 @@ USES = [
     ("fused_matmul_q:nf4", "fused_matmul_q", ("nf4",), "train",
      "fused_q.cu", "src/repro/kernels/fused.py:275 (_fused_kernel_q :133, _dequant_tile :107)",
      ("train", "fused+nf4", "fused_matmul_q")),
+    # the sweep's captured steps (impl="auto"), at the sweep's own shapes:
+    # launches of each job's eager warm-up step and of its replays (each
+    # replay adds what its graph recorded)
+    ("packed_matmul:sweep_forward", "packed_matmul", ("xA", "xAB"), "sweep",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("sweep", "auto", "packed_matmul")),
+    ("packed_matmul:sweep_backward", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "sweep",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
+     ("sweep", "auto", "packed_matmul_bwd")),
 ]
 
 
@@ -1072,8 +1420,9 @@ def layer_sums(rows, kernel, calls, case):
     mult = {shape: k for shape, k in PROJ}
     sel = [r for r in rows if r["kernel"] == kernel and r["case"] == case
            and r["call"] in calls and r["dtype"] == "bfloat16"]
-    keys = ("ms", "plain_ms", "library_ms", "bytes", "flops", "device_ms", "library_device_ms",
-            "host_us", "library_host_us")
+    keys = [k for k in ("ms", "plain_ms", "library_ms", "bytes", "flops", "device_ms",
+                        "library_device_ms", "host_us", "library_host_us")
+            if all(k in r for r in sel)]  # the sweep's rows have no device/host split
     return sel, {k: sum(mult[(r["d_in"], r["d_out"])] * r[k] for r in sel) for k in keys}
 
 
@@ -1081,7 +1430,9 @@ def summarize(rows, launches):
     """One entry per kernel and use: its bf16 times summed over one decoder
     layer's projections (weighted by their count per layer) -- of a decode
     step for the serve entries, of a training step's calls at N=2, M=1024,
-    r=16 for the train ones -- and its launches in its path's run. For every
+    r=16 for the train ones, of one step of each sweep job (every same-rank
+    segment at its own N, M and r) for the sweep ones -- and its launches in
+    its path's run. For every
     use, and for EXTRA_SUMS, it also emits those layer sums with the device
     and host times (a ``layer_sums`` record)."""
     out = []
@@ -1160,7 +1511,11 @@ def main() -> None:
     t0 = time.perf_counter()
     train_launches = train_phase(torch, dev, base, out_dir)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
-    summary = summarize(rows, {"serve": serve_launches, "train": train_launches})
+    t0 = time.perf_counter()
+    sweep_launches = sweep_phase(torch, dev, base, out_dir)
+    emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
+    summary = summarize(rows, {"serve": serve_launches, "train": train_launches,
+                               "sweep": {"auto": sweep_launches}})
     (out_dir / "chip_smoke.json").write_text(json.dumps({"records": RECORDS, **summary}, indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,6 +2,7 @@ from repro_torch.configs.base import (
     AttentionConfig,
     LoraConfig,
     ModelConfig,
+    default_search_space,
     get_config,
     list_archs,
     reduced,
@@ -11,6 +12,7 @@ __all__ = [
     "AttentionConfig",
     "LoraConfig",
     "ModelConfig",
+    "default_search_space",
     "get_config",
     "list_archs",
     "reduced",

@@ -22,6 +22,11 @@ class AttentionConfig:
     rope_theta: float = 10_000.0
     use_bias: bool = False
 
+    @property
+    def is_mla(self) -> bool:
+        """Multi-head latent attention: not a kind the port has yet."""
+        return False
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -36,6 +41,22 @@ class ModelConfig:
     attention: AttentionConfig = field(default_factory=AttentionConfig)
     lora_targets: Tuple[str, ...] = ("q", "k", "v", "o", "gate", "up", "down")
     citation: str = ""
+    # the reference's fields that the cost model reads, at the only values
+    # the port's dense decoders have
+    tie_embeddings: bool = False
+    encoder_layers: int = 0
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Mixer kind per decoder layer: attention in every layer."""
+        return ("attn",) * self.n_layers
+
+    def ffn_kinds(self) -> Tuple[str, ...]:
+        """FFN kind per decoder layer: a dense MLP in every layer."""
+        return ("dense",) * self.n_layers
 
     @property
     def padded_vocab(self) -> int:
@@ -62,6 +83,20 @@ class LoraConfig:
         ``hash(key())`` -- which seeds its data stream -- is the same in
         every process (``train/data.py``)."""
         return (self.rank, self.alpha, self.learning_rate, self.batch_size)
+
+
+def default_search_space(n: int = 120, seq_len: int = 1024) -> list:
+    """Grid over the paper's Table 1 ranges: LR 2e-5..4e-4, BS 1..8, r
+    8..128, alpha r/4..4r. The first ``n`` points of a deterministic grid,
+    in the reference's order (``repro/configs/base.py:215-236``)."""
+    space = [
+        LoraConfig(rank=r, alpha=am * r, learning_rate=lr, batch_size=bs, seq_len=seq_len)
+        for r in (8, 16, 32, 64, 128)
+        for lr in (2e-5, 6e-5, 1e-4, 2e-4, 4e-4)
+        for bs in (1, 2, 4, 8)
+        for am in (0.25, 1.0, 4.0)
+    ]
+    return space[:n]
 
 
 def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelConfig:

@@ -43,6 +43,10 @@ class PackMeta:
     def r_bucket(self) -> int:
         return max(8, _round_up(max(self.ranks), 8))
 
+    @property
+    def max_batch(self) -> int:
+        return max(self.batch_sizes)
+
     def scales(self, device=None) -> torch.Tensor:
         """(N,) f32 effective multipliers alpha_n / r_n."""
         return _f32_vector([a / r for a, r in zip(self.alphas, self.ranks)], device)

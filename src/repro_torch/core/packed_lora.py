@@ -87,7 +87,10 @@ def extract_adapter(lora_params, idx: int, ranks=None):
             if r is not None and set(out) == {"a", "b"}:
                 out = {"a": out["a"][..., :r], "b": out["b"][..., :r, :]}
             return out
-        return np.take(_host(t), idx, axis=1 if in_blocks else 0)
+        ax = 1 if in_blocks else 0
+        if isinstance(t, torch.Tensor):  # slice on the tensor's device, copy one adapter
+            return _host(t.select(ax, idx))
+        return np.take(_host(t), idx, axis=ax)
 
     return walk(lora_params, False)
 

@@ -687,8 +687,12 @@ inline cudaError_t launch_main(dim3 grid, const bf16* x, const S& w, const void*
                                const float* scale, void* y, const float* xa, int M, int K, int L,
                                int R, int nrows, int pairs, cudaStream_t stream) {
   auto kernel = decode_kernel<S, RM, CT>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dec_main_smem(RM, 128));
+  static PerDevice once;
+  const cudaError_t attr = (cudaError_t)once.get([] {
+    return (int)cudaFuncSetAttribute(decode_kernel<S, RM, CT>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     dec_main_smem(RM, 128));
+  });
   if (attr != cudaSuccess) {
     cudaGetLastError();  // reported here: the next call's check must not see it again
     return attr;
@@ -702,8 +706,12 @@ template <int RM, int CT>
 inline cudaError_t launch_xa(dim3 grid, const bf16* x, const DecA& a, float* xa, int M, int K,
                              int R, int pairs, cudaStream_t stream) {
   auto kernel = decode_xa_kernel<RM, CT>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dec_xa_smem(RM, CT));
+  static PerDevice once;
+  const cudaError_t attr = (cudaError_t)once.get([] {
+    return (int)cudaFuncSetAttribute(decode_xa_kernel<RM, CT>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     dec_xa_smem(RM, CT));
+  });
   if (attr != cudaSuccess) {
     cudaGetLastError();
     return attr;

@@ -281,13 +281,14 @@ inline cudaError_t launch_decode_narrow(const bf16* x, const bf16* w, const floa
                                         bf16* out, int n, int m, int k, int l,
                                         const SkinnyPlan& p, cudaStream_t stream) {
   using C = DecNarrow<BL, RM>;
-  static const cudaError_t attr = [] {
+  static PerDevice once;
+  const cudaError_t attr = (cudaError_t)once.get([] {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_narrow_kernel<BL, RM>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess || DR_MAX_SPLITS <= 8) return e;
-    return cudaFuncSetAttribute(decode_narrow_kernel<BL, RM>,
-                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }();
+    if (e != cudaSuccess || DR_MAX_SPLITS <= 8) return (int)e;
+    return (int)cudaFuncSetAttribute(decode_narrow_kernel<BL, RM>,
+                                     cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  });
   if (attr != cudaSuccess) return attr;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -323,9 +324,12 @@ inline cudaError_t launch_decode_short_k(const bf16* x, const bf16* w, const flo
                                          bf16* out, int n, int m, int k, int l,
                                          const SkinnyPlan& p, bool dependent,
                                          cudaStream_t stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(decode_short_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           DR_MAX_STRIP + (MMA_MIN_ROWS - 1) * MMA_MAX_RANK * 4);
+  static PerDevice once;
+  const cudaError_t attr = (cudaError_t)once.get([] {
+    return (int)cudaFuncSetAttribute(decode_short_k_kernel,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     DR_MAX_STRIP + (MMA_MIN_ROWS - 1) * MMA_MAX_RANK * 4);
+  });
   if (attr != cudaSuccess) return attr;
   cudaLaunchAttribute pdl[1];
   pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;

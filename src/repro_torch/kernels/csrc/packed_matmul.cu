@@ -121,9 +121,11 @@ static cudaError_t launch_narrow(const bf16* x, const bf16* w, const float* scal
                                  int n, int m, int k, int l, const SkinnyPlan& p,
                                  cudaStream_t stream) {
   using C = Narrow<BL, TX, TW>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      narrow_kernel<BL, TX, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  (void)attr;
+  static PerDevice attr;
+  attr.get([] {
+    return (int)cudaFuncSetAttribute(narrow_kernel<BL, TX, TW>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  });
   // the K ranges of one row tile form one cluster (1 x 1 x splits)
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -145,14 +147,15 @@ static void launch_short_k(const bf16* x, const bf16* w, const float* scale, bf1
                            int m, int k, int l, cudaStream_t stream) {
   using C = ShortK<RK, TX, TW>;
   // resident blocks per SM at this kernel's registers and shared memory
-  static const int per_sm = [] {
+  static PerDevice occupancy;
+  const int per_sm = occupancy.get([] {
     cudaFuncSetAttribute(short_k_kernel<RK, TX, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          C::SMEM);
     int b = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, short_k_kernel<RK, TX, TW>, SK_THREADS,
                                                   C::SMEM);
     return b > 0 ? b : 1;
-  }();
+  });
   // one wave of resident blocks, each walking a run of column tiles
   const int rows = (m + SK_BM - 1) / SK_BM, tiles = (l + SK_BN - 1) / SK_BN;
   const long long target = (long long)SMS * per_sm;

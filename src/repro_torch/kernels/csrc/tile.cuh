@@ -15,6 +15,29 @@
 
 namespace plora {
 
+// A value computed once per device: function attributes
+// (cudaFuncSetAttribute) and occupancy belong to the current device, so a
+// plain function-local static would set them on the first device a process
+// launches on and leave a launch on any other device to fail. `get(f)`
+// runs f on the current device's first call and keeps its int result; one
+// thread per device at a time (each slot is written by its own device's
+// thread only).
+constexpr int PLORA_MAX_DEVICES = 64;
+struct PerDevice {
+  bool done[PLORA_MAX_DEVICES] = {};
+  int value[PLORA_MAX_DEVICES] = {};
+  template <class F>
+  int get(F f) {
+    int d = 0;
+    if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= PLORA_MAX_DEVICES) return f();
+    if (!done[d]) {
+      value[d] = f();
+      done[d] = true;
+    }
+    return value[d];
+  }
+};
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 

@@ -43,6 +43,8 @@ waits on the host.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -63,12 +65,38 @@ REMATS = ("save", "recompute")
 DEFAULT_REMAT = "save"
 
 
-def _resolve(impl: Optional[str]) -> str:
-    """Map an impl name to its path: "pallas" | "plain" (two passes) or
-    "fused_pallas" | "fused_plain" (one fused pass)."""
-    impl = impl or "auto"
+# The default impl is context-local, as in the reference (ops.py:74-96):
+# ``use_impl`` affects the calling context only, and new threads do not
+# inherit it, so a cross-thread executor (the cluster runner) captures
+# ``default_impl()`` at dispatch and passes it on as ``impl=``.
+_IMPL_VAR: contextvars.ContextVar = contextvars.ContextVar("plora_impl", default="auto")
+
+
+def _check_impl(impl: str) -> str:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; known: {IMPLS}")
+    return impl
+
+
+def default_impl() -> str:
+    return _IMPL_VAR.get()
+
+
+@contextlib.contextmanager
+def use_impl(impl: str):
+    """Scoped default: ``with use_impl("fused"): ...``."""
+    token = _IMPL_VAR.set(_check_impl(impl))
+    try:
+        yield
+    finally:
+        _IMPL_VAR.reset(token)
+
+
+def _resolve(impl: Optional[str]) -> str:
+    """Map an impl name (None: the context default) to its path: "pallas" |
+    "plain" (two passes) or "fused_pallas" | "fused_plain" (one fused
+    pass)."""
+    impl = _check_impl(impl or _IMPL_VAR.get())
     return {"auto": "pallas", "fused": "fused_pallas"}.get(impl, impl)
 
 

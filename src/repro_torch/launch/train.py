@@ -1,43 +1,51 @@
 """Training launcher: train one pack of LoRA configurations on one device
-(the port of the single-device path of ``repro/launch/train.py``).
+through the cluster subsystem (the port of the single-host path of
+``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen25-7b \\
       --reduced --steps 20 --ranks 8,16 --lrs 1e-3,5e-4 --seq 32
 
-It runs on CUDA unless ``--device`` says otherwise (``--device cpu`` for a
-run without a card; with no device given and no CUDA it raises). The step is
-``make_packed_step``; the reference's cluster, planner, autotune, profile,
-checkpoint-pool and tracing flags are not ported yet and raise if given.
-The model is initialized from a seed in f32, as the reference's launcher
-does.
+The pack trains on a one-device slice of a ``DevicePool`` through
+``SliceExecutor.train_pack``: on CUDA as one captured CUDA graph of the
+step, on the CPU eagerly. It runs on CUDA unless ``--device`` says
+otherwise (``--device cpu`` for a run without a card; with no device given
+and no CUDA it raises). The model is initialized
+from a seed in f32, as the reference's launcher does.
+
+Ported flags besides the pack's: ``--impl``/``--quant``/``--remat`` (the
+kernel policy), ``--pool`` (save each adapter), ``--save-state`` /
+``--resume-state`` / ``--state-id`` (the whole packed state; a resumed run
+continues each adapter's data stream where it stopped, so it equals an
+unbroken run), ``--hw`` (the cost-model prior of the plan-vs-measured
+table, default ``h100``), ``--profile-in`` / ``--profile-out`` (the
+observation store). The reference's other flags wait for the multi-host and
+sharded slices of the port, autotune and tracing, and raise if given.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.cluster import DevicePool, SliceExecutor
 from repro_torch.configs.base import LoraConfig, get_config, list_archs, reduced
 from repro_torch.core.adapter import pack_meta
+from repro_torch.core.packed_lora import extract_adapter
 from repro_torch.kernels.ops import IMPLS, REMATS
 from repro_torch.kernels.quant import quantize_base_params
 from repro_torch.models.model import init_model
-from repro_torch.train.data import packed_batch_iterator
-from repro_torch.train.optimizer import init_opt_state
-from repro_torch.train.trainer import make_packed_step
+from repro_torch.sched.cost_model import PRESETS, CostModel
+from repro_torch.sched.profile import ObservationStore, ProfiledCostModel
+from repro_torch.train.checkpoint import CheckpointPool
 
 # the reference launcher's flags that wait for later slices of the port
 NOT_PORTED = {
     "--mesh": "value", "--autotune-cache": "value", "--hosts": "value",
     "--devices-per-host": "value", "--host-classes": "value", "--heartbeat": "value",
     "--drain-after": "value", "--join-after": "value", "--fsdp": "flag",
-    "--seq-parallel": "flag", "--pool": "value", "--profile-in": "value",
-    "--profile-out": "value", "--hw": "value", "--save-state": "flag",
-    "--resume-state": "flag", "--state-id": "value", "--trace-out": "value",
-    "--metrics-out": "value",
+    "--seq-parallel": "flag", "--trace-out": "value", "--metrics-out": "value",
 }
 
 
@@ -63,6 +71,19 @@ def parse_args(argv=None):
                     help="backward xA policy of the LoRA kernels (default 'save')")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--pool", default=None, help="checkpoint pool dir")
+    ap.add_argument("--save-state", action="store_true",
+                    help="checkpoint the packed state (adapters, optimizer, step counts) "
+                         "into --pool at the end")
+    ap.add_argument("--resume-state", action="store_true",
+                    help="resume a packed run saved with --save-state (same arch and ranks)")
+    ap.add_argument("--state-id", default=None, help="packed-state id in the pool (default: arch)")
+    ap.add_argument("--hw", default="h100", choices=sorted(PRESETS),
+                    help="hardware prior of the plan-vs-measured table")
+    ap.add_argument("--profile-in", default=None,
+                    help="load an observation store (JSON) from an earlier run")
+    ap.add_argument("--profile-out", default=None,
+                    help="save the observation store, this run's step time folded in")
     for flag, kind in NOT_PORTED.items():
         if kind == "flag":
             ap.add_argument(flag, action="store_true", help="not ported yet")
@@ -71,7 +92,10 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     given = [f for f in NOT_PORTED if getattr(args, f[2:].replace("-", "_")) not in (None, False)]
     if given:
-        ap.error(f"{', '.join(given)}: not ported yet (the port trains one pack on one device)")
+        ap.error(f"{', '.join(given)}: not ported yet (they wait for the port's multi-host "
+                 "and sharded slices, autotune and tracing)")
+    if (args.save_state or args.resume_state) and not args.pool:
+        ap.error("--save-state/--resume-state require --pool")
     return args
 
 
@@ -95,29 +119,89 @@ def main(argv=None):
     print(f"arch={cfg.name} pack N={meta.n} r_bucket={meta.r_bucket} "
           f"steps={args.steps} seq={args.seq} device={dev}")
 
+    device_pool = DevicePool([dev])
+    slice_ = device_pool.acquire(1)
     base, lora = init_model(0, cfg, meta, device=dev)
     quant = None if args.quant == "none" else args.quant
     if quant:
         base = quantize_base_params(base, quant)
         print(f"quantized frozen base to {quant} (projection weights -> codes+scales dicts)")
-    step = make_packed_step(cfg, meta.n, impl=args.impl, remat=args.remat, ranks=meta.ranks,
-                            base_dtype=quant)
-    opt = init_opt_state(lora)
-    it = packed_batch_iterator(cfg, configs, seq=args.seq, device=dev)
-    scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
-    tokens = sum(bss) * args.seq
-    t0 = time.perf_counter()
-    for i in range(args.steps):
-        lora, opt, m = step(base, lora, opt, next(it), scales, lr_vec, None)
-        if args.log_every and i % args.log_every == 0:
+
+    opt, start_steps = None, None
+    state_id = args.state_id or cfg.name
+    if args.resume_state:
+        lora, opt, smeta = CheckpointPool(args.pool).load_packed_state(state_id)
+        if tuple(smeta["ranks"]) != meta.ranks:
+            raise SystemExit(f"saved state {state_id!r} has ranks {smeta['ranks']}, "
+                             f"requested {list(meta.ranks)}")
+        start_steps = np.asarray(opt["step"]).tolist()
+        print(f"resumed packed state {state_id!r} (per-adapter steps {start_steps})")
+
+    def log(i, m):
+        if i % args.log_every == 0:
             per = m["per_adapter_loss"].cpu().numpy()
             print(f"step {i:4d}  loss={float(m['loss']):.4f}  per-adapter={np.round(per, 3)}")
+
+    store = ObservationStore.load(args.profile_in) if args.profile_in else ObservationStore()
+    est = ProfiledCostModel(CostModel(cfg, PRESETS[args.hw], base_dtype=quant), store)
+    pred_prior = est.prior.iter_time(configs, 1, args.seq)
+    pred_profiled = est.iter_time(configs, 1, args.seq)  # before observing
+
+    ex = SliceExecutor()
+    try:
+        res = ex.train_pack(
+            cfg, configs, n_steps=args.steps, seq=args.seq, base=base, lora=lora, opt=opt,
+            slice_=slice_, data_start_steps=start_steps,
+            step_callback=log if args.log_every else None,
+            impl=args.impl, remat=args.remat, base_dtype=quant,
+        )
+    finally:
+        device_pool.release(slice_)
+    lora, opt = res.lora, res.opt
+    tokens = sum(bss) * args.seq
+    mode = "captured" if dev.type == "cuda" else "eager"
+    print(f"done: {args.steps} steps in {res.wall_seconds:.2f} s "
+          f"({args.steps * tokens / max(res.wall_seconds, 1e-9):.0f} tokens/s on {dev}, {mode})")
+
+    # plan-vs-measured: how far the analytic prior (and a loaded profile)
+    # was from this run
+    if args.steps > 0:
+        measured = res.wall_seconds / args.steps
+        est.observe(configs, 1, args.seq, measured)
+
+        def row(label, pred):
+            drift = measured / pred - 1.0 if pred > 0 else float("nan")
+            print(f"  {label:<22} {1e3 * pred:9.2f} ms/step   drift {100.0 * drift:+8.1f}%")
+
+        print(f"\nplan-vs-measured  key={est.key(configs, 1, args.seq)}")
+        print(f"  {'measured':<22} {1e3 * measured:9.2f} ms/step")
+        row(f"prior ({est.hw.name})", pred_prior)
+        if args.profile_in:
+            row("profiled (loaded)", pred_profiled)
+        print(f"  store: {len(store)} key(s), {store.n_observations} observation(s)")
+    if args.profile_out:
+        store.save(args.profile_out)
+        print(f"saved profile to {args.profile_out}")
+
+    per = res.losses if res.losses is not None else np.full(meta.n, np.nan)
+    if args.pool:
+        pool = CheckpointPool(args.pool)
+        if args.save_state:
+            pool.save_packed_state(
+                state_id, lora, opt,
+                {"arch": cfg.name, "ranks": list(meta.ranks), "alphas": list(meta.alphas),
+                 "seq": args.seq, "steps_done": opt["step"].cpu().tolist()},
+            )
+            print(f"saved packed state {state_id!r} to {args.pool}")
+        for i, c in enumerate(configs):
+            pool.save_adapter(
+                f"{cfg.name}_adapter_{i:03d}", extract_adapter(lora, i, meta.ranks),
+                {"rank": c.rank, "alpha": c.alpha, "learning_rate": c.learning_rate,
+                 "batch_size": c.batch_size, "final_loss": float(per[i])},
+            )
+        print(f"saved {len(configs)} adapters to {args.pool}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    per = m["per_adapter_loss"].cpu().numpy()
-    print(f"done: {args.steps} steps in {wall:.2f} s ({args.steps * tokens / wall:.0f} tokens/s "
-          f"on {dev}); final per-adapter loss {np.round(per, 4)}")
     return per
 
 

@@ -142,8 +142,10 @@ def apply_stack(
         bl = tree_index(lora["blocks"], bi) if lora.get("blocks") else None
         bc = tree_index(caches["blocks"], bi) if caches is not None else None
         if checkpointed:
+            # no RNG state to stash: the stack draws no random numbers, and
+            # reading the CUDA RNG state cannot be captured in a CUDA graph
             x = checkpoint(lambda h, bp=bp, bl=bl: run(h, bp, bl, None, p)[0], x,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
             continue
         x, c = run(x, bp, bl, bc, p)
         block_caches.append(c)

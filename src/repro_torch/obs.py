@@ -1,11 +1,16 @@
-"""Latency histograms and the disabled tracer, as far as the serve engine
-needs them: the port's own copy of ``Histogram`` (``repro/obs/metrics.py``)
-and ``NULL_TRACER`` (``repro/obs/trace.py``). Stdlib only.
+"""Metrics and the disabled tracer, as far as the port's engines need them:
+its own copy of ``Counter``, ``Gauge``, ``Histogram`` and ``MetricsRegistry``
+(``repro/obs/metrics.py``) and of ``NULL_TRACER`` (``repro/obs/trace.py``).
+Stdlib only.
 
-A tracer passed to the engine must offer ``span(name, **attrs)`` (a context
-manager), ``add_span(name, t0, t1, **attrs)`` and ``metrics`` with
-``counter(name).inc()`` and ``gauge(name).set(v)``; ``NULL_TRACER`` is the
-no-op one.
+A tracer passed to the serve engine, the execution engine, the cluster
+runner or the slice executor must offer ``enabled``, ``span(name, **attrs)``
+(a context manager whose value has a ``span_id``), ``add_span(name, t0, t1,
+**attrs)`` and ``metrics`` with ``counter(name).inc()`` and
+``gauge(name).set(v)``. ``NULL_TRACER`` is the no-op one; ``MetricsTracer``
+keeps the metrics and no spans. Names are dotted ``tier.metric``: the
+executor counts ``executor.compile_cache_builds`` / ``_hits`` (captures and
+their reuse), the runner sets the ``cluster.free_units`` gauge.
 """
 from __future__ import annotations
 
@@ -67,6 +72,64 @@ class Histogram:
         }
 
 
+class Counter:
+    """Monotonic event counter."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self._value = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Last-value gauge."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class MetricsRegistry:
+    """Get-or-create registry of named counters and gauges (thread-safe)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            return self._counters.setdefault(name, Counter(name))
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            return self._gauges.setdefault(name, Gauge(name))
+
+    def to_json(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {"counters": {k: c.value for k, c in sorted(self._counters.items())},
+                    "gauges": {k: g.value for k, g in sorted(self._gauges.items())}}
+
+
 class _NullMetric:
     def inc(self, n: int = 1) -> None:
         pass
@@ -85,12 +148,16 @@ class _NullMetrics:
         return self._metric
 
 
+class _NullSpan:
+    span_id = 0
+
+
 class _NullTracer:
     """Disabled tracer: every call is a no-op on shared singletons."""
 
     enabled = False
     metrics = _NullMetrics()
-    _span = contextlib.nullcontext()
+    _span = contextlib.nullcontext(_NullSpan())
 
     def span(self, name: str, **attrs):
         return self._span
@@ -100,3 +167,12 @@ class _NullTracer:
 
 
 NULL_TRACER = _NullTracer()
+
+
+class MetricsTracer(_NullTracer):
+    """A tracer that records metrics (``self.metrics``) and no spans."""
+
+    enabled = True
+
+    def __init__(self):
+        self.metrics = MetricsRegistry()

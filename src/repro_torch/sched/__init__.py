@@ -1,0 +1,34 @@
+"""Planning: the cost model, the knapsack/DTM packer, the job planner, the
+profiled estimator and the static execution engine (the port of
+``repro/sched``; the online and adaptive engine is not ported yet)."""
+from repro_torch.sched.cost_model import (
+    A10_24G,
+    A100_40G,
+    H100,
+    PRESETS,
+    TPU_V5E,
+    CostEstimator,
+    CostModel,
+    HardwareSpec,
+)
+from repro_torch.sched.dtm import DTMResult, JobPlan, dtm
+from repro_torch.sched.engine import ExecutionEngine, JobRecord, JobSegment, ResourceMonitor
+from repro_torch.sched.knapsack import brute_force, solve_pack
+from repro_torch.sched.planner import (
+    Schedule,
+    ScheduledJob,
+    max_gpu_schedule,
+    min_gpu_schedule,
+    plan,
+    replan,
+    sequential_plora_schedule,
+)
+from repro_torch.sched.profile import ObservationStore, ProfiledCostModel, obs_key
+
+__all__ = [
+    "A10_24G", "A100_40G", "H100", "PRESETS", "TPU_V5E", "CostEstimator", "CostModel",
+    "HardwareSpec", "DTMResult", "JobPlan", "dtm", "ExecutionEngine", "JobRecord",
+    "JobSegment", "ResourceMonitor", "brute_force", "solve_pack", "Schedule", "ScheduledJob",
+    "max_gpu_schedule", "min_gpu_schedule", "plan", "replan", "sequential_plora_schedule",
+    "ObservationStore", "ProfiledCostModel", "obs_key",
+]

@@ -59,7 +59,7 @@ def chunked_cross_entropy(
         for c0 in range(0, hidden.shape[1], chunk):
             sl = slice(c0, c0 + chunk)
             a, b = checkpoint(_chunk_ce, hidden[:, sl], unembed, labels[:, sl], mask[:, sl],
-                              vocab, use_reentrant=False)
+                              vocab, use_reentrant=False, preserve_rng_state=False)
             nll, cnt = nll + a, cnt + b
     nll_n = nll.reshape(n_pack, -1).sum(-1)
     cnt_n = cnt.reshape(n_pack, -1).sum(-1)

@@ -4,8 +4,9 @@ port of ``repro/train/optimizer.py``).
 Only LoRA parameters carry optimizer state: the base is frozen (no base
 grads, no base moments). The pack dim N is axis 0 of unstacked leaves and
 axis 1 of layer-stacked ("blocks") leaves; adapter n is stepped with its own
-learning rate. The update is functional, as in the reference: it returns new
-trees and leaves its inputs as they were.
+learning rate. The update is functional by default, as in the reference: it
+returns new trees and leaves its inputs as they were; ``in_place=True``
+updates the state where it lies instead.
 """
 from __future__ import annotations
 
@@ -51,10 +52,15 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     step_budget: Optional[torch.Tensor] = None,  # (N,) max steps per adapter
+    in_place: bool = False,
 ) -> Tuple[Any, Dict[str, Any]]:
     """One AdamW step; returns (new params, new state). ``step_budget``
     freezes adapter n -- params, moments and step count -- once it has
-    taken its budgeted steps, while its packmates go on."""
+    taken its budgeted steps, while its packmates go on. ``in_place``
+    writes each leaf's new values into ``params`` and ``opt_state`` as soon
+    as they are computed, and returns those: the same arithmetic, so the
+    same bits, without a second copy of the state (what a captured step
+    wants)."""
     active = None
     if step_budget is not None:
         active = (opt_state["step"] < step_budget).float()  # (N,)
@@ -85,7 +91,12 @@ def adamw_update(
             upd = upd + weight_decay * p
         if active is not None:
             upd = upd * active.reshape(shape).to(p.dtype)
-        return p - lr * upd, m_new, v_new
+        p_new = p - lr * upd
+        if in_place:
+            for dst, src in ((p, p_new), (m, m_new), (v, v_new)):
+                dst.copy_(src)
+            return p, m, v
+        return p_new, m_new, v_new
 
     def walk(g, m, v, p, in_blocks):
         if isinstance(p, dict):
@@ -94,4 +105,7 @@ def adamw_update(
         return leaf(g, m, v, p, in_blocks)
 
     new_p, new_m, new_v = walk(grads, opt_state["m"], opt_state["v"], params, False)
+    if in_place:
+        opt_state["step"].copy_(step)
+        return params, opt_state
     return new_p, {"m": new_m, "v": new_v, "step": step}

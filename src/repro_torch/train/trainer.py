@@ -74,6 +74,7 @@ def make_packed_step(
     remat: Optional[str] = None,
     ranks: Optional[tuple] = None,
     base_dtype: Optional[str] = None,
+    in_place: bool = False,
 ):
     """A packed train step whose per-adapter vectors -- ``scales``
     (alpha/r), ``lr_vec`` and ``budgets`` (per-adapter step caps, or None)
@@ -87,7 +88,9 @@ def make_packed_step(
     ``{"codes", "scales"}`` dicts.
 
     ``train_step(base, lora, opt_state, batch, scales, lr_vec, budgets)``
-    returns (new lora, new opt_state, {"loss", "per_adapter_loss"})."""
+    returns (new lora, new opt_state, {"loss", "per_adapter_loss"});
+    ``in_place`` makes AdamW update ``lora`` and ``opt_state`` where they
+    lie and return them (the same bits; the executor's captured step)."""
     ranks = tuple(ranks) if ranks and len(set(ranks)) > 1 else None
     kcfg = KernelConfig(impl=impl, remat=remat, ranks=ranks, base_dtype=base_dtype)
 
@@ -98,6 +101,7 @@ def make_packed_step(
         )
         lora_new, opt_state = adamw_update(
             grads, opt_state, lora, lr_vec, weight_decay=weight_decay, step_budget=budgets,
+            in_place=in_place,
         )
         return lora_new, opt_state, {"loss": total, "per_adapter_loss": per_adapter}
 

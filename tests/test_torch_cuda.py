@@ -578,3 +578,35 @@ def test_nf4_dequantize_and_delta_never_synchronise(cuda):
         torch.cuda.set_sync_debug_mode(0)
     for u, v in zip(got, first):
         assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two CUDA devices")
+def test_every_path_launches_on_every_device(cuda):
+    """A kernel's function attributes (its shared memory, its cluster size)
+    belong to the device they were set on: every path launches, and agrees
+    with its plain version, on every card, the last card first."""
+    bf = torch.bfloat16
+    for d in reversed(range(torch.cuda.device_count())):
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(dev):
+            g = torch.Generator(device=dev).manual_seed(30 + d)
+            s = torch.tensor([0.5, 2.0], device=dev)
+            for m, path, fused_path in ((1, "decode", "decode"), (1024, "mma", "wgmma")):
+                x, a = _rnd(g, (2, m, 3584), bf), _rnd(g, (2, 3584, 16), bf, 3584 ** -0.5)
+                xa, b = _rnd(g, (2, m, 16), bf), _rnd(g, (2, 16, 512), bf)
+                assert packed_matmul_path(x, a) == path and packed_matmul_path(xa, b) == path
+                _close(packed_matmul(x, a), packed_matmul_ref(x, a))
+                _close(packed_matmul(xa, b, s), packed_matmul_ref(xa, b, s))
+                _close(packed_matmul_pair(x, a, b, s)[0],
+                       packed_matmul_ref(packed_matmul_ref(x, a), b, s))
+                gs = _rnd(g, (2, m, 512), bf)  # backward case 2 on b's transpose
+                _close(packed_matmul(gs, b.transpose(1, 2), backward=True),
+                       packed_matmul_ref(gs, b.transpose(1, 2)))
+                w = _rnd(g, (3584, 512), bf, 3584 ** -0.5)
+                assert fused_matmul_path(x, w, 16, a, b) == fused_path
+                _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+                for mode in ("int8", "nf4"):
+                    q = quantize_weight(_rnd(g, (3584, 512), torch.float32, 3584 ** -0.5), mode)
+                    _close(fused_matmul_q(x, q["codes"], q["scales"], a, b, s),
+                           fused_matmul_q_ref(x, q["codes"], q["scales"], a, b, s))
