@@ -21,7 +21,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    f32, and ``packed_matmul``'s training calls (xA, xAB, backward cases 2
    and 4) at the sweep's shapes in bf16 (each same-rank segment of each
    job the sweep phase plans: N, M = rows per adapter x 512 and r of that
-   segment, r 8-128); holds each against its plain version, and times
+   segment, r 8-128, and likewise each of the online plan's segments, M
+   up to 4,096); holds each against its plain version, and times
    kernel, plain
    version and one PyTorch library call (or the named composition where no
    single call exists) with CUDA events. At the decode shapes the delta's
@@ -87,7 +88,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal what the eager runs' steps launch (a warm-up step and 4 replays a
    job), and extract -> inject -> extract of an adapter is bit-exact on
    the card. The last captured replay of the cache hit and the last eager
-   step of that shape run under ``torch.profiler``.
+   step of that shape run under ``torch.profiler``. Each job's own peak
+   allocated memory (the device's peak less what earlier phases left
+   allocated, besides the base) must lie within [peak, 1.3 x peak] of the
+   cost model's ``job_mem_bytes`` (ROADMAP C3).
+7. online  -- the online engine on the same base: six configurations of
+   ``default_search_space(300, seq_len=512)`` (two of batch 8, one of rank
+   128, ranks 16-128) arrive on a ``poisson_trace``;
+   ``ExecutionEngine.plan_online`` on the ``H100`` preset (the port's
+   memory accounting, 1 s of setup a job) plans a migration, and
+   ``run_online_local`` runs the plan on captured steps (impl="auto"): a
+   preempted adapter checkpoints through the pool and resumes in a pack of
+   other partners and another shape (a recapture). Prints the plan (and
+   the largest job the reference's memory accounting would pack, priced
+   by the port's), each segment's measured s/iter against the prior, its
+   peak against ``job_mem_bytes``, the captures, and ``packed_matmul``'s
+   launches. Fails unless every adapter is in the pool with its step
+   budget and a finite loss, the preempted adapter's state file holds
+   0 < steps_done < total, the same segments run eagerly give equal
+   losses and adapters (bit for bit, else losses within LOSS_RTOL), the
+   preempted adapter, against an unbroken run of it alone from the same
+   initial weights, has its update within RESUME_UPDATE_RTOL and its final
+   loss within RESUME_LOSS_RTOL (and the same run restarted from those
+   weights at the preemption, the fault a lost resume makes, reads far
+   outside the update's limit), the launches equal the eager steps'
+   (warm-up included), and every captured job passes the C3 check. Then the adaptive loop
+   (``ProfiledCostModel`` over the prior, three configurations, probes of
+   2 steps on the card's clock) must reassign at least once, account every
+   step, finish every adapter with a finite loss and round-trip its
+   observation store through JSON. Last, ``c3_fit`` fits the memory
+   model's logits copies and per-job bytes to every captured job's peak.
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
@@ -155,6 +185,21 @@ GRAD_TOL_F32 = 1e-3
 BF16_GRAD_FACTOR = 1.5
 
 RECORDS = []
+# (configurations, peak allocated bytes) of every captured job of the sweep
+# and online phases: the points of the memory fit (c3_fit)
+C3_POINTS = []
+# a captured job's peak must lie in [peak, C3_SLACK x peak] of its price
+C3_SLACK = 1.3
+# The online phase's preempted adapter against an unbroken run of it alone
+# from the same initial weights and data: its update (w - w0, all leaves)
+# within RESUME_UPDATE_RTOL of the unbroken run's, relative to that update,
+# and its final loss within RESUME_LOSS_RTOL. The same adapter restarted
+# from w0 at its preemption (a lost resume) must read above
+# RESUME_CONTROL_FACTOR x RESUME_UPDATE_RTOL, so the check can see that
+# fault. The loss moves little over 8 steps on random weights (PERF.md).
+RESUME_UPDATE_RTOL = 0.05
+RESUME_LOSS_RTOL = 1e-3
+RESUME_CONTROL_FACTOR = 5.0
 
 
 def emit(obj) -> None:
@@ -461,6 +506,14 @@ def kernel_phase(torch, dev):
     for job, n, m, r in sweep_segments(sweep_plan().jobs):
         for (d_in, d_out), _ in PROJ:
             packed_rows("sweep", n, m, d_in, d_out, torch.bfloat16,
+                        torch.linspace(0.5, 2.0, n, device=dev), backward_cases=True, rank=r,
+                        only=SWEEP_CALLS, split_times=False,
+                        extra={"job": job, "n": n, "m": m, "rank": r})
+    # the online plan's shapes (batch 8: M = 4,096 tokens per adapter)
+    on = online_plan()
+    for job, n, m, r in online_segments(on.sched, on.configs):
+        for (d_in, d_out), _ in PROJ:
+            packed_rows("online", n, m, d_in, d_out, torch.bfloat16,
                         torch.linspace(0.5, 2.0, n, device=dev), backward_cases=True, rank=r,
                         only=SWEEP_CALLS, split_times=False,
                         extra={"job": job, "n": n, "m": m, "rank": r})
@@ -1223,6 +1276,7 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
     ex = SliceExecutor(tracer=tracer)
     runner = ClusterRunner(ex, DevicePool([dev]), tracer=tracer)
     torch.cuda.synchronize(dev)
+    held = held_bytes(torch, dev, base)
     zero_counts()
     t0 = time.perf_counter()
     records, makespan = ExecutionEngine(cm, 1, tracer=tracer).run_local(
@@ -1243,11 +1297,12 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
                      "drift": t.drift, "wall_s": rec.wall_seconds,
                      "final_losses": [float(x) for x in rec.final_losses],
                      "peak_allocated_bytes": rec.peak_bytes,
+                     "job_peak_bytes": rec.peak_bytes - held,
                      "job_mem_bytes": cm.job_mem_bytes(jobs[job_id], 1, SWEEP_SEQ),
                      "graph_pool_bytes": cap.get("pool_bytes"),
                      "graph_static_bytes": cap.get("static_bytes"),
                      "warmup_transient_bytes": cap.get("transient_bytes"),
-                     "capture_s": cap.get("seconds")})
+                     "capture_s": cap.get("seconds"), "captured": rec.captured})
     names = pool.list()
     metas = {n: pool.load_meta(n) for n in names}
     fit = fit_preset(cm, [r["measured_s_per_iter"] for r in rows], jobs, SWEEP_SEQ)
@@ -1256,7 +1311,8 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
     fit["plan_config_ids"] = [list(j.config_ids) for j in plan(
         fitted, space, 1, SWEEP_SEQ, SWEEP_STEPS).jobs]
     builds, hits = ex.n_builds, ex.n_hits
-    emit({"phase": "sweep", "jobs": rows, "wall_s": wall, "measured_makespan_s": makespan,
+    emit({"phase": "sweep", "jobs": rows, "held_bytes": held, "wall_s": wall,
+          "measured_makespan_s": makespan,
           "planned_makespan_s": sched.makespan, "min_gpu_makespan_s": sw.mingpu.makespan,
           "planned_compute_s": sum(cm.iter_time(jc, 1, SWEEP_SEQ) * SWEEP_STEPS for jc in jobs),
           "executor_builds": builds, "executor_hits": hits, "launches": launches,
@@ -1270,8 +1326,10 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
     for need in ("packed_matmul", "packed_matmul_bwd"):
         if launches[need] == 0:
             fail(f"the sweep launched {need} no time")
-    if (builds, hits) != (len(records), 0) or len(ex.captures) != len(records):
+    if ((builds, hits) != (len(records), 0) or len(ex.captures) != len(records)
+            or not all(rec.captured for rec in records)):
         fail(f"the sweep built {builds} steps and hit {hits} for {len(records)} job shapes")
+    c3_check("the sweep", rows, [[space[i] for i in j.config_ids] for j in sched.jobs])
 
     # a further pack of job 1's shape (the last job, whose graph the cache
     # holds), with other learning rates and alphas: the cache must hit, and
@@ -1345,6 +1403,453 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
 
 
 # ---------------------------------------------------------------------------
+# online phase
+# ---------------------------------------------------------------------------
+
+# Six configurations of default_search_space(300, seq_len=512), arriving on a
+# Poisson trace: (rank, batch) = (16, 2), (16, 8), (16, 8), (128, 1),
+# (32, 4), (32, 2), with their own step budgets. The mean inter-arrival is
+# ONLINE_MEAN iterations of the first configuration on the H100 prior.
+ONLINE_SEQ = SWEEP_SEQ
+ONLINE_IDS = (87, 71, 81, 254, 157, 135)
+ONLINE_STEPS = (8, 6, 7, 7, 7, 8)
+ONLINE_SEED = 1
+ONLINE_MEAN = 2.0
+# The cost model's setup_time prices a base load and a compile per job (60
+# s); the port keeps the base on the card and pays a capture per new step
+# shape (3-4 s at full width, PERF.md) or nothing on a cache hit, so the
+# phase plans with 1 s a job, which lets a migration pay within a few steps.
+ONLINE_SETUP_S = 1.0
+# The adaptive run: a rank-8 batch-1 configuration at t = 0, then a rank-16
+# batch-2 and a rank-32 batch-4 one ADAPTIVE_GAP_S later (real seconds), 6
+# steps each, probed for 2. One row runs far from the prior (-60 % on the
+# card, PERF.md), beyond the drift threshold of 0.5.
+ADAPTIVE_IDS = (13, 88, 163)
+ADAPTIVE_ARRIVALS_S = (0.0, 1.0, 1.0)
+ADAPTIVE_STEPS = 6
+PROBE_STEPS = 2
+
+
+def _rows(configs) -> int:
+    """Rows of a pack: each adapter padded to the pack's largest batch."""
+    return len(configs) * max(c.batch_size for c in configs)
+
+
+def online_plan():
+    """The online phase's trace, cost model (the port's memory accounting)
+    and plan, and what the reference's memory accounting plans for the
+    same trace (pure Python, milliseconds: the kernel phase and the tests
+    read it too)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import default_search_space, get_config
+    from repro_torch.sched import H100, REFERENCE_MEMORY, CostModel, ExecutionEngine, poisson_trace
+
+    cfg = get_config("qwen25-7b")
+    space = default_search_space(300, seq_len=ONLINE_SEQ)
+    configs = [space[i] for i in ONLINE_IDS]
+    cm = CostModel(cfg, H100, setup_time=ONLINE_SETUP_S)
+    mean = ONLINE_MEAN * cm.iter_time(configs[:1], 1, ONLINE_SEQ)
+    trace = poisson_trace(configs, mean, seed=ONLINE_SEED, steps=ONLINE_STEPS)
+    kw = dict(migration_budget=1, preempt_min_remaining=0.0)
+    sched = ExecutionEngine(cm, 1).plan_online(trace, ONLINE_SEQ, max(ONLINE_STEPS), **kw)
+    ref_cm = CostModel(cfg, H100, setup_time=ONLINE_SETUP_S, **REFERENCE_MEMORY)
+    ref = ExecutionEngine(ref_cm, 1).plan_online(trace, ONLINE_SEQ, max(ONLINE_STEPS), **kw)
+    big = max(ref.segments, key=lambda sg: _rows([configs[c] for c in sg.config_ids]))
+    bc = [configs[c] for c in big.config_ids]
+    reference = {"largest_config_ids": list(big.config_ids), "largest_rows": _rows(bc),
+                 "reference_job_mem_bytes": ref_cm.job_mem_bytes(bc, 1, ONLINE_SEQ),
+                 "repaired_job_mem_bytes": cm.job_mem_bytes(bc, 1, ONLINE_SEQ),
+                 "segments": [list(sg.config_ids) for sg in ref.segments]}
+    return SimpleNamespace(cfg=cfg, configs=configs, cm=cm, mean=mean, trace=trace,
+                           sched=sched, reference=reference)
+
+
+def online_segments(sched, configs):
+    """``sweep_segments`` of the online plan's segments (the same sequence
+    length), each distinct (N, M, r) once."""
+    out, seen = [], set()
+    for job, n, m, r in sweep_segments([[configs[c] for c in sg.config_ids]
+                                        for sg in sched.segments]):
+        if (n, m, r) not in seen:
+            seen.add((n, m, r))
+            out.append((sched.segments[job].job_id, n, m, r))
+    return out
+
+
+def initial_adapter(torch, ex, cfg, order, configs, c: int, dev):
+    """Config ``c``'s initial weights in the online run (its slot of the
+    template of the first segment that trains it, from the executor's
+    cache), and a one-adapter pack of them."""
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.core.packed_lora import extract_adapter, inject_adapter
+    from repro_torch.models.model import lora_zeros
+
+    first = next(sg for sg in order if c in sg.config_ids)
+    jc = [configs[i] for i in first.config_ids]
+    w0 = extract_adapter(ex.pack_template(cfg, jc, 0, dev)[0], first.config_ids.index(c),
+                         pack_meta(jc).ranks)
+    return w0, inject_adapter(lora_zeros(cfg, pack_meta([configs[c]]), torch.float32, "cpu"),
+                              w0, 0)
+
+
+def _flat(tree, path=""):
+    """{leaf path: f64 array} of an adapter tree, whatever its key order."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{path}/{key}").items()}
+    return {path: np.asarray(tree, np.float64)}
+
+
+def update_err(w, ref, w0) -> float:
+    """||w - ref|| / ||ref - w0|| over every leaf: how far an update lies
+    from the reference update, relative to it."""
+    w, ref, w0 = _flat(w), _flat(ref), _flat(w0)
+    if not set(w) == set(ref) == set(w0):
+        fail(f"adapter trees differ: {sorted(w)} / {sorted(ref)} / {sorted(w0)}")
+    diff = sum(float(np.sum((w[k] - ref[k]) ** 2)) for k in ref)
+    update = sum(float(np.sum((ref[k] - w0[k]) ** 2)) for k in ref)
+    return math.sqrt(diff / update)
+
+
+def held_bytes(torch, dev, base) -> int:
+    """What the process holds on the card besides the base: earlier phases'
+    leftovers (cuBLAS workspaces of their streams, cached index tensors).
+    A job's own peak is the device's peak less this."""
+    return torch.cuda.memory_allocated(dev) - resident_bytes(base)
+
+
+def c3_check(what: str, rows, packs) -> None:
+    """ROADMAP C3: every captured job's own peak allocated memory
+    (``job_peak_bytes``) lies within [peak, C3_SLACK x peak] of the cost
+    model's ``job_mem_bytes``. A cache hit replays in the memory its graph
+    reserved at the capture, so only captures are held (and fitted:
+    C3_POINTS)."""
+    over = []
+    for r, jc in zip(rows, packs):
+        if not r["captured"]:
+            continue
+        peak = r["job_peak_bytes"]
+        C3_POINTS.append((jc, peak))
+        if not peak <= r["job_mem_bytes"] <= C3_SLACK * peak:
+            over.append(r)
+    if over:
+        fail(f"C3: {what}'s jobs whose job_mem_bytes is not within [peak, {C3_SLACK} x peak]: "
+             f"{over}")
+
+
+def c3_fit(seq: int) -> dict:
+    """``logits_copies`` and ``job_overhead_bytes`` fitted to C3_POINTS: for
+    each number of copies on a grid, the least per-job term that prices
+    every job at or above its peak; the grid point whose largest price over
+    peak is least."""
+    from repro_torch.configs import get_config
+    from repro_torch.sched import H100, CostModel
+
+    cfg = get_config("qwen25-7b")
+    best = None
+    for copies in np.arange(0.0, 10.001, 0.05):
+        cm = CostModel(cfg, H100, logits_copies=float(copies), job_overhead_bytes=0.0)
+        price = [cm.job_mem_bytes(jc, 1, seq) for jc, _ in C3_POINTS]
+        fixed = max(0.0, max(p - q for (_, p), q in zip(C3_POINTS, price)))
+        worst = max((q + fixed) / p for (_, p), q in zip(C3_POINTS, price))
+        if best is None or worst < best["max_price_over_peak"]:
+            best = {"logits_copies": float(copies), "job_overhead_bytes": fixed,
+                    "max_price_over_peak": worst}
+    default = CostModel(cfg, H100)
+    best.update(n_points=len(C3_POINTS), model_logits_copies=default.logits_copies,
+                model_job_overhead_bytes=default.job_overhead_bytes,
+                points=[{"rows": _rows(jc), "ranks": [c.rank for c in jc],
+                         "batch_sizes": [c.batch_size for c in jc], "peak_allocated_bytes": p,
+                         "job_mem_bytes": default.job_mem_bytes(jc, 1, seq)}
+                        for jc, p in C3_POINTS])
+    return best
+
+
+def online_phase(torch, dev, base, out_dir: Path):
+    """(a) The online engine on full qwen25-7b: plan the trace on the H100
+    preset with the port's memory accounting, run it with
+    ``run_online_local`` (captured steps, a preemption through the pool),
+    then hold it against the same segments run eagerly and the preempted
+    adapter against an unbroken run of it alone. (b) The adaptive loop with
+    a ``ProfiledCostModel`` on a smaller trace. Returns the launch counts of
+    (a) and (b)."""
+    import shutil
+
+    on = online_plan()
+    cm, sched, configs = on.cm, on.sched, on.configs
+    cap = cm.load_factor * cm.hw.mem_bytes
+    jobs = [{"job_id": sg.job_id, "config_ids": list(sg.config_ids),
+             "start_steps": list(sg.start_steps), "run_steps": sg.run_steps,
+             "done_ids": list(sg.done_ids), "preempted": sg.preempted,
+             "start": sg.start, "end": sg.end,
+             "rows": _rows([configs[c] for c in sg.config_ids]),
+             "job_mem_bytes": cm.job_mem_bytes([configs[c] for c in sg.config_ids], 1, ONLINE_SEQ),
+             "predicted_s_per_iter": cm.iter_time([configs[c] for c in sg.config_ids], 1,
+                                                  ONLINE_SEQ)}
+            for sg in sched.segments]
+    emit({"phase": "online_plan", "hw": cm.hw.name, "setup_s": cm.setup_time,
+          "mean_interarrival_s": on.mean, "seed": ONLINE_SEED,
+          "configs": [{"id": i, "space_index": k, "rank": c.rank, "alpha": c.alpha,
+                       "lr": c.learning_rate, "batch_size": c.batch_size, "steps": a.steps,
+                       "arrival_s": a.time}
+                      for i, (k, c, a) in enumerate(zip(ONLINE_IDS, configs, on.trace))],
+          "segments": jobs, "n_repacks": sched.n_repacks, "n_migrations": sched.n_migrations,
+          "planned_makespan_s": sched.makespan, "load_factor_bytes": cap,
+          "kernel_segments": online_segments(sched, configs),
+          "reference_accounting": on.reference})
+    if sched.n_migrations < 1:
+        fail("the online plan has no migration")
+    over = [j for j in jobs if j["job_mem_bytes"] > cap]
+    if over:
+        fail(f"the online plan has jobs above the load factor: {over}")
+    pool_dir = ROOT / "smoke_pool"
+    shutil.rmtree(pool_dir, ignore_errors=True)
+    try:
+        return _online(torch, dev, base, on, pool_dir)
+    finally:
+        shutil.rmtree(pool_dir, ignore_errors=True)
+
+
+def _online(torch, dev, base, on, pool_dir):
+    import dataclasses
+
+    from repro_torch.cluster import ClusterRunner, DevicePool, SliceExecutor
+    from repro_torch.cluster.executor import WARMUP_STEPS
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.core.packed_lora import extract_adapter
+    from repro_torch.obs import MetricsTracer
+    from repro_torch.sched import ExecutionEngine
+    from repro_torch.train.checkpoint import CheckpointPool
+    from repro_torch.tree import tree_leaves
+
+    cfg, cm, sched, configs, trace = on.cfg, on.cm, on.sched, on.configs, on.trace
+    n_steps = max(ONLINE_STEPS)
+    pool = CheckpointPool(str(pool_dir / "captured"))
+    tracer = MetricsTracer()
+    ex = SliceExecutor(tracer=tracer)
+    runner = ClusterRunner(ex, DevicePool([dev]), tracer=tracer)
+    torch.cuda.synchronize(dev)
+    held = held_bytes(torch, dev, base)
+    zero_counts()
+    t0 = time.perf_counter()
+    records, ran = ExecutionEngine(cm, 1, tracer=tracer).run_online_local(
+        trace, cfg, base, n_steps=n_steps, seq=ONLINE_SEQ, pool=pool, runner=runner,
+        migration_budget=1, preempt_min_remaining=0.0)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = train_counts()
+    if [dataclasses.astuple(sg) for sg in ran.segments] != [
+            dataclasses.astuple(sg) for sg in sched.segments]:
+        fail("run_online_local planned other segments than plan_online")
+    # the runner's order: virtual start, then job id
+    order = sorted(ran.segments, key=lambda sg: (sg.start, sg.job_id))
+    timings = runner.last_result.timings
+    rows = []
+    built = [rec.captured for rec in records]
+    for sg, rec, t, w in zip(order, records, timings, built):
+        jc = [configs[c] for c in sg.config_ids]
+        m = pack_meta(jc)
+        mem = cm.job_mem_bytes(jc, 1, ONLINE_SEQ)
+        rows.append({"job_id": sg.job_id, "config_ids": list(sg.config_ids), "ranks": list(m.ranks),
+                     "rows": _rows(jc), "run_steps": sg.run_steps, "preempted": sg.preempted,
+                     "predicted_s_per_iter": t.predicted_iter,
+                     "measured_s_per_iter": t.measured_iter, "drift": t.drift,
+                     "wall_s": rec.wall_seconds,
+                     "final_losses": [float(x) for x in rec.final_losses]
+                     if rec.final_losses is not None else None,
+                     "peak_allocated_bytes": rec.peak_bytes,
+                     "job_peak_bytes": rec.peak_bytes - held, "job_mem_bytes": mem,
+                     "job_mem_over_peak": mem / (rec.peak_bytes - held), "captured": w})
+    builds, hits = ex.n_builds, ex.n_hits
+    emit({"phase": "online", "segments": rows, "held_bytes": held, "wall_s": wall,
+          "planned_makespan_s": sched.makespan,
+          "n_repacks": ran.n_repacks, "n_migrations": ran.n_migrations,
+          "executor_builds": builds, "executor_hits": hits,
+          "captures": [{k: c[k] for k in ("n_pack", "rows", "pool_bytes", "static_bytes",
+                                          "transient_bytes", "seconds")} for c in ex.captures],
+          "launches": launches, "metrics": tracer.metrics.to_json()})
+    total = ran.total_steps
+    names = pool.list()
+    if names != [f"adapter_{c:04d}" for c in range(len(trace))]:
+        fail(f"the online pool holds {names}, not the trace's {len(trace)} adapters")
+    for cid in range(len(trace)):
+        meta = pool.load_meta(f"adapter_{cid:04d}")
+        if meta["total_steps"] != total[cid] or not math.isfinite(meta["final_loss"]):
+            fail(f"adapter {cid}: {meta['total_steps']} steps of {total[cid]}, final loss "
+                 f"{meta['final_loss']}")
+    preempted = sorted({c for sg in order if sg.preempted for c in sg.config_ids
+                        if c not in sg.done_ids})
+    part = {c: pool.load_adapter_state(f"{c:04d}")[1]["steps_done"] for c in preempted}
+    if not part or not all(0 < part[c] < total[c] for c in part):
+        fail(f"the preempted adapters' state files hold steps {part} of {total}")
+    for need in ("packed_matmul", "packed_matmul_bwd"):
+        if launches[need] == 0:
+            fail(f"the online run launched {need} no time")
+    if builds != sum(built) or hits != len(order) - sum(built):
+        fail(f"the online run built {builds} steps and hit {hits}; its shapes make "
+             f"{sum(built)} captures")
+    # (b) on the same executor: its first pack's new shape follows the
+    # online run's last graph, the largest
+    adaptive = _adaptive(torch, dev, base, CheckpointPool(str(pool_dir / "adaptive")), ex, held)
+    ex.clear()
+    torch.cuda.empty_cache()
+
+    # the same segments, eagerly, one at a time (each with its own counts),
+    # into a pool of their own
+    eager = SliceExecutor(capture=False)
+    erunner = ClusterRunner(eager, DevicePool([dev]))
+    epool = CheckpointPool(str(pool_dir / "eager"))
+    by_cid = dict(enumerate(configs))
+    checks, expect = [], {k: 0 for k in launches}
+    for sg, rec, w in zip(order, records, built):
+        zero_counts()
+        res = erunner.run([sg], by_cid, total, cfg, base, seq=ONLINE_SEQ, pool=epool, impl="auto")
+        counts = train_counts()
+        if not sg.run_steps:  # nothing trained, nothing captured
+            continue
+        for k in expect:  # a warm-up step (on a capture) and the replays
+            expect[k] += counts[k] * (sg.run_steps + (WARMUP_STEPS if w else 0)) // sg.run_steps
+        cap_l = torch.as_tensor(np.asarray(rec.final_losses))
+        eag_l = torch.as_tensor(np.asarray(res.records[0].final_losses))
+        equal = bool(torch.equal(cap_l, eag_l))
+        rel = ((cap_l - eag_l).abs() / eag_l.abs()).max().item()
+        checks.append({"job_id": sg.job_id, "loss_equal": equal, "loss_rel_err": rel,
+                       "eager_s_per_iter": res.timings[0].measured_iter,
+                       "eager_peak_allocated_bytes": res.records[0].peak_bytes})
+        if not equal and not rel <= LOSS_RTOL:
+            fail(f"online segment {sg.job_id}: captured losses differ from eager by {rel}")
+        torch.cuda.empty_cache()
+    w_equal, w_rel = True, 0.0
+    for name in names:
+        for a, b in zip(tree_leaves(pool.load_adapter(name)), tree_leaves(epool.load_adapter(name))):
+            w_equal &= bool(np.array_equal(a, b))
+            w_rel = max(w_rel, float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+    # each preempted adapter against an unbroken run of it alone, from the
+    # weights it started from (its slot of its first pack's template) on its
+    # own data stream: the pack steps it rode through (its weights freeze at
+    # its budget, its loss is read on the last of them). The control: the
+    # same adapter restarted from those weights at its preemption, with
+    # fresh Adam moments and its data stream where it stopped.
+    unbroken = []
+    slice_ = DevicePool([dev]).acquire(1)
+    for c in preempted:
+        seen = sum(sg.run_steps for sg in order if c in sg.config_ids)
+        w0, lora0 = initial_adapter(torch, ex, cfg, order, configs, c, dev)
+        budget = np.asarray([total[c]], np.int32)
+        res = eager.train_pack(cfg, [configs[c]], n_steps=seen, seq=ONLINE_SEQ, base=base,
+                               lora=lora0, slice_=slice_, budgets=budget)
+        want_w, want = extract_adapter(res.lora, 0, [configs[c].rank]), float(res.losses[0])
+        del res
+        res = eager.train_pack(cfg, [configs[c]], n_steps=seen - part[c], seq=ONLINE_SEQ,
+                               base=base, lora=lora0, slice_=slice_, budgets=budget,
+                               data_start_steps=[part[c]])
+        lost_w, lost = extract_adapter(res.lora, 0, [configs[c].rank]), float(res.losses[0])
+        del res
+        got = pool.load_meta(f"adapter_{c:04d}")["final_loss"]
+        got_w = pool.load_adapter(f"adapter_{c:04d}")
+        row = {"config": c, "steps_done_at_preemption": part[c], "pack_steps": seen,
+               "final_loss": got, "unbroken_final_loss": want,
+               "loss_rel_err": abs(got - want) / abs(want),
+               "update_rel_err": update_err(got_w, want_w, w0),
+               "restart_control_loss_rel_err": abs(lost - want) / abs(want),
+               "restart_control_update_rel_err": update_err(lost_w, want_w, w0)}
+        unbroken.append(row)
+        if not row["update_rel_err"] <= RESUME_UPDATE_RTOL:
+            fail(f"preempted adapter {c}: its update is {row['update_rel_err']} off the unbroken "
+                 f"run's (limit {RESUME_UPDATE_RTOL})")
+        if not row["loss_rel_err"] <= RESUME_LOSS_RTOL:
+            fail(f"preempted adapter {c}: final loss {got} against {want} unbroken alone")
+        if not row["restart_control_update_rel_err"] > RESUME_CONTROL_FACTOR * RESUME_UPDATE_RTOL:
+            fail(f"preempted adapter {c}: a restart from its initial weights reads "
+                 f"{row['restart_control_update_rel_err']}, which the update's limit "
+                 f"{RESUME_UPDATE_RTOL} cannot tell from a resume")
+    eager.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "online_checks", "segments": checks, "adapters_equal": w_equal,
+          "adapters_rel_err": w_rel, "preempted_state_steps": part, "unbroken": unbroken,
+          "launches_expected_from_eager": expect,
+          "c3": [{k: r[k] for k in ("job_id", "rows", "job_peak_bytes", "job_mem_bytes",
+                                   "job_mem_over_peak")} for r in rows]})
+    if launches != expect:
+        fail(f"the online run counted {launches} launches; its eager steps make {expect}")
+    c3_check("the online run", rows, [[configs[c] for c in sg.config_ids] for sg in order])
+    return launches, adaptive
+
+
+def _adaptive(torch, dev, base, pool, ex, held: int):
+    """``run_online_local`` with a ``ProfiledCostModel`` (the adaptive loop)
+    on three configurations, on the card's clock, through the executor
+    ``ex``, which still holds the online run's last graph: the first pack
+    must drop it before it makes anything (C3 holds its whole peak). Each
+    job's own peak is the device's less ``held``, what the phases before
+    the online run left allocated."""
+    from repro_torch.cluster import ClusterRunner, DevicePool
+    from repro_torch.configs import default_search_space, get_config
+    from repro_torch.sched import H100, Arrival, CostModel, ExecutionEngine, ObservationStore
+    from repro_torch.sched import ProfiledCostModel
+
+    cfg = get_config("qwen25-7b")
+    space = default_search_space(300, seq_len=ONLINE_SEQ)
+    configs = [space[i] for i in ADAPTIVE_IDS]
+    trace = [Arrival(t, c, ADAPTIVE_STEPS) for t, c in zip(ADAPTIVE_ARRIVALS_S, configs)]
+    est = ProfiledCostModel(CostModel(cfg, H100, setup_time=ONLINE_SETUP_S), ObservationStore())
+    runner = ClusterRunner(ex, DevicePool([dev]))
+    after_rows = ex.captures[-1]["rows"] if ex.captures else None
+    builds0, hits0 = ex.n_builds, ex.n_hits
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    records, sched = ExecutionEngine(est, 1).run_online_local(
+        trace, cfg, base, n_steps=ADAPTIVE_STEPS, seq=ONLINE_SEQ, pool=pool, runner=runner,
+        probe_steps=PROBE_STEPS)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = train_counts()
+    executed = {cid: 0 for cid in sched.total_steps}
+    for sg in sched.segments:
+        for cid, st0 in zip(sg.config_ids, sg.start_steps):
+            executed[cid] += min(sched.total_steps[cid] - st0, sg.run_steps)
+    store_path = pool.root + "/profile.json"
+    est.store.save(store_path)
+    roundtrip = ObservationStore.load(store_path).to_json() == est.store.to_json()
+    metas = {n: pool.load_meta(n) for n in pool.list()}
+    packs = [[configs[c] for c in sg.config_ids] for sg in sched.segments]
+    rows = [{"job_id": sg.job_id, "config_ids": list(sg.config_ids), "run_steps": sg.run_steps,
+             "start_steps": list(sg.start_steps), "preempted": sg.preempted,
+             "captured": rec.captured, "peak_allocated_bytes": rec.peak_bytes,
+             "job_peak_bytes": rec.peak_bytes - held,
+             "job_mem_bytes": est.prior.job_mem_bytes(jc, 1, ONLINE_SEQ)}
+            for sg, rec, jc in zip(sched.segments, records, packs)]
+    emit({"phase": "online_adaptive", "n_probes": sched.n_probes,
+          "n_reassignments": sched.n_reassignments, "n_repacks": sched.n_repacks,
+          "held_bytes": held, "wall_s": wall, "segments": rows,
+          "timings": [{"job_id": t.job_id, "measured_s_per_iter": t.measured_iter,
+                       "predicted_s_per_iter": t.predicted_iter, "drift": t.drift}
+                      for t in sched.timings],
+          "final_losses": {n: m["final_loss"] for n, m in metas.items()},
+          "executor_builds": ex.n_builds - builds0, "executor_hits": ex.n_hits - hits0,
+          "follows_graph_rows": after_rows,
+          "store_roundtrip": roundtrip, "store": est.store.to_json(), "launches": launches})
+    if executed != sched.total_steps:
+        fail(f"the adaptive run trained {executed} steps of {sched.total_steps}")
+    if sorted(metas) != [f"adapter_{c:04d}" for c in range(len(trace))] or not all(
+            math.isfinite(m["final_loss"]) for m in metas.values()):
+        fail(f"the adaptive run's pool holds {metas}")
+    if sched.n_reassignments < 1:
+        fail("the adaptive run made no reassignment")
+    if not roundtrip:
+        fail("the observation store does not round-trip through save/load")
+    if (ex.n_builds - builds0, ex.n_hits - hits0) != (
+            sum(r["captured"] for r in rows), len(rows) - sum(r["captured"] for r in rows)):
+        fail(f"the adaptive run built {ex.n_builds - builds0} steps and hit {ex.n_hits - hits0}")
+    c3_check("the adaptive run", rows, packs)
+    for need in ("packed_matmul", "packed_matmul_bwd"):
+        if launches[need] == 0:
+            fail(f"the adaptive run launched {need} no time")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1401,6 +1906,14 @@ USES = [
     ("packed_matmul:sweep_backward", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "sweep",
      "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
      ("sweep", "auto", "packed_matmul_bwd")),
+    # the online phase's captured steps (run_online_local, impl="auto"), at
+    # the online plan's shapes: warm-up steps and replays, as the sweep's
+    ("packed_matmul:online_forward", "packed_matmul", ("xA", "xAB"), "online",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("online", "auto", "packed_matmul")),
+    ("packed_matmul:online_backward", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "online",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
+     ("online", "auto", "packed_matmul_bwd")),
 ]
 
 
@@ -1411,15 +1924,23 @@ USES = [
 EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decode"),
               ("fused_matmul_q:decode_nf4", "fused_matmul_q", ("nf4",), "decode"),
               # the delta's two decode passes as one packed_matmul_pair call, which serve runs
-              ("packed_matmul:decode_pair", "packed_matmul", ("pair",), "decode")]
+              ("packed_matmul:decode_pair", "packed_matmul", ("pair",), "decode"),
+              # the f32 paths that the launcher's f32 base runs at the training
+              # shapes: #1 on "fma", #2 on "split3"
+              ("packed_matmul:train_forward_f32", "packed_matmul", ("xA", "xAB"), "train",
+               "float32"),
+              ("packed_matmul:train_backward_f32", "packed_matmul", ("bwd2_dxA", "bwd4_dx"),
+               "train", "float32"),
+              ("fused_matmul:train_forward_f32", "fused_matmul", ("fused",), "train", "float32"),
+              ("fused_matmul:train_dx_f32", "fused_matmul", ("dx",), "train", "float32")]
 
 
-def layer_sums(rows, kernel, calls, case):
-    """A use's bf16 rows and their times summed over one decoder layer's
-    projections, weighted by their count per layer."""
+def layer_sums(rows, kernel, calls, case, dtype="bfloat16"):
+    """A use's rows of ``dtype`` and their times summed over one decoder
+    layer's projections, weighted by their count per layer."""
     mult = {shape: k for shape, k in PROJ}
     sel = [r for r in rows if r["kernel"] == kernel and r["case"] == case
-           and r["call"] in calls and r["dtype"] == "bfloat16"]
+           and r["call"] in calls and r["dtype"] == dtype]
     keys = [k for k in ("ms", "plain_ms", "library_ms", "bytes", "flops", "device_ms",
                         "library_device_ms", "host_us", "library_host_us")
             if all(k in r for r in sel)]  # the sweep's rows have no device/host split
@@ -1436,10 +1957,12 @@ def summarize(rows, launches):
     use, and for EXTRA_SUMS, it also emits those layer sums with the device
     and host times (a ``layer_sums`` record)."""
     out = []
-    for entry, kernel, calls, case in EXTRA_SUMS:
-        _, tot = layer_sums(rows, kernel, calls, case)
-        emit({"phase": "layer_sums", "use": entry,
-              "bound_ms": bound(tot["bytes"], tot["flops"], "bfloat16")[0],
+    for entry, kernel, calls, case, *dtype in EXTRA_SUMS:
+        dtype = dtype[0] if dtype else "bfloat16"
+        sel, tot = layer_sums(rows, kernel, calls, case, dtype)
+        emit({"phase": "layer_sums", "use": entry, "dtype": dtype,
+              "bound_ms": bound(tot["bytes"], tot["flops"], dtype)[0],
+              "paths": sorted({r.get("path", "") for r in sel}),
               **{k: v for k, v in tot.items() if k not in ("bytes", "flops")}})
     for entry, kernel, calls, case, source, replaces, (path, run, count) in USES:
         sel, tot = layer_sums(rows, kernel, calls, case)
@@ -1514,8 +2037,14 @@ def main() -> None:
     t0 = time.perf_counter()
     sweep_launches = sweep_phase(torch, dev, base, out_dir)
     emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    online_launches, adaptive_launches = online_phase(torch, dev, base, out_dir)
+    emit({"phase": "online_done", "seconds": time.perf_counter() - t0,
+          "adaptive_launches": adaptive_launches})
+    emit({"phase": "c3_fit", **c3_fit(ONLINE_SEQ)})
     summary = summarize(rows, {"serve": serve_launches, "train": train_launches,
-                               "sweep": {"auto": sweep_launches}})
+                               "sweep": {"auto": sweep_launches},
+                               "online": {"auto": online_launches}})
     (out_dir / "chip_smoke.json").write_text(json.dumps({"records": RECORDS, **summary}, indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

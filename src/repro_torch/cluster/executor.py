@@ -25,7 +25,11 @@ activations, the cross-entropy's logits, gradients, AdamW's temporaries of
 one leaf) besides its buffers; the cache keeps at most ``MAX_GRAPHS``
 graphs per device and drops that device's least recently used one (and
 returns its memory to the device) before a new capture, so a sweep over
-many shapes holds a bounded number of pools. Before it allocates the
+many shapes holds a bounded number of pools. A pack whose shape no cached
+graph has drops it before anything of the pack is made on the device (its
+LoRA template, its state), so a pack's peak never holds an older shape's
+graph; ``PackResult.peak_bytes`` is the whole call's high-water mark. The
+templates are drawn without a base (``init_lora``). Before it allocates the
 buffers, and again before the capture, the executor checks what the step
 needs (the buffers; then the transient peak of the eager warm-up step, which
 the graph's pool will hold) against the device's free memory, and raises
@@ -49,6 +53,7 @@ port does not have yet, and raises.
 from __future__ import annotations
 
 import contextlib
+import gc
 import inspect
 import threading
 import time
@@ -147,6 +152,22 @@ def _check_fits(need: int, device, what: str) -> None:
             f"{_gb(total)}: train a narrower pack, or fewer rows per adapter")
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """No cycle collection in the block, after one just before it: a graph
+    that only a reference cycle still holds (an old executor in a caught
+    exception's frames) is destroyed then, not in the middle of a capture,
+    where destroying a graph invalidates the capture."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _on_device(dev):
     """``dev`` as the current CUDA device for the block (nothing on the CPU)."""
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
@@ -167,14 +188,19 @@ class PackResult:
     real_start: float = 0.0  # absolute perf_counter timestamps of the
     real_end: float = 0.0  # placed+timed region (overlap accounting)
     # peak allocated bytes on the slice's CUDA device over the whole call
-    # (its peak statistics are reset when the call starts); None on the CPU
+    # (its peak statistics are reset when the call starts, after the graphs
+    # that cannot serve it are dropped); None on the CPU
     peak_bytes: Optional[int] = None
+    # whether this call captured its step's graph (a cache miss)
+    captured: bool = False
 
 
 class _CapturedStep:
     """One CUDA graph of a packed train step and its static buffers."""
 
-    def __init__(self, step: Callable, base, lora, opt, batch, vecs, n_pack: int, device):
+    def __init__(self, step: Callable, base, lora, opt, batch, vecs, n_pack: int, device,
+                 shape: Tuple):
+        self.shape = shape  # the pack shape it serves (``SliceExecutor._pack_shape``)
         rows, seq = batch["tokens"].shape
         what = f"the captured step of a pack of {n_pack} ({rows} rows of {seq} tokens)"
         # the LoRA tree, its two Adam moments, the batch
@@ -200,7 +226,7 @@ class _CapturedStep:
         self.graph = torch.cuda.CUDAGraph()
         # "thread_local": other threads' slices go on launching and
         # allocating while this thread captures
-        with launches.recorded() as self.launches, torch.cuda.graph(
+        with _no_collection(), launches.recorded() as self.launches, torch.cuda.graph(
                 self.graph, stream=stream, capture_error_mode="thread_local"):
             _, _, m = step(base, self.lora, self.opt, self.batch, *self.vecs)
         self.metrics = {"loss": m["loss"], "per_adapter_loss": m["per_adapter_loss"]}
@@ -285,10 +311,9 @@ class SliceExecutor:
             if self.lora_init is not None:
                 lora = self.lora_init(cfg, meta, seed)
             else:
-                from repro_torch.models.model import init_model
+                from repro_torch.models.model import init_lora
 
-                base, lora = init_model(seed, cfg, meta, device=device)
-                del base
+                lora = init_lora(seed, cfg, meta, device=device)
             hit = tree_map(lambda t: t.detach().to("cpu"), _tensors(lora))
             with self._lock:
                 hit = self._templates.setdefault(key, hit)
@@ -352,8 +377,31 @@ class SliceExecutor:
             self.n_hits += 1
             self.tracer.metrics.counter("executor.compile_cache_hits").inc()
 
-    def _captured(self, key: Tuple, base, lora, opt, batch, vecs, n_pack: int, device,
-                  track: str) -> Tuple[_CapturedStep, bool]:
+    @staticmethod
+    def _pack_shape(key: Tuple, meta: PackMeta, seq: int, base) -> Tuple:
+        """What a pack's graph key follows from before its state or batches
+        exist: the step key, the rank bucket (with the config, the LoRA
+        tree's shapes), the rows and tokens of the default batch, and the
+        base's leaves. Packs of one graph key share it."""
+        return (key, meta.r_bucket, meta.max_batch, seq,
+                tuple(t.data_ptr() for t in tree_leaves(base)))
+
+    def _drop_graphs(self, device, unless: Optional[Tuple] = None) -> None:
+        """Drop ``device``'s least recently used graphs until a capture has
+        room (``MAX_GRAPHS``) and give their pools and buffers back; nothing
+        when one of its graphs serves the pack shape ``unless``. Called with
+        ``_CAPTURING`` held."""
+        with self._lock:
+            mine = [k for k in self._graphs if k[1] == device]  # oldest first
+            if unless is not None and any(self._graphs[k].shape == unless for k in mine):
+                return
+            evicted = [self._graphs.pop(k) for k in mine[:max(0, len(mine) - MAX_GRAPHS + 1)]]
+        if evicted:
+            del evicted
+            torch.cuda.empty_cache()
+
+    def _captured(self, key: Tuple, shape: Tuple, base, lora, opt, batch, vecs, n_pack: int,
+                  device, track: str) -> Tuple[_CapturedStep, bool]:
         """(the graph of ``key``, whether it was captured just now): captured
         on its first use, with this pack's state in its buffers, after
         dropping this device's least recently used graphs beyond
@@ -365,21 +413,12 @@ class SliceExecutor:
                 self._graphs.move_to_end(key)
                 return entry, False
         with _CAPTURING:
-            with self._lock:
-                evicted = []
-                while True:
-                    mine = [k for k in self._graphs if k[1] == device]  # oldest first
-                    if len(mine) < MAX_GRAPHS:
-                        break
-                    evicted.append(self._graphs.pop(mine[0]))
-            if evicted:  # give their pools and buffers back before the next capture
-                del evicted
-                torch.cuda.empty_cache()
+            self._drop_graphs(device)
             with self.tracer.span("executor.compile", cat="executor", track=track,
                                   n_pack=n_pack):
                 t0 = time.perf_counter()
                 entry = _CapturedStep(self._step_closure(key[0], in_place=True), base, lora,
-                                      opt, batch, vecs, n_pack, device)
+                                      opt, batch, vecs, n_pack, device, shape)
         self.captures.append({
             "device": str(device), "n_pack": n_pack, "lora_bytes": _nbytes(entry.lora),
             "rows": int(batch["tokens"].shape[0]), "seq": int(batch["tokens"].shape[1]),
@@ -434,10 +473,13 @@ class SliceExecutor:
         impl: Optional[str] = None,
         remat: Optional[str] = None,
         base_dtype: Optional[str] = None,
+        init_state: Optional[Callable] = None,
     ) -> PackResult:
         """Train one pack for ``n_steps`` on ``slice_`` (default: CUDA).
         ``lora``/``opt`` may carry resumed state (torch or numpy leaves, left
         as they are; ``lora=None``: the pack template; ``opt=None``: fresh);
+        ``init_state(meta, device)`` -> (lora, opt) makes them instead, once
+        the device has room for the pack (``run_segment``'s resume);
         ``budgets`` is the per-adapter step-cap vector (None = uncapped);
         ``data_start_steps`` fast-forwards each adapter's data stream past
         batches consumed in earlier segments; ``step_callback(i, metrics)``
@@ -453,17 +495,25 @@ class SliceExecutor:
             dev = torch.device("cuda", torch.cuda.current_device())
         key = self._step_key(cfg, meta.n, slice_, impl, remat, meta.ranks, base_dtype)
         with _on_device(dev):
+            base = self._placed_base(base, dev)
+            shape = None
             if dev.type == "cuda":
+                if self.capture and n_steps > 0:
+                    shape = self._pack_shape(key, meta, seq, base)
+                    with _CAPTURING:
+                        self._drop_graphs(dev, unless=shape)
                 torch.cuda.reset_peak_memory_stats(dev)
-            res = self._train(key, cfg, configs, meta, dev, n_steps, seq,
-                              self._placed_base(base, dev), lora, opt, slice_, seed, budgets,
-                              data_iter_fn, data_start_steps, step_callback)
+            if init_state is not None:
+                lora, opt = init_state(meta, dev)
+            res = self._train(key, shape, cfg, configs, meta, dev, n_steps, seq, base, lora, opt,
+                              slice_, seed, budgets, data_iter_fn, data_start_steps,
+                              step_callback)
             if dev.type == "cuda":
                 res.peak_bytes = torch.cuda.max_memory_allocated(dev)
         return res
 
-    def _train(self, key, cfg, configs, meta, dev, n_steps, seq, base, lora, opt, slice_, seed,
-               budgets, data_iter_fn, data_start_steps, step_callback) -> PackResult:
+    def _train(self, key, shape, cfg, configs, meta, dev, n_steps, seq, base, lora, opt, slice_,
+               seed, budgets, data_iter_fn, data_start_steps, step_callback) -> PackResult:
         from repro_torch.train.data import packed_batch_iterator
 
         lora = self._lora_template(cfg, meta, seed, dev) if lora is None else _tensors(lora)
@@ -503,8 +553,8 @@ class SliceExecutor:
             gkey = (key, dev, _signature(lora),
                     tuple((k, tuple(v.shape), v.dtype) for k, v in batches[0].items()),
                     tuple(t.data_ptr() for t in tree_leaves(base)))
-            step, fresh = self._captured(gkey, base, lora, opt, batches[0], vecs, meta.n, dev,
-                                         track)
+            step, fresh = self._captured(gkey, shape, base, lora, opt, batches[0], vecs, meta.n,
+                                         dev, track)
             lock = step.lock
         with lock:
             if captured and not fresh:
@@ -528,7 +578,8 @@ class SliceExecutor:
             if captured:
                 lora_d, opt_d = step.lora, step.opt
         return PackResult(lora=lora_d, opt=opt_d, losses=losses, wall_seconds=wall,
-                          real_start=real_start, real_end=time.perf_counter())
+                          real_start=real_start, real_end=time.perf_counter(),
+                          captured=captured and fresh)
 
     # ---------------- one planned segment (engine integration) ----------------
 
@@ -561,26 +612,25 @@ class SliceExecutor:
                               job_id=seg.job_id, cids=list(seg.config_ids),
                               degree=seg.degree, units=list(seg.units)):
             job_cfgs = [configs_by_cid[cid] for cid in seg.config_ids]
-            meta = pack_meta(job_cfgs)
-            dev = None if slice_ is None else slice_.lead
-            lora, opt = self._resume(seg, cfg, meta, seed, dev, pool, track)
             budgets = np.asarray([total_steps[cid] for cid in seg.config_ids], np.int32)
             res = self.train_pack(
                 cfg, job_cfgs, n_steps=seg.run_steps, seq=seq, base=base_params,
-                lora=lora, opt=opt, slice_=slice_, seed=seed, budgets=budgets,
+                slice_=slice_, seed=seed, budgets=budgets,
                 data_iter_fn=data_iter_fn, data_start_steps=seg.start_steps,
                 impl=impl, remat=remat, base_dtype=base_dtype,
+                init_state=lambda meta, dev: self._resume(seg, cfg, meta, seed, dev, pool, track),
             )
             save_cm = (self.tracer.span("executor.checkpoint_save", cat="executor",
                                         track=track, cids=list(seg.config_ids))
                        if pool is not None else contextlib.nullcontext())
             with save_cm:
-                self._save_segment_state(seg, configs_by_cid, total_steps, meta, pool,
-                                         res.lora, res.opt, res.losses)
+                self._save_segment_state(seg, configs_by_cid, total_steps, pack_meta(job_cfgs),
+                                         pool, res.lora, res.opt, res.losses)
             return JobRecord(
                 ScheduledJob(seg.config_ids, seg.degree, seg.start, seg.end),
                 res.wall_seconds, res.losses,
                 real_start=res.real_start, real_end=res.real_end, peak_bytes=res.peak_bytes,
+                captured=res.captured,
             )
 
     def _resume(self, seg, cfg, meta, seed, dev, pool, track):

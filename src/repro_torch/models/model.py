@@ -5,6 +5,7 @@ the reference's pytrees, so ``repro_torch.bridge`` carries them across
 unchanged):
 
   init_model(seed, cfg, meta, dtype, device) -> (base_params, lora_params)
+  init_lora(seed, cfg, meta, dtype, device)  -> init_model's lora_params alone
   forward(base, lora, scales, batch, cfg, .) -> (hidden (NB,S,d), caches|None)
   logits(base, hidden, cfg)                  -> (NB,S,V)
   init_caches(cfg, nb, smax)                 -> cache tree
@@ -52,6 +53,20 @@ def init_model(seed: int, cfg: ModelConfig, meta: Optional[PackMeta],
     base["decoder"] = dec_p
     base["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab, False, dtype, device)
     return base, {"decoder": dec_l}
+
+
+def init_lora(seed: int, cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=None):
+    """``init_model``'s LoRA tree, bit for bit, without holding its base:
+    the generator makes the same draws in the same order, but each base
+    leaf is dropped as soon as it is drawn, a layer at a time, and the LM
+    head's draws, which follow every A, are not made. At full width this
+    holds the embedding's f32 draw where ``init_model`` holds the whole f32
+    base."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, device=device)  # the embedding's
+    _, dec_l, _ = init_stack(gen, cfg, layer_specs(cfg), meta, dtype, device, keep_base=False)
+    return {"decoder": dec_l}
 
 
 def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=None):

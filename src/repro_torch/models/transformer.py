@@ -78,11 +78,14 @@ def apply_layer(
     return x, ({"attn": c} if c is not None else None)
 
 
-def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, device=None):
+def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, device=None,
+               keep_base: bool = True):
     """Returns ({"blocks": stacked, "rest": dict}, same for lora, period).
 
     Block leaves are allocated stacked once and filled block by block, so a
-    full-size model never holds two copies of its weights."""
+    full-size model never holds two copies of its weights. ``keep_base=False``
+    draws each layer's base weights (so ``gen`` moves as it does for the
+    whole model) and drops them at once: the base trees come back empty."""
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
 
@@ -90,7 +93,8 @@ def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, devic
         bp, bl = {}, {}
         for i, spec in enumerate(spec_slice):
             lp, ll = init_layer(gen, cfg, spec, meta, dtype, device)
-            bp[f"l{i}"] = lp
+            if keep_base:
+                bp[f"l{i}"] = lp
             if ll:
                 bl[f"l{i}"] = ll
         return bp, bl

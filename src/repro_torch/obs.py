@@ -6,11 +6,15 @@ Stdlib only.
 A tracer passed to the serve engine, the execution engine, the cluster
 runner or the slice executor must offer ``enabled``, ``span(name, **attrs)``
 (a context manager whose value has a ``span_id``), ``add_span(name, t0, t1,
-**attrs)`` and ``metrics`` with ``counter(name).inc()`` and
-``gauge(name).set(v)``. ``NULL_TRACER`` is the no-op one; ``MetricsTracer``
-keeps the metrics and no spans. Names are dotted ``tier.metric``: the
-executor counts ``executor.compile_cache_builds`` / ``_hits`` (captures and
-their reuse), the runner sets the ``cluster.free_units`` gauge.
+**attrs)``, ``instant(name, **attrs)`` (a point event) and ``metrics`` with
+``counter(name).inc()`` and ``gauge(name).set(v)``; spans and instants take
+the reference's convention (``cat`` = tier, ``track`` = Perfetto row).
+``NULL_TRACER`` is the no-op one; ``MetricsTracer`` keeps the metrics and no
+spans. Names are dotted ``tier.metric``: the executor counts
+``executor.compile_cache_builds`` / ``_hits`` (captures and their reuse);
+the runner and the adaptive engine set the ``cluster.free_units`` gauge; the
+engine marks ``engine.launch``, ``engine.preempt`` and
+``engine.admission_hold`` instants.
 """
 from __future__ import annotations
 
@@ -163,6 +167,9 @@ class _NullTracer:
         return self._span
 
     def add_span(self, name: str, t0: float, t1: float, **attrs) -> None:
+        pass
+
+    def instant(self, name: str, **attrs) -> None:
         pass
 
 

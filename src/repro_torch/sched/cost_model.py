@@ -4,6 +4,9 @@
 Memory follows Appendix A: base weights + base activations (on the max
 packed batch) + per-adapter params/grads/optimizer-moments/activations, all
 divided by the parallelism degree d; a load factor C guards fragmentation.
+The port prices what it holds at a step's peak (f32 LoRA state, the
+cross-entropy's f32 logits, a fixed per-job term, fitted on an H100);
+``REFERENCE_MEMORY`` gives the reference's accounting back.
 
 Time is a three-term roofline per iteration (compute, HBM, interconnect)
 plus a per-layer fixed overhead, so the paper's observation -- tiny batches
@@ -15,9 +18,10 @@ Every consumer (knapsack, DTM, planner, engine, cluster runner) programs
 against :class:`CostEstimator`; the analytic :class:`CostModel` is the
 prior, and :class:`repro_torch.sched.profile.ProfiledCostModel` layers
 measured step times on top of it. The port's copy differs from the
-reference in two places: an ``H100`` preset, and parameter counts for the
+reference in three places: an ``H100`` preset, parameter counts for the
 dense GQA decoders, the only family the port has (a config of another kind
-raises). Every other number is the reference's, so the two plan alike.
+raises), and the memory accounting above. Every other number is the
+reference's, so with ``REFERENCE_MEMORY`` the two plan alike.
 """
 from __future__ import annotations
 
@@ -201,6 +205,17 @@ H100 = HardwareSpec("h100", 80e9, 989e12, 3.35e12, 450e9, 8,
 
 PRESETS = {hw.name: hw for hw in (A100_40G, A10_24G, TPU_V5E, H100)}
 
+# sequence positions per chunk of the cross-entropy's logits
+# (``make_packed_step``'s ``vocab_chunk``, ``train/losses.py``)
+CE_CHUNK = 512
+
+# The reference's memory accounting (``repro/sched/cost_model.py``): bf16
+# LoRA state billed at prec_bytes * (1 + opt_factor) = 8 bytes a parameter
+# at the defaults, 1 GB per adapter, no logits workspace and no per-job term.
+# ``CostModel(cfg, hw, **REFERENCE_MEMORY)`` plans as the reference does.
+REFERENCE_MEMORY = dict(lora_state_bytes=8.0, logits_copies=0.0, job_overhead_bytes=0.0,
+                        adapter_overhead_bytes=1.0e9)
+
 
 def _dense_only(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds()) | set(cfg.ffn_kinds())
@@ -259,10 +274,27 @@ class CostModel(CostEstimator):
     load_factor: float = 0.9  # paper's C
     calib: float = 1.0  # fitted efficiency scalar
     # fixed per-adapter memory overhead (optimizer workspace, allocator
-    # fragmentation, autograd bookkeeping). Fitted to the paper's §3.2 anchor:
-    # +2.2 GB for the second adapter on Qwen-2.5-7B/A100-40G, "up to 10
-    # concurrent adapters without OOM".
-    adapter_overhead_bytes: float = 1.0e9
+    # fragmentation, autograd bookkeeping). The reference fits 1 GB to the
+    # paper's §3.2 anchor (+2.2 GB for the second adapter on
+    # Qwen-2.5-7B/A100-40G); the port prices its fixed cost per job instead
+    # (``job_overhead_bytes``), which fits the H100's measured peaks better.
+    adapter_overhead_bytes: float = 0.0
+    # -- the port's memory accounting (PERF.md, "C3 fit"; REFERENCE_MEMORY
+    # gives the reference's) --
+    # bytes per bucket-padded LoRA parameter: the port keeps the LoRA in f32
+    # with two f32 Adam moments (12 bytes, live at the cross-entropy's
+    # peak) and an f32 gradient (4 more, live through the blocks'
+    # backward); the reference bills prec_bytes * (1 + opt_factor)
+    lora_state_bytes: float = 16.0
+    # the transient bytes per padded row at the step's peak, the chunked
+    # cross-entropy's backward, in units of one row's f32 logits
+    # (min(seq, CE_CHUNK) x padded_vocab x 4 bytes): its f32 logits, their
+    # softmax and gradient, the bf16 logits and the row's activations. 0
+    # drops the term. Fitted with job_overhead_bytes on an H100
+    # (chip_smoke.py's ``c3_fit``)
+    logits_copies: float = 5.5
+    # fixed bytes per job and device
+    job_overhead_bytes: float = 1.0e9
     # Padding-aware costing (beyond the paper): the packed executor
     # zero-pads every adapter to the pack's bucket rank (max rank rounded up
     # to 8), so a rank-8 adapter packed with a rank-128 one COMPUTES at rank
@@ -327,18 +359,31 @@ class CostModel(CostEstimator):
             self.act_factor * total_batch * seq * self.cfg.d_model * self.prec_bytes
         )
 
+    def logits_bytes(self, rows: int, seq: int) -> float:
+        """The cross-entropy's f32 logits workspace for ``rows`` rows."""
+        if not self.logits_copies:
+            return 0.0
+        return (self.logits_copies * rows * min(seq, CE_CHUNK)
+                * self.cfg.padded_vocab * 4.0)
+
     def lora_bytes(self, c: LoraConfig, seq: Optional[int] = None) -> float:
+        """One adapter's bytes: its state, activations, its rows' logits
+        workspace and ``adapter_overhead_bytes``."""
         seq = seq or c.seq_len
-        p = lora_param_count(self.cfg, c.rank) * self.prec_bytes
-        grads_opt = self.opt_factor * p
+        state = lora_param_count(self.cfg, c.rank) * self.lora_state_bytes
         act = c.batch_size * seq * c.rank * self.prec_bytes * (
             self.cfg.n_layers + self.cfg.encoder_layers
         )
-        return p + grads_opt + act + self.adapter_overhead_bytes
+        return (state + act + self.logits_bytes(c.batch_size, seq)
+                + self.adapter_overhead_bytes)
 
     def job_mem_bytes(self, configs: Sequence[LoraConfig], d: int, seq: int) -> float:
         total_batch = sum(c.batch_size for c in configs)
         base = self.base_weight_bytes() + self.base_act_bytes(total_batch, seq)
+        # the pack pads every adapter to its largest batch: the padding rows'
+        # logits (each adapter's own rows are in its lora_bytes)
+        padded = len(configs) * max((c.batch_size for c in configs), default=0)
+        base += self.logits_bytes(padded - total_batch, seq)
         if self.pad_aware:
             import dataclasses as _dc
 
@@ -348,7 +393,7 @@ class CostModel(CostEstimator):
             )
         else:
             loras = sum(self.lora_bytes(c, seq) for c in configs)
-        return (base + loras) / d
+        return (base + loras) / d + self.job_overhead_bytes
 
     def fits(self, configs: Sequence[LoraConfig], d: int, seq: int) -> bool:
         return self.job_mem_bytes(configs, d, seq) <= (

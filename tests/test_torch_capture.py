@@ -107,6 +107,52 @@ def test_eviction_recaptures_and_replays_count_their_launches(cuda, model, monke
 
 
 @pytest.mark.gpu
+def test_a_new_shape_after_a_large_graph_peaks_as_on_a_fresh_executor(cuda, model):
+    """A pack of a new shape drops the device's cached graph before its
+    template and state are made, and its ``peak_bytes`` (the call's whole
+    high-water mark) rises above what it leaves allocated by what it rises
+    on a fresh executor: the large graph's buffers, hundreds of MB, are
+    not part of it. (Measured above what the call leaves allocated, since
+    each capture's streams leave their cuBLAS workspaces behind.)"""
+    cfg, base = model
+    small = PACK[:1]
+    large = [LoraConfig(rank=128, alpha=16.0, learning_rate=1e-4, batch_size=4, seq_len=SEQ)] * 32
+
+    def rise(ex, configs):
+        res = _train(ex, cfg, base, configs, cuda)[2]
+        return res.captured, res.peak_bytes - torch.cuda.memory_allocated(cuda)
+
+    fresh = SliceExecutor()
+    want = rise(fresh, small)[1]
+    fresh.clear()
+    del fresh
+    torch.cuda.empty_cache()
+    ex = SliceExecutor()
+    assert rise(ex, large)[0]
+    held = ex.captures[0]["static_bytes"]
+    captured, got = rise(ex, small)
+    assert captured and len(ex.captures) == 2 and held > 2e8
+    assert got <= want + held // 4
+    # a further pack of the small shape hits, and reports no capture
+    assert not rise(ex, small)[0] and ex.n_hits == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 3])
+def test_init_lora_on_the_card_is_init_models_lora(cuda, seed):
+    """The executor's templates on the card's generator: ``init_lora`` makes
+    ``init_model``'s LoRA tree bit for bit."""
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.models.model import init_lora
+
+    cfg = reduced(get_config("qwen25-7b"))
+    meta = pack_meta(PACK)
+    want = tree_leaves(init_model(seed, cfg, meta, device=cuda)[1])
+    got = tree_leaves(init_lora(seed, cfg, meta, device=cuda))
+    assert len(got) == len(want) > 0 and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
 def test_a_step_that_does_not_fit_raises_with_the_numbers(cuda, model, monkeypatch):
     cfg, base = model
     torch.cuda.empty_cache()
@@ -158,6 +204,41 @@ def test_run_local_with_the_default_runner(cuda, model, tmp_path):
     assert pool.list() == [f"adapter_{i:04d}" for i in range(len(PACK))]
     assert all(np.isfinite(pool.load_meta(n)["final_loss"]) for n in pool.list())
     assert all(r.peak_bytes > 0 for r in records)
+
+
+@pytest.mark.gpu
+def test_online_run_with_a_preemption_equals_eager(cuda, model, tmp_path):
+    """``run_online_local`` on captured steps: an arrival preempts the
+    running pack, its adapter resumes from the pool in a new pack with a
+    new shape (a recapture); the pool and every segment's losses equal the
+    same plan run by the eager executor, bit for bit."""
+    from repro_torch.sched import A100_40G, Arrival, CostModel, ExecutionEngine
+    from repro_torch.train.checkpoint import CheckpointPool
+
+    cfg, base = model
+    cm = CostModel(cfg, A100_40G, setup_time=0.0)
+    a, b = PACK[0], PACK[1]
+    trace = [Arrival(0.0, a, 6), Arrival(2.5 * cm.iter_time([a], 1, SEQ), b, 5)]
+    runs = []
+    for capture in (True, False):
+        pool = CheckpointPool(str(tmp_path / str(capture)))
+        ex = SliceExecutor(capture=capture)
+        records, sched = ExecutionEngine(cm, 1).run_online_local(
+            trace, cfg, base, n_steps=6, seq=SEQ, pool=pool,
+            runner=ClusterRunner(ex, DevicePool([cuda])), migration_budget=1,
+            preempt_min_remaining=0.0)
+        runs.append((records, sched, pool, ex))
+    (crec, csched, cpool, cex), (erec, esched, epool, _) = runs
+    assert csched.segments == esched.segments and csched.n_migrations == 1
+    assert len(cex.captures) == 2  # the preempted pack's shape, then the resumed pack's
+    assert sum(r.captured for r in crec) == 2 and not any(r.captured for r in erec)
+    assert all(np.array_equal(x.final_losses, y.final_losses) for x, y in zip(crec, erec))
+    assert 0 < cpool.load_adapter_state("0000")[1]["steps_done"] < 6
+    assert cpool.list() == epool.list() == ["adapter_0000", "adapter_0001"]
+    for name in cpool.list():
+        assert cpool.load_meta(name)["total_steps"] == epool.load_meta(name)["total_steps"]
+        assert all(np.array_equal(x, y) for x, y in zip(
+            tree_leaves(cpool.load_adapter(name)), tree_leaves(epool.load_adapter(name))))
 
 
 @pytest.mark.gpu

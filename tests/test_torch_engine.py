@@ -34,7 +34,7 @@ from repro_torch import bridge
 from repro_torch.cluster import ClusterRunner, DevicePool, SliceExecutor
 from repro_torch.configs import LoraConfig, get_config, reduced
 from repro_torch.launch import train as launch_train
-from repro_torch.sched import A100_40G, CostModel, ExecutionEngine, plan
+from repro_torch.sched import A100_40G, REFERENCE_MEMORY, CostModel, ExecutionEngine, plan
 from repro_torch.sched.engine import JobRecord, JobSegment, replay_measured
 from repro_torch.sched.planner import Schedule, ScheduledJob
 from repro_torch.train.checkpoint import CheckpointPool
@@ -86,7 +86,7 @@ def _same_adapters(p, q):
 def test_run_local_matches_reference(ref_model, tmp_path):
     jcfg, jbase = ref_model
     cfg = reduced(get_config("qwen25-7b"))
-    jcm, cm = JCostModel(jcfg, J_A100), CostModel(cfg, A100_40G)
+    jcm, cm = JCostModel(jcfg, J_A100), CostModel(cfg, A100_40G, **REFERENCE_MEMORY)
     jconfigs, configs = [JLoraConfig(**c) for c in SPACE], [LoraConfig(**c) for c in SPACE]
     jsched, sched = j_plan(jcm, jconfigs, 2, SEQ, n_steps=2), plan(cm, configs, 2, SEQ, 2)
     assert [(j.config_ids, j.degree, j.start, j.end) for j in sched.jobs] == [

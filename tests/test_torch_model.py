@@ -220,3 +220,17 @@ def test_init_model_layout_matches_reference(world):
     q = tlora["decoder"]["blocks"]["l0"]["attn"]["q"]
     assert torch.count_nonzero(q["b"]) == 0
     assert torch.count_nonzero(q["a"][:, 0, :, 8:]) == 0
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_init_lora_is_init_models_lora_bit_for_bit(world, seed):
+    """``init_lora`` (the executor's templates) gives ``init_model``'s LoRA
+    tree, bit for bit, in the reference's layout, without its base."""
+    tc, meta = world["cfg"], world["meta"]
+    want = tm.init_model(seed, tc, meta, device="cpu")[1]
+    got = tm.init_lora(seed, tc, meta, device="cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), bridge.to_numpy(got)) == jax.tree.map(
+        lambda t: tuple(t.shape), world["lora"])
+    assert jax.tree.structure(bridge.to_numpy(got)) == jax.tree.structure(bridge.to_numpy(want))
+    assert all(np.array_equal(a, b) for a, b in zip(jax.tree.leaves(bridge.to_numpy(got)),
+                                                      jax.tree.leaves(bridge.to_numpy(want))))

@@ -46,7 +46,10 @@ def _cfgs(reduce: bool):
 
 
 def _pair(jcfg, tcfg, hw: str, **kw):
-    return jcm.CostModel(jcfg, getattr(jcm, hw), **kw), tcm.CostModel(tcfg, getattr(tcm, hw), **kw)
+    """The reference's model and the port's with the reference's memory
+    accounting (the port's own prices its f32 state and logits: C3)."""
+    return jcm.CostModel(jcfg, getattr(jcm, hw), **kw), tcm.CostModel(
+        tcfg, getattr(tcm, hw), **tcm.REFERENCE_MEMORY, **kw)
 
 
 def _space(idx, seq):
@@ -140,7 +143,7 @@ def test_h100_preset_plans_as_the_reference_on_the_same_spec():
     reference's CostModel built on a HardwareSpec with the same values."""
     jcfg, tcfg = _cfgs(False)
     spec = jcm.HardwareSpec(**dataclasses.asdict(tcm.H100))
-    jm, tm = jcm.CostModel(jcfg, spec), tcm.CostModel(tcfg, tcm.H100)
+    jm, tm = jcm.CostModel(jcfg, spec), tcm.CostModel(tcfg, tcm.H100, **tcm.REFERENCE_MEMORY)
     assert (tcm.H100.mem_bytes, tcm.H100.peak_flops, tcm.H100.hbm_bw, tcm.H100.link_bw) == (
         80e9, 989e12, 3.35e12, 450e9)
     js, ts = _space(range(0, 300, 37), 512)
@@ -184,3 +187,67 @@ def test_observation_store_crosses_packages(tmp_path):
     for k in range(1, len(ts) + 1):
         assert from_ref.iter_time(ts[:k], 2, 512) == from_port.iter_time(js[:k], 2, 512)
     assert from_ref.fits(ts, 1, 512) == jm.fits(js, 1, 512)
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def test_port_memory_prices_what_the_executor_allocates():
+    """The port's accounting (C3): ``lora_state_bytes`` per bucket-padded
+    LoRA parameter is exactly the f32 LoRA, its two Adam moments and its
+    gradient that ``SliceExecutor`` holds for a mixed pack (reduced size,
+    CPU); ``job_mem_bytes`` covers them with the base, the padding rows'
+    and the adapters' logits workspace and the per-job term. With
+    ``REFERENCE_MEMORY`` it is the reference's number."""
+    import numpy as np
+    import torch
+
+    from repro.configs.base import LoraConfig as JLoraConfig
+    from repro_torch.cluster import DevicePool, SliceExecutor
+    from repro_torch.configs import LoraConfig
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.models.model import init_model
+    from repro_torch.train.data import packed_batch_iterator
+    from repro_torch.train.trainer import packed_value_and_grad
+
+    cpu = torch.device("cpu")
+    jcfg, cfg = _cfgs(True)
+    kw = [dict(rank=8, alpha=8.0, learning_rate=1e-3, batch_size=1, seq_len=16),
+          dict(rank=32, alpha=16.0, learning_rate=5e-4, batch_size=2, seq_len=16),
+          dict(rank=16, alpha=4.0, learning_rate=2e-4, batch_size=1, seq_len=16)]
+    configs, jconfigs = [LoraConfig(**k) for k in kw], [JLoraConfig(**k) for k in kw]
+    meta = pack_meta(configs)
+    base, _ = init_model(0, cfg, None, device=cpu)
+    res = SliceExecutor().train_pack(cfg, configs, n_steps=1, seq=16, base=base,
+                                     slice_=DevicePool([cpu]).acquire(1))
+    batch = next(packed_batch_iterator(cfg, configs, seq=16, device=cpu))
+    grads = packed_value_and_grad(res.lora, base, batch, cfg, meta.n, meta.scales(cpu))[2]
+    held = _nbytes(res.lora) + _nbytes(res.opt["m"]) + _nbytes(res.opt["v"]) + _nbytes(grads)
+    cm = tcm.CostModel(cfg, tcm.A100_40G)
+    params = meta.n * tcm.lora_param_count(cfg, meta.r_bucket)
+    assert cm.lora_state_bytes * params == held
+    logits = cm.logits_bytes(meta.n * meta.max_batch, 16)
+    assert logits == cm.logits_copies * meta.n * meta.max_batch * 16 * cfg.padded_vocab * 4
+    # the bf16 base the card trains on: the model counts its matrices (not
+    # the norms and biases, under 1 %)
+    assert 0.99 < cm.base_weight_bytes() / (_nbytes(base) / 2) <= 1.0
+    assert cm.job_mem_bytes(configs, 1, 16) >= (cm.base_weight_bytes() + held + logits
+                                                + cm.job_overhead_bytes)
+    # the reference's accounting, passed explicitly, is the reference's
+    jm = jcm.CostModel(jcfg, jcm.A100_40G)
+    tm = tcm.CostModel(cfg, tcm.A100_40G, **tcm.REFERENCE_MEMORY)
+    for seq in (16, 512, 4096):
+        assert tm.job_mem_bytes(configs, 1, seq) == jm.job_mem_bytes(jconfigs, 1, seq)
+        assert tm.logits_bytes(8, seq) == 0.0
+    # at full width the port's accounting prices the sweep's two jobs 2.1x
+    # and 1.7x above the reference's (their peaks on the card: 1.9x, 1.6x)
+    full = tcm.CostModel(_cfgs(False)[1], tcm.H100)
+    ref = tcm.CostModel(_cfgs(False)[1], tcm.H100, **tcm.REFERENCE_MEMORY)
+    space = default_search_space(300, seq_len=512)[::37]
+    for ids in ((5, 6, 7, 8), (4, 3, 2, 0, 1)):
+        jc = [space[i] for i in ids]
+        assert full.job_mem_bytes(jc, 1, 512) > 1.5 * ref.job_mem_bytes(jc, 1, 512)
+    assert np.isfinite(res.losses).all()
