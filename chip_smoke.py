@@ -9,8 +9,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and power limit as ``nvidia-smi`` reports them; turns TF32 off.
 2. build   -- compiles every kernel of ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, all at once), and prints ``ptxas -v``'s
-   registers, shared memory and spills of each ``fused_wgmma_kernel`` and
-   ``decode_kernel``.
+   registers, shared memory and spills of each ``fused_wgmma_kernel``,
+   ``decode_kernel`` and ``fused_ffma_kernel``.
 3. kernels -- calls each kernel at the qwen25-7b serving shapes (decode:
    N=8 rows, M=1; prefill: N=1, M=256; r=16; plus a ragged pack of ranks
    (8, 16)) and at its training shapes (N=2 adapters, M=1024 tokens each,
@@ -22,20 +22,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 4) at the sweep's shapes in bf16 (each same-rank segment of each
    job the sweep phase plans: N, M = rows per adapter x 512 and r of that
    segment, r 8-128, and likewise each of the online plan's segments, M
-   up to 4,096); holds each against its plain version, and times
+   up to 4,096), and in f32 at the launcher's shapes (phase 8's pack:
+   N = 1 x M = 1,024 at r = 8 and at r = 16; the fused forward and dx,
+   and ``packed_matmul``'s xA, xAB and cases 2 and 4);
+   holds each against its plain version, and times
    kernel, plain
    version and one PyTorch library call (or the named composition where no
    single call exists) with CUDA events. At the decode shapes the delta's
    two passes also run as one ``packed_matmul_pair`` call (call "pair",
    against two ``torch.bmm`` calls). Each row carries the ``path`` its
-   plan took (fused: ``decode``, ``wgmma`` or ``split3``, from
+   plan took (fused: ``decode``, ``wgmma``, ``ffma`` or ``split3``, from
    ``csrc/fused.cuh``'s plan; ``packed_matmul``: ``decode``, ``mma`` or
    ``fma``, ``packed_matmul_path``), ``device_ms`` and ``library_device_ms``
    (a CUDA graph of 20 calls replayed: the host out of the loop; the
    library yardstick of ``fused_matmul_q`` dequantizes W inside the
    graph) and ``host_us`` and ``library_host_us`` (host time per call, not
    synchronised). The run fails if a bf16 training-shape row of
-   ``fused_matmul`` or ``fused_matmul_q`` is off ``wgmma``, a bf16 decode
+   ``fused_matmul`` or ``fused_matmul_q`` is off ``wgmma``, an f32 one or
+   an f32 launcher-shape fused row off ``ffma`` (``csrc/ffma.cuh``'s tiled
+   FFMA kernel), a bf16 decode
    row of either or of ``packed_matmul`` is off ``decode``, or a bf16
    training row of xA, xAB, case 2 or case 4, or a bf16 prefill row, of
    ``packed_matmul`` is off ``mma``. Then the sync check: ragged
@@ -118,15 +123,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step, finish every adapter with a finite loss and round-trip its
    observation store through JSON. Last, ``c3_fit`` fits the memory
    model's logits copies and per-job bytes to every captured job's peak.
+8. launcher -- ``repro_torch.launch.train.main``, the port's training
+   entry point, on full qwen25-7b with its f32 base (``init_model``'s
+   default; the smoke's bf16 base is freed first): ``--seq 512 --ranks
+   8,16 --batch-sizes 2,2 --steps 4`` (two adapters of 1,024 tokens, ranks
+   8 and 16: two same-rank segments, N = 1 x M = 1,024 each), once with
+   ``--impl fused`` and once with ``--impl auto``, each on a captured
+   step, then a planted control: ``--impl fused`` with the kernel's delta
+   scale left out (forward and dx). Records s/step, the
+   capture's seconds, the busy share of the last replay (``torch.profiler``),
+   the peak allocated memory, and each wrapper's launches in all and by
+   path (``kernels/launches.py``). Fails unless every f32 fused call of the
+   fused run took ``ffma``, the counts that each impl must move moved, the
+   two impls' per-adapter final losses are finite and agree within
+   LAUNCH_LOSS_RTOL, each adapter's update under fused lies within
+   LAUNCH_UPDATE_RTOL of auto's, and the control's reads above
+   LAUNCH_CONTROL_FACTOR times that limit.
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
 ``smoke_out/`` (``chip_smoke.json``, ``profile_<impl>.txt``,
 ``profile_train_{auto,fused,nf4}.txt``, ``profile_sweep_{captured,eager}.txt``,
-the nvcc logs with ``ptxas -v``).
+``profile_launcher_{fused,auto}.txt``, the nvcc logs with ``ptxas -v``).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -432,15 +454,32 @@ def kernel_phase(torch, dev):
     BMM = "torch.bmm"
     FUSED3 = "baddbmm(x@W, bmm(x,A)*s, B): 3 calls"
 
-    def fused_rows(case, n, m, d_in, d_out, dtype, scale):
+    def fused_rows(case, n, m, d_in, d_out, dtype, scale, rank=RANK, extra=None):
         check("fused_matmul", case, "fused", d_in, d_out, dtype,
               fused_matmul, fused_matmul_ref, lib_fused,
               lambda: (rnd((n, m, d_in), dtype), rnd((d_in, d_out), dtype, d_in ** -0.5),
-                       rnd((n, d_in, RANK), dtype, d_in ** -0.5),
-                       rnd((n, RANK, d_out), dtype), scale),
-              2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out), FUSED3,
+                       rnd((n, d_in, rank), dtype, d_in ** -0.5),
+                       rnd((n, rank, d_out), dtype), scale),
+              2 * n * m * (d_in * d_out + d_in * rank + rank * d_out), FUSED3,
               path_fn=lambda x, w, a, b, s: fused_matmul_path(x, w, a.shape[2], a, b),
-              split_times=True)
+              split_times=True, extra=extra)
+
+    def lib_dx(g, wt, bt, at, s):
+        return torch.baddbmm(torch.matmul(g, wt), torch.bmm(g, bt) * s.view(-1, 1, 1).to(g.dtype), at)
+
+    def dx_rows(case, n, m, d_in, d_out, dtype, scale, rank=RANK, extra=None):
+        """The backward's dx = g @ W^T + s * (g @ B^T) @ A^T, W^T a view of
+        the (d_in, d_out) W (read in place)."""
+        check("fused_matmul", case, "dx", d_in, d_out, dtype,
+              lambda g, wt, bt, at, s: fused_matmul(g, wt, bt, at, s, backward=True),
+              fused_matmul_ref, lib_dx,
+              lambda: (rnd((n, m, d_out), dtype), rnd((d_in, d_out), dtype, d_in ** -0.5).t(),
+                       rnd((n, d_out, rank), dtype), rnd((n, rank, d_in), dtype, d_in ** -0.5),
+                       scale),
+              2 * n * m * (d_out * d_in + d_out * rank + rank * d_in),
+              "baddbmm(g@W^T, bmm(g,B^T)*s, A^T): 3 calls",
+              path_fn=lambda g, wt, bt, at, s: fused_matmul_path(g, wt, bt.shape[2], bt, at),
+              split_times=True, extra=extra)
 
     def fused_q_rows(case, n, m, d_in, d_out, dtype, scale):
         """``fused_matmul_q`` on int8 and nf4 codes, bit-equal to the dense
@@ -501,7 +540,7 @@ def kernel_phase(torch, dev):
                 fail(f"ragged {name} {dtype}: max_abs_err {err} > {tol}")
             emit({"phase": "ragged", "op": name, "ranks": list(ranks),
                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol})
-        train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, fused_q_rows, packed_rows)
+        train_kernel_rows(torch, dev, dtype, fused_rows, dx_rows, fused_q_rows, packed_rows)
     # the sweep's own shapes: each same-rank segment of each planned job
     for job, n, m, r in sweep_segments(sweep_plan().jobs):
         for (d_in, d_out), _ in PROJ:
@@ -522,6 +561,22 @@ def kernel_phase(torch, dev):
            and r["path"] != "wgmma"]
     if off:
         fail(f"training-shape fused rows off the wgmma path: {off}")
+    # the launcher's own shapes on its f32 base: each same-rank segment of
+    # its pack, at the segment's rank (ops._ragged_call), forward and dx,
+    # and packed_matmul's calls of --impl auto
+    for n, m, r in launcher_segments():
+        scale = torch.linspace(0.5, 2.0, n, device=dev)
+        extra = {"n": n, "m": m, "rank": r}
+        for (d_in, d_out), _ in PROJ:
+            fused_rows("launcher", n, m, d_in, d_out, torch.float32, scale, rank=r, extra=extra)
+            dx_rows("launcher", n, m, d_in, d_out, torch.float32, scale, rank=r, extra=extra)
+            packed_rows("launcher", n, m, d_in, d_out, torch.float32, scale, backward_cases=True,
+                        rank=r, only=SWEEP_CALLS, split_times=False, extra=extra)
+    off = [(r["case"], r["call"], r["d_in"], r["d_out"], r.get("rank"), r["path"]) for r in rows
+           if r["case"] in ("train", "launcher") and r["dtype"] == "float32"
+           and r["kernel"] != "packed_matmul" and r["path"] != "ffma"]
+    if off:
+        fail(f"f32 training-shape or launcher fused rows off the ffma path: {off}")
     off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] == "decode" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
            and r["path"] != "decode"]
@@ -540,34 +595,17 @@ def kernel_phase(torch, dev):
     return rows
 
 
-def train_kernel_rows(torch, dev, dtype, check, rnd, fused_rows, fused_q_rows, packed_rows):
+def train_kernel_rows(torch, dev, dtype, fused_rows, dx_rows, fused_q_rows, packed_rows):
     """Every kernel use of the training step at its shapes: N=2 adapters,
     M=1024 tokens each, r=16. The backward cases pass transposed views,
     which the kernels read in place; the library yardstick is ``torch.bmm``
     on the same views."""
-    from repro_torch.kernels.fused import fused_matmul, fused_matmul_path
-    from repro_torch.kernels.ref import fused_matmul_ref
-
     n, m = TRAIN_CASE
-    r = RANK
     scale = torch.linspace(0.5, 2.0, n, device=dev)
-
-    def lib_dx(g, wt, bt, at, s):
-        return torch.baddbmm(torch.matmul(g, wt), torch.bmm(g, bt) * s.view(-1, 1, 1).to(g.dtype), at)
-
     for (d_in, d_out), _ in PROJ:
         packed_rows("train", n, m, d_in, d_out, dtype, scale, backward_cases=True)
         fused_rows("train", n, m, d_in, d_out, dtype, scale)
-        # dx = g @ W^T + s * (g @ B^T) @ A^T: W^T a view of the (d_in, d_out) W
-        check("fused_matmul", "train", "dx", d_in, d_out, dtype,
-              lambda g, wt, bt, at, s: fused_matmul(g, wt, bt, at, s, backward=True),
-              fused_matmul_ref, lib_dx,
-              lambda: (rnd((n, m, d_out), dtype), rnd((d_in, d_out), dtype, d_in ** -0.5).t(),
-                       rnd((n, d_out, r), dtype), rnd((n, r, d_in), dtype, d_in ** -0.5), scale),
-              2 * n * m * (d_out * d_in + d_out * r + r * d_in),
-              "baddbmm(g@W^T, bmm(g,B^T)*s, A^T): 3 calls",
-              path_fn=lambda g, wt, bt, at, s: fused_matmul_path(g, wt, bt.shape[2]),
-              split_times=True)
+        dx_rows("train", n, m, d_in, d_out, dtype, scale)
         fused_q_rows("train", n, m, d_in, d_out, dtype, scale)
 
 
@@ -706,7 +744,8 @@ def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, coun
     width 8, once through the kernel path and once through the plain path,
     feeding both the kernel path's greedy tokens. Returns the max abs logit
     difference per step (prefill first), the max abs plain logit, and the
-    kernel's launches per decode step (``counter`` is its wrapper)."""
+    kernel's launches per decode step (``counter`` names its count in
+    ``kernels/launches.py``)."""
     from repro_torch import bridge
     from repro_torch.configs import LoraConfig
     from repro_torch.core.adapter import pack_meta
@@ -740,7 +779,7 @@ def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, coun
             lg_all.append(lg[0, -1, : cfg.vocab_size].float())
         step_lg = [torch.stack(lg_all)]
         pos = torch.tensor([len(p) for p in prompts], device=dev)
-        n0 = counter.launches
+        n0 = train_counts()[counter]
         for s in range(steps):
             if path == kimpl:
                 teacher.append(torch.argmax(step_lg[-1], dim=-1).to(torch.int32))
@@ -749,7 +788,7 @@ def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, coun
             step_lg.append(lg[:, -1, : cfg.vocab_size].float())
             pos = pos + 1
         if path == kimpl:
-            per_step_launches = (counter.launches - n0) / steps
+            per_step_launches = (train_counts()[counter] - n0) / steps
         logs[path] = torch.stack(step_lg)  # (1 + steps, rows, V)
         del caches, lora
     got, want = logs[kimpl], logs[pimpl]
@@ -806,8 +845,6 @@ def serve_phase(torch, dev):
     """Returns the launch counts of each impl's drain, and the base model
     (the train phase reuses it)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.fused import fused_matmul
-    from repro_torch.kernels.packed_matmul import packed_matmul
     from repro_torch.models.model import init_model
     from repro_torch.serve.engine import ServeEngine, poisson_requests
     from repro_torch.tree import tree_leaves
@@ -827,21 +864,20 @@ def serve_phase(torch, dev):
                for _ in range(16)]
     reqs = poisson_requests([f"ad{i % 8}" for i in range(16)], prompts, 2.0,
                             max_new_tokens=32, seed=SEED)
-    counters = {"auto": packed_matmul, "fused": fused_matmul}
+    counters = {"auto": "packed_matmul", "fused": "fused_matmul"}  # each impl's forward count
     launches, tokens = {}, {}
     for impl in ("auto", "fused"):
         eng = ServeEngine(cfg, base, rows=8, smax=512, r_bucket=16, slot_capacity=8,
                           impl=impl, device=dev)
         for i, (tree, r) in enumerate(adapters):
             eng.publish(f"ad{i}", tree, {"rank": r, "alpha": float(r)})
-        packed_matmul.launches = 0
-        fused_matmul.launches = 0
+        zero_counts()
         stats = eng.serve(reqs)
         torch.cuda.synchronize()
-        launches[impl] = {"packed_matmul": packed_matmul.launches,
-                          "fused_matmul": fused_matmul.launches}
-        if counters[impl].launches == 0:
-            fail(f"impl={impl}: the {counters[impl].__name__} kernel was never launched")
+        counts = train_counts()
+        launches[impl] = {name: counts[name] for name in counters.values()}
+        if counts[counters[impl]] == 0:
+            fail(f"impl={impl}: the {counters[impl]} kernel was never launched")
         bad = [r for r in stats.results if r.error is not None or len(r.tokens) != 32]
         if bad or len(stats.results) != 16:
             fail(f"impl={impl}: requests failed: {[(r.request_id, r.error) for r in bad]}")
@@ -1850,6 +1886,163 @@ def _adaptive(torch, dev, base, pool, ex, held: int):
 
 
 # ---------------------------------------------------------------------------
+# launcher phase
+# ---------------------------------------------------------------------------
+
+# repro_torch.launch.train's arguments: full qwen25-7b on its f32 base, two
+# adapters of batch 2 at seq 512 (N = 2 x M = 1,024 tokens: the kernel
+# phase's training shapes), 4 steps of a captured step
+LAUNCH_STEPS = 4
+LAUNCH_ARGS = ["--arch", "qwen25-7b", "--seq", "512", "--ranks", "8,16", "--batch-sizes", "2,2",
+               "--steps", str(LAUNCH_STEPS), "--log-every", "0"]
+LAUNCH_IMPLS = ("fused", "auto")
+# The two impls compute one f32 function in two orders of sums. Their
+# final losses must agree within LAUNCH_LOSS_RTOL (relative), and each
+# adapter's update (w - w0, every leaf) under --impl fused must lie within
+# LAUNCH_UPDATE_RTOL of --impl auto's, relative to auto's (``update_err``).
+# Read on an H100 (PERF.md): losses 7.7e-8 apart, updates 6.7e-4; a fused
+# run whose kernel leaves out the delta's scale (forward and dx: a
+# mis-scaled delta), the planted control, reads 8.4e-5 and 6.2e-2. Both
+# limits lie between; the control must read above LAUNCH_CONTROL_FACTOR x
+# LAUNCH_UPDATE_RTOL, so the update check can see that fault.
+LAUNCH_LOSS_RTOL = 2e-6
+LAUNCH_UPDATE_RTOL = 5e-3
+LAUNCH_CONTROL_FACTOR = 5.0
+# the counts each impl's run must move: forward, and backward
+LAUNCH_NEEDED = {"fused": ("fused_matmul", "fused_matmul_dx"),
+                 "auto": ("packed_matmul", "packed_matmul_bwd")}
+
+
+def launcher_segments():
+    """(N, M, r) of each same-rank segment of the launcher's pack, from
+    LAUNCH_ARGS: a step runs every projection once per segment, at the
+    segment's own rank (``ops._ragged_call``), M = the pack's rows per
+    adapter (each padded to the largest batch) times the sequence."""
+    from repro_torch.kernels.ops import rank_segments
+    from repro_torch.launch.train import parse_args
+
+    args = parse_args(LAUNCH_ARGS)
+    m = max(int(b) for b in args.batch_sizes.split(",")) * args.seq
+    return [(hi - lo, m, r)
+            for lo, hi, r in rank_segments([int(r) for r in args.ranks.split(",")])[2]]
+
+
+def launcher_executor():
+    """A ``SliceExecutor`` that keeps its one pack's initial and final
+    adapters (``w0``, ``w``: one numpy tree per adapter)."""
+    from repro_torch.cluster import SliceExecutor
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.core.packed_lora import extract_adapter
+
+    class Kept(SliceExecutor):
+        def train_pack(self, cfg, configs, *, lora, **kw):
+            ranks = pack_meta(configs).ranks
+            self.w0 = [extract_adapter(lora, i, ranks) for i in range(len(ranks))]
+            res = super().train_pack(cfg, configs, lora=lora, **kw)
+            self.w = [extract_adapter(res.lora, i, ranks) for i in range(len(ranks))]
+            return res
+
+    return Kept()
+
+
+def unscaled_delta(kernel):
+    """``fused_matmul`` with its delta's scale left out (the planted
+    control's fault)."""
+    def call(x, w, a, b, scale=None, *, backward=False):
+        return kernel(x, w, a, b, None, backward=backward)
+
+    # the kernel counts through its module's name for it, which names this
+    # wrapper while the control runs: one dict for both
+    call.launches = kernel.launches
+    return call
+
+
+def launcher_phase(torch, dev, out_dir: Path):
+    """The training launcher under --impl fused and --impl auto on the f32
+    base, then the planted control (--impl fused, the delta's scale left
+    out); returns each impl's launch counts. Each run's last step (a replay
+    of its captured graph) runs under ``torch.profiler``."""
+    from repro_torch.kernels import fused as fused_module
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train as launch_train
+
+    counts, losses, adapters = {}, {}, {}
+    for run in LAUNCH_IMPLS + ("control",):
+        impl = "fused" if run == "control" else run
+        ex = launcher_executor()
+        win = StepWindow(torch, dev, profile_step=None if run == "control" else LAUNCH_STEPS - 1,
+                         table=out_dir / f"profile_launcher_{run}.txt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        zero_counts()
+        kernel = fused_module.fused_matmul
+        if run == "control":
+            fused_module.fused_matmul = unscaled_delta(kernel)
+        t0 = time.perf_counter()
+        try:
+            per = launch_train.main(LAUNCH_ARGS + ["--impl", impl], executor=ex,
+                                    step_callback=win)
+        finally:
+            fused_module.fused_matmul = kernel
+        wall = time.perf_counter() - t0
+        counts[run], paths = launches.read(), launches.read_paths()
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses[run], adapters[run] = np.asarray(per, dtype=np.float64), (ex.w0, ex.w)
+        prof = dict(win.profile or {})
+        # StepWindow's share counts every kernel in namespace plora: here the
+        # impl's own kernels (fused: the ffma kernel, its xA pass, and the
+        # split-K epilogue)
+        share = {k.replace("packed_matmul", "port_kernels"): prof.pop(k)
+                 for k in list(prof) if k.startswith("packed_matmul")}
+        emit({"phase": "launcher", "impl": impl, "run": run,
+              "args": LAUNCH_ARGS + ["--impl", impl], "base_dtype": "float32",
+              "per_adapter_loss": losses[run].tolist(),
+              "step_s": win.seconds, "s_per_step": sum(win.seconds) / max(len(win.seconds), 1),
+              "capture_s": ex.captures[-1]["seconds"] if ex.captures else None,
+              "captures": len(ex.captures), "wall_s": wall, "held_bytes": held,
+              "max_memory_allocated": peak, "launches": counts[run], "launches_by_path": paths,
+              "profile": prof, **share})
+        ex.clear()
+        del ex, win
+        if not np.isfinite(losses[run]).all():
+            fail(f"launcher {run}: non-finite final loss {losses[run].tolist()}")
+        for need in LAUNCH_NEEDED[impl]:
+            if counts[run][need] == 0:
+                fail(f"launcher {run}: the {need} launch count stayed at 0")
+        if impl == "fused":
+            fused_paths = paths["fused_matmul"]
+            off = {p: k for p, k in fused_paths.items() if p != "ffma" and k}
+            if off or not fused_paths["ffma"]:
+                fail(f"launcher {run}: f32 fused calls off the ffma path: {fused_paths}")
+
+    def rel(run):
+        w0, ref = adapters["auto"]
+        w = adapters[run][1]
+        return {"loss_rel_err": float(np.max(np.abs(losses[run] - losses["auto"])
+                                             / np.abs(losses["auto"]))),
+                "update_rel_err": max(update_err(w[i], ref[i], w0[i]) for i in range(len(w0)))}
+
+    got, control = rel("fused"), rel("control")
+    emit({"phase": "launcher_agreement", **got, "loss_rtol": LAUNCH_LOSS_RTOL,
+          "update_rtol": LAUNCH_UPDATE_RTOL,
+          **{f"control_{k}": v for k, v in control.items()},
+          "control_factor": LAUNCH_CONTROL_FACTOR})
+    if not got["loss_rel_err"] <= LAUNCH_LOSS_RTOL:
+        fail(f"launcher: --impl fused and --impl auto final losses differ by "
+             f"{got['loss_rel_err']} > {LAUNCH_LOSS_RTOL}")
+    if not got["update_rel_err"] <= LAUNCH_UPDATE_RTOL:
+        fail(f"launcher: --impl fused's adapter updates are {got['update_rel_err']} off "
+             f"--impl auto's (limit {LAUNCH_UPDATE_RTOL})")
+    if not control["update_rel_err"] > LAUNCH_CONTROL_FACTOR * LAUNCH_UPDATE_RTOL:
+        fail(f"launcher: the planted control (delta's scale left out) reads "
+             f"{control['update_rel_err']}, not above {LAUNCH_CONTROL_FACTOR} x "
+             f"{LAUNCH_UPDATE_RTOL}: the update check cannot see that fault")
+    return {impl: counts[impl] for impl in LAUNCH_IMPLS}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1872,7 +2065,7 @@ def ptxas_entries(log: str, name: str):
 
 CSRC = "src/repro_torch/kernels/csrc/"
 # (entry, kernel, the kernel-phase calls it sums, case, source, replaces,
-#  where its launches come from: (path, run, count))
+#  where its launches come from: (path, run, count)[, dtype: bf16 if absent])
 USES = [
     ("packed_matmul", "packed_matmul", ("xA", "xAB"), "decode",
      "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
@@ -1914,25 +2107,44 @@ USES = [
     ("packed_matmul:online_backward", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "online",
      "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
      ("online", "auto", "packed_matmul_bwd")),
+    # the launcher on its f32 base, at its own shapes (launcher_segments:
+    # N = 1 x M = 1,024 at r = 8 and at r = 16): #1 on "fma" (--impl auto),
+    # #2 on "ffma" (--impl fused: forward and recompute, and dx)
+    ("packed_matmul:train_forward_f32", "packed_matmul", ("xA", "xAB"), "launcher",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("launcher", "auto", "packed_matmul"), "float32"),
+    ("packed_matmul:train_backward_f32", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "launcher",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
+     ("launcher", "auto", "packed_matmul_bwd"), "float32"),
+    ("fused_matmul:train_forward_f32", "fused_matmul", ("fused",), "launcher",
+     "fused.cu", "src/repro/kernels/fused.py:275", ("launcher", "fused", "fused_matmul"),
+     "float32"),
+    ("fused_matmul:train_dx_f32", "fused_matmul", ("dx",), "launcher",
+     "fused.cu", "src/repro/kernels/fused.py:275 (fused.py:389-401)",
+     ("launcher", "fused", "fused_matmul_dx"), "float32"),
 ]
 
 
 # uses with layer sums but no entry in the kernels line: fused_matmul_q at
-# decode rows, which no main path runs (serve runs a dense base), and
+# decode rows, which no main path runs (serve runs a dense base), and on an
+# f32 x (the launcher's --quant path, which the smoke does not run),
 # packed_matmul's decode pair (the serve entry's kernels, launched by one
-# call)
+# call), and #1/#2 in f32 at the training shapes (N = 2 x M = 1,024, r = 16:
+# the bf16 train entries' shapes)
 EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decode"),
               ("fused_matmul_q:decode_nf4", "fused_matmul_q", ("nf4",), "decode"),
               # the delta's two decode passes as one packed_matmul_pair call, which serve runs
               ("packed_matmul:decode_pair", "packed_matmul", ("pair",), "decode"),
-              # the f32 paths that the launcher's f32 base runs at the training
-              # shapes: #1 on "fma", #2 on "split3"
-              ("packed_matmul:train_forward_f32", "packed_matmul", ("xA", "xAB"), "train",
+              # fused_matmul_q on an f32 x (the launcher's --quant ... --impl fused)
+              ("fused_matmul_q:int8_f32", "fused_matmul_q", ("int8",), "train", "float32"),
+              ("fused_matmul_q:nf4_f32", "fused_matmul_q", ("nf4",), "train", "float32"),
+              ("fused_matmul:train_case_forward_f32", "fused_matmul", ("fused",), "train",
                "float32"),
-              ("packed_matmul:train_backward_f32", "packed_matmul", ("bwd2_dxA", "bwd4_dx"),
-               "train", "float32"),
-              ("fused_matmul:train_forward_f32", "fused_matmul", ("fused",), "train", "float32"),
-              ("fused_matmul:train_dx_f32", "fused_matmul", ("dx",), "train", "float32")]
+              ("fused_matmul:train_case_dx_f32", "fused_matmul", ("dx",), "train", "float32"),
+              ("packed_matmul:train_case_forward_f32", "packed_matmul", ("xA", "xAB"), "train",
+               "float32"),
+              ("packed_matmul:train_case_backward_f32", "packed_matmul", ("bwd2_dxA", "bwd4_dx"),
+               "train", "float32")]
 
 
 def layer_sums(rows, kernel, calls, case, dtype="bfloat16"):
@@ -1948,14 +2160,15 @@ def layer_sums(rows, kernel, calls, case, dtype="bfloat16"):
 
 
 def summarize(rows, launches):
-    """One entry per kernel and use: its bf16 times summed over one decoder
-    layer's projections (weighted by their count per layer) -- of a decode
-    step for the serve entries, of a training step's calls at N=2, M=1024,
-    r=16 for the train ones, of one step of each sweep job (every same-rank
-    segment at its own N, M and r) for the sweep ones -- and its launches in
-    its path's run. For every
-    use, and for EXTRA_SUMS, it also emits those layer sums with the device
-    and host times (a ``layer_sums`` record)."""
+    """One entry per kernel and use: its times (bf16, or the use's dtype)
+    summed over one decoder layer's projections (weighted by their count per
+    layer) -- of a decode step for the serve entries, of a training step's
+    calls at N=2, M=1024, r=16 for the train ones, of one step of each sweep
+    or online job, or of the launcher's pack (every same-rank segment at its
+    own N, M and r) for the sweep, online and f32 ones -- and its launches
+    in its path's run. For every use, and for EXTRA_SUMS, it also emits
+    those layer sums with the device and host times (a ``layer_sums``
+    record)."""
     out = []
     for entry, kernel, calls, case, *dtype in EXTRA_SUMS:
         dtype = dtype[0] if dtype else "bfloat16"
@@ -1964,10 +2177,12 @@ def summarize(rows, launches):
               "bound_ms": bound(tot["bytes"], tot["flops"], dtype)[0],
               "paths": sorted({r.get("path", "") for r in sel}),
               **{k: v for k, v in tot.items() if k not in ("bytes", "flops")}})
-    for entry, kernel, calls, case, source, replaces, (path, run, count) in USES:
-        sel, tot = layer_sums(rows, kernel, calls, case)
-        b_ms, b_by, _, _ = bound(tot["bytes"], tot["flops"], "bfloat16")
-        emit({"phase": "layer_sums", "use": entry, "bound_ms": b_ms,
+    for entry, kernel, calls, case, source, replaces, (path, run, count), *dtype in USES:
+        dtype = dtype[0] if dtype else "bfloat16"
+        sel, tot = layer_sums(rows, kernel, calls, case, dtype)
+        b_ms, b_by, _, _ = bound(tot["bytes"], tot["flops"], dtype)
+        emit({"phase": "layer_sums", "use": entry, "dtype": dtype, "bound_ms": b_ms,
+              "paths": sorted({r.get("path", "") for r in sel}),
               **{k: v for k, v in tot.items() if k not in ("bytes", "flops")}})
         out.append({"name": entry, "route": "cuda", "source": CSRC + source, "replaces": replaces,
                     "launches": launches[path][run][count],
@@ -2020,7 +2235,7 @@ def main() -> None:
     for lib in libs:
         log = lib.with_suffix(".log")
         if log.exists():
-            for kernel in ("fused_wgmma_kernel", "decode_kernel"):
+            for kernel in ("fused_wgmma_kernel", "decode_kernel", "fused_ffma_kernel"):
                 for entry in ptxas_entries(log.read_text(), kernel):
                     emit({"phase": "ptxas", "lib": lib.stem, **entry})
 
@@ -2042,9 +2257,14 @@ def main() -> None:
     emit({"phase": "online_done", "seconds": time.perf_counter() - t0,
           "adaptive_launches": adaptive_launches})
     emit({"phase": "c3_fit", **c3_fit(ONLINE_SEQ)})
+    del base  # the launcher makes its own f32 base (30.5 GB)
+    t0 = time.perf_counter()
+    launcher_launches = launcher_phase(torch, dev, out_dir)
+    emit({"phase": "launcher_done", "seconds": time.perf_counter() - t0})
     summary = summarize(rows, {"serve": serve_launches, "train": train_launches,
                                "sweep": {"auto": sweep_launches},
-                               "online": {"auto": online_launches}})
+                               "online": {"auto": online_launches},
+                               "launcher": launcher_launches})
     (out_dir / "chip_smoke.json").write_text(json.dumps({"records": RECORDS, **summary}, indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

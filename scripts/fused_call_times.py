@@ -8,8 +8,9 @@ qwen25-7b shapes, and optionally profiled train steps, on one CUDA card.
     python3 scripts/fused_call_times.py --train auto,fused,nf4  # + profiled train steps
     python3 scripts/fused_call_times.py --src OLD/src --no-library  # kernels only
     python3 scripts/fused_call_times.py --cases decode --host  # + a host-time breakdown
+    python3 scripts/fused_call_times.py --cases train --dtype float32  # the f32 rows
 
-bf16, r=16, for each projection (d_in, d_out) of a layer: decode (N=8
+bf16 (or ``--dtype float32``), r=16, for each projection (d_in, d_out) of a layer: decode (N=8
 adapters x M=1 token) ``fused_matmul`` and ``fused_matmul_q`` on int8 and
 nf4 codes; prefill (N=1, M=256) ``fused_matmul``; train (N=2, M=1024) the
 forward, dx (W^T read in place), int8 and nf4. Each row holds the kernel
@@ -68,6 +69,8 @@ def main() -> int:
     ap.add_argument("--host", action="store_true",
                     help="also break down the host time of one decode call (this tree's wrapper)")
     ap.add_argument("--out", default=str(ROOT / "smoke_out"), help="where the profile tables go")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="x, W, A and B's type (the bound's peak follows it)")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     sys.path.insert(1, str(ROOT))
@@ -88,7 +91,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    dt, r = torch.bfloat16, cs.RANK
+    dt, r = getattr(torch, args.dtype), cs.RANK
 
     def rnd(shape, dtype=dt, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
@@ -132,12 +135,13 @@ def main() -> int:
                 got, want = kfn(*first), pfn(*first)
                 in_bytes = cs.nbytes(*first[:-1]) + cs.nbytes(got)
                 sets = [first] + [args_fn() for _ in range(cs.copies_for(in_bytes) - 1)]
-                row = {"label": args.label, "case": case, "call": call, "d_in": d_in,
+                row = {"label": args.label, "dtype": args.dtype, "case": case, "call": call,
+                       "d_in": d_in,
                        "d_out": d_out, "n": n, "m": m, "r": r, "copies": len(sets),
                        "path": path_fn(*first),
                        "rel_err": ((got.float() - want.float()).abs().max()
                                    / want.float().abs().max().clamp_min(1e-30)).item(),
-                       "bound_ms": cs.bound(in_bytes, flops, "bfloat16")[0]}
+                       "bound_ms": cs.bound(in_bytes, flops, args.dtype)[0]}
                 if call in ("int8", "nf4"):
                     x, codes, scales, a, b, _ = first
                     dense = F.fused_matmul(x, dequantize({"codes": codes, "scales": scales}, dt), a, b, s)

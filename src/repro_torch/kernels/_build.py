@@ -36,7 +36,7 @@ SIGNATURES = {
     },
     "fused": {
         # the path; the workspace through the pointer
-        "plora_fused_matmul_plan": (_I, [_I] * 8 + [ctypes.POINTER(_LL)]),
+        "plora_fused_matmul_plan": (_I, [_I] * 9 + [ctypes.POINTER(_LL)]),
         "plora_fused_matmul": (_I, [ctypes.c_char_p]),  # one block of 15 int64
     },
     "fused_q": {

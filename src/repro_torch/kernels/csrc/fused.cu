@@ -18,8 +18,12 @@
 // fused.cuh's warp-specialised wgmma kernel fed by TMA. The forward's
 // row-major W tile is wgmma's MN-major B operand (transpose bit set); dx's
 // W^T tile, loaded by TMA from W's own storage, is its K-major B operand.
-// Known cost, left for later work: plain FMA in three launches off both
-// paths (f32, odd shapes).
+// In f32 at those shapes the FP32 pipes are the limit (67 TFLOP/s, no
+// tensor core at full f32): ffma.cuh's tiled FFMA kernel, 8 x 8 outputs a
+// thread fed by a cp.async ring, the delta in its epilogue, in two
+// launches; it reads dx's W^T in place at the forward's cost. Decode-size
+// f32 calls and odd shapes (K or L not a multiple of 4, operands off 16
+// bytes; bf16 W^T at decode rows) keep plain FMA in three launches.
 #include "fused.cuh"
 
 using namespace plora;
@@ -37,12 +41,13 @@ static int run(const Plan& pl, const void* x, const void* w, const void* a, cons
 }
 
 // The plan of a call from its sizes and its operands' flags -- aligned: x
-// and W start on 16 bytes; decode_ok: W is row-major (not trans_w) and A and
-// B start on 16 bytes. Returns the path (PATH_SPLIT3, PATH_WGMMA or
-// PATH_DECODE) and stores the f32 workspace (elements) it needs.
+// and W start on 16 bytes; ab_aligned: A and B start on 16 bytes; trans_w:
+// W is W^T read in place. Returns the path (PATH_SPLIT3, PATH_WGMMA,
+// PATH_DECODE or PATH_FFMA) and stores the f32 workspace (elements) it
+// needs.
 extern "C" int plora_fused_matmul_plan(int n, int m, int k, int l, int r, int dtype, int aligned,
-                                       int decode_ok, long long* workspace) {
-  const Plan pl = make_plan(aligned != 0, decode_ok != 0, dtype, n, m, k, l, r);
+                                       int ab_aligned, int trans_w, long long* workspace) {
+  const Plan pl = make_plan(aligned != 0, ab_aligned != 0, trans_w != 0, dtype, n, m, k, l, r);
   *workspace = pl.workspace;
   return pl.path;
 }
@@ -69,8 +74,7 @@ extern "C" int plora_fused_matmul(const long long* args) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(args[14]);
   if (const int bad = check_sizes(n, m, k, l, r)) return bad;
   const Plan pl = make_plan(aligned_to(x, 16) && aligned_to(w, 16),
-                            !trans_w && aligned_to(a, 16) && aligned_to(b, 16), dtype, n, m, k,
-                            l, r);
+                            aligned_to(a, 16) && aligned_to(b, 16), trans_w, dtype, n, m, k, l, r);
   if (dtype == 0)
     return run<float>(pl, x, w, a, b, scale, y, workspace, n, m, k, l, r, trans_w, st);
   if (dtype == 1)

@@ -35,8 +35,12 @@
 //    multiples of 8, W row-major, x, W, A, B 16-byte aligned (8 for the
 //    codes): decode.cuh's weight-streaming kernel, two launches (xA, then
 //    the base and the epilogue in one pass over W).
-//  * Otherwise -- f32, the backward's W^T at few rows, odd shapes: three
-//    launches: xA as f32 partial sums (tile.cuh's gemm_kernel over the
+//  * f32, > 16 rows, K and L multiples of 4, x, W (or the codes and
+//    scales), A and B 16-byte aligned, W row-major or W^T: ffma.cuh's
+//    tiled FFMA kernel, two launches (xA, then the base with the delta in
+//    its epilogue; a third, fused_epilogue, only when K is split).
+//  * Otherwise -- f32 or the backward's W^T at decode rows, odd shapes:
+//    three launches: xA as f32 partial sums (tile.cuh's gemm_kernel over the
 //    adapters, K split across blocks), the base product as f32 partials
 //    (split K when the output tiles are few), and fused_epilogue, which adds
 //    each quantity's ranges in a fixed order and writes
@@ -246,6 +250,7 @@ __device__ __forceinline__ void load_f8(const float* p, float (&s)[8]) {
 }  // namespace plora
 
 #include "decode.cuh"  // PATH_DECODE's kernel: uses deq_int8, deq_nf4 and load_f8 above
+#include "ffma.cuh"    // PATH_FFMA's kernel: uses decode.cuh's cp.async helpers
 
 namespace plora {
 
@@ -580,7 +585,7 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 // Plan and launch
 // ---------------------------------------------------------------------------
 
-enum { PATH_SPLIT3 = 0, PATH_WGMMA = 1, PATH_DECODE = 2 };
+enum { PATH_SPLIT3 = 0, PATH_WGMMA = 1, PATH_DECODE = 2, PATH_FFMA = 3 };
 
 // Whether a call takes the wgmma path (see fused_wgmma_kernel).
 // `aligned`: x and every W array can be read with the kernel's TMA and
@@ -591,10 +596,12 @@ inline bool use_wgmma(bool aligned, int dtype, int n, int m, int k, int l) {
 }
 
 // Whether a call takes the decode path (decode.cuh): bf16, at most 16 rows
-// in all, K and L multiples of 8, W row-major (`decode_ok`: not the
-// backward's W^T, and A and B 16-byte aligned) and read by vector loads.
-inline bool use_decode(bool aligned, bool decode_ok, int dtype, int n, int m, int k, int l) {
-  return dtype == 1 && n * m <= DEC_MAX_ROWS && k % 8 == 0 && l % 8 == 0 && aligned && decode_ok;
+// in all, K and L multiples of 8, W row-major (not the backward's W^T), A
+// and B 16-byte aligned, and read by vector loads.
+inline bool use_decode(bool aligned, bool ab_aligned, bool trans_w, int dtype, int n, int m,
+                       int k, int l) {
+  return dtype == 1 && n * m <= DEC_MAX_ROWS && k % 8 == 0 && l % 8 == 0 && aligned &&
+         ab_aligned && !trans_w;
 }
 
 inline bool aligned_to(const void* p, uintptr_t a) {
@@ -618,7 +625,8 @@ inline SplitK plan_wgmma(int rows, int k, int l, int bn) {
 
 // The plan of a call: its path, the wgmma kernel's padded rank and tile
 // width, the K ranges of the base product and of xA, and the f32 workspace
-// (elements) for their partial sums (0: none needed). On the decode path:
+// (elements) for their partial sums (0: none needed; on the ffma path the
+// base's partials only when K is split, then xA's). On the decode path:
 // rp, bn, splits_y and steps are the main kernel's rows (RM), column threads,
 // K ranges and row pairs per range, xa_* and splits_xa the xA pass's, and
 // the workspace is xA itself (rows x r f32).
@@ -628,10 +636,13 @@ struct Plan {
   int xa_rm, xa_ct, xa_pairs;
 };
 
-inline Plan make_plan(bool aligned, bool decode_ok, int dtype, int n, int m, int k, int l,
-                      int r) {
+// `aligned`: x and W can be read by the kernels' TMA and vector loads;
+// `ab_aligned`: A and B start on 16 bytes; `trans_w`: W is the backward's
+// W^T, read in place.
+inline Plan make_plan(bool aligned, bool ab_aligned, bool trans_w, int dtype, int n, int m, int k,
+                      int l, int r) {
   const int rows = n * m;
-  if (use_decode(aligned, decode_ok, dtype, n, m, k, l)) {
+  if (use_decode(aligned, ab_aligned, trans_w, dtype, n, m, k, l)) {
     const DecodeGeom g = decode_geom(k, l, 1, 4, 32, DEC_SLOTS);
     // the xA pass takes what the main kernel's blocks leave of the card
     // (its blocks hold two thirds of the main kernel's shared memory)
@@ -645,6 +656,13 @@ inline Plan make_plan(bool aligned, bool decode_ok, int dtype, int n, int m, int
     const SplitK sk = plan_wgmma(rows, k, l, bn);
     return {PATH_WGMMA, rp, bn, sk.splits, sk.splits, sk.steps,
             sk.splits > 1 ? (long long)sk.splits * rows * (l + r) : 0, 0, 0, 0};
+  }
+  if (use_ffma(aligned, ab_aligned, dtype, n, m, k, l)) {
+    const SplitK sk = plan_ffma(rows, k, l);
+    const int sx = gemm_plan_for(n, m, k, r).splits;
+    return {PATH_FFMA, 0, 0, sk.splits, sx, sk.steps,
+            (sk.splits > 1 ? (long long)sk.splits * rows * l : 0) + (long long)sx * rows * r,
+            0, 0, 0};
   }
   const int sy = gemm_plan_for(1, rows, k, l).splits, sx = gemm_plan_for(n, m, k, r).splits;
   return {PATH_SPLIT3, 0, 0, sy, sx, 0, (long long)sy * rows * l + (long long)sx * rows * r,
@@ -804,6 +822,37 @@ inline int launch_decode(const Plan& pl, const void* x, const WS& w, const void*
   return (int)cudaGetLastError();
 }
 
+// The ffma path's launches: xA of every adapter as f32 partials (tile.cuh's
+// gemm_kernel), then fused_ffma_kernel, and fused_epilogue only when K is
+// split. Workspace: [the base's partials, when split][xA's partials].
+template <class WS>
+inline int launch_ffma(const Plan& pl, const float* x, const WS& w, const float* a,
+                       const float* b, const float* scale, float* y, float* workspace, int n,
+                       int m, int k, int l, int r, cudaStream_t stream) {
+  const int rows = n * m;
+  float* part_y = pl.splits_y > 1 ? workspace : nullptr;
+  float* part_xa = workspace + (pl.splits_y > 1 ? (long long)pl.splits_y * rows * l : 0);
+  if ((long long)n * pl.splits_xa > 65535 || pl.splits_y > 65535 ||
+      (l + FF_BN - 1) / FF_BN > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fused_ffma_kernel<WS>;
+  static PerDevice smem_set;  // the attribute belongs to the device it is set on
+  const int e = smem_set.get([&] {
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     FF_SMEM);
+  });
+  if (e) return e;
+  launch_gemm<float>(Dense<float, false>{x, k}, Dense<float, false>{a, r}, nullptr,
+                     (float*)nullptr, part_xa, n, m, k, r, stream);
+  const dim3 grid((rows + FF_BM - 1) / FF_BM, (l + FF_BN - 1) / FF_BN, pl.splits_y);
+  kernel<<<grid, FF_THREADS, FF_SMEM, stream>>>(x, w, part_xa, pl.splits_xa, b, scale, y, part_y,
+                                                m, k, l, r, rows, pl.steps);
+  if (part_y)
+    launch_epilogue<float>(part_y, part_xa, b, scale, y, m, l, r, rows, pl.splits_y,
+                           pl.splits_xa, stream);
+  return (int)cudaGetLastError();
+}
+
 // One call of the fused function on the plan `pl`, W read through `w`
 // (element (k, l) of the (K x L) weight; tile.cuh's sources). `workspace`:
 // the plan's f32 workspace (on the decode path, xA).
@@ -818,6 +867,12 @@ inline int launch_fused(const Plan& pl, const void* x, const WS& w, const void* 
   if constexpr (std::is_same<T, bf16>::value && DecodeSource<WS>::OK) {
     if (pl.path == PATH_DECODE)
       return launch_decode(pl, x, w, a, b, scale, y, workspace, n, m, k, l, r, stream);
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    if (pl.path == PATH_FFMA)
+      return launch_ffma(pl, static_cast<const float*>(x), w, static_cast<const float*>(a),
+                         static_cast<const float*>(b), scale, static_cast<float*>(y), workspace,
+                         n, m, k, l, r, stream);
   }
   if constexpr (std::is_same<T, bf16>::value) {
     if (pl.path == PATH_WGMMA) {

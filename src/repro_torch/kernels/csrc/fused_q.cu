@@ -24,7 +24,10 @@
 // (int8) or ~3.6x (nf4). Decode (at most 16 rows) is bytes-bound on the
 // codes: decode.cuh's weight-streaming kernel loads them in 8-byte vectors
 // and dequantizes each row pair before it multiplies it, in the dense call's
-// order of sums.
+// order of sums. On an f32 x at those shapes the FP32 pipes bound it, as
+// the dense f32 call: ffma.cuh's tiled FFMA kernel stages the dequantized
+// f32 tile from registers where the dense call copies W by cp.async, and
+// multiplies it in the same order.
 #include "fused.cuh"
 
 using namespace plora;
@@ -45,13 +48,14 @@ static int run(const Plan& pl, const void* x, const void* codes, const float* sc
 }
 
 // The plan of a call from its sizes and its operands' flags -- aligned: x
-// and the scales start on 16 bytes, the codes on 8; decode_ok: A and B start
-// on 16 bytes. The same plan as the dense kernel's (fused.cu), so a call
-// takes the path and the order of sums of the dense call on the dequantized
-// W. Returns the path and stores the f32 workspace (elements) it needs.
+// and the scales start on 16 bytes, the codes on 8; ab_aligned: A and B
+// start on 16 bytes. The same plan as the dense kernel's (fused.cu) on a
+// row-major W, so a call takes the path and the order of sums of the dense
+// call on the dequantized W. Returns the path and stores the f32 workspace
+// (elements) it needs.
 extern "C" int plora_fused_matmul_q_plan(int n, int m, int k, int l, int r, int dtype,
-                                         int aligned, int decode_ok, long long* workspace) {
-  const Plan pl = make_plan(aligned != 0, decode_ok != 0, dtype, n, m, k, l, r);
+                                         int aligned, int ab_aligned, long long* workspace) {
+  const Plan pl = make_plan(aligned != 0, ab_aligned != 0, false, dtype, n, m, k, l, r);
   *workspace = pl.workspace;
   return pl.path;
 }
@@ -77,7 +81,7 @@ extern "C" int plora_fused_matmul_q(const long long* args) {
   if (const int bad = check_sizes(n, m, k, l, r)) return bad;
   if (mode != 0 && (mode != 1 || k % 2 || blk <= 0 || k % blk)) return (int)cudaErrorInvalidValue;
   const Plan pl = make_plan(q_aligned(x, codes, scales), aligned_to(a, 16) && aligned_to(b, 16),
-                            dtype, n, m, k, l, r);
+                            false, dtype, n, m, k, l, r);
   if (dtype == 0)
     return run<float>(pl, x, codes, scales, a, b, scale, y, workspace, n, m, k, l, r, mode, blk,
                       st);

@@ -14,14 +14,17 @@ kernel's K loop. On a CUDA tensor they launch ``csrc/fused.cu`` and
 raises, and so does one that requires grad while grad mode is on (the
 kernels build no graph).
 
-A call takes one of three paths of ``csrc/fused.cuh``'s plan, which reads
+A call takes one of four paths of ``csrc/fused.cuh``'s plan, which reads
 only shapes, dtype, W's layout and alignment (``fused_matmul_path`` names
 it): "decode" (bf16, at most 16 rows in all: the weight-streaming kernel of
 ``csrc/decode.cuh``), "wgmma" (bf16, more rows: the warp-specialised
-tensor-core kernel) or "split3" (f32, the backward's W^T at few rows, odd
-shapes). The plan is asked once per shape and cached, and a launch is one
-ctypes call whose arguments go as one packed block. The decode path's one
-workspace, xA (rows x r f32), lies behind y in y's own allocation.
+tensor-core kernel), "ffma" (f32, more than 16 rows, K and L multiples of 4,
+operands on 16 bytes, W row-major or W^T: the tiled FFMA kernel of
+``csrc/ffma.cuh``) or "split3" (f32 and the backward's bf16 W^T at decode
+rows, odd shapes). The plan is asked once per shape and cached, and a
+launch is one ctypes call whose arguments go as one packed block. The
+decode path's one workspace, xA (rows x r f32), lies behind y in y's own
+allocation. Each wrapper counts its launches by direction and path.
 
 ``_FusedLora`` is the autograd Function around them: its backward is the
 reference's ``_bwd`` (``fused.py:354-431``), with dx through the kernel.
@@ -49,11 +52,12 @@ from repro_torch.kernels.packed_matmul import (
 from repro_torch.kernels.quant import dequantize
 
 MAX_RANK = 128  # RMAX of csrc/fused.cuh
-# PATH_SPLIT3, PATH_WGMMA, PATH_DECODE of csrc/fused.cuh: "split3" three FMA
-# launches (f32, odd shapes), "wgmma" the warp-specialised tensor-core kernel
-# (bf16, more than 16 rows), "decode" the weight-streaming kernel of
-# csrc/decode.cuh (bf16, at most 16 rows in all)
-PATHS = ("split3", "wgmma", "decode")
+# PATH_SPLIT3, PATH_WGMMA, PATH_DECODE, PATH_FFMA of csrc/fused.cuh: "split3"
+# three FMA launches (f32 at decode rows, odd shapes), "wgmma" the
+# warp-specialised tensor-core kernel (bf16, more than 16 rows), "decode" the
+# weight-streaming kernel of csrc/decode.cuh (bf16, at most 16 rows in all),
+# "ffma" the tiled FFMA kernel of csrc/ffma.cuh (f32, more than 16 rows)
+PATHS = ("split3", "wgmma", "decode", "ffma")
 DECODE = PATHS.index("decode")
 QUANT_MODES = {torch.int8: 0, torch.uint8: 1}  # the codes' dtype -> mode of csrc/fused_q.cu
 # each launch's one argument: a block of 15 (dense) or 17 (quantized) int64
@@ -102,19 +106,20 @@ def _q_aligned(x, codes, scales) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _plan(lib_name: str, n: int, m: int, k: int, l: int, r: int, code: int, aligned: int,
-          decode_ok: int):
+          ab_aligned: int, trans_w: int = 0):
     """(path, f32 workspace elements) of a call, from ``csrc/fused.cuh``'s
     plan -- the one the launch makes from the pointers. It reads only these
-    sizes, the dtype and two flags (``aligned``: x and W can be read by the
-    kernels' TMA and vector loads; ``decode_ok``: W is row-major and A, B are
-    16-byte aligned), so it is asked once per shape."""
+    sizes, the dtype and three flags (``aligned``: x and W can be read by
+    the kernels' TMA and vector loads; ``ab_aligned``: A and B are 16-byte
+    aligned; ``trans_w``: W is a transposed view, read in place), so it is
+    asked once per shape."""
     ws = ctypes.c_longlong(0)
     if lib_name == "fused":
         path = _build.load("fused").plora_fused_matmul_plan(
-            n, m, k, l, r, code, aligned, decode_ok, ctypes.byref(ws))
+            n, m, k, l, r, code, aligned, ab_aligned, trans_w, ctypes.byref(ws))
     else:
         path = _build.load("fused_q").plora_fused_matmul_q_plan(
-            n, m, k, l, r, code, aligned, decode_ok, ctypes.byref(ws))
+            n, m, k, l, r, code, aligned, ab_aligned, ctypes.byref(ws))
     return path, ws.value
 
 
@@ -146,8 +151,8 @@ def fused_matmul(
     x: (N, M, K); w: (K, L) shared, contiguous or a transposed view of a
     contiguous (L, K) tensor; a: (N, K, r); b: (N, r, L); scale: (N,) f32 or
     None; bf16 or f32, r <= 128. ``backward`` marks the backward's dx call:
-    it is counted in ``fused_matmul.bwd_launches`` instead of
-    ``fused_matmul.launches``."""
+    its launch is counted under "bwd" in ``fused_matmul.launches`` (keyed
+    by direction and path; ``kernels/launches.py`` reads them)."""
     if x.is_cpu:
         return _ref.fused_matmul_ref(x, w, a, b, scale)
     dev = _device(x, "fused_matmul")
@@ -179,7 +184,7 @@ def fused_matmul(
     code = DTYPE_CODES[dt]
     xp, wp, ap, bp = x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr()
     path, n_ws = _plan("fused", n, m, k, l, r, code, int((xp | wp) % 16 == 0),
-                       int(not trans_w and (ap | bp) % 16 == 0))
+                       int((ap | bp) % 16 == 0), int(trans_w))
     y, ws, keep = _outputs(n, m, l, path, n_ws, dt, dev)
     launch = _launch.get("fused")
     if launch is None:
@@ -189,15 +194,12 @@ def fused_matmul(
     del keep
     if rc:
         _build.check(_build.load("fused"), rc, "fused_matmul")
-    if backward:
-        fused_matmul.bwd_launches += 1
-    else:
-        fused_matmul.launches += 1
+    fused_matmul.launches["bwd" if backward else "fwd", PATHS[path]] += 1
     return y
 
 
-fused_matmul.launches = 0
-fused_matmul.bwd_launches = 0
+# (direction, path) -> launches: the forward's and dx's
+fused_matmul.launches = {(d, p): 0 for d in ("fwd", "bwd") for p in PATHS}
 
 
 def _q_operands(x, codes, scales, a, b):
@@ -253,18 +255,18 @@ def fused_matmul_q(
     del keep
     if rc:
         _build.check(_build.load("fused_q"), rc, "fused_matmul_q")
-    fused_matmul_q.launches += 1
+    fused_matmul_q.launches["fwd", PATHS[path]] += 1
     return y
 
 
-fused_matmul_q.launches = 0
+fused_matmul_q.launches = {("fwd", p): 0 for p in PATHS}
 
 
 def fused_matmul_path(x: torch.Tensor, w: torch.Tensor, r: int,
                       a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None) -> str:
     """Which path ``csrc/fused.cuh``'s plan gives :func:`fused_matmul` on
-    these CUDA operands (x (N, M, K), w (K, L), rank r): "decode", "wgmma"
-    or "split3". The plan reads only shapes, dtype, W's layout and
+    these CUDA operands (x (N, M, K), w (K, L), rank r): "decode", "wgmma",
+    "ffma" or "split3". The plan reads only shapes, dtype, W's layout and
     alignment; A and B, when not given, count as 16-byte aligned (as a
     fresh allocation is)."""
     _device(x, "fused_matmul_path")
@@ -272,7 +274,7 @@ def fused_matmul_path(x: torch.Tensor, w: torch.Tensor, r: int,
     trans_w = _transposed(w, "w")
     ab = _aligned16(*(t for t in (a, b) if t is not None))
     return PATHS[_plan("fused", n, m, k, w.shape[1], r, DTYPE_CODES[x.dtype],
-                       int(_aligned16(x, w)), int(not trans_w and ab))[0]]
+                       int(_aligned16(x, w)), int(ab), int(trans_w))[0]]
 
 
 def fused_matmul_q_path(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, r: int,

@@ -180,8 +180,8 @@ def packed_matmul(
 
     x: (N, M, K); w: (N, K, L), each contiguous or a transposed view of a
     contiguous tensor; scale: (N,) f32 or None; bf16 or f32. ``backward``
-    marks a launch for a backward case: it is counted in
-    ``packed_matmul.bwd_launches`` instead of ``packed_matmul.launches``."""
+    marks a launch for a backward case: it is counted under "bwd" in
+    ``packed_matmul.launches`` (keyed by direction and path)."""
     if x.is_cpu:
         return packed_matmul_ref(x, w, scale)
     dev = _device(x, "packed_matmul")
@@ -193,7 +193,7 @@ def packed_matmul(
     out = torch.empty((n, m, l), dtype=x.dtype, device=dev)
     if n * m * l == 0:
         return out
-    _, n_ws = _plan(n, m, k, l, code, tx, tw, aligned)
+    path, n_ws = _plan(n, m, k, l, code, tx, tw, aligned)
     # f32 partial sums of the FMA path's split K loop (csrc/tile.cuh)
     ws = torch.empty((n_ws,), dtype=torch.float32, device=dev) if n_ws else None
     rc = (_launch or _library().plora_packed_matmul)(_ARGS.pack(
@@ -203,15 +203,12 @@ def packed_matmul(
     ))
     if rc:
         _build.check(_lib, rc, "packed_matmul")
-    if backward:
-        packed_matmul.bwd_launches += 1
-    else:
-        packed_matmul.launches += 1
+    packed_matmul.launches["bwd" if backward else "fwd", PATHS[path]] += 1
     return out
 
 
-packed_matmul.launches = 0
-packed_matmul.bwd_launches = 0
+# (direction, path) -> launches: the forward's and the backward cases'
+packed_matmul.launches = {(d, p): 0 for d in ("fwd", "bwd") for p in PATHS}
 
 
 def _scale_address(scale: Optional[torch.Tensor], n: int, dev: int, x: torch.Tensor) -> int:
@@ -259,7 +256,7 @@ def packed_matmul_pair(
     ))
     if rc:
         _build.check(_lib, rc, "packed_matmul_pair")
-    packed_matmul.launches += 2
+    packed_matmul.launches["fwd", "decode"] += 2
     return out, xa
 
 

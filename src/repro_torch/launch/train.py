@@ -99,7 +99,11 @@ def parse_args(argv=None):
     return args
 
 
-def main(argv=None):
+def main(argv=None, *, executor=None, step_callback=None):
+    """Run the launcher on ``argv`` (default: the command line); returns the
+    per-adapter final losses. A caller that observes the run passes its own
+    ``executor`` (a ``SliceExecutor``: its ``captures`` then stay readable)
+    and ``step_callback(i, metrics)``, called after every step."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -138,21 +142,23 @@ def main(argv=None):
         print(f"resumed packed state {state_id!r} (per-adapter steps {start_steps})")
 
     def log(i, m):
-        if i % args.log_every == 0:
+        if args.log_every and i % args.log_every == 0:
             per = m["per_adapter_loss"].cpu().numpy()
             print(f"step {i:4d}  loss={float(m['loss']):.4f}  per-adapter={np.round(per, 3)}")
+        if step_callback is not None:
+            step_callback(i, m)
 
     store = ObservationStore.load(args.profile_in) if args.profile_in else ObservationStore()
     est = ProfiledCostModel(CostModel(cfg, PRESETS[args.hw], base_dtype=quant), store)
     pred_prior = est.prior.iter_time(configs, 1, args.seq)
     pred_profiled = est.iter_time(configs, 1, args.seq)  # before observing
 
-    ex = SliceExecutor()
+    ex = executor if executor is not None else SliceExecutor()
     try:
         res = ex.train_pack(
             cfg, configs, n_steps=args.steps, seq=args.seq, base=base, lora=lora, opt=opt,
             slice_=slice_, data_start_steps=start_steps,
-            step_callback=log if args.log_every else None,
+            step_callback=log if args.log_every or step_callback is not None else None,
             impl=args.impl, remat=args.remat, base_dtype=quant,
         )
     finally:

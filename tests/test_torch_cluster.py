@@ -445,11 +445,11 @@ def test_launch_counts_leave_a_capture_and_return_per_replay():
     from repro_torch.kernels.packed_matmul import packed_matmul
 
     launches.zero()
-    packed_matmul.launches += 2  # an eager step
+    packed_matmul.launches["fwd", "mma"] += 2  # an eager step
     with launches.recorded() as calls:
-        packed_matmul.launches += 5
-        packed_matmul.bwd_launches += 3
-    assert calls["packed_matmul"] == 5 and calls["packed_matmul_bwd"] == 3
+        packed_matmul.launches["fwd", "mma"] += 5
+        packed_matmul.launches["bwd", "mma"] += 3
+    assert calls == {("packed_matmul", "fwd", "mma"): 5, ("packed_matmul", "bwd", "mma"): 3}
     assert launches.read()["packed_matmul"] == 2 and launches.read()["packed_matmul_bwd"] == 0
     for _ in range(4):  # four replays
         launches.add(calls)
@@ -457,7 +457,7 @@ def test_launch_counts_leave_a_capture_and_return_per_replay():
                                "fused_matmul_dx": 0, "fused_matmul_q": 0}
     with pytest.raises(KeyError):
         with launches.recorded():
-            packed_matmul.launches += 1
+            packed_matmul.launches["fwd", "mma"] += 1
             raise KeyError("a failed capture")
     assert launches.read()["packed_matmul"] == 22
     launches.zero()

@@ -13,7 +13,7 @@ dequantized weight (``torch.equal``): the two stage identical tile values.
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import launches, ops
 from repro_torch.kernels.fused import (
     fused_matmul,
     fused_matmul_path,
@@ -38,6 +38,11 @@ def cuda():
 
 def _rnd(g, shape, dt, std=1.0):
     return (torch.randn(shape, generator=g, device=g.device) * std).to(dt)
+
+
+def _n(count):
+    """A launch count of ``kernels/launches.py`` (forward or backward, all paths)."""
+    return launches.read()[count]
 
 
 def _close(got, want):
@@ -66,9 +71,9 @@ def test_cuda_kernels_match_plain(cuda, dtype, n, m, k, l, r):
     a = _rnd(g, (n, k, r), dt, k ** -0.5)
     b = _rnd(g, (n, r, l), dt)
     s = torch.linspace(0.5, 2.0, n, device=cuda)
-    n0 = packed_matmul.launches
+    n0 = _n("packed_matmul")
     got, want = packed_matmul(x, a, s), packed_matmul_ref(x, a, s)
-    assert packed_matmul.launches == n0 + 1
+    assert _n("packed_matmul") == n0 + 1
     _close(got, want)
     _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
     strided = torch.empty((n, m, 2 * k), device=cuda, dtype=dt)[..., ::2]
@@ -95,11 +100,11 @@ def test_backward_cases_match_plain(cuda, dtype, n, t, d, k, r):
     x, a = _rnd(g, (n, t, d), dt), _rnd(g, (n, d, r), dt, d ** -0.5)
     b, gs = _rnd(g, (n, r, k), dt), _rnd(g, (n, t, k), dt)
     xa, dxa = _rnd(g, (n, t, r), dt), _rnd(g, (n, t, r), dt)
-    n0 = packed_matmul.bwd_launches
+    n0 = _n("packed_matmul_bwd")
     for lhs, rhs in ((xa.transpose(1, 2), gs), (gs, b.transpose(1, 2)),
                      (x.transpose(1, 2), dxa), (dxa, a.transpose(1, 2))):
         _close(packed_matmul(lhs, rhs, backward=True), packed_matmul_ref(lhs, rhs))
-    assert packed_matmul.bwd_launches == n0 + 4
+    assert _n("packed_matmul_bwd") == n0 + 4
 
 
 @pytest.mark.gpu
@@ -122,9 +127,9 @@ def test_fused_dx_reads_w_transposed(cuda, dtype, n, m, d_in, d_out, r):
     bt = _rnd(gen, (n, r, d_out), dt).transpose(1, 2).contiguous()
     at = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5).transpose(1, 2).contiguous()
     s = torch.linspace(0.5, 2.0, n, device=cuda)
-    n0 = fused_matmul.bwd_launches
+    n0 = _n("fused_matmul_dx")
     _close(fused_matmul(g, w.t(), bt, at, s, backward=True), fused_matmul_ref(g, w.t(), bt, at, s))
-    assert fused_matmul.bwd_launches == n0 + 1
+    assert _n("fused_matmul_dx") == n0 + 1
 
 
 @pytest.mark.gpu
@@ -145,9 +150,9 @@ def test_fused_q_bit_equal_to_dense_on_dequantized(cuda, mode, dtype, n, m, k, l
     x, a, b = _rnd(g, (n, m, k), dt), _rnd(g, (n, k, r), dt, k ** -0.5), _rnd(g, (n, r, l), dt)
     q = quantize_weight(_rnd(g, (k, l), torch.float32, k ** -0.5), mode)
     s = torch.linspace(0.5, 2.0, n, device=cuda)
-    n0 = fused_matmul_q.launches
+    n0 = _n("fused_matmul_q")
     got = fused_matmul_q(x, q["codes"], q["scales"], a, b, s)
-    assert fused_matmul_q.launches == n0 + 1
+    assert _n("fused_matmul_q") == n0 + 1
     assert torch.equal(got, fused_matmul(x, dequantize(q, dt), a, b, s))
     _close(got, fused_matmul_q_ref(x, q["codes"], q["scales"], a, b, s))
 
@@ -192,7 +197,7 @@ def test_wgmma_split_k_is_deterministic_and_paths_follow_shapes(cuda):
     """A split-K call gives the same bits twice (fixed-order partial sums);
     bf16 decode rows take the weight-streaming kernel, f32 and the
     backward's W^T at decode rows the three-launch path, bf16 training rows
-    the wgmma kernel."""
+    the wgmma kernel, f32 training rows the tiled FFMA kernel."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     dt = torch.bfloat16
     x, w = _rnd(gen, (2, 1024, 3584), dt), _rnd(gen, (3584, 512), dt, 3584 ** -0.5)
@@ -203,7 +208,143 @@ def test_wgmma_split_k_is_deterministic_and_paths_follow_shapes(cuda):
     assert fused_matmul_path(x[:, :1], w, 16) == "decode"  # 2 rows, bf16
     assert fused_matmul_path(x[:, :1].float(), w.float(), 16) == "split3"  # 2 rows, f32
     assert fused_matmul_path(x[:, :1], w.t().contiguous().t(), 16) == "split3"  # dx's W^T
-    assert fused_matmul_path(x.float(), w.float(), 16) == "split3"
+    assert fused_matmul_path(x.float(), w.float(), 16) == "ffma"
+
+
+# qwen25-7b's projections (d_in, d_out): q and o, k and v, gate and up, down
+TRAIN_PROJ = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
+
+
+def _ffma_call(fn, *args, backward=False):
+    """One fused call that must take the ffma path: counted once, under its
+    direction and "ffma"; returns its result."""
+    want = dict(fused_matmul.launches)
+    want["bwd" if backward else "fwd", "ffma"] += 1
+    y = fn(*args, backward=backward)
+    assert fused_matmul.launches == want
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_in,d_out", TRAIN_PROJ)
+def test_ffma_path_at_the_training_shapes(cuda, d_in, d_out):
+    """f32 at qwen25-7b's training shapes (N = 2 x M = 1,024, r = 16): the
+    forward and dx (W^T read in place from W's storage) take the tiled
+    FFMA kernel and agree with the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    n, m, r, f32 = 2, 1024, 16, torch.float32
+    w = _rnd(gen, (d_in, d_out), f32, d_in ** -0.5)
+    s = torch.tensor([0.5, 2.0], device=cuda)
+    x, a, b = _rnd(gen, (n, m, d_in), f32), _rnd(gen, (n, d_in, r), f32, d_in ** -0.5), \
+        _rnd(gen, (n, r, d_out), f32)
+    assert fused_matmul_path(x, w, r, a, b) == "ffma"
+    _close(_ffma_call(fused_matmul, x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+    g, bt = _rnd(gen, (n, m, d_out), f32), b.transpose(1, 2).contiguous()
+    at = a.transpose(1, 2).contiguous()
+    assert fused_matmul_path(g, w.t(), r, bt, at) == "ffma"
+    _close(_ffma_call(fused_matmul, g, w.t(), bt, at, s, backward=True),
+           fused_matmul_ref(g, w.t(), bt, at, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("r", [8, 16, 20, 64, 128])
+def test_ffma_path_matches_plain(cuda, r, n, scaled):
+    """f32 with ragged edges everywhere: M = 304 (one adapter) or 300 (three,
+    whose rows share 128-row tiles), K = L = 3,592 (a partial column tile
+    and a partial K step); forward and dx, and int8/nf4 ``torch.equal`` to
+    the dense kernel on the dequantized W (the same path and sums)."""
+    gen = torch.Generator(device=cuda).manual_seed(41 + r)
+    m, k, f32 = (304 if n == 1 else 300), 3592, torch.float32
+    x, w = _rnd(gen, (n, m, k), f32), _rnd(gen, (k, k), f32, k ** -0.5)
+    a, b = _rnd(gen, (n, k, r), f32, k ** -0.5), _rnd(gen, (n, r, k), f32)
+    s = torch.linspace(0.5, 2.0, n, device=cuda) if scaled else None
+    assert fused_matmul_path(x, w, r, a, b) == "ffma"
+    y = _ffma_call(fused_matmul, x, w, a, b, s)
+    assert y.shape == (n, m, k) and y.is_contiguous()
+    _close(y, fused_matmul_ref(x, w, a, b, s))
+    bt, at = b.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous()
+    _close(_ffma_call(fused_matmul, x, w.t(), bt, at, s, backward=True),
+           fused_matmul_ref(x, w.t(), bt, at, s))
+    for mode in ("int8", "nf4"):
+        q = quantize_weight(w, mode)
+        assert fused_matmul_q_path(x, q["codes"], q["scales"], r, a, b) == "ffma"
+        n0 = fused_matmul_q.launches["fwd", "ffma"]
+        got = fused_matmul_q(x, q["codes"], q["scales"], a, b, s)
+        assert fused_matmul_q.launches["fwd", "ffma"] == n0 + 1
+        assert torch.equal(got, fused_matmul(x, dequantize(q, f32), a, b, s))
+        _close(got, fused_matmul_q_ref(x, q["codes"], q["scales"], a, b, s))
+
+
+@pytest.mark.gpu
+def test_ffma_split_k_is_deterministic_and_captures(cuda):
+    """k/v's shape leaves SMs idle (few output tiles): K is split, and the
+    call gives the same bits twice. A call captured in a CUDA graph (the
+    launcher's step) replays to the eager call's bits, forward and dx."""
+    from repro_torch.kernels import fused as fused_module
+
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    n, m, k, l, r, f32 = 2, 1024, 3584, 512, 16, torch.float32
+    x, w = _rnd(gen, (n, m, k), f32), _rnd(gen, (k, l), f32, k ** -0.5)
+    a, b = _rnd(gen, (n, k, r), f32, k ** -0.5), _rnd(gen, (n, r, l), f32)
+    s = torch.tensor([0.5, 2.0], device=cuda)
+    path, n_ws = fused_module._plan("fused", n, m, k, l, r, 0, 1, 1, 0)
+    assert fused_module.PATHS[path] == "ffma" and n_ws > n * m * l  # the base's partials
+    y = fused_matmul(x, w, a, b, s)
+    assert torch.equal(y, fused_matmul(x, w, a, b, s))
+    _close(y, fused_matmul_ref(x, w, a, b, s))
+    g, bt, at = _rnd(gen, (n, m, l), f32), b.transpose(1, 2).contiguous(), \
+        a.transpose(1, 2).contiguous()
+    for args, bwd in (((x, w, a, b, s), False), ((g, w.t(), bt, at, s), True)):
+        eager = fused_matmul(*args, backward=bwd)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused_matmul(*args, backward=bwd)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused_matmul(*args, backward=bwd)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+# plan_ffma's K ranges at the training launcher's shapes (each same-rank
+# segment of its pack: N = 1 x M = 1,024), forward and dx, by (d_in, d_out)
+LAUNCHER_SPLITS = {(3584, 3584): (4, 4), (3584, 512): (4, 1), (3584, 18944): (1, 4),
+                   (18944, 3584): (4, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [8, 16])
+@pytest.mark.parametrize("d_in,d_out", TRAIN_PROJ)
+def test_ffma_at_the_launcher_shapes_splits_k_four_ways(cuda, d_in, d_out, r):
+    """At the launcher's shapes the plan cuts K into 4 ranges (q/o, k/v and
+    down forward; q/o and gate/up dx) or none: each call takes the ffma
+    path, agrees with the plain version and gives the same bits twice."""
+    from repro_torch.kernels import fused as fused_module
+
+    gen = torch.Generator(device=cuda).manual_seed(43 + r)
+    n, m, f32 = 1, 1024, torch.float32
+    w = _rnd(gen, (d_in, d_out), f32, d_in ** -0.5)
+    x, a, b = _rnd(gen, (n, m, d_in), f32), _rnd(gen, (n, d_in, r), f32, d_in ** -0.5), \
+        _rnd(gen, (n, r, d_out), f32)
+    g, bt, at = _rnd(gen, (n, m, d_out), f32), b.transpose(1, 2).contiguous(), \
+        a.transpose(1, 2).contiguous()
+    s = torch.tensor([2.0], device=cuda)
+    for args, bwd, splits in (((x, w, a, b, s), False, LAUNCHER_SPLITS[d_in, d_out][0]),
+                              ((g, w.t(), bt, at, s), True, LAUNCHER_SPLITS[d_in, d_out][1])):
+        k, l = args[0].shape[2], args[1].shape[1]
+        path, n_ws = fused_module._plan("fused", n, m, k, l, r, 0, 1, 1, int(bwd))
+        assert fused_module.PATHS[path] == "ffma"
+        # the workspace: y's f32 partials, one (M x L) block a K range when K
+        # is split, then xA's (at most 17 ranges x r <= 272 columns, < L)
+        assert n_ws // (n * m * l) == (splits if splits > 1 else 0)
+        y = _ffma_call(fused_matmul, *args, backward=bwd)
+        _close(y, fused_matmul_ref(*args))
+        assert torch.equal(y, fused_matmul(*args, backward=bwd))
 
 
 @pytest.mark.gpu
@@ -242,14 +383,14 @@ def test_autograd_through_kernels_matches_plain(cuda, impl, xdim):
         b = _rnd(torch.Generator(device=cuda).manual_seed(7), (3, 16, 96), torch.float32)
         a.requires_grad_(True)
         b.requires_grad_(True)
-        n0 = (packed_matmul.bwd_launches, fused_matmul.bwd_launches)
+        n0 = (_n("packed_matmul_bwd"), _n("fused_matmul_dx"))
         if impl == "auto":
             y = ops.packed_lora_delta(x, a, b, al, impl=path, ranks=ranks)
         else:
             y = ops.fused_lora_linear(x, w, a, b, al, impl=path, ranks=ranks)
         (y.float() ** 2).sum().backward()
         if path == impl:
-            assert (packed_matmul.bwd_launches, fused_matmul.bwd_launches) != n0
+            assert (_n("packed_matmul_bwd"), _n("fused_matmul_dx")) != n0
         assert a.grad is not None and b.grad is not None
         assert (a.grad[0, :, 8:] == 0).all() and (b.grad[2, 8:] == 0).all()
         grads[path] = (a.grad, b.grad)
@@ -336,10 +477,10 @@ def test_remat_save_equals_recompute_on_the_card(cuda):
     res = {}
     for remat in ("save", "recompute"):
         a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
-        n0 = packed_matmul.bwd_launches
+        n0 = _n("packed_matmul_bwd")
         y = ops.packed_lora_delta(x, a, b, al, remat=remat)
         (y.float() ** 2).sum().backward()
-        assert packed_matmul.bwd_launches > n0
+        assert _n("packed_matmul_bwd") > n0
         res[remat] = (y, a.grad, b.grad)
     for got, want in zip(res["save"], res["recompute"]):
         assert torch.equal(got, want)
@@ -373,9 +514,9 @@ def test_decode_path_matches_plain(cuda, n, m, k, l, r):
     a, b = _rnd(gen, (n, k, r), dt, k ** -0.5), _rnd(gen, (n, r, l), dt)
     s = torch.linspace(0.5, 2.0, n, device=cuda)
     assert fused_matmul_path(x, w, r, a, b) == "decode"
-    n0 = fused_matmul.launches
+    n0 = _n("fused_matmul")
     y = fused_matmul(x, w, a, b, s)
-    assert fused_matmul.launches == n0 + 1 and y.shape == (n, m, l) and y.is_contiguous()
+    assert _n("fused_matmul") == n0 + 1 and y.shape == (n, m, l) and y.is_contiguous()
     _close(y, fused_matmul_ref(x, w, a, b, s))
     assert torch.equal(y, fused_matmul(x, w, a, b, s))
     _close(fused_matmul(x, w, a, b), fused_matmul_ref(x, w, a, b))
@@ -464,9 +605,9 @@ def test_packed_matmul_decode_path_matches_plain(cuda, n, m, r):
         x, w = _rnd(g, (n, m, k), torch.bfloat16), _rnd(g, (n, k, l), torch.bfloat16, k ** -0.5)
         assert packed_matmul_path(x, w) == "decode", (k, l)
         for s in (torch.linspace(0.5, 2.0, n, device=cuda), None):
-            n0 = packed_matmul.launches
+            n0 = _n("packed_matmul")
             got = packed_matmul(x, w, s)
-            assert packed_matmul.launches == n0 + 1
+            assert _n("packed_matmul") == n0 + 1
             _close(got, packed_matmul_ref(x, w, s))
             assert torch.equal(got, packed_matmul(x, w, s)), (k, l)
 
@@ -526,9 +667,9 @@ def test_paired_delta_equals_two_calls(cuda, remat, xdim):
         b0 = _rnd(g, (n, r, d_out), torch.bfloat16)
         s = torch.linspace(0.5, 2.0, n, device=cuda)
         x3 = x.reshape(n, -1, d_in)
-        n0 = packed_matmul.launches
+        n0 = _n("packed_matmul")
         out, xa = packed_matmul_pair(x3, a0, b0, s)
-        assert packed_matmul.launches == n0 + 2
+        assert _n("packed_matmul") == n0 + 2
         want_xa = packed_matmul(x3, a0)
         assert torch.equal(xa, want_xa) and torch.equal(out, packed_matmul(want_xa, b0, s))
         a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)

@@ -177,7 +177,7 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(kernel):
     """On a CPU tensor the wrapper runs the plain version: no launch."""
     (jx, tx), (jw, tw), (ja, ta), (jb, tb) = _inputs(0, [(2, 3, 8), (2, 8, 4), (8, 4), (2, 4, 4)], "float32")
     fn = packed_matmul if kernel == "packed_matmul" else fused_matmul
-    before = fn.launches
+    before = dict(fn.launches)
     if kernel == "packed_matmul":
         fn(tx, tw)
     else:
@@ -230,3 +230,61 @@ def test_transposed_layout_reads_the_strides(shape):
             with pytest.raises(ValueError, match="contiguous"):
                 packed_module._transposed(v, "t")
     assert packed_module._transposed(views[1], "t") == int(a > 1 and b > 1)
+
+
+def _c_enum(src: str, prefix: str):
+    """The ``PATH_*`` enum of a CUDA source: name -> value."""
+    body = re.search(r"enum\s*\{([^}]*" + prefix + r"[^}]*)\}", src).group(1)
+    return {name: int(v) for name, v in re.findall(r"(" + prefix + r"\w+)\s*=\s*(\d+)", body)}
+
+
+@pytest.mark.parametrize("module,source", [("fused", "fused.cuh"), ("packed_matmul", "skinny.cuh")])
+def test_paths_agree_with_the_plan_enum(module, source):
+    """A wrapper's ``PATHS`` names the plan's ``PATH_*`` values in order, so
+    a path index the C plan returns reads as the right name (``ffma`` is
+    ``PATH_FFMA``, and so on)."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    enum = _c_enum((Path(mod.__file__).parent / "csrc" / source).read_text(), "PATH_")
+    assert sorted(enum.values()) == list(range(len(mod.PATHS)))
+    assert {v: k[len("PATH_"):].lower() for k, v in enum.items()} == dict(enumerate(mod.PATHS))
+
+
+@pytest.mark.parametrize("lib", sorted(_build.SIGNATURES))
+def test_signatures_match_the_c_parameter_counts(lib):
+    """Each declared ctypes signature has as many arguments as the C
+    function has parameters (a plan query that gains a flag must gain it
+    on both sides)."""
+    src = (Path(_build.__file__).parent / "csrc" / f"{lib}.cu").read_text()
+    for fname, (_, argtypes) in _build.SIGNATURES[lib].items():
+        params = re.search(r'extern "C" [^(]*\b' + fname + r"\(([^)]*)\)", src).group(1)
+        assert len(argtypes) == len([p for p in params.split(",") if p.strip()]), (lib, fname)
+
+
+def test_path_counts_leave_a_capture_and_return_per_replay():
+    """Each wrapper's one count, by direction and path, gives both the
+    totals (``read``) and the launches by path (``read_paths``): a capture
+    takes what it recorded out, each replay adds it back, ``zero`` clears."""
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.fused import fused_matmul_q
+
+    launches.zero()
+    fused_matmul.launches["fwd", "ffma"] += 3  # an eager step
+    with launches.recorded() as calls:
+        fused_matmul.launches["fwd", "ffma"] += 2
+        fused_matmul.launches["bwd", "ffma"] += 1
+        packed_matmul.launches["bwd", "fma"] += 4
+    assert calls == {("fused_matmul", "fwd", "ffma"): 2, ("fused_matmul", "bwd", "ffma"): 1,
+                     ("packed_matmul", "bwd", "fma"): 4}
+    assert launches.read_paths()["fused_matmul"]["ffma"] == 3
+    for _ in range(2):
+        launches.add(calls)
+    paths = launches.read_paths()
+    assert paths["fused_matmul"] == {"split3": 0, "wgmma": 0, "decode": 0, "ffma": 9}
+    assert paths["packed_matmul"] == {"fma": 8, "mma": 0, "decode": 0}
+    assert set(paths["fused_matmul_q"]) == {p for _, p in fused_matmul_q.launches}
+    assert launches.read() == {"packed_matmul": 0, "packed_matmul_bwd": 8, "fused_matmul": 7,
+                               "fused_matmul_dx": 2, "fused_matmul_q": 0}
+    launches.zero()
+    assert all(k == 0 for p in launches.read_paths().values() for k in p.values())

@@ -276,6 +276,21 @@ def test_launcher_runs_on_cpu_and_needs_a_device_otherwise(monkeypatch, capsys):
         launch_train.main(["--reduced", "--device", "cpu", "--hosts", "2"])
 
 
+def test_launcher_fused_impl_equals_auto_on_the_f32_base(capsys):
+    """The launcher's f32 base through the fused op (its plain version on
+    the CPU) gives auto's per-adapter losses within 1e-5 relative: one f32
+    function in two orders of sums. A step callback sees every step."""
+    args = ["--reduced", "--device", "cpu", "--steps", "2", "--seq", "16", "--log-every", "0"]
+    seen = []
+    fused = launch_train.main(args + ["--impl", "fused"],
+                              step_callback=lambda i, m: seen.append(i))
+    auto = launch_train.main(args + ["--impl", "auto"])
+    assert seen == [0, 1]
+    assert np.isfinite(fused).all() and fused.shape == auto.shape == (2,)
+    np.testing.assert_allclose(fused, auto, rtol=1e-5, atol=0)
+    assert capsys.readouterr().out.count("done: 2 steps") == 2
+
+
 def test_bridge_round_trips_opt_state_and_quantized_base(model):
     base, lora, meta = model
     opt = jax.tree.map(np.asarray, j_init_opt(lora, meta.n))
