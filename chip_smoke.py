@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build   -- compiles every kernel of ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, all at once), and prints ``ptxas -v``'s
    registers, shared memory and spills of each ``fused_wgmma_kernel``,
-   ``decode_kernel`` and ``fused_ffma_kernel``.
+   ``decode_kernel``, ``fused_ffma_kernel``, ``f32_narrow_kernel`` and
+   ``f32_short_k_kernel``.
 3. kernels -- calls each kernel at the qwen25-7b serving shapes (decode:
    N=8 rows, M=1; prefill: N=1, M=256; r=16; plus a ragged pack of ranks
    (8, 16)) and at its training shapes (N=2 adapters, M=1024 tokens each,
@@ -32,8 +33,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    two passes also run as one ``packed_matmul_pair`` call (call "pair",
    against two ``torch.bmm`` calls). Each row carries the ``path`` its
    plan took (fused: ``decode``, ``wgmma``, ``ffma`` or ``split3``, from
-   ``csrc/fused.cuh``'s plan; ``packed_matmul``: ``decode``, ``mma`` or
-   ``fma``, ``packed_matmul_path``), ``device_ms`` and ``library_device_ms``
+   ``csrc/fused.cuh``'s plan; ``packed_matmul``: ``decode``, ``mma``,
+   ``f32skinny`` or ``fma``, ``packed_matmul_path``), ``device_ms`` and
+   ``library_device_ms``
    (a CUDA graph of 20 calls replayed: the host out of the loop; the
    library yardstick of ``fused_matmul_q`` dequantizes W inside the
    graph) and ``host_us`` and ``library_host_us`` (host time per call, not
@@ -41,9 +43,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``fused_matmul`` or ``fused_matmul_q`` is off ``wgmma``, an f32 one or
    an f32 launcher-shape fused row off ``ffma`` (``csrc/ffma.cuh``'s tiled
    FFMA kernel), a bf16 decode
-   row of either or of ``packed_matmul`` is off ``decode``, or a bf16
+   row of either or of ``packed_matmul`` is off ``decode``, a bf16
    training row of xA, xAB, case 2 or case 4, or a bf16 prefill row, of
-   ``packed_matmul`` is off ``mma``. Then the sync check: ragged
+   ``packed_matmul`` is off ``mma``, or such an f32 row, or an f32
+   launcher-shape one, off ``f32skinny`` (``csrc/fskinny.cuh``'s streaming
+   FFMA kernels). Then the sync check: ragged
    ``packed_lora_delta`` and ``fused_lora_linear`` (ranks out of order, and
    sorted), forward and backward, under
    ``torch.cuda.set_sync_debug_mode("error")``, their output and LoRA
@@ -134,7 +138,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    capture's seconds, the busy share of the last replay (``torch.profiler``),
    the peak allocated memory, and each wrapper's launches in all and by
    path (``kernels/launches.py``). Fails unless every f32 fused call of the
-   fused run took ``ffma``, the counts that each impl must move moved, the
+   fused run took ``ffma`` and every ``packed_matmul`` call of the auto run
+   ``f32skinny``, each impl's own peak (the device's less what earlier
+   phases hold) lies within [1, C3_SLACK] of the price of the launcher's
+   own ``CostModel`` (priced at its tree's storage, "f32": ROADMAP C5),
+   the counts that each impl must move moved, the
    two impls' per-adapter final losses are finite and agree within
    LAUNCH_LOSS_RTOL, each adapter's update under fused lies within
    LAUNCH_UPDATE_RTOL of auto's, and the control's reads above
@@ -322,6 +330,9 @@ def nbytes(*ts) -> int:
 # ("mma") path in bf16: the training calls of the N-D delta and prefill.
 MMA_ROWS = {("train", c) for c in ("xA", "xAB", "bwd2_dxA", "bwd4_dx")} | {
     ("prefill", "xA"), ("prefill", "xAB")}
+# the same calls in f32, and the launcher's, take the streaming FFMA
+# kernels ("f32skinny")
+F32SKINNY_ROWS = MMA_ROWS | {("launcher", c) for c in ("xA", "xAB", "bwd2_dxA", "bwd4_dx")}
 
 
 def packed_calls(rnd, dtype, n, m, d_in, d_out, r, scale, backward_cases=False):
@@ -571,12 +582,17 @@ def kernel_phase(torch, dev):
             fused_rows("launcher", n, m, d_in, d_out, torch.float32, scale, rank=r, extra=extra)
             dx_rows("launcher", n, m, d_in, d_out, torch.float32, scale, rank=r, extra=extra)
             packed_rows("launcher", n, m, d_in, d_out, torch.float32, scale, backward_cases=True,
-                        rank=r, only=SWEEP_CALLS, split_times=False, extra=extra)
+                        rank=r, only=SWEEP_CALLS, extra=extra)
     off = [(r["case"], r["call"], r["d_in"], r["d_out"], r.get("rank"), r["path"]) for r in rows
            if r["case"] in ("train", "launcher") and r["dtype"] == "float32"
            and r["kernel"] != "packed_matmul" and r["path"] != "ffma"]
     if off:
         fail(f"f32 training-shape or launcher fused rows off the ffma path: {off}")
+    off = [(r["case"], r["call"], r["d_in"], r["d_out"], r.get("rank"), r["path"]) for r in rows
+           if r["kernel"] == "packed_matmul" and r["dtype"] == "float32"
+           and (r["case"], r["call"]) in F32SKINNY_ROWS and r["path"] != "f32skinny"]
+    if off:
+        fail(f"f32 training, launcher or prefill packed_matmul rows off the f32skinny path: {off}")
     off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] == "decode" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
            and r["path"] != "decode"]
@@ -1928,7 +1944,8 @@ def launcher_segments():
 
 
 def launcher_executor():
-    """A ``SliceExecutor`` that keeps its one pack's initial and final
+    """A ``SliceExecutor`` that keeps its one pack's configurations and
+    sequence length (``configs``, ``seq``) and its initial and final
     adapters (``w0``, ``w``: one numpy tree per adapter)."""
     from repro_torch.cluster import SliceExecutor
     from repro_torch.core.adapter import pack_meta
@@ -1936,6 +1953,7 @@ def launcher_executor():
 
     class Kept(SliceExecutor):
         def train_pack(self, cfg, configs, *, lora, **kw):
+            self.configs, self.seq = configs, kw["seq"]
             ranks = pack_meta(configs).ranks
             self.w0 = [extract_adapter(lora, i, ranks) for i in range(len(ranks))]
             res = super().train_pack(cfg, configs, lora=lora, **kw)
@@ -1961,12 +1979,21 @@ def launcher_phase(torch, dev, out_dir: Path):
     """The training launcher under --impl fused and --impl auto on the f32
     base, then the planted control (--impl fused, the delta's scale left
     out); returns each impl's launch counts. Each run's last step (a replay
-    of its captured graph) runs under ``torch.profiler``."""
+    of its captured graph) runs under ``torch.profiler``. Each impl's own
+    peak (the device's peak less what earlier phases hold) must lie within
+    [1, C3_SLACK] of the price of the launcher's own ``CostModel`` (ROADMAP
+    C5: priced at the tree's storage, "f32")."""
     from repro_torch.kernels import fused as fused_module
     from repro_torch.kernels import launches
     from repro_torch.launch import train as launch_train
 
     counts, losses, adapters = {}, {}, {}
+    cost_model, priced = launch_train.CostModel, []
+
+    def pricing(*args, **kw):  # the launcher's own CostModel, kept to price its run
+        priced.append(cost_model(*args, **kw))
+        return priced[-1]
+
     for run in LAUNCH_IMPLS + ("control",):
         impl = "fused" if run == "control" else run
         ex = launcher_executor()
@@ -1980,15 +2007,19 @@ def launcher_phase(torch, dev, out_dir: Path):
         kernel = fused_module.fused_matmul
         if run == "control":
             fused_module.fused_matmul = unscaled_delta(kernel)
+        launch_train.CostModel = pricing
         t0 = time.perf_counter()
         try:
             per = launch_train.main(LAUNCH_ARGS + ["--impl", impl], executor=ex,
                                     step_callback=win)
         finally:
             fused_module.fused_matmul = kernel
+            launch_train.CostModel = cost_model
         wall = time.perf_counter() - t0
         counts[run], paths = launches.read(), launches.read_paths()
         peak = torch.cuda.max_memory_allocated(dev)
+        cm = priced[-1]
+        price = cm.job_mem_bytes(ex.configs, 1, ex.seq)
         losses[run], adapters[run] = np.asarray(per, dtype=np.float64), (ex.w0, ex.w)
         prof = dict(win.profile or {})
         # StepWindow's share counts every kernel in namespace plora: here the
@@ -2002,8 +2033,10 @@ def launcher_phase(torch, dev, out_dir: Path):
               "step_s": win.seconds, "s_per_step": sum(win.seconds) / max(len(win.seconds), 1),
               "capture_s": ex.captures[-1]["seconds"] if ex.captures else None,
               "captures": len(ex.captures), "wall_s": wall, "held_bytes": held,
-              "max_memory_allocated": peak, "launches": counts[run], "launches_by_path": paths,
-              "profile": prof, **share})
+              "max_memory_allocated": peak, "job_peak_bytes": peak - held,
+              "priced_base_dtype": cm.base_dtype, "job_mem_bytes": price,
+              "price_over_peak": price / (peak - held), "launches": counts[run],
+              "launches_by_path": paths, "profile": prof, **share})
         ex.clear()
         del ex, win
         if not np.isfinite(losses[run]).all():
@@ -2011,11 +2044,17 @@ def launcher_phase(torch, dev, out_dir: Path):
         for need in LAUNCH_NEEDED[impl]:
             if counts[run][need] == 0:
                 fail(f"launcher {run}: the {need} launch count stayed at 0")
-        if impl == "fused":
-            fused_paths = paths["fused_matmul"]
-            off = {p: k for p, k in fused_paths.items() if p != "ffma" and k}
-            if off or not fused_paths["ffma"]:
-                fail(f"launcher {run}: f32 fused calls off the ffma path: {fused_paths}")
+        # every f32 call of the impl's kernel on its f32 path
+        kernel_name, f32_path = ("fused_matmul", "ffma") if impl == "fused" \
+            else ("packed_matmul", "f32skinny")
+        on = paths[kernel_name]
+        off = {p: k for p, k in on.items() if p != f32_path and k}
+        if off or not on[f32_path]:
+            fail(f"launcher {run}: f32 {kernel_name} calls off the {f32_path} path: {on}")
+        if run != "control" and (cm.base_dtype != "f32"
+                                 or not peak - held <= price <= C3_SLACK * (peak - held)):
+            fail(f"C5: launcher {run} priced as {cm.base_dtype!r} at {price} bytes, not within "
+                 f"[1, {C3_SLACK}] x its own peak {peak - held}")
 
     def rel(run):
         w0, ref = adapters["auto"]
@@ -2108,13 +2147,13 @@ USES = [
      "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
      ("online", "auto", "packed_matmul_bwd")),
     # the launcher on its f32 base, at its own shapes (launcher_segments:
-    # N = 1 x M = 1,024 at r = 8 and at r = 16): #1 on "fma" (--impl auto),
-    # #2 on "ffma" (--impl fused: forward and recompute, and dx)
+    # N = 1 x M = 1,024 at r = 8 and at r = 16): #1 on "f32skinny" (--impl
+    # auto), #2 on "ffma" (--impl fused: forward and recompute, and dx)
     ("packed_matmul:train_forward_f32", "packed_matmul", ("xA", "xAB"), "launcher",
-     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     "fskinny.cuh", "src/repro/kernels/packed_matmul.py:89",
      ("launcher", "auto", "packed_matmul"), "float32"),
     ("packed_matmul:train_backward_f32", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "launcher",
-     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
+     "fskinny.cuh", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
      ("launcher", "auto", "packed_matmul_bwd"), "float32"),
     ("fused_matmul:train_forward_f32", "fused_matmul", ("fused",), "launcher",
      "fused.cu", "src/repro/kernels/fused.py:275", ("launcher", "fused", "fused_matmul"),
@@ -2235,7 +2274,8 @@ def main() -> None:
     for lib in libs:
         log = lib.with_suffix(".log")
         if log.exists():
-            for kernel in ("fused_wgmma_kernel", "decode_kernel", "fused_ffma_kernel"):
+            for kernel in ("fused_wgmma_kernel", "decode_kernel", "fused_ffma_kernel",
+                           "f32_narrow_kernel", "f32_short_k_kernel"):
                 for entry in ptxas_entries(log.read_text(), kernel):
                     emit({"phase": "ptxas", "lib": lib.stem, **entry})
 

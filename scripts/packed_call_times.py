@@ -7,12 +7,16 @@ card.
     python3 scripts/packed_call_times.py --src OTHER/src  # another tree's port
     python3 scripts/packed_call_times.py --no-train       # kernel rows only
     python3 scripts/packed_call_times.py --cases decode   # some shapes only
+    python3 scripts/packed_call_times.py --dtype float32 --cases launcher,train --no-train
 
-bf16, r=16, at the training shapes (N=2 adapters x M=1024 tokens: xA,
+bf16 (or ``--dtype float32``), r=16, at the training shapes (N=2 adapters x M=1024 tokens: xA,
 (xA)B and the four backward cases on transposed views), prefill (N=1,
 M=256) and decode (N=8, M=1), for each projection (d_in, d_out) of a layer;
 at decode also both passes as one ``packed_matmul_pair`` call ("pair",
-against two ``torch.bmm`` calls) where the tree has it.
+against two ``torch.bmm`` calls) where the tree has it; "launcher": the
+calls ``python -m repro_torch.launch.train``'s ``--impl auto`` makes of
+each same-rank segment of chip_smoke.py's launcher pack (N=1 x M=1024 at
+r=8 and r=16: xA, (xA)B, backward cases 2 and 4).
 Each row holds the kernel against its plain version and carries, for the
 kernel and for ``torch.bmm`` on the same operands: ``ms`` (20 calls back to
 back, CUDA events), ``device_ms`` (a CUDA graph of 20 calls replayed: the
@@ -38,7 +42,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-CASES = {"train": (2, 1024), "prefill": (1, 256), "decode": (8, 1)}
+CASES = {"train": (2, 1024), "prefill": (1, 256), "decode": (8, 1), "launcher": None}
 
 
 def main() -> int:
@@ -47,7 +51,8 @@ def main() -> int:
     ap.add_argument("--label", default="this", help="a name for this tree in the output")
     ap.add_argument("--out", default=str(ROOT / "smoke_out"), help="where the profile table goes")
     ap.add_argument("--no-train", action="store_true", help="skip the profiled train step")
-    ap.add_argument("--cases", default=",".join(CASES), help="comma-separated shapes to time")
+    ap.add_argument("--cases", default="train,prefill,decode", help="comma-separated shapes to time")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     sys.path.insert(1, str(ROOT))
@@ -67,7 +72,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    dt = torch.bfloat16
+    dt = getattr(torch, args.dtype)
 
     def rnd(shape, dtype, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
@@ -76,13 +81,17 @@ def main() -> int:
         return torch.bmm(x, w)
 
     rows = []
-    for case in args.cases.split(","):
-        n, m = CASES[case]
+    shapes = [(case, shape) for case in args.cases.split(",")
+              for shape in ([(n, m, r, cs.SWEEP_CALLS) for n, m, r in cs.launcher_segments()]
+                            if case == "launcher" else [CASES[case] + (cs.RANK, None)])]
+    for case, (n, m, rank, only) in shapes:
         scale = torch.linspace(0.5, 2.0, n, device=dev)
         for (d_in, d_out), _ in cs.PROJ:
             specs = []
-            for call, args_fn, flops, bwd in cs.packed_calls(rnd, dt, n, m, d_in, d_out, cs.RANK, scale,
-                                                             backward_cases=case == "train"):
+            for call, args_fn, flops, bwd in cs.packed_calls(rnd, dt, n, m, d_in, d_out, rank, scale,
+                                                             backward_cases=case in ("train", "launcher")):
+                if only is not None and call not in only:
+                    continue
                 def kfn(x, w, s=None, bwd=bwd):
                     return P.packed_matmul(x, w, s, backward=bwd)
 
@@ -99,10 +108,10 @@ def main() -> int:
                 in_bytes = cs.nbytes(*[a for a in first if a is not None]) + cs.nbytes(got)
                 sets = [first] + [args_fn() for _ in range(cs.copies_for(in_bytes) - 1)]
                 row = {"label": args.label, "case": case, "call": call, "d_in": d_in, "d_out": d_out,
-                       "n": n, "m": m, "r": cs.RANK, "copies": len(sets),
+                       "n": n, "m": m, "r": rank, "dtype": args.dtype, "copies": len(sets),
                        "rel_err": ((got.float() - want.float()).abs().max()
                                    / want.float().abs().max().clamp_min(1e-30)).item(),
-                       "bound_ms": cs.bound(in_bytes, flops, "bfloat16")[0]}
+                       "bound_ms": cs.bound(in_bytes, flops, args.dtype)[0]}
                 if path_fn is not None:
                     row["path"] = path_fn(*first)
                 for key, fn in (("", kfn), ("library_", lfn)):
@@ -122,7 +131,9 @@ def main() -> int:
 # the calls of a layer's use, as chip_smoke.py's kernels line groups them
 USES = {"decode": ("decode", ("xA", "xAB")), "decode_pair": ("decode", ("pair",)),
         "prefill": ("prefill", ("xA", "xAB")),
-        "train_forward": ("train", ("xA", "xAB")), "train_backward": ("train", ("bwd2_dxA", "bwd4_dx"))}
+        "train_forward": ("train", ("xA", "xAB")), "train_backward": ("train", ("bwd2_dxA", "bwd4_dx")),
+        "launcher_forward": ("launcher", ("xA", "xAB")),
+        "launcher_backward": ("launcher", ("bwd2_dxA", "bwd4_dx"))}
 KEYS = ("ms", "device_ms", "host_us", "library_ms", "library_device_ms", "library_host_us", "bound_ms")
 
 

@@ -21,7 +21,7 @@
 // once and produce r columns (~2r/elt FLOP per byte: bytes-bound); cases 1
 // and 3 contract over the T tokens.
 //
-// Three paths, chosen by one plan (skinny.cuh's skinny_plan) that reads only
+// Four paths, chosen by one plan (skinny.cuh's skinny_plan) that reads only
 // shapes, dtype, layouts and alignment:
 //
 // "decode" -- bf16 calls with at most 16 rows per adapter (serving's decode
@@ -43,9 +43,17 @@
 // arrive by cp.async into a ring of shared-memory stages and are
 // multiplied by mma.sync. One launch per call, no workspace.
 //
-// "fma" -- everything else (f32, ranks not a multiple of 8, transposed
-// operands at few rows, case 1 whose rows are the rank): the adapter is the
-// grid's z axis and
+// "f32skinny" -- f32 calls with more than 16 rows per adapter (training and
+// prefill), x row-major, K and L multiples of 4 and x, w, out 16-byte
+// aligned, where L or K is at most 128: fskinny.cuh's streaming FFMA
+// kernels. Narrow output (xA, case 2) streams x through a cp.async ring,
+// its K split across a cluster whose blocks add their f32 sums in rank
+// order; short K ((xA)B, case 4) is one wave of blocks writing 16-byte
+// stores. One launch per call, no workspace.
+//
+// "fma" -- everything else (f32 decode rows, ranks not a multiple of 8 in
+// bf16, transposed operands at few rows, case 1 whose rows are the rank, x
+// transposed in f32): the adapter is the grid's z axis and
 // each block owns a BM x BN output tile of one adapter, looping over K
 // inside the block (the TPU's sequential K grid axis becomes that loop).
 // Tiles are staged through registers into shared memory as f32 (the next
@@ -60,6 +68,7 @@
 // Either way the rounding stays the TPU kernel's (f32 sums, f32 scale, one
 // cast) and the result is deterministic, bit for bit from call to call.
 #include "decode_rows.cuh"
+#include "fskinny.cuh"
 #include "skinny.cuh"
 #include "tile.cuh"
 
@@ -216,15 +225,15 @@ static bool aligned16(const void* x, const void* w, const void* out) {
 // stored transposed (see the top of this file); aligned: 1 when x, w and
 // out all start on 16 bytes (what the launch finds from its pointers).
 
-// The path the plan gives a call: 0 "fma", 1 "mma", 2 "decode".
+// The path the plan gives a call: 0 "fma", 1 "mma", 2 "decode", 3 "f32skinny".
 extern "C" int plora_packed_matmul_path(int n, int m, int k, int l, int dtype, int trans_x,
                                         int trans_w, int aligned) {
   return skinny_plan(n, m, k, l, dtype, trans_x != 0, trans_w != 0, aligned != 0).path;
 }
 
 // The f32 workspace (elements) a call needs: the partial sums of the FMA
-// path's K ranges, or 0 (K not split, or the "mma" and "decode" paths: their
-// clusters add their partial sums in shared memory).
+// path's K ranges, or 0 (K not split, or the "mma", "decode" and "f32skinny"
+// paths: their clusters add their partial sums in shared memory).
 extern "C" long long plora_packed_matmul_workspace(int n, int m, int k, int l, int dtype,
                                                    int trans_x, int trans_w, int aligned) {
   const SkinnyPlan p = skinny_plan(n, m, k, l, dtype, trans_x != 0, trans_w != 0, aligned != 0);
@@ -258,6 +267,13 @@ extern "C" int plora_packed_matmul(const long long* a) {
     return (int)(err != cudaSuccess ? err : last);
   }
   if (p.path == PATH_MMA) return launch_mma(x, w, scale, out, n, m, k, l, tx, tw, p, st);
+  if (p.path == PATH_F32SKINNY) {
+    const cudaError_t err = launch_f32skinny(static_cast<const float*>(x),
+                                             static_cast<const float*>(w), scale,
+                                             static_cast<float*>(out), n, m, k, l, tw, p, st);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : last);
+  }
   if (dtype == 0) return launch_fma<float>(x, w, scale, out, workspace, n, m, k, l, tx, tw, st);
   if (dtype == 1)
     return launch_fma<__nv_bfloat16>(x, w, scale, out, workspace, n, m, k, l, tx, tw, st);

@@ -2,7 +2,8 @@
 // rows per adapter (training and prefill): out[n] = scale[n] * (x[n] @ w[n]),
 // where one of the product's two outer sizes is a LoRA rank; and the plan of
 // every packed_matmul call (skinny_plan), which sends bf16 calls of at most
-// 16 rows per adapter to decode_rows.cuh. Two shape classes of one design:
+// 16 rows per adapter to decode_rows.cuh and f32 calls of more than 16 to
+// fskinny.cuh. Two shape classes of one design:
 //
 //   narrow  -- L <= 128, K long: xA (x @ A), case 2 (g_s @ B^T, B^T read in
 //              place) and case 3 (x^T @ d(xA), x^T read in place). A block
@@ -167,7 +168,7 @@ struct WTile {
 
 // --- the plan ------------------------------------------------------------------
 
-enum { PATH_FMA = 0, PATH_MMA = 1, PATH_DECODE = 2 };
+enum { PATH_FMA = 0, PATH_MMA = 1, PATH_DECODE = 2, PATH_F32SKINNY = 3 };
 enum { CLASS_NARROW = 0, CLASS_SHORT_K = 1 };
 
 constexpr int SMS = 132;  // an H100 SXM's SMs
@@ -190,6 +191,14 @@ constexpr int NW_MIN_STEPS = 4;      // K steps per range, at least
 constexpr int NW_MAX_SPLITS = 8;     // a cluster's blocks: the portable cluster size
 // short-K class: 128 x 128 tiles, 8 warps as 4 (rows) x 2 (columns)
 constexpr int SK_BM = 128, SK_BN = 128, SK_THREADS = 256, SK_STAGES = 3;
+// the f32skinny path's narrow class (fskinny.cuh): 16 rows x the width, 64
+// deep per stage (16 rows a block ran a layer's launcher calls 4 % faster
+// than 32, PERF.md); K split over a cluster of up to 8 blocks, at least
+// FN_MIN_STEPS stages each, until about two blocks an SM
+constexpr int FN_BM = 16, FN_BK = 64;
+constexpr int FN_TARGET_BLOCKS = 2 * SMS;
+constexpr int FN_MIN_STEPS = 4;
+constexpr int FN_MAX_SPLITS = 8;  // the portable cluster size
 
 struct SkinnyPlan {
   int path, cls, width;  // width: L (narrow) or K (short K) rounded up to 16, 32, 64 or 128
@@ -227,14 +236,40 @@ __host__ __device__ inline SkinnyPlan decode_rows_plan(int n, int k, int l, bool
   return {PATH_DECODE, CLASS_SHORT_K, width_class(k), (nv + vb - 1) / vb, vb};
 }
 
+// The narrow class's K ranges (the cluster's blocks) and steps of `bk` per
+// range: ranges until `target` blocks, each at least `min_steps` steps long,
+// at most `max_splits`.
+__host__ __device__ inline SkinnyPlan narrow_plan(int path, int width, int tiles, int k, int bk,
+                                                  int target, int min_steps, int max_splits) {
+  const int ksteps = (k + bk - 1) / bk;
+  int s = (target + tiles - 1) / tiles;
+  s = s < ksteps / min_steps ? s : ksteps / min_steps;
+  s = s < max_splits ? s : max_splits;
+  s = s > 1 ? s : 1;
+  const int steps = (ksteps + s - 1) / s;
+  return {path, CLASS_NARROW, width, (ksteps + steps - 1) / steps, steps};
+}
+
 // The plan of one call: reads only shapes, dtype, the two layouts and
 // whether x, w and out are 16-byte aligned. dtype: 0 f32, 1 bf16. bf16 with
 // both operands row-major, every size a multiple of 8 and L or K a rank:
 // at most 16 rows per adapter "decode" (decode_rows.cuh), more "mma" (the
-// kernels below, which also read transposed operands). Else "fma".
+// kernels below, which also read transposed operands). f32 with more than
+// 16 rows per adapter, x row-major, K and L multiples of 4 and L or K a
+// rank: "f32skinny" (fskinny.cuh; w row-major or transposed). Else "fma".
 __host__ __device__ inline SkinnyPlan skinny_plan(int n, int m, int k, int l, int dtype, bool tx,
                                                   bool tw, bool aligned) {
   SkinnyPlan p{PATH_FMA, 0, 0, 1, 0};
+  if (dtype == 0) {
+    if (m < MMA_MIN_ROWS || tx || !aligned || k % 4 != 0 || l % 4 != 0) return p;
+    if (l <= MMA_MAX_RANK)
+      return narrow_plan(PATH_F32SKINNY, l <= 8 ? 8 : width_class(l),
+                         n * ((m + FN_BM - 1) / FN_BM), k, FN_BK, FN_TARGET_BLOCKS, FN_MIN_STEPS,
+                         FN_MAX_SPLITS);
+    if (k <= MMA_MAX_RANK)
+      return {PATH_F32SKINNY, CLASS_SHORT_K, k <= 8 ? 8 : width_class(k), 1, 0};
+    return p;
+  }
   // every leading dimension and adapter stride a multiple of 8 elements
   const bool lds = k % 8 == 0 && l % 8 == 0 && (!tx || m % 8 == 0);
   if (dtype != 1 || !aligned || !lds) return p;
@@ -242,16 +277,9 @@ __host__ __device__ inline SkinnyPlan skinny_plan(int n, int m, int k, int l, in
     if (tx || tw || (l > MMA_MAX_RANK && k > MMA_MAX_RANK)) return p;
     return decode_rows_plan(n, k, l, l <= MMA_MAX_RANK);
   }
-  if (l <= MMA_MAX_RANK) {
-    const int tiles = n * ((m + NW_BM - 1) / NW_BM);
-    const int ksteps = (k + NW_BK - 1) / NW_BK;
-    int s = (NW_TARGET_BLOCKS + tiles - 1) / tiles;
-    s = s < ksteps / NW_MIN_STEPS ? s : ksteps / NW_MIN_STEPS;
-    s = s < NW_MAX_SPLITS ? s : NW_MAX_SPLITS;
-    s = s > 1 ? s : 1;
-    const int steps = (ksteps + s - 1) / s;
-    return {PATH_MMA, CLASS_NARROW, width_class(l), (ksteps + steps - 1) / steps, steps};
-  }
+  if (l <= MMA_MAX_RANK)
+    return narrow_plan(PATH_MMA, width_class(l), n * ((m + NW_BM - 1) / NW_BM), k, NW_BK,
+                       NW_TARGET_BLOCKS, NW_MIN_STEPS, NW_MAX_SPLITS);
   if (k <= MMA_MAX_RANK) return {PATH_MMA, CLASS_SHORT_K, width_class(k), 1, 0};
   return p;  // both outer sizes and K large (case 1 at a long rank): FMA
 }

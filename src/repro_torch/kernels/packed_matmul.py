@@ -15,7 +15,9 @@ call it from their forward and backward, where grad mode is off.
 
 ``packed_matmul_path(x, w)`` names the path the kernel's plan takes for a
 call: "decode" (bf16 at most 16 rows per adapter: one-launch streaming
-kernels), "mma" (tensor cores, bf16 training and prefill shapes) or "fma".
+kernels), "mma" (tensor cores, bf16 training and prefill shapes),
+"f32skinny" (streaming FFMA kernels, f32 training and prefill shapes) or
+"fma".
 The plan and its workspace size are asked once per shape and cached, so a
 launch is one ctypes call, whose arguments go as one packed block.
 
@@ -105,7 +107,8 @@ def scale_ptr(scale: Optional[torch.Tensor], n: int, device) -> Optional[int]:
     return scale.data_ptr()
 
 
-PATHS = ("fma", "mma", "decode")  # PATH_FMA, PATH_MMA, PATH_DECODE of csrc/skinny.cuh
+# PATH_FMA, PATH_MMA, PATH_DECODE, PATH_F32SKINNY of csrc/skinny.cuh
+PATHS = ("fma", "mma", "decode", "f32skinny")
 DECODE = PATHS.index("decode")
 # plora_packed_matmul's one argument: a block of 13 int64, and
 # plora_packed_lora_delta's, of 12 (csrc/packed_matmul.cu)
@@ -266,6 +269,9 @@ def packed_matmul_path(x: torch.Tensor, w: torch.Tensor) -> str:
     kernels: bf16, at most 16 rows per adapter, x and w row-major, K and L
     multiples of 8, L or K at most 128, pointers aligned to 16 bytes),
     "mma" (the tensor-core kernels: the same with more than 16 rows, either
-    operand also transposed) or "fma" (``csrc/tile.cuh``'s FMA kernel). The
-    plan reads only shapes, dtype, layouts and alignment."""
+    operand also transposed), "f32skinny" (``csrc/fskinny.cuh``'s streaming
+    FFMA kernels: f32, more than 16 rows, x row-major, K and L multiples of
+    4, L or K at most 128, pointers aligned to 16 bytes) or "fma"
+    (``csrc/tile.cuh``'s FMA kernel). The plan reads only shapes, dtype,
+    layouts and alignment."""
     return PATHS[_plan(*_key(x, w, _device(x, "packed_matmul_path"), "packed_matmul_path"))[0]]

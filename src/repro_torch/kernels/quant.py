@@ -93,6 +93,31 @@ def logical_shape(w) -> tuple:
     return shape
 
 
+def base_storage(params) -> str:
+    """How a frozen-base tree stores its weights, as ``CostModel``'s
+    ``base_dtype`` names it: "int8" or "nf4" when its projections are
+    quantized, else its dense dtype, "f32" or "bf16"."""
+    dtypes = set()
+
+    def walk(node):
+        if is_quantized(node):
+            dtypes.add(quant_mode(node))
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, torch.Tensor) and node.is_floating_point():
+            dtypes.add(node.dtype)
+
+    walk(params)
+    for mode in ("int8", "nf4"):
+        if mode in dtypes:
+            return mode
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in names:
+        raise ValueError(f"a frozen base of one float32 or bfloat16 dtype expected, got {dtypes}")
+    return names[dtypes.pop()]
+
+
 def quantized_nbytes(w) -> int:
     """Resident bytes of a quantized weight (codes + scales)."""
     return sum(t.numel() * t.element_size() for t in (w["codes"], w["scales"]))

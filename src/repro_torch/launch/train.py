@@ -34,7 +34,7 @@ from repro_torch.configs.base import LoraConfig, get_config, list_archs, reduced
 from repro_torch.core.adapter import pack_meta
 from repro_torch.core.packed_lora import extract_adapter
 from repro_torch.kernels.ops import IMPLS, REMATS
-from repro_torch.kernels.quant import quantize_base_params
+from repro_torch.kernels.quant import base_storage, quantize_base_params
 from repro_torch.models.model import init_model
 from repro_torch.sched.cost_model import PRESETS, CostModel
 from repro_torch.sched.profile import ObservationStore, ProfiledCostModel
@@ -149,7 +149,9 @@ def main(argv=None, *, executor=None, step_callback=None):
             step_callback(i, m)
 
     store = ObservationStore.load(args.profile_in) if args.profile_in else ObservationStore()
-    est = ProfiledCostModel(CostModel(cfg, PRESETS[args.hw], base_dtype=quant), store)
+    # priced at the tree's own storage; the kernel policy below stays ``quant``
+    est = ProfiledCostModel(
+        CostModel(cfg, PRESETS[args.hw], base_dtype=quant or base_storage(base)), store)
     pred_prior = est.prior.iter_time(configs, 1, args.seq)
     pred_profiled = est.iter_time(configs, 1, args.seq)  # before observing
 

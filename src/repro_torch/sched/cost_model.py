@@ -264,6 +264,27 @@ def lora_param_count(cfg: ModelConfig, rank: int) -> float:
     return float(per_layer * n_layers)
 
 
+def base_param_bytes(base_dtype: Optional[str], prec_bytes: float = 2.0) -> float:
+    """Resident bytes per frozen-base parameter stored as ``base_dtype``:
+    ``prec_bytes`` for None and "bf16", 4 for "f32".
+
+    Quantized schemes include the amortized f32 scale overhead: int8
+    carries one scale per output channel (~1/256 of params on typical
+    d_in >= 256 projections), nf4 one scale per 64-element block. The
+    analytic constants are deliberately slightly conservative; the
+    measured ratio on real quantized trees is what ``bench_quant``
+    reports against the paper-claim threshold."""
+    if base_dtype in (None, "bf16"):
+        return float(prec_bytes)
+    if base_dtype == "f32":
+        return 4.0
+    if base_dtype == "int8":
+        return 1.0 + 4.0 / 256.0
+    if base_dtype == "nf4":
+        return 0.5 + 4.0 / 64.0
+    raise ValueError(f"unknown base_dtype {base_dtype!r}")
+
+
 @dataclass
 class CostModel(CostEstimator):
     cfg: ModelConfig
@@ -314,12 +335,16 @@ class CostModel(CostEstimator):
     # on this backend. The LoRA compute term is divided by it — 1.0 = the
     # uncalibrated analytic prior (bit-identical to the pre-autotune model).
     lora_rate_scale: float = 1.0
-    # Frozen-base storage scheme (kernels/quant.py): None keeps the dense
-    # ``prec_bytes`` footprint (bit-identical to the pre-quant model);
-    # "int8"/"nf4" shrink the base-weight term of the Appendix-A memory
-    # model — and the HBM weight-traffic term of the roofline — to the
-    # quantized bytes/param, which is what lets the knapsack packer put
-    # more packs on a device (the planner-shift this tier claims).
+    # Frozen-base storage scheme (kernels/quant.py): None and "bf16" keep
+    # the dense ``prec_bytes`` footprint (bit-identical to the pre-quant
+    # model); "f32" (``init_model``'s default, the launcher's base) prices
+    # 4 bytes a parameter and computes its activations in f32, where the
+    # reference prices it as ``prec_bytes``; "int8"/"nf4" shrink the
+    # base-weight term of the Appendix-A memory model — and the HBM
+    # weight-traffic term of the roofline — to the quantized bytes/param,
+    # which is what lets the knapsack packer put more packs on a device (the
+    # planner-shift this tier claims). ``kernels.quant.base_storage`` names a
+    # tree's.
     base_dtype: Optional[str] = None
 
     @staticmethod
@@ -335,29 +360,17 @@ class CostModel(CostEstimator):
     # ---------------- memory (Appendix A) ----------------
 
     def base_bytes_per_param(self) -> float:
-        """Resident bytes per frozen-base parameter under ``base_dtype``.
-
-        Quantized schemes include the amortized f32 scale overhead: int8
-        carries one scale per output channel (~1/256 of params on typical
-        d_in >= 256 projections), nf4 one scale per 64-element block. The
-        analytic constants are deliberately slightly conservative; the
-        measured ratio on real quantized trees is what ``bench_quant``
-        reports against the paper-claim threshold."""
-        if self.base_dtype in (None, "f32", "bf16"):
-            return float(self.prec_bytes)
-        if self.base_dtype == "int8":
-            return 1.0 + 4.0 / 256.0
-        if self.base_dtype == "nf4":
-            return 0.5 + 4.0 / 64.0
-        raise ValueError(f"unknown base_dtype {self.base_dtype!r}")
+        """Resident bytes per frozen-base parameter under ``base_dtype``
+        (:func:`base_param_bytes`)."""
+        return base_param_bytes(self.base_dtype, self.prec_bytes)
 
     def base_weight_bytes(self) -> float:
         return model_param_count(self.cfg) * self.base_bytes_per_param()
 
     def base_act_bytes(self, total_batch: int, seq: int) -> float:
-        return (
-            self.act_factor * total_batch * seq * self.cfg.d_model * self.prec_bytes
-        )
+        # an f32 base computes in f32, any other in prec_bytes
+        elem = 4.0 if self.base_dtype == "f32" else self.prec_bytes
+        return self.act_factor * total_batch * seq * self.cfg.d_model * elem
 
     def logits_bytes(self, rows: int, seq: int) -> float:
         """The cross-entropy's f32 logits workspace for ``rows`` rows."""

@@ -51,8 +51,9 @@ import numpy as np
 
 from repro_torch.cluster.pool import pick_class_units, pick_host_units
 from repro_torch.configs.base import LoraConfig, ModelConfig
+from repro_torch.kernels.quant import base_storage
 from repro_torch.obs import NULL_TRACER
-from repro_torch.sched.cost_model import CostEstimator
+from repro_torch.sched.cost_model import CostEstimator, base_param_bytes
 from repro_torch.sched.planner import Schedule, ScheduledJob, replan
 from repro_torch.train.checkpoint import CheckpointPool
 
@@ -315,6 +316,22 @@ class ExecutionEngine:
         self.monitor = ResourceMonitor(g)
         self.tracer = tracer if tracer is not None else NULL_TRACER
 
+    def _check_base(self, base_params) -> None:
+        """Raise unless the cost model prices ``base_params`` at the bytes
+        a parameter it holds (an f32 tree under a model priced at 2 bytes,
+        say): a plan made for another footprint packs jobs that may not
+        fit. ``None`` (no tree) and an estimator with no memory model
+        pass."""
+        priced = getattr(self.cm, "base_bytes_per_param", None)
+        if base_params is None or priced is None:
+            return
+        held = base_storage(base_params)
+        if priced() != base_param_bytes(held):
+            raise ValueError(
+                f"the cost model prices the frozen base at {priced()} bytes a parameter "
+                f"(base_dtype={self.cm.base_dtype!r}), but the tree handed to the engine holds "
+                f"{held} ({base_param_bytes(held)} bytes): plan with base_dtype={held!r}")
+
     def _unschedulable(self, n_pending: int) -> RuntimeError:
         g = self.monitor.total
         host = (
@@ -378,6 +395,7 @@ class ExecutionEngine:
         ``runner`` the default one runs on this host's CUDA devices."""
         from repro_torch.cluster.pool import assign_units
 
+        self._check_base(base_params)
         with self.tracer.span("engine.run_local", cat="engine",
                               n_jobs=len(schedule.jobs), g=self.monitor.total):
             units = assign_units(
@@ -827,6 +845,7 @@ class ExecutionEngine:
         job's measured rate drifts beyond ``drift_threshold`` from plan —
         see :meth:`_run_adaptive` (``repack``/``admission``/
         ``migration_budget`` apply only to the virtual pre-planned path)."""
+        self._check_base(base_params)
         if adaptive is None:
             adaptive = self.cm.adaptive
         if adaptive:

@@ -447,9 +447,9 @@ def test_mma_split_k_is_deterministic(cuda):
 
 @pytest.mark.gpu
 def test_packed_matmul_path_follows_shapes(cuda):
-    """Decode rows take the streaming kernels; f32 and ranks off a multiple
-    of 8 keep the FMA kernel; the bf16 training and prefill calls take the
-    tensor-core kernels."""
+    """Decode rows take the streaming kernels; ranks off a multiple of 8
+    keep the FMA kernel; the bf16 training and prefill calls take the
+    tensor-core kernels, the f32 ones the streaming FFMA kernels."""
     g = torch.Generator(device=cuda).manual_seed(12)
     x = _rnd(g, (2, 1024, 3584), torch.bfloat16)
     a = _rnd(g, (2, 3584, 16), torch.bfloat16)
@@ -458,7 +458,7 @@ def test_packed_matmul_path_follows_shapes(cuda):
     assert packed_matmul_path(xa, b) == "mma"  # (xA)B
     assert packed_matmul_path(x[:1, :256].contiguous(), a[:1]) == "mma"  # prefill
     assert packed_matmul_path(x[:, :16].contiguous(), a) == "decode"  # 16 rows: decode
-    assert packed_matmul_path(x.float(), a.float()) == "fma"  # f32
+    assert packed_matmul_path(x.float(), a.float()) == "f32skinny"  # f32
     a12 = _rnd(g, (2, 3584, 12), torch.bfloat16)
     assert packed_matmul_path(x, a12) == "fma"  # rank 12
     assert packed_matmul_path(xa.transpose(1, 2), x) == "fma"  # case 1: rows = rank, long K
@@ -751,3 +751,150 @@ def test_every_path_launches_on_every_device(cuda):
                     q = quantize_weight(_rnd(g, (3584, 512), torch.float32, 3584 ** -0.5), mode)
                     _close(fused_matmul_q(x, q["codes"], q["scales"], a, b, s),
                            fused_matmul_q_ref(x, q["codes"], q["scales"], a, b, s))
+
+
+def _skinny_call(lhs, rhs, scale=None, backward=False):
+    """One packed_matmul call that must take the f32skinny path: named so by
+    the plan, counted once under its direction and "f32skinny"."""
+    assert packed_matmul_path(lhs, rhs) == "f32skinny", (lhs.shape, rhs.shape, rhs.stride())
+    want = dict(packed_matmul.launches)
+    want["bwd" if backward else "fwd", "f32skinny"] += 1
+    y = packed_matmul(lhs, rhs, scale, backward=backward)
+    assert packed_matmul.launches == want
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [8, 16])
+def test_f32skinny_at_the_launcher_shapes(cuda, r):
+    """The calls ``--impl auto`` makes of one rank segment of the launcher's
+    pack (N = 1 x M = 1,024) at every projection of qwen25-7b: xA, (xA)B,
+    case 2 on B's transposed view and case 4 on A's take the streaming FFMA
+    kernels, agree with the plain version and give the same bits twice."""
+    gen = torch.Generator(device=cuda).manual_seed(50 + r)
+    n, m, f32 = 1, 1024, torch.float32
+    s = torch.tensor([1.5], device=cuda)
+    for d_in, d_out in TRAIN_PROJ:
+        x, a = _rnd(gen, (n, m, d_in), f32), _rnd(gen, (n, d_in, r), f32, d_in ** -0.5)
+        xa, b, gs = _rnd(gen, (n, m, r), f32), _rnd(gen, (n, r, d_out), f32), \
+            _rnd(gen, (n, m, d_out), f32)
+        for lhs, rhs, sc, bwd in ((x, a, None, False), (xa, b, s, False),
+                                  (gs, b.transpose(1, 2), None, True),
+                                  (xa, a.transpose(1, 2), None, True)):
+            y = _skinny_call(lhs, rhs, sc, backward=bwd)
+            _close(y, packed_matmul_ref(lhs, rhs, sc))
+            assert torch.equal(y, packed_matmul(lhs, rhs, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("r", [8, 16, 24, 128])
+def test_f32skinny_path_matches_plain(cuda, r, n, scaled):
+    """f32 calls with more than 16 rows, w row-major or read transposed in
+    place, at ragged shapes: M = 304 or 300 (off the 32- and 64-row tiles),
+    K = 3,592 (off the 64-deep stage) into L = r (narrow: xA, case 2), and K
+    = r into L = 3,592 (off the 64-column tile; short K: (xA)B, case 4)."""
+    gen = torch.Generator(device=cuda).manual_seed(60 + r + n)
+    d, f32 = 3592, torch.float32
+    s = torch.linspace(0.5, 2.0, n, device=cuda) if scaled else None
+    for m in (304, 300):
+        for tw in (False, True):
+            for k, l in ((d, r), (r, d)):
+                x = _rnd(gen, (n, m, k), f32)
+                w = (_rnd(gen, (n, l, k), f32, k ** -0.5).transpose(1, 2) if tw
+                     else _rnd(gen, (n, k, l), f32, k ** -0.5))
+                y = _skinny_call(x, w, s)
+                assert y.shape == (n, m, l) and y.is_contiguous()
+                _close(y, packed_matmul_ref(x, w, s))
+
+
+@pytest.mark.gpu
+def test_f32skinny_is_taken_exactly_where_the_plan_says(cuda):
+    """"f32skinny" for f32 with more than 16 rows, x row-major, K and L
+    multiples of 4, L or K at most 128, pointers on 16 bytes; "fma" for a
+    call that misses one of them (decode rows, case 1's rows of the rank,
+    x transposed, K = 3,590, both outer sizes above 128, x off 16 bytes)."""
+    gen = torch.Generator(device=cuda).manual_seed(70)
+    f32 = torch.float32
+    x, a = _rnd(gen, (2, 64, 3584), f32), _rnd(gen, (2, 3584, 12), f32)
+    assert packed_matmul_path(x, a) == "f32skinny"  # L = 12: width class 16
+    assert packed_matmul_path(x[:, :17].contiguous(), a) == "f32skinny"  # 17 rows
+    assert packed_matmul_path(x[:, :16].contiguous(), a) == "fma"  # 16 rows
+    assert packed_matmul_path(_rnd(gen, (2, 64, 16), f32).transpose(1, 2), x) == "fma"  # case 1
+    assert packed_matmul_path(_rnd(gen, (2, 3584, 64), f32).transpose(1, 2), a) == "fma"  # x^T
+    assert packed_matmul_path(_rnd(gen, (2, 64, 3590), f32), _rnd(gen, (2, 3590, 16), f32)) \
+        == "fma"  # K
+    assert packed_matmul_path(_rnd(gen, (2, 64, 136), f32), _rnd(gen, (2, 136, 132), f32)) \
+        == "fma"  # L and K above 128
+    off = torch.empty(2 * 64 * 3584 + 1, dtype=f32, device=cuda)[1:].view(2, 64, 3584)
+    assert packed_matmul_path(off, a) == "fma"  # x off 16 bytes
+    _close(packed_matmul(off, a), packed_matmul_ref(off, a))
+
+
+@pytest.mark.gpu
+def test_f32skinny_is_deterministic_and_captures(cuda):
+    """Gate/up's case 2 at the training shapes splits K over a cluster; its
+    partial sums are added in rank order, so a call gives the same bits
+    twice, as does the short-K class. Calls captured in a CUDA graph (the
+    launcher's step) replay to the eager calls' bits."""
+    gen = torch.Generator(device=cuda).manual_seed(71)
+    f32 = torch.float32
+    gs, b = _rnd(gen, (2, 1024, 18944), f32), _rnd(gen, (2, 16, 18944), f32)
+    dxa, a = _rnd(gen, (2, 1024, 16), f32), _rnd(gen, (2, 3584, 16), f32)
+    s = torch.tensor([0.5, 2.0], device=cuda)
+    calls = ((gs, b.transpose(1, 2), None), (dxa, a.transpose(1, 2), None), (dxa, b, s))
+    eager = []
+    for lhs, rhs, sc in calls:
+        y = _skinny_call(lhs, rhs, sc)
+        assert torch.equal(y, packed_matmul(lhs, rhs, sc))
+        eager.append(y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for lhs, rhs, sc in calls:
+            packed_matmul(lhs, rhs, sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [packed_matmul(lhs, rhs, sc) for lhs, rhs, sc in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+
+
+# sha256 of the f32 fused rows' bits at the launcher's shapes (r = 16), from
+# the tree before the f32skinny path: #2/#3's f32 path (its xA pass on
+# tile.cuh's FMA kernel) must not move
+FFMA_F32_BITS = {'3584x3584:fwd': 'c408bdbc611e9ac0d45ac1a4bc81ddfe002f8856823ff1b6c470a1ccde6fb633', '3584x3584:dx': 'cf60b5d6958017ff9fdf5a5aa9a2a918dc0c9001e67925b7304c900ed75dd2df', '3584x512:fwd': '8cc44e171ecc240f79aa6505371e3e7c53d97cb57c293e5e15453af7973bde70', '3584x512:dx': '657a27a3b7e8b7242f33421bd0f636e59d99e5c31a3243c1465f787dabb87552', '3584x512:int8': 'e39b4f76ce0b82e30d768dd750cea002882e2a30fc48c363696a483e2b10ca32', '3584x512:nf4': 'de7719ec293a7281251ec3615081a446e68c986c483c4e2ce6aa64ce329aae3b', '3584x18944:fwd': 'de6662f206f4e88488370819c7d9ecfdfdf524f8d8ec3ea16d2771ce0b5b926c', '3584x18944:dx': '8c248713ab0ea27ec59d152f77c4b3c0e626912721a731bb94501a8350679007', '18944x3584:fwd': '2400eecb2281760fa3a8b94eb9cee271552119105429020a8066c0445949febb', '18944x3584:dx': 'c7ae7c858e810c4b01b38f6c13f0052cd047af265553a821adc9609483835265'}
+
+
+@pytest.mark.gpu
+def test_ffma_f32_rows_keep_their_bits(cuda):
+    """#2's f32 forward and dx and #3's int8/nf4 on an f32 x, at the
+    launcher's shapes (N = 1 x M = 1,024, r = 16), on inputs drawn on the
+    CPU from a seed: the same bits as before the f32skinny path."""
+    import hashlib
+
+    gen = torch.Generator().manual_seed(80)
+
+    def rnd(shape, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(cuda)
+
+    bits = {}
+    r, s = 16, torch.tensor([1.5], device=cuda)
+    for d_in, d_out in TRAIN_PROJ:
+        x, w = rnd((1, 1024, d_in)), rnd((d_in, d_out), d_in ** -0.5)
+        a, b, g = rnd((1, d_in, r), d_in ** -0.5), rnd((1, r, d_out)), rnd((1, 1024, d_out))
+        ys = {"fwd": fused_matmul(x, w, a, b, s),
+              "dx": fused_matmul(g, w.t(), b.transpose(1, 2).contiguous(),
+                                 a.transpose(1, 2).contiguous(), s, backward=True)}
+        if (d_in, d_out) == (3584, 512):
+            for mode in ("int8", "nf4"):
+                q = quantize_weight(w, mode)
+                ys[mode] = fused_matmul_q(x, q["codes"], q["scales"], a, b, s)
+        for name, y in ys.items():
+            bits[f"{d_in}x{d_out}:{name}"] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+    print(bits)
+    assert bits == FFMA_F32_BITS

@@ -86,7 +86,11 @@ def _same_adapters(p, q):
 def test_run_local_matches_reference(ref_model, tmp_path):
     jcfg, jbase = ref_model
     cfg = reduced(get_config("qwen25-7b"))
-    jcm, cm = JCostModel(jcfg, J_A100), CostModel(cfg, A100_40G, **REFERENCE_MEMORY)
+    # the port's engine refuses a tree its model prices at another size: the
+    # reference's f32 tree is priced as "f32" (memory does not bind here, so
+    # the plan is the reference's)
+    jcm = JCostModel(jcfg, J_A100)
+    cm = CostModel(cfg, A100_40G, base_dtype="f32", **REFERENCE_MEMORY)
     jconfigs, configs = [JLoraConfig(**c) for c in SPACE], [LoraConfig(**c) for c in SPACE]
     jsched, sched = j_plan(jcm, jconfigs, 2, SEQ, n_steps=2), plan(cm, configs, 2, SEQ, 2)
     assert [(j.config_ids, j.degree, j.start, j.end) for j in sched.jobs] == [
@@ -113,6 +117,26 @@ def test_run_local_matches_reference(ref_model, tmp_path):
         assert [k for k, _ in leaves] == [k for k, _ in jads[name]]
         for (k, a), (_, b) in zip(leaves, jads[name]):
             np.testing.assert_allclose(a, b, rtol=5e-3, atol=1e-3, err_msg=f"{name} {k}")
+
+
+def test_engine_refuses_a_base_priced_at_another_size():
+    """``run_local`` and ``run_online_local`` raise before they run anything
+    when the cost model prices the tree at another size than it holds: an
+    f32 tree under a model priced at 2 bytes (None or "bf16"), a bf16 tree
+    under "f32"."""
+    from repro_torch.sched import Arrival
+
+    cfg, f32 = _port_base()
+    bf16 = bridge.to_torch(bridge.to_numpy(f32), CPU, torch.bfloat16)
+    configs = [LoraConfig(**SPACE[0])]
+    sched = Schedule([ScheduledJob((0,), 1, 0.0, 1.0)], 1.0, 1)
+    trace = [Arrival(0.0, configs[0], 1)]
+    for base, dtype in ((f32, None), (f32, "bf16"), (bf16, "f32")):
+        eng = ExecutionEngine(CostModel(cfg, A100_40G, base_dtype=dtype), 1)
+        with pytest.raises(ValueError, match="prices the frozen base"):
+            eng.run_local(sched, configs, cfg, base, n_steps=1, seq=SEQ)
+        with pytest.raises(ValueError, match="prices the frozen base"):
+            eng.run_online_local(trace, cfg, base, n_steps=1, seq=SEQ)
 
 
 def _port_base():

@@ -64,6 +64,32 @@ def test_packed_matmul_plain_matches_pallas(dtype, n, m, k, l):
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
 
+@pytest.mark.parametrize("r", [8, 16])
+@pytest.mark.parametrize("call", ["xA", "xAB", "case2", "case4"])
+def test_packed_matmul_f32_launcher_calls_match_pallas(call, r):
+    """The f32 calls the launcher's ``--impl auto`` makes of one rank
+    segment (N = 1 adapter), at a reduced width with M and K off every tile
+    (75 rows, d_in 132, d_out 196): xA, (xA)B, case 2 on B's transposed
+    view and case 4 on A's, against the Pallas kernel in interpret mode on
+    the transposed arrays."""
+    m, d_in, d_out = 75, 132, 196
+    (jx, tx), (ja, ta), (jb, tb), (jg, tg), (jd, td) = _inputs(
+        40 + r, [(1, m, d_in), (1, d_in, r), (1, r, d_out), (1, m, d_out), (1, m, r)],
+        "float32", stds=[1.0, d_in ** -0.5, 1.0, 1.0, 1.0])
+    scale = np.array([1.5], np.float32)
+    operands = {"xA": ((jx, ja), (tx, ta)),
+                "xAB": ((jd, jb), (td, tb)),
+                "case2": ((jg, jnp.swapaxes(jb, 1, 2)), (tg, tb.transpose(1, 2))),
+                "case4": ((jd, jnp.swapaxes(ja, 1, 2)), (td, ta.transpose(1, 2)))}
+    (jl, jr), (tl, tr) = operands[call]
+    s = scale if call == "xAB" else None
+    want = j_packed_matmul(jl, jr, None if s is None else jnp.asarray(s), interpret=True)
+    got = packed_matmul(tl, tr, None if s is None else torch.from_numpy(s),
+                        backward=call.startswith("case"))
+    assert got.dtype == torch.float32 and got.shape == tuple(want.shape)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,m,k,l,r", [(8, 1, 64, 40, 16), (1, 33, 48, 24, 8), (2, 5, 40, 130, 24)])
 def test_fused_plain_matches_pallas(dtype, n, m, k, l, r):
@@ -282,7 +308,7 @@ def test_path_counts_leave_a_capture_and_return_per_replay():
         launches.add(calls)
     paths = launches.read_paths()
     assert paths["fused_matmul"] == {"split3": 0, "wgmma": 0, "decode": 0, "ffma": 9}
-    assert paths["packed_matmul"] == {"fma": 8, "mma": 0, "decode": 0}
+    assert paths["packed_matmul"] == {"fma": 8, "mma": 0, "decode": 0, "f32skinny": 0}
     assert set(paths["fused_matmul_q"]) == {p for _, p in fused_matmul_q.launches}
     assert launches.read() == {"packed_matmul": 0, "packed_matmul_bwd": 8, "fused_matmul": 7,
                                "fused_matmul_dx": 2, "fused_matmul_q": 0}

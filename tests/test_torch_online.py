@@ -419,7 +419,10 @@ def test_run_online_local_preempt_resume_matches_reference(tmp_path):
     pack is preempted by an arrival, its adapter resumes through the pool
     in a new pack, and every adapter finishes its exact step budget."""
     jcfg, cfg = j_reduced(j_get_config("qwen25-7b")), reduced(get_config("qwen25-7b"))
-    jcost, cost = jcm.CostModel(jcfg, jcm.A100_40G), tcm.CostModel(cfg, tcm.A100_40G)
+    # the reference's f32 tree, priced as "f32" (the port's engine refuses a
+    # tree its model prices at another size)
+    jcost = jcm.CostModel(jcfg, jcm.A100_40G)
+    cost = tcm.CostModel(cfg, tcm.A100_40G, base_dtype="f32")
     jcost.setup_time = cost.setup_time = 0.0
     ja, jb, a, b = JLoraConfig(**A), JLoraConfig(**B), LoraConfig(**A), LoraConfig(**B)
     it = cost.iter_time([a], 1, RSEQ)

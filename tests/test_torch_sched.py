@@ -24,7 +24,7 @@ from repro.sched.planner import replan as j_replan
 from repro.sched.planner import sequential_plora_schedule as j_sequential
 from repro.sched.profile import ObservationStore as JStore
 from repro.sched.profile import ProfiledCostModel as JProfiled
-from repro_torch.configs import default_search_space, get_config, reduced
+from repro_torch.configs import LoraConfig, default_search_space, get_config, reduced
 from repro_torch.sched import cost_model as tcm
 from repro_torch.sched.dtm import dtm
 from repro_torch.sched.knapsack import brute_force, solve_pack
@@ -251,3 +251,51 @@ def test_port_memory_prices_what_the_executor_allocates():
         jc = [space[i] for i in ids]
         assert full.job_mem_bytes(jc, 1, 512) > 1.5 * ref.job_mem_bytes(jc, 1, 512)
     assert np.isfinite(res.losses).all()
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "nf4"])
+def test_base_storage_names_the_tree(storage):
+    """``kernels.quant.base_storage`` names a reduced base tree's storage as
+    ``CostModel``'s ``base_dtype`` does: its dense dtype, or its
+    quantization scheme whatever dtype its embeddings keep."""
+    import torch
+
+    from repro_torch.kernels.quant import base_storage, quantize_base_params
+    from repro_torch.models.model import init_model
+
+    dtype = torch.bfloat16 if storage == "bf16" else torch.float32
+    base, _ = init_model(0, _cfgs(True)[1], None, dtype=dtype, device=torch.device("cpu"))
+    if storage in ("int8", "nf4"):
+        base = quantize_base_params(base, storage)
+    assert base_storage(base) == storage
+    for bad in ({"w": torch.zeros(2, dtype=torch.float16)},
+                {"w": torch.zeros(2), "b": torch.zeros(2, dtype=torch.bfloat16)}):
+        with pytest.raises(ValueError, match="one float32 or bfloat16"):
+            base_storage(bad)
+
+
+def test_f32_base_priced_at_its_own_size():
+    """An f32 base is priced at 4 bytes a parameter, for its weights and for
+    its activations (it computes in f32); None and "bf16" keep
+    ``prec_bytes`` (2), and None, int8 and nf4 stay ``==`` to the
+    reference's at full size."""
+    jcfg, tcfg = _cfgs(False)
+    js, ts = _space(range(0, 120, 11), 512)
+    for dtype in (None, "int8", "nf4"):
+        jm, tm = _pair(jcfg, tcfg, "A100_40G", base_dtype=dtype)
+        assert tm.base_weight_bytes() == jm.base_weight_bytes()
+        assert tm.base_act_bytes(4, 512) == jm.base_act_bytes(4, 512)
+        assert tm.job_mem_bytes(ts, 1, 512) == jm.job_mem_bytes(js, 1, 512)
+    none, bf16, f32 = (tcm.CostModel(tcfg, tcm.H100, base_dtype=d) for d in (None, "bf16", "f32"))
+    assert none.base_bytes_per_param() == bf16.base_bytes_per_param() == 2.0
+    assert f32.base_bytes_per_param() == 4.0 == tcm.base_param_bytes("f32")
+    assert f32.base_weight_bytes() == 2 * none.base_weight_bytes()
+    assert f32.base_act_bytes(4, 512) == 2 * none.base_act_bytes(4, 512)
+    # the launcher's pack: ranks 8 and 16, batch 2 each, seq 512
+    pack = [LoraConfig(rank=r, alpha=2.0 * r, learning_rate=1e-4, batch_size=2, seq_len=512)
+            for r in (8, 16)]
+    grown = f32.job_mem_bytes(pack, 1, 512) - none.job_mem_bytes(pack, 1, 512)
+    assert grown == none.base_weight_bytes() + none.base_act_bytes(4, 512)
+    assert 39e9 < f32.job_mem_bytes(pack, 1, 512) < 42e9  # a 40 GB peak on an H100
+    with pytest.raises(ValueError, match="unknown base_dtype"):
+        tcm.base_param_bytes("fp8")

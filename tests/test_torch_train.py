@@ -291,6 +291,35 @@ def test_launcher_fused_impl_equals_auto_on_the_f32_base(capsys):
     assert capsys.readouterr().out.count("done: 2 steps") == 2
 
 
+@pytest.mark.parametrize("quant", ["none", "nf4"])
+def test_launcher_prices_the_tree_it_trains(monkeypatch, quant):
+    """The launcher's ``CostModel`` carries its tree's storage ("f32" for
+    ``init_model``'s default, the scheme of a quantized base), while the
+    kernel policy it hands ``train_pack`` stays the quantization scheme
+    (None for a dense base)."""
+    from repro_torch.cluster import SliceExecutor
+
+    priced, policy = [], []
+    real = launch_train.CostModel
+
+    def recording(*args, **kw):
+        priced.append(real(*args, **kw))
+        return priced[-1]
+
+    class Recording(SliceExecutor):
+        def train_pack(self, *args, **kw):
+            policy.append(kw["base_dtype"])
+            return super().train_pack(*args, **kw)
+
+    monkeypatch.setattr(launch_train, "CostModel", recording)
+    launch_train.main(["--reduced", "--device", "cpu", "--steps", "1", "--seq", "16",
+                       "--log-every", "0", "--quant", quant], executor=Recording(capture=False))
+    (cm,) = priced
+    assert cm.base_dtype == ("f32" if quant == "none" else quant)
+    assert policy == [None if quant == "none" else quant]
+    assert cm.base_bytes_per_param() == (4.0 if quant == "none" else 0.5 + 4.0 / 64.0)
+
+
 def test_bridge_round_trips_opt_state_and_quantized_base(model):
     base, lora, meta = model
     opt = jax.tree.map(np.asarray, j_init_opt(lora, meta.n))
