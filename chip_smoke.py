@@ -23,7 +23,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 4) at the sweep's shapes in bf16 (each same-rank segment of each
    job the sweep phase plans: N, M = rows per adapter x 512 and r of that
    segment, r 8-128, and likewise each of the online plan's segments, M
-   up to 4,096), and in f32 at the launcher's shapes (phase 8's pack:
+   up to 4,096), and in f32 at the launcher's shapes (phase 9's pack:
    N = 1 x M = 1,024 at r = 8 and at r = 16; the fused forward and dx,
    and ``packed_matmul``'s xA, xAB and cases 2 and 4);
    holds each against its plain version, and times
@@ -52,7 +52,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sorted), forward and backward, under
    ``torch.cuda.set_sync_debug_mode("error")``, their output and LoRA
    gradients ``torch.equal`` to the gather/scatter formulation's.
-4. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
+4. autotune -- ``kernels/autotune.py`` at the launcher's pack (full
+   qwen25-7b, ranks 8 and 16, batch 2, seq 512: N = 2 x M = 1,024 at d x d
+   and d x d_ff, r = 16): ``tune_for_model(fast=False)`` in f32 (the fused
+   kernel's "ffma" path) and ``tune`` at the same shapes in bf16 ("wgmma"),
+   each into a fresh cache under ``smoke_out/``. Each candidate (the plan's
+   own K split, then every other count the sweep asks of the path) is
+   held against the plain version at KERNEL_TOL and must keep its path; one
+   ``autotune_candidate`` line each: device ms (CUDA events), the two-pass
+   tier's ms, the speedup, FLOP/s and the share of the bound. A second tune
+   on each cache must measure nothing.
+5. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
    seed), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
    and impl="fused" (fused kernel). Launch counts are zeroed just before
@@ -60,7 +70,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode steps are held against the plain-version path on the same
    weights. Then a short drain of each impl runs under ``torch.profiler``
    (device busy share, device time by kernel).
-5. train   -- full-width, full-depth qwen25-7b (bf16 base, random weights
+6. train   -- full-width, full-depth qwen25-7b (bf16 base, random weights
    from a seed), a pack of 4 adapters of ranks (8, 16, 16, 32) (ragged
    segments of one and of two adapters), seq 512, 4096 tokens per step,
    through ``make_packed_step`` under impl="auto", impl="fused", and
@@ -74,7 +84,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    call runs under ``torch.cuda.set_sync_debug_mode("error")`` (after one
    that builds its per-device vectors).
 
-6. sweep   -- the planner-driven sweep on the same base: the 9
+7. sweep   -- the planner-driven sweep on the same base: the 9
    configurations of ``default_search_space(300, seq_len=512)[::37]``
    planned on one card with the ``H100`` cost-model preset, then every job
    run by ``ExecutionEngine.run_local`` through a ``ClusterRunner`` and a
@@ -101,7 +111,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    allocated memory (the device's peak less what earlier phases left
    allocated, besides the base) must lie within [peak, 1.3 x peak] of the
    cost model's ``job_mem_bytes`` (ROADMAP C3).
-7. online  -- the online engine on the same base: six configurations of
+8. online  -- the online engine on the same base: six configurations of
    ``default_search_space(300, seq_len=512)`` (two of batch 8, one of rank
    128, ranks 16-128) arrive on a ``poisson_trace``;
    ``ExecutionEngine.plan_online`` on the ``H100`` preset (the port's
@@ -127,13 +137,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step, finish every adapter with a finite loss and round-trip its
    observation store through JSON. Last, ``c3_fit`` fits the memory
    model's logits copies and per-job bytes to every captured job's peak.
-8. launcher -- ``repro_torch.launch.train.main``, the port's training
+9. launcher -- ``repro_torch.launch.train.main``, the port's training
    entry point, on full qwen25-7b with its f32 base (``init_model``'s
    default; the smoke's bf16 base is freed first): ``--seq 512 --ranks
    8,16 --batch-sizes 2,2 --steps 4`` (two adapters of 1,024 tokens, ranks
    8 and 16: two same-rank segments, N = 1 x M = 1,024 each), once with
    ``--impl fused`` and once with ``--impl auto``, each on a captured
-   step, then a planted control: ``--impl fused`` with the kernel's delta
+   step, then tuned and traced (``--impl fused --autotune-cache
+   --trace-out --metrics-out``: a fresh cache; the launcher sweeps the d x
+   d shape, calibrates its prior and runs the tuned split), then a planted
+   control: ``--impl fused`` with the kernel's delta
    scale left out (forward and dx). Records s/step, the
    capture's seconds, the busy share of the last replay (``torch.profiler``),
    the peak allocated memory, and each wrapper's launches in all and by
@@ -145,14 +158,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the counts that each impl must move moved, the
    two impls' per-adapter final losses are finite and agree within
    LAUNCH_LOSS_RTOL, each adapter's update under fused lies within
-   LAUNCH_UPDATE_RTOL of auto's, and the control's reads above
-   LAUNCH_CONTROL_FACTOR times that limit.
+   LAUNCH_UPDATE_RTOL of auto's, the tuned run's losses and updates lie
+   within the same limits of the untuned fused run's, its trace passes
+   ``validate_chrome_trace`` with autotune and executor spans and its
+   metrics count an executor build (it prints the uncalibrated and the
+   calibrated prior's s/step beside the measured, and the split it ran),
+   and the control's reads above LAUNCH_CONTROL_FACTOR times that limit.
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
 ``smoke_out/`` (``chip_smoke.json``, ``profile_<impl>.txt``,
 ``profile_train_{auto,fused,nf4}.txt``, ``profile_sweep_{captured,eager}.txt``,
-``profile_launcher_{fused,auto}.txt``, the nvcc logs with ``ptxas -v``).
+``profile_launcher_{fused,auto,tuned}.txt``, the autotune caches
+``autotune_{float32,bfloat16,launcher}.json``, the tuned launcher run's
+``trace_launcher.json`` and ``metrics_launcher.json``, the nvcc logs with
+``ptxas -v``).
 """
 from __future__ import annotations
 
@@ -411,7 +431,7 @@ def kernel_phase(torch, dev):
     rows = []
 
     def check(name, case, call, d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
-              library, exact=None, path_fn=None, split_times=False, extra=None):
+              library, exact=None, path_fn=None, extra=None):
         args = args_fn()
         path = path_fn(*args) if path_fn is not None else None
         got = kfn(*args)
@@ -439,10 +459,10 @@ def kernel_phase(torch, dev):
                "flops": flops, **(extra or {})}
         if path is not None:
             row["path"] = path
-        if split_times:  # device time with the host out of the loop, and host time
-            row.update(device_ms=device_ms(torch, kfn, sets),
-                       library_device_ms=device_ms(torch, lfn, sets),
-                       host_us=host_us(torch, kfn, sets), library_host_us=host_us(torch, lfn, sets))
+        # device time with the host out of the loop, and host time
+        row.update(device_ms=device_ms(torch, kfn, sets),
+                   library_device_ms=device_ms(torch, lfn, sets),
+                   host_us=host_us(torch, kfn, sets), library_host_us=host_us(torch, lfn, sets))
         emit(row)
         rows.append(row)
         del sets, args, got, want
@@ -473,7 +493,7 @@ def kernel_phase(torch, dev):
                        rnd((n, rank, d_out), dtype), scale),
               2 * n * m * (d_in * d_out + d_in * rank + rank * d_out), FUSED3,
               path_fn=lambda x, w, a, b, s: fused_matmul_path(x, w, a.shape[2], a, b),
-              split_times=True, extra=extra)
+              extra=extra)
 
     def lib_dx(g, wt, bt, at, s):
         return torch.baddbmm(torch.matmul(g, wt), torch.bmm(g, bt) * s.view(-1, 1, 1).to(g.dtype), at)
@@ -490,7 +510,7 @@ def kernel_phase(torch, dev):
               2 * n * m * (d_out * d_in + d_out * rank + rank * d_in),
               "baddbmm(g@W^T, bmm(g,B^T)*s, A^T): 3 calls",
               path_fn=lambda g, wt, bt, at, s: fused_matmul_path(g, wt, bt.shape[2], bt, at),
-              split_times=True, extra=extra)
+              extra=extra)
 
     def fused_q_rows(case, n, m, d_in, d_out, dtype, scale):
         """``fused_matmul_q`` on int8 and nf4 codes, bit-equal to the dense
@@ -505,11 +525,10 @@ def kernel_phase(torch, dev):
                   fused_matmul_q_ref, lib_fused_q, args_fn,
                   2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out),
                   "dequantize(W) then baddbmm(x@W, bmm(x,A)*s, B)", exact=dense_on_dequantized,
-                  path_fn=lambda x, c, sc, a, b, s: fused_matmul_q_path(x, c, sc, a.shape[2], a, b),
-                  split_times=True)
+                  path_fn=lambda x, c, sc, a, b, s: fused_matmul_q_path(x, c, sc, a.shape[2], a, b))
 
     def packed_rows(case, n, m, d_in, d_out, dtype, scale, backward_cases=False, rank=RANK,
-                    only=None, split_times=True, extra=None):
+                    only=None, extra=None):
         for call, args_fn, flops, bwd in packed_calls(rnd, dtype, n, m, d_in, d_out, rank, scale,
                                                       backward_cases):
             if only is not None and call not in only:
@@ -517,13 +536,12 @@ def kernel_phase(torch, dev):
             check("packed_matmul", case, call, d_in, d_out, dtype,
                   packed_bwd if bwd else packed_matmul, packed_matmul_ref, lib_bmm, args_fn, flops,
                   BMM + (" on the transposed views" if bwd else ""),
-                  path_fn=lambda x, w, s=None: packed_matmul_path(x, w), split_times=split_times,
-                  extra=extra)
+                  path_fn=lambda x, w, s=None: packed_matmul_path(x, w), extra=extra)
         if case == "decode":  # both passes of the delta as one call
             args_fn, kfn, pfn, lfn, flops, path_fn = pair_call(torch, rnd, dtype, n, m, d_in, d_out,
                                                                RANK, scale)
             check("packed_matmul", case, "pair", d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
-                  "2 calls: bmm(bmm(x, A), B)", path_fn=path_fn, split_times=True)
+                  "2 calls: bmm(bmm(x, A), B)", path_fn=path_fn)
 
     for dtype in (torch.bfloat16, torch.float32):
         for case, (n, m) in CASES.items():
@@ -557,16 +575,14 @@ def kernel_phase(torch, dev):
         for (d_in, d_out), _ in PROJ:
             packed_rows("sweep", n, m, d_in, d_out, torch.bfloat16,
                         torch.linspace(0.5, 2.0, n, device=dev), backward_cases=True, rank=r,
-                        only=SWEEP_CALLS, split_times=False,
-                        extra={"job": job, "n": n, "m": m, "rank": r})
+                        only=SWEEP_CALLS, extra={"job": job, "n": n, "m": m, "rank": r})
     # the online plan's shapes (batch 8: M = 4,096 tokens per adapter)
     on = online_plan()
     for job, n, m, r in online_segments(on.sched, on.configs):
         for (d_in, d_out), _ in PROJ:
             packed_rows("online", n, m, d_in, d_out, torch.bfloat16,
                         torch.linspace(0.5, 2.0, n, device=dev), backward_cases=True, rank=r,
-                        only=SWEEP_CALLS, split_times=False,
-                        extra={"job": job, "n": n, "m": m, "rank": r})
+                        only=SWEEP_CALLS, extra={"job": job, "n": n, "m": m, "rank": r})
     off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] == "train" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
            and r["path"] != "wgmma"]
@@ -1902,6 +1918,119 @@ def _adaptive(torch, dev, base, pool, ex, held: int):
 
 
 # ---------------------------------------------------------------------------
+# autotune phase
+# ---------------------------------------------------------------------------
+
+
+def launcher_configs():
+    """The launcher's pack from LAUNCH_ARGS: its configurations and
+    sequence length (the autotuner's shapes follow from ranks, batches and
+    seq alone)."""
+    from repro_torch.configs.base import LoraConfig
+    from repro_torch.launch.train import parse_args
+
+    args = parse_args(LAUNCH_ARGS)
+    return [LoraConfig(rank=int(r), alpha=2.0 * int(r), batch_size=int(b), seq_len=args.seq)
+            for r, b in zip(args.ranks.split(","), args.batch_sizes.split(","))], args.seq
+
+
+def autotune_phase(torch, dev, out_dir: Path):
+    """``kernels/autotune.py`` at the launcher's pack (full qwen25-7b, ranks
+    8 and 16, batch 2, seq 512: ``model_shapes(fast=False)``, N = 2 x M =
+    1,024 at d x d and d x d_ff, r = 16): ``tune_for_model`` in f32 (the
+    "ffma" path) and ``tune`` at the same shapes in bf16 (the "wgmma" path),
+    each into its own cache under ``out_dir``. Every candidate (the plan's
+    own K split, then each other count the sweep asks for) is held
+    against the plain version at KERNEL_TOL and must keep its path; one line
+    a candidate: device ms (CUDA events, ``autotune.measure``), the
+    two-pass tier's, the speedup, FLOP/s and the share of the bound. A
+    second tune on each cache must measure nothing (a cache hit). Returns
+    the f32 sweep's records."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.fused import fused_matmul_path, fused_matmul_splits
+    from repro_torch.kernels.ops import fused_lora_linear
+    from repro_torch.kernels.ref import fused_matmul_ref
+    from repro_torch.obs import Tracer
+
+    cfg = get_config("qwen25-7b")
+    configs, seq = launcher_configs()
+    shapes = at.model_shapes(cfg, configs, seq, fast=False)
+    want_path = {"float32": "ffma", "bfloat16": "wgmma"}
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        cache = out_dir / f"autotune_{dname}.json"
+        cache.unlink(missing_ok=True)
+        rows, two_ms = [], {}
+
+        def measure_fn(n, m, k, l, r, blocks, backend, twopass=True, dtype=dtype, dname=dname,
+                       rows=rows, two_ms=two_ms):
+            x, w, a, b, al = at.operands(n, m, k, l, r, dtype, dev)
+            path = fused_matmul_path(x, w, r, a, b)
+            splits = fused_matmul_splits(x, w, r, a, b, blocks=blocks)
+            with torch.no_grad():
+                got = fused_lora_linear(x, w, a, b, al, impl="fused", blocks=blocks)
+            want = fused_matmul_ref(x, w, a, b, al)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = KERNEL_TOL[dname] * want.float().abs().max().item()
+            del x, w, a, b, al, got, want
+            shape = [n, m, k, l, r]
+            if not (math.isfinite(err) and err <= tol):
+                fail(f"autotune {dname} {shape} blocks={blocks}: max_abs_err {err} > {tol}")
+            if path != want_path[dname]:
+                fail(f"autotune {dname} {shape} blocks={blocks}: took {path!r}, not "
+                     f"{want_path[dname]!r}")
+            fused_t, two_t = at._default_measure(n, m, k, l, r, blocks, backend, twopass,
+                                                 dtype=dtype, device=dev)
+            if two_t is not None:
+                two_ms[tuple(shape)] = 1e3 * two_t
+            flops = at.fused_flops(n, m, k, l, r)
+            b_ms = bound(nbytes_of_shape(n, m, k, l, r, dtype), flops, dname)[0]
+            row = {"phase": "autotune_candidate", "shape": shape, "dtype": dname, "path": path,
+                   "blocks": list(blocks) if blocks else None, "k_splits": splits,
+                   "device_ms": 1e3 * fused_t, "twopass_ms": two_ms[tuple(shape)],
+                   "speedup_vs_twopass": two_ms[tuple(shape)] / (1e3 * fused_t),
+                   "flops_per_s": flops / fused_t, "bound_ms": b_ms,
+                   "bound_share": b_ms / (1e3 * fused_t), "max_abs_err": err, "tol": tol}
+            emit(row)
+            rows.append(row)
+            return fused_t, two_t
+
+        tracer = Tracer()
+        if dtype == torch.float32:
+            prof = at.tune_for_model(cfg, configs, seq=seq, cache_path=str(cache), fast=False,
+                                     measure_fn=measure_fn, tracer=tracer, device=dev, dtype=dtype)
+        else:
+            prof = at.tune(shapes, cache_path=str(cache), measure_fn=measure_fn, tracer=tracer,
+                           device=dev, dtype=dtype)
+        spans = [sp for sp in tracer.spans() if sp.name == "autotune.measure"]
+        if len(spans) != len(rows) or any(sp.args.get("seconds") is None for sp in spans):
+            fail(f"autotune {dname}: {len(spans)} autotune.measure spans for {len(rows)} "
+                 "candidates")
+        hit, again = Tracer(), []
+        at.tune(shapes, cache_path=str(cache), tracer=hit, device=dev, dtype=dtype,
+                measure_fn=lambda *a, **kw: again.append(a) or (1.0, 1.0))
+        if again or hit.spans():
+            fail(f"autotune {dname}: a second tune on {cache.name} measured again")
+        for shape in shapes:
+            own = next(r for r in rows if r["shape"] == list(shape) and r["blocks"] is None)
+            e = prof.entry(*shape)
+            emit({"phase": "autotune", "dtype": dname, "shape": list(shape),
+                  "best_blocks": e["blocks"], "plan_k_splits": own["k_splits"],
+                  "best_ms": 1e3 * e["seconds"], "plan_ms": own["device_ms"],
+                  "speedup_vs_twopass": e["speedup_vs_twopass"], "cache": cache.name})
+        records[dname] = {"rows": rows, "lora_speedup": prof.lora_speedup()}
+    return records
+
+
+def nbytes_of_shape(n, m, k, l, r, dtype) -> int:
+    """Bytes one fused call must move: x, W, A, B read once, y written once."""
+    elem = 4 if str(dtype).endswith("float32") else 2
+    return elem * (n * m * k + k * l + n * k * r + n * r * l + n * m * l)
+
+
+# ---------------------------------------------------------------------------
 # launcher phase
 # ---------------------------------------------------------------------------
 
@@ -1935,12 +2064,10 @@ def launcher_segments():
     segment's own rank (``ops._ragged_call``), M = the pack's rows per
     adapter (each padded to the largest batch) times the sequence."""
     from repro_torch.kernels.ops import rank_segments
-    from repro_torch.launch.train import parse_args
 
-    args = parse_args(LAUNCH_ARGS)
-    m = max(int(b) for b in args.batch_sizes.split(",")) * args.seq
-    return [(hi - lo, m, r)
-            for lo, hi, r in rank_segments([int(r) for r in args.ranks.split(",")])[2]]
+    configs, seq = launcher_configs()
+    m = max(c.batch_size for c in configs) * seq
+    return [(hi - lo, m, r) for lo, hi, r in rank_segments([c.rank for c in configs])[2]]
 
 
 def launcher_executor():
@@ -1966,8 +2093,8 @@ def launcher_executor():
 def unscaled_delta(kernel):
     """``fused_matmul`` with its delta's scale left out (the planted
     control's fault)."""
-    def call(x, w, a, b, scale=None, *, backward=False):
-        return kernel(x, w, a, b, None, backward=backward)
+    def call(x, w, a, b, scale=None, *, backward=False, blocks=None):
+        return kernel(x, w, a, b, None, backward=backward, blocks=blocks)
 
     # the kernel counts through its module's name for it, which names this
     # wrapper while the control runs: one dict for both
@@ -1975,14 +2102,52 @@ def unscaled_delta(kernel):
     return call
 
 
+def tuned_run(ex, cm, win, paths) -> dict:
+    """The tuned, traced launcher run's own checks and numbers: its trace
+    (schema, autotune and executor tiers), its metrics (an executor build),
+    the split it ran, and the prior's s/step uncalibrated (``cm``, the
+    launcher's own ``CostModel``) and calibrated (``KernelProfile.calibrate``
+    of the cache it wrote) against the measured."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.autotune import KernelProfile, model_shapes
+    from repro_torch.obs import trace_tiers, validate_chrome_trace
+
+    trace = json.loads(paths["trace"].read_text())
+    problems, tiers = validate_chrome_trace(trace), trace_tiers(trace)
+    if problems or not {"autotune", "executor"} <= set(tiers):
+        fail(f"launcher tuned: trace problems {problems[:5]}, tiers {tiers}")
+    metrics = json.loads(paths["metrics"].read_text())
+    builds = metrics["counters"].get("executor.compile_cache_builds", 0)
+    if builds < 1:
+        fail(f"launcher tuned: metrics count {builds} executor builds")
+    prof = KernelProfile.load(str(paths["cache"]))
+    measured = sum(win.seconds) / max(len(win.seconds), 1)
+    pred = {"uncalibrated": cm.iter_time(ex.configs, 1, ex.seq),
+            "calibrated": prof.calibrate(cm).iter_time(ex.configs, 1, ex.seq)}
+    return {"blocks": prof.best_blocks(*model_shapes(get_config("qwen25-7b"), ex.configs,
+                                                     ex.seq)[0]),
+            "autotune_entries": prof.entries, "lora_speedup": prof.lora_speedup(),
+            "trace_tiers": tiers, "trace_events": len(trace["traceEvents"]),
+            "metrics_counters": metrics["counters"],
+            **{f"pred_{k}_s": v for k, v in pred.items()},
+            **{f"drift_{k}": measured / v - 1.0 for k, v in pred.items()}}
+
+
 def launcher_phase(torch, dev, out_dir: Path):
     """The training launcher under --impl fused and --impl auto on the f32
-    base, then the planted control (--impl fused, the delta's scale left
-    out); returns each impl's launch counts. Each run's last step (a replay
-    of its captured graph) runs under ``torch.profiler``. Each impl's own
-    peak (the device's peak less what earlier phases hold) must lie within
-    [1, C3_SLACK] of the price of the launcher's own ``CostModel`` (ROADMAP
-    C5: priced at the tree's storage, "f32")."""
+    base, then tuned and traced (--impl fused --autotune-cache --trace-out
+    --metrics-out, a fresh cache), then the planted control (--impl fused,
+    the delta's scale left out); returns each impl's launch counts. Each
+    run's last step (a replay of its captured graph) runs under
+    ``torch.profiler``. Each run's own peak but the control's (the device's
+    peak less what earlier phases hold) must lie within [1, C3_SLACK] of the
+    price of the launcher's own ``CostModel`` (ROADMAP C5: priced at the
+    tree's storage, "f32"). The tuned run's trace must pass
+    ``validate_chrome_trace`` with spans of the autotune and executor tiers,
+    its metrics count at least one executor build, and its losses and
+    updates agree with the untuned fused run's within the launcher's
+    limits; it prints the uncalibrated and the calibrated prior's s/step
+    against the measured."""
     from repro_torch.kernels import fused as fused_module
     from repro_torch.kernels import launches
     from repro_torch.launch import train as launch_train
@@ -1994,8 +2159,17 @@ def launcher_phase(torch, dev, out_dir: Path):
         priced.append(cost_model(*args, **kw))
         return priced[-1]
 
-    for run in LAUNCH_IMPLS + ("control",):
-        impl = "fused" if run == "control" else run
+    tuned = {"cache": out_dir / "autotune_launcher.json",
+             "trace": out_dir / "trace_launcher.json",
+             "metrics": out_dir / "metrics_launcher.json"}
+    for run in LAUNCH_IMPLS + ("tuned", "control"):
+        impl = "auto" if run == "auto" else "fused"
+        argv = LAUNCH_ARGS + ["--impl", impl]
+        if run == "tuned":
+            for path in tuned.values():
+                path.unlink(missing_ok=True)
+            argv += ["--autotune-cache", str(tuned["cache"]), "--trace-out", str(tuned["trace"]),
+                     "--metrics-out", str(tuned["metrics"])]
         ex = launcher_executor()
         win = StepWindow(torch, dev, profile_step=None if run == "control" else LAUNCH_STEPS - 1,
                          table=out_dir / f"profile_launcher_{run}.txt")
@@ -2010,8 +2184,7 @@ def launcher_phase(torch, dev, out_dir: Path):
         launch_train.CostModel = pricing
         t0 = time.perf_counter()
         try:
-            per = launch_train.main(LAUNCH_ARGS + ["--impl", impl], executor=ex,
-                                    step_callback=win)
+            per = launch_train.main(argv, executor=ex, step_callback=win)
         finally:
             fused_module.fused_matmul = kernel
             launch_train.CostModel = cost_model
@@ -2027,8 +2200,9 @@ def launcher_phase(torch, dev, out_dir: Path):
         # split-K epilogue)
         share = {k.replace("packed_matmul", "port_kernels"): prof.pop(k)
                  for k in list(prof) if k.startswith("packed_matmul")}
+        own = tuned_run(ex, cm, win, tuned) if run == "tuned" else {}
         emit({"phase": "launcher", "impl": impl, "run": run,
-              "args": LAUNCH_ARGS + ["--impl", impl], "base_dtype": "float32",
+              "args": argv, "base_dtype": "float32",
               "per_adapter_loss": losses[run].tolist(),
               "step_s": win.seconds, "s_per_step": sum(win.seconds) / max(len(win.seconds), 1),
               "capture_s": ex.captures[-1]["seconds"] if ex.captures else None,
@@ -2036,7 +2210,7 @@ def launcher_phase(torch, dev, out_dir: Path):
               "max_memory_allocated": peak, "job_peak_bytes": peak - held,
               "priced_base_dtype": cm.base_dtype, "job_mem_bytes": price,
               "price_over_peak": price / (peak - held), "launches": counts[run],
-              "launches_by_path": paths, "profile": prof, **share})
+              "launches_by_path": paths, "profile": prof, **share, **own})
         ex.clear()
         del ex, win
         if not np.isfinite(losses[run]).all():
@@ -2056,18 +2230,23 @@ def launcher_phase(torch, dev, out_dir: Path):
             fail(f"C5: launcher {run} priced as {cm.base_dtype!r} at {price} bytes, not within "
                  f"[1, {C3_SLACK}] x its own peak {peak - held}")
 
-    def rel(run):
-        w0, ref = adapters["auto"]
+    def rel(run, ref_run="auto"):
+        w0, ref = adapters[ref_run]
         w = adapters[run][1]
-        return {"loss_rel_err": float(np.max(np.abs(losses[run] - losses["auto"])
-                                             / np.abs(losses["auto"]))),
+        return {"loss_rel_err": float(np.max(np.abs(losses[run] - losses[ref_run])
+                                             / np.abs(losses[ref_run]))),
                 "update_rel_err": max(update_err(w[i], ref[i], w0[i]) for i in range(len(w0)))}
 
-    got, control = rel("fused"), rel("control")
+    got, control, tuned_err = rel("fused"), rel("control"), rel("tuned", "fused")
     emit({"phase": "launcher_agreement", **got, "loss_rtol": LAUNCH_LOSS_RTOL,
           "update_rtol": LAUNCH_UPDATE_RTOL,
           **{f"control_{k}": v for k, v in control.items()},
-          "control_factor": LAUNCH_CONTROL_FACTOR})
+          "control_factor": LAUNCH_CONTROL_FACTOR,
+          **{f"tuned_vs_fused_{k}": v for k, v in tuned_err.items()}})
+    if not (tuned_err["loss_rel_err"] <= LAUNCH_LOSS_RTOL
+            and tuned_err["update_rel_err"] <= LAUNCH_UPDATE_RTOL):
+        fail(f"launcher: the tuned run is {tuned_err} off the untuned --impl fused run's "
+             f"(limits {LAUNCH_LOSS_RTOL} / {LAUNCH_UPDATE_RTOL})")
     if not got["loss_rel_err"] <= LAUNCH_LOSS_RTOL:
         fail(f"launcher: --impl fused and --impl auto final losses differ by "
              f"{got['loss_rel_err']} > {LAUNCH_LOSS_RTOL}")
@@ -2194,7 +2373,7 @@ def layer_sums(rows, kernel, calls, case, dtype="bfloat16"):
            and r["call"] in calls and r["dtype"] == dtype]
     keys = [k for k in ("ms", "plain_ms", "library_ms", "bytes", "flops", "device_ms",
                         "library_device_ms", "host_us", "library_host_us")
-            if all(k in r for r in sel)]  # the sweep's rows have no device/host split
+            if all(k in r for r in sel)]
     return sel, {k: sum(mult[(r["d_in"], r["d_out"])] * r[k] for r in sel) for k in keys}
 
 
@@ -2282,6 +2461,9 @@ def main() -> None:
     t0 = time.perf_counter()
     rows = kernel_phase(torch, dev)
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    autotune_phase(torch, dev, out_dir)
+    emit({"phase": "autotune_done", "seconds": time.perf_counter() - t0})
     sync_phase(torch, dev)
     t0 = time.perf_counter()
     serve_launches, base = serve_phase(torch, dev)

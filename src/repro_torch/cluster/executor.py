@@ -335,14 +335,16 @@ class SliceExecutor:
     def step_fn(self, cfg: ModelConfig, n_pack: int, slice_: Optional[MeshSlice] = None, *,
                 impl: Optional[str] = None, remat: Optional[str] = None,
                 ranks: Optional[Tuple[int, ...]] = None,
-                base_dtype: Optional[str] = None) -> Callable:
+                base_dtype: Optional[str] = None,
+                blocks: Optional[Tuple[int, ...]] = None) -> Callable:
         """The eager packed step for this (config, pack width, kernel
-        policy): ``make_packed_step``, built once per key and counted as a
-        build or a hit. A homogeneous rank tuple normalises to None (it
-        computes the same), so same-width packs share a step across uniform
-        rank buckets. On a captured slice the cache unit is the graph
-        instead (``train_pack``)."""
-        key = self._step_key(cfg, n_pack, slice_, impl, remat, ranks, base_dtype)
+        policy: impl, remat, ranks, base storage and the fused kernel's
+        K-split override ``blocks``): ``make_packed_step``, built once per
+        key and counted as a build or a hit. A homogeneous rank tuple
+        normalises to None (it computes the same), so same-width packs share
+        a step across uniform rank buckets. On a captured slice the cache
+        unit is the graph instead (``train_pack``)."""
+        key = self._step_key(cfg, n_pack, slice_, impl, remat, ranks, base_dtype, blocks)
         return self._cached_step(key, in_place=False)
 
     def _cached_step(self, key: Tuple, in_place: bool) -> Callable:
@@ -351,11 +353,12 @@ class SliceExecutor:
         return self._step_closure(key, in_place)
 
     @staticmethod
-    def _step_key(cfg, n_pack, slice_, impl, remat, ranks, base_dtype) -> Tuple:
+    def _step_key(cfg, n_pack, slice_, impl, remat, ranks, base_dtype, blocks) -> Tuple:
         if slice_ is not None and slice_.width > 1:
             slice_.mesh()  # raises: sharded slices are not ported
         ranks = tuple(ranks) if ranks and len(set(ranks)) > 1 else None
-        return (cfg, n_pack, 1, (impl, remat, ranks, base_dtype))
+        blocks = tuple(int(b) for b in blocks) if blocks is not None else None
+        return (cfg, n_pack, 1, (impl, remat, ranks, base_dtype, blocks))
 
     def _step_closure(self, key: Tuple, in_place: bool) -> Callable:
         with self._lock:
@@ -363,10 +366,10 @@ class SliceExecutor:
             if step is None:
                 from repro_torch.train.trainer import make_packed_step
 
-                cfg, n_pack, _, (impl, remat, ranks, base_dtype) = key
+                cfg, n_pack, _, (impl, remat, ranks, base_dtype, blocks) = key
                 step = self._steps[key, in_place] = make_packed_step(
                     cfg, n_pack, impl=impl, remat=remat, ranks=ranks, base_dtype=base_dtype,
-                    in_place=in_place)
+                    in_place=in_place, blocks=blocks)
             return step
 
     def _count(self, built: bool) -> None:
@@ -474,6 +477,7 @@ class SliceExecutor:
         remat: Optional[str] = None,
         base_dtype: Optional[str] = None,
         init_state: Optional[Callable] = None,
+        blocks: Optional[Tuple[int, ...]] = None,
     ) -> PackResult:
         """Train one pack for ``n_steps`` on ``slice_`` (default: CUDA).
         ``lora``/``opt`` may carry resumed state (torch or numpy leaves, left
@@ -483,7 +487,10 @@ class SliceExecutor:
         ``budgets`` is the per-adapter step-cap vector (None = uncapped);
         ``data_start_steps`` fast-forwards each adapter's data stream past
         batches consumed in earlier segments; ``step_callback(i, metrics)``
-        runs after every step. ``base`` is read where it lies on the slice's
+        runs after every step. ``blocks`` is the fused kernel's K-split
+        override ``(k_splits,)`` (the autotuner's ``best_blocks``; None: each
+        call's plan); it is part of the step's key and so of its captured
+        graph's. ``base`` is read where it lies on the slice's
         device, else from a copy placed there once. The pack runs with that
         device current. The capture (or the first eager step's build)
         happens outside the timed region: ``wall_seconds`` is steady state.
@@ -493,7 +500,7 @@ class SliceExecutor:
         dev = resolve_device(None if slice_ is None else slice_.lead)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        key = self._step_key(cfg, meta.n, slice_, impl, remat, meta.ranks, base_dtype)
+        key = self._step_key(cfg, meta.n, slice_, impl, remat, meta.ranks, base_dtype, blocks)
         with _on_device(dev):
             base = self._placed_base(base, dev)
             shape = None

@@ -32,7 +32,7 @@ def lora_linear(
     "w" dense or a quantized ``{"codes", "scales"}`` dict
     (``kernels/quant.py``); lora: {"a": (N, d_in, r), "b": (N, r, d_out)}
     or None; scales: (N,); kcfg: the kernel policy (impl, remat, the pack's
-    ranks). With a fused impl the base projection and the delta run as one
+    ranks, the fused kernel's K-split override). With a fused impl the base projection and the delta run as one
     kernel pass -- a quantized W goes to the fused kernel as it is and is
     dequantized inside it -- and the bias is added after it; on the
     two-pass path a quantized W is dequantized up front, and the bias is
@@ -50,7 +50,7 @@ def lora_linear(
     if lora is not None and impl_r in FUSED:
         y = fused_lora_linear(
             xp, w if quant else w.to(x.dtype), lora["a"].to(x.dtype), lora["b"].to(x.dtype),
-            scales, impl=impl_r, remat=kc.remat, ranks=kc.ranks,
+            scales, impl=impl_r, remat=kc.remat, ranks=kc.ranks, blocks=kc.blocks,
         ).reshape(*lead, d_out)
         if "b" in params:
             y = y + params["b"].to(x.dtype)

@@ -35,13 +35,13 @@ SIGNATURES = {
         "plora_packed_lora_delta": (_I, [ctypes.c_char_p]),  # one block of 12 int64
     },
     "fused": {
-        # the path; the workspace through the pointer
-        "plora_fused_matmul_plan": (_I, [_I] * 9 + [ctypes.POINTER(_LL)]),
-        "plora_fused_matmul": (_I, [ctypes.c_char_p]),  # one block of 15 int64
+        # the path; the workspace and the K ranges through the pointers
+        "plora_fused_matmul_plan": (_I, [_I] * 10 + [ctypes.POINTER(_LL), ctypes.POINTER(_I)]),
+        "plora_fused_matmul": (_I, [ctypes.c_char_p]),  # one block of 16 int64
     },
     "fused_q": {
-        "plora_fused_matmul_q_plan": (_I, [_I] * 8 + [ctypes.POINTER(_LL)]),
-        "plora_fused_matmul_q": (_I, [ctypes.c_char_p]),  # one block of 17 int64
+        "plora_fused_matmul_q_plan": (_I, [_I] * 9 + [ctypes.POINTER(_LL), ctypes.POINTER(_I)]),
+        "plora_fused_matmul_q": (_I, [ctypes.c_char_p]),  # one block of 18 int64
     },
 }
 SOURCES = tuple(SIGNATURES)

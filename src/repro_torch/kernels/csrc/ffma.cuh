@@ -57,6 +57,7 @@ namespace plora {
 
 constexpr int FF_BM = 128, FF_BN = 128, FF_BK = 32;  // output tile, K per stage
 constexpr int FF_STAGES = 3, FF_THREADS = 256;
+constexpr int FF_MAX_SPLITS = 4;  // K ranges the plan may cut
 constexpr int FF_KLD = FF_BK + 4;       // row stride (floats) of a [row][k] tile
 constexpr int FF_TILE = FF_BM * FF_KLD;  // floats of one operand's tile in a stage
 constexpr int FF_SMEM = FF_STAGES * 2 * FF_TILE * 4;  // 110,592 bytes
@@ -405,12 +406,14 @@ inline double ffma_time(long long tiles, int k, int s, long long rows, int l) {
 
 // Split K where the last wave leaves enough SMs idle to pay for the
 // partials (at 2,048 rows k and v: 64 tiles; q, o and down: 448), at most 4
-// ranges of at least 4 K steps each.
-inline SplitK plan_ffma(int rows, int k, int l) {
-  const long long tiles = (long long)((rows + FF_BM - 1) / FF_BM) * ((l + FF_BN - 1) / FF_BN);
+// ranges of at least 4 K steps each. `splits` > 0 asks for that many ranges
+// instead (the autotuner's candidate), clamped to the same limits.
+inline SplitK plan_ffma(int rows, int k, int l, int splits) {
   const int ksteps = (k + FF_BK - 1) / FF_BK;
+  if (splits > 0) return k_ranges(ksteps, splits, FF_MAX_SPLITS);
+  const long long tiles = (long long)((rows + FF_BM - 1) / FF_BM) * ((l + FF_BN - 1) / FF_BN);
   int best = 1;
-  for (int s = 2; s <= 4 && ksteps >= 4 * s; ++s)
+  for (int s = 2; s <= FF_MAX_SPLITS && ksteps >= 4 * s; ++s)
     if (ffma_time(tiles, k, s, rows, l) < ffma_time(tiles, k, best, rows, l)) best = s;
   const int steps = (ksteps + best - 1) / best;
   return {(ksteps + steps - 1) / steps, steps};

@@ -42,20 +42,25 @@ static int run(const Plan& pl, const void* x, const void* w, const void* a, cons
 
 // The plan of a call from its sizes and its operands' flags -- aligned: x
 // and W start on 16 bytes; ab_aligned: A and B start on 16 bytes; trans_w:
-// W is W^T read in place. Returns the path (PATH_SPLIT3, PATH_WGMMA,
+// W is W^T read in place; splits: the K ranges asked for (0: the plan's
+// choice; see make_plan). Returns the path (PATH_SPLIT3, PATH_WGMMA,
 // PATH_DECODE or PATH_FFMA) and stores the f32 workspace (elements) it
-// needs.
+// needs and the K ranges of its base product.
 extern "C" int plora_fused_matmul_plan(int n, int m, int k, int l, int r, int dtype, int aligned,
-                                       int ab_aligned, int trans_w, long long* workspace) {
-  const Plan pl = make_plan(aligned != 0, ab_aligned != 0, trans_w != 0, dtype, n, m, k, l, r);
+                                       int ab_aligned, int trans_w, int splits,
+                                       long long* workspace, int* k_splits) {
+  const Plan pl =
+      make_plan(aligned != 0, ab_aligned != 0, trans_w != 0, dtype, n, m, k, l, r, splits);
   *workspace = pl.workspace;
+  *k_splits = pl.splits_y;
   return pl.path;
 }
 
-// One call: its arguments come as one block of 15 int64 -- x, w, a, b,
+// One call: its arguments come as one block of 16 int64 -- x, w, a, b,
 // scale, y, workspace (addresses; 0 for no scale or no workspace), n, m, k,
 // l, r, dtype (0 float32, 1 bfloat16), trans_w (1 when the (k x l) W operand
-// is W^T of a row-major (l x k) array), stream -- because ctypes converts
+// is W^T of a row-major (l x k) array), splits (the K ranges asked for, 0:
+// the plan's choice), stream -- because ctypes converts
 // each argument of a call on the host. The plan is made from the pointers
 // as plora_fused_matmul_plan makes it from their flags. Returns
 // cudaGetLastError() after the launches (0 on success); they are
@@ -71,10 +76,12 @@ extern "C" int plora_fused_matmul(const long long* args) {
   const int n = (int)args[7], m = (int)args[8], k = (int)args[9], l = (int)args[10];
   const int r = (int)args[11], dtype = (int)args[12];
   const bool trans_w = args[13] != 0;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[14]);
+  const int splits = (int)args[14];
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[15]);
   if (const int bad = check_sizes(n, m, k, l, r)) return bad;
   const Plan pl = make_plan(aligned_to(x, 16) && aligned_to(w, 16),
-                            aligned_to(a, 16) && aligned_to(b, 16), trans_w, dtype, n, m, k, l, r);
+                            aligned_to(a, 16) && aligned_to(b, 16), trans_w, dtype, n, m, k, l, r,
+                            splits);
   if (dtype == 0)
     return run<float>(pl, x, w, a, b, scale, y, workspace, n, m, k, l, r, trans_w, st);
   if (dtype == 1)

@@ -611,16 +611,13 @@ inline bool aligned_to(const void* p, uintptr_t a) {
 inline int rank_pad(int r) { return r <= 16 ? 16 : r <= 32 ? 32 : r <= 64 ? 64 : 128; }
 
 // One block per SM: split K only when the output tiles leave SMs idle,
-// keeping at least 4 K steps per range.
-inline SplitK plan_wgmma(int rows, int k, int l, int bn) {
-  const int tiles = ((rows + WG_BM - 1) / WG_BM) * ((l + bn - 1) / bn);
+// keeping at least 4 K steps per range. `splits` > 0 asks for that many
+// ranges instead (the autotuner's candidate), clamped by the same rule.
+inline SplitK plan_wgmma(int rows, int k, int l, int bn, int splits) {
   const int ksteps = (k + WG_BK - 1) / WG_BK;
-  int s = tiles >= NUM_SMS ? 1 : NUM_SMS / tiles;
-  s = s < MAX_SPLITS ? s : MAX_SPLITS;
-  s = s < ksteps / 4 ? s : ksteps / 4;
-  s = s > 1 ? s : 1;
-  const int steps = (ksteps + s - 1) / s;
-  return {(ksteps + steps - 1) / steps, steps};
+  if (splits > 0) return k_ranges(ksteps, splits, MAX_SPLITS);
+  const int tiles = ((rows + WG_BM - 1) / WG_BM) * ((l + bn - 1) / bn);
+  return k_ranges(ksteps, tiles >= NUM_SMS ? 1 : NUM_SMS / tiles, MAX_SPLITS);
 }
 
 // The plan of a call: its path, the wgmma kernel's padded rank and tile
@@ -638,9 +635,11 @@ struct Plan {
 
 // `aligned`: x and W can be read by the kernels' TMA and vector loads;
 // `ab_aligned`: A and B start on 16 bytes; `trans_w`: W is the backward's
-// W^T, read in place.
+// W^T, read in place; `splits` > 0: the K ranges the wgmma and ffma paths
+// take in place of their plan's choice (clamped as the plan clamps; the
+// decode and split3 paths keep their plans), 0: the plan's choice.
 inline Plan make_plan(bool aligned, bool ab_aligned, bool trans_w, int dtype, int n, int m, int k,
-                      int l, int r) {
+                      int l, int r, int splits = 0) {
   const int rows = n * m;
   if (use_decode(aligned, ab_aligned, trans_w, dtype, n, m, k, l)) {
     const DecodeGeom g = decode_geom(k, l, 1, 4, 32, DEC_SLOTS);
@@ -653,12 +652,12 @@ inline Plan make_plan(bool aligned, bool ab_aligned, bool trans_w, int dtype, in
   }
   if (use_wgmma(aligned, dtype, n, m, k, l)) {
     const int rp = rank_pad(r), bn = wg_bn(rp);
-    const SplitK sk = plan_wgmma(rows, k, l, bn);
+    const SplitK sk = plan_wgmma(rows, k, l, bn, splits);
     return {PATH_WGMMA, rp, bn, sk.splits, sk.splits, sk.steps,
             sk.splits > 1 ? (long long)sk.splits * rows * (l + r) : 0, 0, 0, 0};
   }
   if (use_ffma(aligned, ab_aligned, dtype, n, m, k, l)) {
-    const SplitK sk = plan_ffma(rows, k, l);
+    const SplitK sk = plan_ffma(rows, k, l, splits);
     const int sx = gemm_plan_for(n, m, k, r).splits;
     return {PATH_FFMA, 0, 0, sk.splits, sx, sk.steps,
             (sk.splits > 1 ? (long long)sk.splits * rows * l : 0) + (long long)sx * rows * r,

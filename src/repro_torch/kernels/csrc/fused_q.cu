@@ -51,19 +51,23 @@ static int run(const Plan& pl, const void* x, const void* codes, const float* sc
 // and the scales start on 16 bytes, the codes on 8; ab_aligned: A and B
 // start on 16 bytes. The same plan as the dense kernel's (fused.cu) on a
 // row-major W, so a call takes the path and the order of sums of the dense
-// call on the dequantized W. Returns the path and stores the f32 workspace
-// (elements) it needs.
+// call on the dequantized W; splits as there. Returns the path and stores
+// the f32 workspace (elements) it needs and the K ranges of its base
+// product.
 extern "C" int plora_fused_matmul_q_plan(int n, int m, int k, int l, int r, int dtype,
-                                         int aligned, int ab_aligned, long long* workspace) {
-  const Plan pl = make_plan(aligned != 0, ab_aligned != 0, false, dtype, n, m, k, l, r);
+                                         int aligned, int ab_aligned, int splits,
+                                         long long* workspace, int* k_splits) {
+  const Plan pl = make_plan(aligned != 0, ab_aligned != 0, false, dtype, n, m, k, l, r, splits);
   *workspace = pl.workspace;
+  *k_splits = pl.splits_y;
   return pl.path;
 }
 
-// One call: its arguments come as one block of 17 int64 -- x, codes,
+// One call: its arguments come as one block of 18 int64 -- x, codes,
 // scales, a, b, scale, y, workspace (addresses; 0 for no scale or no
 // workspace), n, m, k, l, r, dtype (0 float32, 1 bfloat16), mode (0 int8,
-// 1 nf4), blk (nf4: the rows of one scale block, dividing k), stream.
+// 1 nf4), blk (nf4: the rows of one scale block, dividing k), splits (the
+// K ranges asked for, 0: the plan's choice), stream.
 // Returns cudaGetLastError() after the launches (0 on success); they are
 // asynchronous on `stream`.
 extern "C" int plora_fused_matmul_q(const long long* args) {
@@ -77,11 +81,12 @@ extern "C" int plora_fused_matmul_q(const long long* args) {
   float* workspace = reinterpret_cast<float*>(args[7]);
   const int n = (int)args[8], m = (int)args[9], k = (int)args[10], l = (int)args[11];
   const int r = (int)args[12], dtype = (int)args[13], mode = (int)args[14], blk = (int)args[15];
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[16]);
+  const int splits = (int)args[16];
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[17]);
   if (const int bad = check_sizes(n, m, k, l, r)) return bad;
   if (mode != 0 && (mode != 1 || k % 2 || blk <= 0 || k % blk)) return (int)cudaErrorInvalidValue;
   const Plan pl = make_plan(q_aligned(x, codes, scales), aligned_to(a, 16) && aligned_to(b, 16),
-                            false, dtype, n, m, k, l, r);
+                            false, dtype, n, m, k, l, r, splits);
   if (dtype == 0)
     return run<float>(pl, x, codes, scales, a, b, scale, y, workspace, n, m, k, l, r, mode, blk,
                       st);

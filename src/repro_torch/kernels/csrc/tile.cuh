@@ -143,6 +143,17 @@ struct SplitK {
   int splits, steps;
 };
 
+// K steps cut into s ranges, s clamped to [1, cap] and to at least 4 K
+// steps a range: the ranges and the K steps each (the fused plans' rule,
+// for their own choice and for a caller's).
+__host__ __device__ inline SplitK k_ranges(int ksteps, int s, int cap) {
+  s = s < cap ? s : cap;
+  s = s < ksteps / 4 ? s : ksteps / 4;
+  s = s > 1 ? s : 1;
+  const int steps = (ksteps + s - 1) / s;
+  return {(ksteps + steps - 1) / steps, steps};
+}
+
 __host__ __device__ inline SplitK split_k(int blocks, int K, int BK) {
   const int ksteps = (K + BK - 1) / BK;
   int s = (TARGET_BLOCKS + blocks - 1) / blocks;

@@ -26,6 +26,11 @@ launch is one ctypes call whose arguments go as one packed block. The
 decode path's one workspace, xA (rows x r f32), lies behind y in y's own
 allocation. Each wrapper counts its launches by direction and path.
 
+A caller may ask the "wgmma" and "ffma" paths for another count of K
+ranges than their plan's (``blocks=[k_splits]``, clamped as the plan
+clamps): the choice the autotuner sweeps (``kernels/autotune.py``).
+``blocks=None`` leaves every plan as it is.
+
 ``_FusedLora`` is the autograd Function around them: its backward is the
 reference's ``_bwd`` (``fused.py:354-431``), with dx through the kernel.
 """
@@ -34,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -60,9 +65,9 @@ MAX_RANK = 128  # RMAX of csrc/fused.cuh
 PATHS = ("split3", "wgmma", "decode", "ffma")
 DECODE = PATHS.index("decode")
 QUANT_MODES = {torch.int8: 0, torch.uint8: 1}  # the codes' dtype -> mode of csrc/fused_q.cu
-# each launch's one argument: a block of 15 (dense) or 17 (quantized) int64
-_ARGS = struct.Struct("<15q")
-_ARGS_Q = struct.Struct("<17q")
+# each launch's one argument: a block of 16 (dense) or 18 (quantized) int64
+_ARGS = struct.Struct("<16q")
+_ARGS_Q = struct.Struct("<18q")
 
 
 def _check_lora(name, x, a, b, l):
@@ -104,23 +109,41 @@ def _q_aligned(x, codes, scales) -> bool:
     return (x.data_ptr() | scales.data_ptr()) % 16 == 0 and codes.data_ptr() % 8 == 0
 
 
+def k_splits(blocks) -> int:
+    """The K ranges a ``blocks`` override asks of the plan: ``[k_splits]``
+    (the autotuner's candidate), or 0 for None (the plan's own choice)."""
+    if blocks is None:
+        return 0
+    if len(blocks) != 1 or int(blocks[0]) < 1:
+        raise ValueError(f"blocks {blocks!r}: expected None or [k_splits >= 1]")
+    return int(blocks[0])
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(lib_name: str, n: int, m: int, k: int, l: int, r: int, code: int, aligned: int,
-          ab_aligned: int, trans_w: int = 0):
-    """(path, f32 workspace elements) of a call, from ``csrc/fused.cuh``'s
-    plan -- the one the launch makes from the pointers. It reads only these
-    sizes, the dtype and three flags (``aligned``: x and W can be read by
-    the kernels' TMA and vector loads; ``ab_aligned``: A and B are 16-byte
-    aligned; ``trans_w``: W is a transposed view, read in place), so it is
-    asked once per shape."""
-    ws = ctypes.c_longlong(0)
+def _plan_info(lib_name: str, n: int, m: int, k: int, l: int, r: int, code: int, aligned: int,
+               ab_aligned: int, trans_w: int = 0, splits: int = 0):
+    """(path, f32 workspace elements, K ranges of the base product) of a
+    call, from ``csrc/fused.cuh``'s plan -- the one the launch makes from
+    the pointers. It reads only these sizes, the dtype, three flags
+    (``aligned``: x and W can be read by the kernels' TMA and vector loads;
+    ``ab_aligned``: A and B are 16-byte aligned; ``trans_w``: W is a
+    transposed view, read in place) and the K ranges asked for (``splits``,
+    0: the plan's choice), so it is asked once per shape."""
+    ws, ks = ctypes.c_longlong(0), ctypes.c_int(0)
     if lib_name == "fused":
         path = _build.load("fused").plora_fused_matmul_plan(
-            n, m, k, l, r, code, aligned, ab_aligned, trans_w, ctypes.byref(ws))
+            n, m, k, l, r, code, aligned, ab_aligned, trans_w, splits, ctypes.byref(ws),
+            ctypes.byref(ks))
     else:
         path = _build.load("fused_q").plora_fused_matmul_q_plan(
-            n, m, k, l, r, code, aligned, ab_aligned, ctypes.byref(ws))
-    return path, ws.value
+            n, m, k, l, r, code, aligned, ab_aligned, splits, ctypes.byref(ws), ctypes.byref(ks))
+    return path, ws.value, ks.value
+
+
+def _plan(lib_name: str, n: int, m: int, k: int, l: int, r: int, code: int, aligned: int,
+          ab_aligned: int, trans_w: int = 0, splits: int = 0):
+    """(path, f32 workspace elements) of a call (:func:`_plan_info`)."""
+    return _plan_info(lib_name, n, m, k, l, r, code, aligned, ab_aligned, trans_w, splits)[:2]
 
 
 def _outputs(n: int, m: int, l: int, path: int, n_ws: int, dtype, dev: int):
@@ -145,6 +168,7 @@ _launch = {}  # library name -> its launch function, once loaded
 def fused_matmul(
     x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     scale: Optional[torch.Tensor] = None, *, backward: bool = False,
+    blocks: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """y[n] = x[n] @ w + scale[n] * (x[n] @ a[n]) @ b[n].
 
@@ -152,7 +176,10 @@ def fused_matmul(
     contiguous (L, K) tensor; a: (N, K, r); b: (N, r, L); scale: (N,) f32 or
     None; bf16 or f32, r <= 128. ``backward`` marks the backward's dx call:
     its launch is counted under "bwd" in ``fused_matmul.launches`` (keyed
-    by direction and path; ``kernels/launches.py`` reads them)."""
+    by direction and path; ``kernels/launches.py`` reads them).
+    ``blocks``: ``[k_splits]``, the K ranges the "wgmma" and "ffma" paths
+    take in place of their plan's choice (clamped as the plan clamps; the
+    autotuner's candidate), or None; the plain version ignores it."""
     if x.is_cpu:
         return _ref.fused_matmul_ref(x, w, a, b, scale)
     dev = _device(x, "fused_matmul")
@@ -183,14 +210,15 @@ def fused_matmul(
         return torch.empty((n, m, l), dtype=dt, device=dev)
     code = DTYPE_CODES[dt]
     xp, wp, ap, bp = x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr()
+    splits = k_splits(blocks)
     path, n_ws = _plan("fused", n, m, k, l, r, code, int((xp | wp) % 16 == 0),
-                       int((ap | bp) % 16 == 0), int(trans_w))
+                       int((ap | bp) % 16 == 0), int(trans_w), splits)
     y, ws, keep = _outputs(n, m, l, path, n_ws, dt, dev)
     launch = _launch.get("fused")
     if launch is None:
         launch = _launch["fused"] = _build.load("fused").plora_fused_matmul
     rc = launch(_ARGS.pack(xp, wp, ap, bp, s, y.data_ptr(), ws, n, m, k, l, r, code, trans_w,
-                           torch._C._cuda_getCurrentRawStream(dev)))
+                           splits, torch._C._cuda_getCurrentRawStream(dev)))
     del keep
     if rc:
         _build.check(_build.load("fused"), rc, "fused_matmul")
@@ -224,12 +252,14 @@ def _q_operands(x, codes, scales, a, b):
 
 def fused_matmul_q(
     x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, a: torch.Tensor,
-    b: torch.Tensor, scale: Optional[torch.Tensor] = None,
+    b: torch.Tensor, scale: Optional[torch.Tensor] = None, *,
+    blocks: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """y[n] = x[n] @ deq(W) + scale[n] * (x[n] @ a[n]) @ b[n], W given as
     int8 codes (K, L) + f32 scales (1, L), or nf4 codes (K/2, L) uint8 + f32
     block scales (K/blk, L); each W element is the f32 product code * scale
-    cast once to x's dtype. Other operands as :func:`fused_matmul`."""
+    cast once to x's dtype. Other operands, and ``blocks``, as
+    :func:`fused_matmul`."""
     if x.is_cpu:
         return _ref.fused_matmul_q_ref(x, codes, scales, a, b, scale)
     dev = _device(x, "fused_matmul_q")
@@ -241,15 +271,16 @@ def fused_matmul_q(
     if n * m * l == 0:
         return torch.empty((n, m, l), dtype=x.dtype, device=dev)
     code = DTYPE_CODES[x.dtype]
+    splits = k_splits(blocks)
     path, n_ws = _plan("fused_q", n, m, k, l, r, code, int(_q_aligned(x, codes, scales)),
-                       int(_aligned16(a, b)))
+                       int(_aligned16(a, b)), splits=splits)
     y, ws, keep = _outputs(n, m, l, path, n_ws, x.dtype, dev)
     launch = _launch.get("fused_q")
     if launch is None:
         launch = _launch["fused_q"] = _build.load("fused_q").plora_fused_matmul_q
     rc = launch(_ARGS_Q.pack(
         x.data_ptr(), codes.data_ptr(), scales.data_ptr(), a.data_ptr(), b.data_ptr(), s,
-        y.data_ptr(), ws, n, m, k, l, r, code, mode, blk,
+        y.data_ptr(), ws, n, m, k, l, r, code, mode, blk, splits,
         torch._C._cuda_getCurrentRawStream(dev),
     ))
     del keep
@@ -277,6 +308,20 @@ def fused_matmul_path(x: torch.Tensor, w: torch.Tensor, r: int,
                        int(_aligned16(x, w)), int(ab), int(trans_w))[0]]
 
 
+def fused_matmul_splits(x: torch.Tensor, w: torch.Tensor, r: int,
+                        a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None, *,
+                        blocks: Optional[Sequence[int]] = None) -> int:
+    """The K ranges of the base product that :func:`fused_matmul` takes on
+    these CUDA operands (with ``blocks``: the request, as the plan clamps
+    it); operands as :func:`fused_matmul_path`."""
+    _device(x, "fused_matmul_splits")
+    n, m, k = x.shape
+    trans_w = _transposed(w, "w")
+    ab = _aligned16(*(t for t in (a, b) if t is not None))
+    return _plan_info("fused", n, m, k, w.shape[1], r, DTYPE_CODES[x.dtype],
+                      int(_aligned16(x, w)), int(ab), int(trans_w), k_splits(blocks))[2]
+
+
 def fused_matmul_q_path(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, r: int,
                         a: Optional[torch.Tensor] = None,
                         b: Optional[torch.Tensor] = None) -> str:
@@ -298,10 +343,12 @@ class _FusedLora(torch.autograd.Function):
     """``x @ W + alpha_n * (x_n @ A_n) @ B_n`` for 3-D x (N, M, d_in), with
     the reference's backward (``fused.py:354-431``).
 
-    forward(x, w, a, b, alpha, wq, impl, remat): ``w`` the dense (d_in,
-    d_out) weight, or None with ``wq`` the quantized ``{"codes",
+    forward(x, w, a, b, alpha, wq, impl, remat, blocks): ``w`` the dense
+    (d_in, d_out) weight, or None with ``wq`` the quantized ``{"codes",
     "scales"}`` dict; ``impl`` "fused_pallas" (the kernels) or
-    "fused_plain" (their plain versions); ``remat`` "save" | "recompute".
+    "fused_plain" (their plain versions); ``remat`` "save" | "recompute";
+    ``blocks`` the kernels' K-split override (None: their plans' choice),
+    for the forward and dx.
 
     Backward: g_s = g * alpha; d(xA) = g_s @ B^T in f32, cast to x's dtype;
     dx = fused(g, W^T, B^T, A^T, alpha) through the fused kernel -- one
@@ -312,16 +359,18 @@ class _FusedLora(torch.autograd.Function):
     dtype; dW only when asked, never for a quantized base."""
 
     @staticmethod
-    def forward(ctx, x, w, a, b, alpha, wq, impl, remat):
+    def forward(ctx, x, w, a, b, alpha, wq, impl, remat, blocks):
         plain = impl == "fused_plain"
-        if wq is not None:
-            fn = _ref.fused_matmul_q_ref if plain else fused_matmul_q
-            y = fn(x, wq["codes"], wq["scales"], a, b, alpha)
+        if plain:
+            y = (_ref.fused_matmul_ref(x, w, a, b, alpha) if wq is None else
+                 _ref.fused_matmul_q_ref(x, wq["codes"], wq["scales"], a, b, alpha))
+        elif wq is not None:
+            y = fused_matmul_q(x, wq["codes"], wq["scales"], a, b, alpha, blocks=blocks)
         else:
-            y = (_ref.fused_matmul_ref if plain else fused_matmul)(x, w, a, b, alpha)
+            y = fused_matmul(x, w, a, b, alpha, blocks=blocks)
         saved_xa = xa_rounded(x, a) if remat == "save" and plain else None
         ctx.save_for_backward(x, w, a, b, alpha, saved_xa)
-        ctx.wq, ctx.impl = wq, impl
+        ctx.wq, ctx.impl, ctx.blocks = wq, impl, blocks
         return y
 
     @staticmethod
@@ -335,11 +384,11 @@ class _FusedLora(torch.autograd.Function):
         if ctx.impl == "fused_plain":
             dx = _ref.fused_matmul_ref(g, wd.t(), bt, at, alpha)
         else:
-            dx = fused_matmul(g, wd.t(), bt, at, alpha, backward=True)
+            dx = fused_matmul(g, wd.t(), bt, at, alpha, backward=True, blocks=ctx.blocks)
         xa = saved_xa if saved_xa is not None else xa_rounded(x, a)
         da = torch.einsum("nmk,nmr->nkr", x, dxa).to(a.dtype)
         db = torch.einsum("nmr,nml->nrl", xa, g_s).to(b.dtype)
         dw = None
         if ctx.needs_input_grad[1]:
             dw = torch.einsum("nmk,nml->kl", x, g).to(w.dtype)
-        return dx, dw, da, db, None, None, None, None
+        return dx, dw, da, db, None, None, None, None, None

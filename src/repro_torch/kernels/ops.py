@@ -119,12 +119,16 @@ class KernelConfig:
     base_dtype : the frozen base's storage, None (dense) or "int8"/"nf4"
                  (kernels/quant.py); dispatch follows the weights themselves,
                  this names the policy a step was built for
+    blocks     : the fused kernel's K-split override ``(k_splits,)`` (the
+                 autotuner's choice, ``kernels/autotune.py``; None -> each
+                 call's plan)
     """
 
     impl: Optional[str] = None
     remat: Optional[str] = None
     ranks: Optional[Tuple[int, ...]] = None
     base_dtype: Optional[str] = None
+    blocks: Optional[Tuple[int, ...]] = None
 
     def resolved_impl(self) -> str:
         return _resolve(self.impl)
@@ -292,13 +296,16 @@ def fused_lora_linear(
     impl: Optional[str] = None,
     remat: Optional[str] = None,
     ranks: Optional[Tuple[int, ...]] = None,
+    blocks: Optional[Tuple[int, ...]] = None,
 ):
     """Fused ``x @ W + alpha_n * (x_n @ A_n) @ B_n`` with the same ragged-rank
     segmentation as :func:`packed_lora_delta` (each same-rank segment runs
     its own fused pass).
 
     x: (N, ..., d_in); w: (d_in, d_out) dense, or a quantized ``{"codes",
-    "scales"}`` dict (dequantized inside the kernel); a/b/alpha as usual."""
+    "scales"}`` dict (dequantized inside the kernel); a/b/alpha as usual;
+    ``blocks``: the kernel's K-split override ``(k_splits,)`` for every
+    segment's forward and dx (None: each call's plan)."""
     impl_r = {"pallas": "fused_pallas", "plain": "fused_plain"}.get(
         _resolve(impl), _resolve(impl)
     )
@@ -309,7 +316,7 @@ def fused_lora_linear(
 
     def fused(xs, as_, bs, als):
         x3 = xs.reshape(xs.shape[0], -1, xs.shape[-1]).contiguous()
-        y = _FusedLora.apply(x3, wd, as_, bs, als, wq, impl_r, remat_r)
+        y = _FusedLora.apply(x3, wd, as_, bs, als, wq, impl_r, remat_r, blocks)
         return y.reshape(*xs.shape[:-1], y.shape[-1])
 
     if ranks is not None and len(set(ranks)) > 1:

@@ -18,8 +18,13 @@ kernel policy), ``--pool`` (save each adapter), ``--save-state`` /
 continues each adapter's data stream where it stopped, so it equals an
 unbroken run), ``--hw`` (the cost-model prior of the plan-vs-measured
 table, default ``h100``), ``--profile-in`` / ``--profile-out`` (the
-observation store). The reference's other flags wait for the multi-host and
-sharded slices of the port, autotune and tracing, and raise if given.
+observation store), ``--autotune-cache`` (``kernels/autotune.py``: sweep the
+fused kernel's K split at the pack's projection shapes, keep the result in a
+JSON cache, run the tuned split and calibrate the cost-model prior with the
+measured fused rate; it runs the fused tier), ``--trace-out`` (a Chrome
+trace of the autotuner's and the executor's spans) and ``--metrics-out``
+(the metrics registry as JSON). The reference's other flags wait for the
+port's multi-host and sharded slices, and raise if given.
 """
 from __future__ import annotations
 
@@ -36,16 +41,17 @@ from repro_torch.core.packed_lora import extract_adapter
 from repro_torch.kernels.ops import IMPLS, REMATS
 from repro_torch.kernels.quant import base_storage, quantize_base_params
 from repro_torch.models.model import init_model
+from repro_torch.obs import NULL_TRACER, Tracer
 from repro_torch.sched.cost_model import PRESETS, CostModel
 from repro_torch.sched.profile import ObservationStore, ProfiledCostModel
 from repro_torch.train.checkpoint import CheckpointPool
 
-# the reference launcher's flags that wait for later slices of the port
+# the reference launcher's flags that wait for the port's multi-host and
+# sharded slices
 NOT_PORTED = {
-    "--mesh": "value", "--autotune-cache": "value", "--hosts": "value",
-    "--devices-per-host": "value", "--host-classes": "value", "--heartbeat": "value",
-    "--drain-after": "value", "--join-after": "value", "--fsdp": "flag",
-    "--seq-parallel": "flag", "--trace-out": "value", "--metrics-out": "value",
+    "--mesh": "value", "--hosts": "value", "--devices-per-host": "value",
+    "--host-classes": "value", "--heartbeat": "value", "--drain-after": "value",
+    "--join-after": "value", "--fsdp": "flag", "--seq-parallel": "flag",
 }
 
 
@@ -84,6 +90,16 @@ def parse_args(argv=None):
                     help="load an observation store (JSON) from an earlier run")
     ap.add_argument("--profile-out", default=None,
                     help="save the observation store, this run's step time folded in")
+    ap.add_argument("--autotune-cache", default=None,
+                    help="JSON autotune cache (kernels/autotune.py): sweep the fused kernel's "
+                         "K split at this pack's projection shapes, persist the result here, "
+                         "run the tuned split and calibrate the cost-model prior with the "
+                         "measured fused rate")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON of the run (autotuner and executor "
+                         "spans); load it at ui.perfetto.dev or chrome://tracing")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics registry (counters, gauges, histograms) as JSON")
     for flag, kind in NOT_PORTED.items():
         if kind == "flag":
             ap.add_argument(flag, action="store_true", help="not ported yet")
@@ -93,16 +109,46 @@ def parse_args(argv=None):
     given = [f for f in NOT_PORTED if getattr(args, f[2:].replace("-", "_")) not in (None, False)]
     if given:
         ap.error(f"{', '.join(given)}: not ported yet (they wait for the port's multi-host "
-                 "and sharded slices, autotune and tracing)")
+                 "and sharded slices)")
     if (args.save_state or args.resume_state) and not args.pool:
         ap.error("--save-state/--resume-state require --pool")
+    if args.autotune_cache:
+        # the calibration prices FUSED-kernel rates, so the run must execute
+        # the fused tier -- otherwise the planner would predict work the
+        # kernels never do
+        if args.impl in (None, "auto"):
+            args.impl = "fused"
+            print("autotune: --impl not set; running the fused tier the calibration measures")
+        elif args.impl in ("pallas", "plain"):
+            ap.error("--autotune-cache calibrates measured FUSED rates; combine it with "
+                     "--impl fused/fused_pallas/fused_plain")
     return args
+
+
+def _make_tracer(args):
+    """One Tracer for the whole launch when --trace-out/--metrics-out asked
+    for it, else the shared no-op; the autotuner and the executor receive
+    this object."""
+    if args.trace_out or args.metrics_out:
+        return Tracer()
+    return NULL_TRACER
+
+
+def _export_obs(args, tracer) -> None:
+    if args.trace_out:
+        tracer.export(args.trace_out)
+        print(f"saved Chrome trace to {args.trace_out} ({len(tracer.spans())} span(s)); "
+              "open it in ui.perfetto.dev")
+    if args.metrics_out:
+        tracer.export_metrics(args.metrics_out)
+        print(f"saved metrics to {args.metrics_out}")
 
 
 def main(argv=None, *, executor=None, step_callback=None):
     """Run the launcher on ``argv`` (default: the command line); returns the
     per-adapter final losses. A caller that observes the run passes its own
-    ``executor`` (a ``SliceExecutor``: its ``captures`` then stay readable)
+    ``executor`` (a ``SliceExecutor``: its ``captures`` then stay readable;
+    with --trace-out/--metrics-out it records into the launch's tracer)
     and ``step_callback(i, metrics)``, called after every step."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
@@ -152,16 +198,34 @@ def main(argv=None, *, executor=None, step_callback=None):
     # priced at the tree's own storage; the kernel policy below stays ``quant``
     est = ProfiledCostModel(
         CostModel(cfg, PRESETS[args.hw], base_dtype=quant or base_storage(base)), store)
+    tracer = _make_tracer(args)
+    blocks, pred_uncalibrated = None, None
+    if args.autotune_cache:
+        from repro_torch.kernels.autotune import model_shapes, tune_for_model
+
+        pred_uncalibrated = est.prior.iter_time(configs, 1, args.seq)
+        prof = tune_for_model(cfg, configs, seq=args.seq, cache_path=args.autotune_cache,
+                              fast=True, tracer=tracer, device=dev)
+        est = ProfiledCostModel(prof.calibrate(est.prior), store)
+        # the tuned K split of this pack's representative projection (None:
+        # the plan's own choice won, or the CPU, whose plain path has none)
+        blocks = prof.best_blocks(*model_shapes(cfg, configs, args.seq)[0])
+        print(f"autotune: {len(prof.entries)} shape bucket(s) in {args.autotune_cache} "
+              f"(backend={prof.backend}); prior calibrated with the measured fused rate "
+              f"(x{prof.lora_speedup():.3f} on the LoRA term)"
+              + (f", blocks={list(blocks)}" if blocks else ""))
     pred_prior = est.prior.iter_time(configs, 1, args.seq)
     pred_profiled = est.iter_time(configs, 1, args.seq)  # before observing
 
-    ex = executor if executor is not None else SliceExecutor()
+    ex = executor if executor is not None else SliceExecutor(tracer=tracer)
+    if tracer.enabled:
+        ex.tracer = tracer
     try:
         res = ex.train_pack(
             cfg, configs, n_steps=args.steps, seq=args.seq, base=base, lora=lora, opt=opt,
             slice_=slice_, data_start_steps=start_steps,
             step_callback=log if args.log_every or step_callback is not None else None,
-            impl=args.impl, remat=args.remat, base_dtype=quant,
+            impl=args.impl, remat=args.remat, base_dtype=quant, blocks=blocks,
         )
     finally:
         device_pool.release(slice_)
@@ -183,7 +247,11 @@ def main(argv=None, *, executor=None, step_callback=None):
 
         print(f"\nplan-vs-measured  key={est.key(configs, 1, args.seq)}")
         print(f"  {'measured':<22} {1e3 * measured:9.2f} ms/step")
-        row(f"prior ({est.hw.name})", pred_prior)
+        if pred_uncalibrated is not None:
+            row(f"prior ({est.hw.name})", pred_uncalibrated)
+            row("prior, autotuned", pred_prior)
+        else:
+            row(f"prior ({est.hw.name})", pred_prior)
         if args.profile_in:
             row("profiled (loaded)", pred_profiled)
         print(f"  store: {len(store)} key(s), {store.n_observations} observation(s)")
@@ -210,6 +278,7 @@ def main(argv=None, *, executor=None, step_callback=None):
         print(f"saved {len(configs)} adapters to {args.pool}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    _export_obs(args, tracer)
     return per
 
 

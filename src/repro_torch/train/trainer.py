@@ -75,6 +75,7 @@ def make_packed_step(
     ranks: Optional[tuple] = None,
     base_dtype: Optional[str] = None,
     in_place: bool = False,
+    blocks: Optional[tuple] = None,
 ):
     """A packed train step whose per-adapter vectors -- ``scales``
     (alpha/r), ``lr_vec`` and ``budgets`` (per-adapter step caps, or None)
@@ -85,14 +86,16 @@ def make_packed_step(
     runs a mixed-rank pack as ragged same-rank segments (a homogeneous tuple
     normalizes to None: it computes the same); ``base_dtype`` names a
     quantized base ("int8"/"nf4"), whose "w" slots then hold
-    ``{"codes", "scales"}`` dicts.
+    ``{"codes", "scales"}`` dicts; ``blocks`` is the fused kernel's K-split
+    override ``(k_splits,)`` (the autotuner's choice; None: each call's plan).
 
     ``train_step(base, lora, opt_state, batch, scales, lr_vec, budgets)``
     returns (new lora, new opt_state, {"loss", "per_adapter_loss"});
     ``in_place`` makes AdamW update ``lora`` and ``opt_state`` where they
     lie and return them (the same bits; the executor's captured step)."""
     ranks = tuple(ranks) if ranks and len(set(ranks)) > 1 else None
-    kcfg = KernelConfig(impl=impl, remat=remat, ranks=ranks, base_dtype=base_dtype)
+    kcfg = KernelConfig(impl=impl, remat=remat, ranks=ranks, base_dtype=base_dtype,
+                        blocks=tuple(blocks) if blocks is not None else None)
 
     def train_step(base, lora, opt_state, batch, scales, lr_vec, budgets):
         total, per_adapter, grads = packed_value_and_grad(

@@ -10,6 +10,7 @@ order of f32 sums) and 2^-7 for bf16 (one bf16 rounding of the output).
 The quantized fused kernel is held bit-equal to the dense one on the
 dequantized weight (``torch.equal``): the two stage identical tile values.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -898,3 +899,139 @@ def test_ffma_f32_rows_keep_their_bits(cuda):
             bits[f"{d_in}x{d_out}:{name}"] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
     print(bits)
     assert bits == FFMA_F32_BITS
+
+
+# --- the K-split override (``blocks``) the autotuner sweeps ----------------
+
+
+def _parent_splits(path, rows, k, l, r):
+    """The K ranges the plans chose before a caller could ask for another
+    count (``plan_wgmma`` and ``plan_ffma`` of ``csrc/fused.cuh`` /
+    ``ffma.cuh``, reimplemented): what ``blocks=None`` must still give."""
+    import math
+
+    if path == "wgmma":
+        rp = 16 if r <= 16 else 32 if r <= 32 else 64 if r <= 64 else 128
+        bn = 256 if rp <= 16 else 128
+        tiles = -(-rows // 128) * -(-l // bn)
+        ksteps = -(-k // 64)
+        s = 1 if tiles >= 132 else 132 // tiles
+        s = max(1, min(s, 32, ksteps // 4))
+    else:
+        tiles = -(-rows // 128) * -(-l // 128)
+        ksteps = -(-k // 32)
+        s_per_k = 2.0 * 128 * 128 / (0.6 * 67e12 / 132)
+
+        def t(s):
+            base = math.ceil(tiles * s / 132) * s_per_k * math.ceil(k / s)
+            return base if s == 1 else base + 8.0 * s * rows * l / 3.35e12 + 1e-5
+
+        s = 1
+        for c in range(2, 5):
+            if ksteps >= 4 * c and t(c) < t(s):
+                s = c
+    steps = -(-ksteps // s)
+    return -(-ksteps // steps)
+
+
+def _train_operands(gen, dt, n, m, d_in, d_out, r, cuda):
+    w = _rnd(gen, (d_in, d_out), dt, d_in ** -0.5)
+    x, a, b = _rnd(gen, (n, m, d_in), dt), _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), \
+        _rnd(gen, (n, r, d_out), dt)
+    g = _rnd(gen, (n, m, d_out), dt)
+    s = torch.linspace(0.5, 2.0, n, device=cuda)
+    return ((x, w, a, b, s), False), ((g, w.t(), b.transpose(1, 2).contiguous(),
+                                       a.transpose(1, 2).contiguous(), s), True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_in,d_out", TRAIN_PROJ)
+def test_every_k_split_candidate_matches_plain_and_keeps_its_path(cuda, dtype, d_in, d_out):
+    """At the training shapes (N = 2 x M = 1,024, r = 16) every K-split
+    count the autotuner asks of the "wgmma" (bf16) and "ffma" (f32) paths,
+    forward and dx, keeps the path, takes the count the plan clamps it to,
+    agrees with the plain version and counts one launch on its path; with
+    ``blocks=None`` the plan takes the count it took before the override
+    existed (bit for bit the same call)."""
+    from repro_torch.kernels.autotune import SPLIT_GRID
+    from repro_torch.kernels.fused import fused_matmul_splits
+
+    gen = torch.Generator(device=cuda).manual_seed(90)
+    dt, path = DTYPES[dtype], ("ffma" if dtype == "float32" else "wgmma")
+    n, m, r = 2, 1024, 16
+    for args, bwd in _train_operands(gen, dt, n, m, d_in, d_out, r, cuda):
+        x, w, a, b, s = args
+        k, l = x.shape[2], w.shape[1]
+        want = fused_matmul_ref(*args)
+        own = fused_matmul_splits(x, w, r, a, b)
+        assert own == _parent_splits(path, n * m, k, l, r)
+        ksteps = -(-k // (32 if path == "ffma" else 64))
+        for req in SPLIT_GRID[path]:
+            got_s = fused_matmul_splits(x, w, r, a, b, blocks=[req])
+            assert got_s == max(1, min(req, 4 if path == "ffma" else 32, ksteps // 4))
+            assert fused_matmul_path(x, w, r, a, b) == path
+            before = dict(fused_matmul.launches)
+            y = fused_matmul(*args, backward=bwd, blocks=[req])
+            before["bwd" if bwd else "fwd", path] += 1
+            assert fused_matmul.launches == before
+            _close(y, want)
+            if got_s == own:
+                assert torch.equal(y, fused_matmul(*args, backward=bwd))
+        assert torch.equal(fused_matmul(*args, backward=bwd, blocks=None),
+                           fused_matmul(*args, backward=bwd, blocks=[own]))
+
+
+@pytest.mark.gpu
+def test_a_split_beyond_the_paths_limit_is_clamped(cuda):
+    """A request above the path's limit takes the limit the plan keeps (at
+    most 32 ranges on "wgmma", 4 on "ffma", and at least 4 K steps each):
+    its count, its workspace and its output are the clamped request's."""
+    from repro_torch.kernels import fused as fused_module
+    from repro_torch.kernels.fused import fused_matmul_splits
+
+    gen = torch.Generator(device=cuda).manual_seed(91)
+    for dt, k, req, clamped in ((torch.bfloat16, 3584, 64, 14), (torch.bfloat16, 256, 8, 1),
+                                (torch.float32, 3584, 9, 4), (torch.float32, 256, 4, 2)):
+        n, m, l, r = 2, 512, 512, 16
+        x, w = _rnd(gen, (n, m, k), dt), _rnd(gen, (k, l), dt, k ** -0.5)
+        a, b = _rnd(gen, (n, k, r), dt, k ** -0.5), _rnd(gen, (n, r, l), dt)
+        s = torch.tensor([0.5, 2.0], device=cuda)
+        assert fused_matmul_splits(x, w, r, a, b, blocks=[req]) == clamped
+        code = 0 if dt == torch.float32 else 1
+        assert fused_module._plan("fused", n, m, k, l, r, code, 1, 1, 0, req) == \
+            fused_module._plan("fused", n, m, k, l, r, code, 1, 1, 0, clamped)
+        y = fused_matmul(x, w, a, b, s, blocks=[req])
+        assert torch.equal(y, fused_matmul(x, w, a, b, s, blocks=[clamped]))
+        _close(y, fused_matmul_ref(x, w, a, b, s))
+    with pytest.raises(ValueError, match="k_splits"):
+        fused_matmul(x, w, a, b, s, blocks=[0])
+
+
+@pytest.mark.gpu
+def test_the_captured_steps_key_separates_two_splits(cuda):
+    """``train_pack(blocks=)`` is part of the step's key, and so of its
+    graph's: another split captures anew, the same split hits; the two
+    splits' runs agree (one f32 function, two orders of sums)."""
+    from repro_torch.cluster import DevicePool, SliceExecutor
+    from repro_torch.configs import LoraConfig, get_config, reduced
+    from repro_torch.models.model import init_model
+
+    cfg = reduced(get_config("qwen25-7b"))
+    base, _ = init_model(0, cfg, None, device=cuda)  # f32: the "ffma" path, K in 8 steps
+    pack = [LoraConfig(rank=8, alpha=16.0, learning_rate=1e-3, batch_size=2, seq_len=16),
+            LoraConfig(rank=16, alpha=4.0, learning_rate=5e-4, batch_size=2, seq_len=16)]
+    ex = SliceExecutor()
+    slice_ = DevicePool([cuda]).acquire(1)
+
+    def run(blocks):
+        res = ex.train_pack(cfg, pack, n_steps=2, seq=16, base=base, slice_=slice_,
+                            impl="fused", blocks=blocks)
+        return res.losses
+
+    one = run((1,))
+    assert (ex.n_builds, ex.n_hits) == (1, 0)
+    two = run((2,))
+    assert (ex.n_builds, ex.n_hits, len(ex.captures)) == (2, 0, 2)
+    assert np.array_equal(run((2,)), two) and (ex.n_builds, ex.n_hits) == (2, 1)
+    np.testing.assert_allclose(two, one, rtol=1e-5)
