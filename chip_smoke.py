@@ -25,7 +25,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    segment, r 8-128, and likewise each of the online plan's segments, M
    up to 4,096), and in f32 at the launcher's shapes (phase 9's pack:
    N = 1 x M = 1,024 at r = 8 and at r = 16; the fused forward and dx,
-   and ``packed_matmul``'s xA, xAB and cases 2 and 4);
+   and ``packed_matmul``'s xA, xAB and cases 2 and 4), and in bf16 at the
+   training shapes of starcoder2-7b and gemma3-1b (N = 2 x M = 1,024,
+   r = 16: ``packed_matmul``'s xA, xAB and cases 2 and 4, the fused
+   forward and dx; cases ``train_starcoder2``, ``train_gemma3``) and at
+   gemma3-1b's decode rows (``decode_gemma3``: d = 1,152, k/v 256 wide);
    holds each against its plain version, and times
    kernel, plain
    version and one PyTorch library call (or the named composition where no
@@ -40,7 +44,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    library yardstick of ``fused_matmul_q`` dequantizes W inside the
    graph) and ``host_us`` and ``library_host_us`` (host time per call, not
    synchronised). The run fails if a bf16 training-shape row of
-   ``fused_matmul`` or ``fused_matmul_q`` is off ``wgmma``, an f32 one or
+   ``fused_matmul`` or ``fused_matmul_q`` (the families' too) is off
+   ``wgmma``, an f32 one or
    an f32 launcher-shape fused row off ``ffma`` (``csrc/ffma.cuh``'s tiled
    FFMA kernel), a bf16 decode
    row of either or of ``packed_matmul`` is off ``decode``, a bf16
@@ -70,8 +75,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode steps are held against the plain-version path on the same
    weights. Then a short drain of each impl runs under ``torch.profiler``
    (device busy share, device time by kernel).
-6. train   -- full-width, full-depth qwen25-7b (bf16 base, random weights
-   from a seed), a pack of 4 adapters of ranks (8, 16, 16, 32) (ragged
+6. train   -- full-width qwen25-7b cut to its first TRAIN_LAYERS = 14
+   layers (a view of the serve phase's bf16 base), a pack of 4 adapters
+   of ranks (8, 16, 16, 32) (ragged
    segments of one and of two adapters), seq 512, 4096 tokens per step,
    through ``make_packed_step`` under impl="auto", impl="fused", and
    impl="fused" on an nf4 and on an int8 base. Step 1's per-adapter loss and
@@ -164,6 +170,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    metrics count an executor build (it prints the uncalibrated and the
    calibrated prior's s/step beside the measured, and the split it ran),
    and the control's reads above LAUNCH_CONTROL_FACTOR times that limit.
+10. families -- starcoder2-7b (LayerNorm, the two-matrix GELU MLP, biased
+   GQA) and then gemma3-1b (512-token sliding windows, every 6th layer
+   global with its own rope theta, the gated GELU, tied embeddings), each at
+   full width and depth on a bf16 base of random weights from a seed (the
+   launcher's f32 base freed first, each family's base freed after it):
+   ``make_packed_step`` under impl="auto" and impl="fused" on the train
+   phase's pack (seq 512; gemma3 1,024, so the window masks and attention
+   reads a band per query chunk), step 1 held against the plain path to the
+   train phase's limits, then 3 steps whose counts must move; 8 requests
+   through ``ServeEngine.serve`` (starcoder2 under auto, gemma3 under auto
+   and fused, prompts of 520-600 tokens), prefill logits and teacher-forced
+   decode steps (gemma3: 8, past the window) held against the plain path
+   at LOGIT_TOL; and, for starcoder2, one captured ``run_local`` job of
+   three configurations of ``default_search_space(300, seq_len=512)``
+   (FAMILY_SWEEP_IDS), equal to an eager run, its launches equal to the
+   eager steps', its own peak held to C3.
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
@@ -217,6 +239,10 @@ TRAIN_BATCH = (1, 2, 1, 2)
 TRAIN_SEQ = 512
 TRAIN_STEPS = 4
 TRAIN_RUNS = (("auto", None), ("fused", None), ("fused", "nf4"), ("fused", "int8"))
+# The train phase runs the first TRAIN_LAYERS of the 28 (the full width; a
+# view of the serve phase's base, no copy), so that the families phase fits
+# in the smoke's time (PERF.md §4)
+TRAIN_LAYERS = 14
 # Step 1 of the kernel path against the plain path on the same weights and
 # batch. bf16 end to end: a 1-ulp difference in one projection's bf16
 # output (the f32 sums run in another order) propagates through 28 layers.
@@ -537,7 +563,7 @@ def kernel_phase(torch, dev):
                   packed_bwd if bwd else packed_matmul, packed_matmul_ref, lib_bmm, args_fn, flops,
                   BMM + (" on the transposed views" if bwd else ""),
                   path_fn=lambda x, w, s=None: packed_matmul_path(x, w), extra=extra)
-        if case == "decode":  # both passes of the delta as one call
+        if case.startswith("decode"):  # both passes of the delta as one call
             args_fn, kfn, pfn, lfn, flops, path_fn = pair_call(torch, rnd, dtype, n, m, d_in, d_out,
                                                                RANK, scale)
             check("packed_matmul", case, "pair", d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
@@ -583,9 +609,30 @@ def kernel_phase(torch, dev):
             packed_rows("online", n, m, d_in, d_out, torch.bfloat16,
                         torch.linspace(0.5, 2.0, n, device=dev), backward_cases=True, rank=r,
                         only=SWEEP_CALLS, extra={"job": job, "n": n, "m": m, "rank": r})
-    off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
-           if r["case"] == "train" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
-           and r["path"] != "wgmma"]
+    # each new family's training shapes (N = 2 x M = 1,024, r = 16, bf16):
+    # packed_matmul's calls of a train step, the fused forward and dx; and
+    # gemma3's decode rows (d = 1,152, k/v 256 wide)
+    from repro_torch.configs import get_config
+
+    n, m = TRAIN_CASE
+    for arch, case in FAMILY_TRAIN_CASE.items():
+        scale = torch.linspace(0.5, 2.0, n, device=dev)
+        for (d_in, d_out), _ in family_proj(get_config(arch)):
+            packed_rows(case, n, m, d_in, d_out, torch.bfloat16, scale, backward_cases=True,
+                        only=SWEEP_CALLS)
+            fused_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
+            dx_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
+    n, m = CASES["decode"]
+    for arch, case in FAMILY_DECODE_CASE.items():
+        scale = torch.linspace(0.5, 2.0, n, device=dev)
+        for (d_in, d_out), _ in family_proj(get_config(arch)):
+            packed_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
+            fused_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
+    train_cases = {"train", *FAMILY_TRAIN_CASE.values()}
+    decode_cases = {"decode", *FAMILY_DECODE_CASE.values()}
+    off = [(r["case"], r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
+           if r["case"] in train_cases and r["dtype"] == "bfloat16"
+           and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"]
     if off:
         fail(f"training-shape fused rows off the wgmma path: {off}")
     # the launcher's own shapes on its f32 base: each same-rank segment of
@@ -609,19 +656,21 @@ def kernel_phase(torch, dev):
            and (r["case"], r["call"]) in F32SKINNY_ROWS and r["path"] != "f32skinny"]
     if off:
         fail(f"f32 training, launcher or prefill packed_matmul rows off the f32skinny path: {off}")
-    off = [(r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
-           if r["case"] == "decode" and r["dtype"] == "bfloat16" and r["kernel"] != "packed_matmul"
-           and r["path"] != "decode"]
+    off = [(r["case"], r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
+           if r["case"] in decode_cases and r["dtype"] == "bfloat16"
+           and r["kernel"] != "packed_matmul" and r["path"] != "decode"]
     if off:
         fail(f"bf16 decode rows of fused_matmul or fused_matmul_q off the decode path: {off}")
+    mma_rows = MMA_ROWS | {(case, call) for case in FAMILY_TRAIN_CASE.values()
+                           for call in SWEEP_CALLS}
     off = [(r["case"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16"
-           and (r["case"], r["call"]) in MMA_ROWS and r["path"] != "mma"]
+           and (r["case"], r["call"]) in mma_rows and r["path"] != "mma"]
     if off:
         fail(f"bf16 training or prefill packed_matmul rows off the mma path: {off}")
-    off = [(r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
-           if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16" and r["case"] == "decode"
-           and r["path"] != "decode"]
+    off = [(r["case"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
+           if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16"
+           and r["case"] in decode_cases and r["path"] != "decode"]
     if off:
         fail(f"bf16 decode rows of packed_matmul off the decode path: {off}")
     return rows
@@ -727,9 +776,9 @@ def sync_phase(torch, dev):
 
 
 def sync_free_train_step(torch, cfg, meta, base, lora, opt, batch, impl: str, quant=None):
-    """One ``make_train_step`` call on the full model under ``sync_free``,
-    after one call that makes its per-device vectors, index tensors and the
-    nf4 codebook's copy on the card."""
+    """One ``make_train_step`` call on the train phase's model under
+    ``sync_free``, after one call that makes its per-device vectors, index
+    tensors and the nf4 codebook's copy on the card."""
     from repro_torch.train.trainer import make_train_step
 
     step = make_train_step(cfg, meta, impl=impl)
@@ -1040,32 +1089,108 @@ def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales):
     }
 
 
-def train_setup(torch, dev):
-    """The train phase's model config, pack, initial LoRA tree and
-    TRAIN_STEPS batches, all from seeds."""
+def train_setup(torch, dev, cfg=None, seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS):
+    """The train phase's model config (qwen25-7b unless given), pack,
+    initial LoRA tree and ``steps`` batches of ``seq`` tokens, all from
+    seeds."""
     from repro_torch.configs import LoraConfig, get_config
     from repro_torch.core.adapter import pack_meta
     from repro_torch.train.data import packed_batch_iterator
 
-    cfg = get_config("qwen25-7b")
-    configs = [LoraConfig(rank=r, alpha=2.0 * r, learning_rate=lr, batch_size=b, seq_len=TRAIN_SEQ)
+    cfg = cfg or get_config("qwen25-7b")
+    configs = [LoraConfig(rank=r, alpha=2.0 * r, learning_rate=lr, batch_size=b, seq_len=seq)
                for r, lr, b in zip(TRAIN_RANKS, TRAIN_LRS, TRAIN_BATCH)]
     meta = pack_meta(configs)
-    batches = packed_batch_iterator(cfg, configs, seq=TRAIN_SEQ, seed=SEED, device=dev)
-    return cfg, meta, train_lora(torch, cfg, meta, dev), [next(batches) for _ in range(TRAIN_STEPS)]
+    batches = packed_batch_iterator(cfg, configs, seq=seq, seed=SEED, device=dev)
+    return cfg, meta, train_lora(torch, cfg, meta, dev), [next(batches) for _ in range(steps)]
 
 
-def train_phase(torch, dev, base, out_dir: Path):
-    """4 steps of ``make_packed_step`` per run of TRAIN_RUNS on the dense
-    bf16 base ``base`` (quantized per run); returns the launch counts of
-    each run's 4 steps."""
+def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None, phase="train"):
+    """Step 1 of ``impl`` against the plain path (``compare_step1``), then
+    one ``make_packed_step`` step per batch with the launch counts zeroed
+    just before and read just after; fails on a non-finite loss or leaf, a
+    step 1 outside the limits, or a count of NEEDED that stayed at 0.
+    Returns (the record, the counts, the step, the last LoRA and state)."""
     from repro_torch.kernels.quant import quantize_base_params
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.trainer import make_packed_step
     from repro_torch.tree import tree_leaves
 
-    cfg, meta, lora0, batches = train_setup(torch, dev)
     scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
+    seq = batches[0]["tokens"].shape[1]
+    nb = meta.n * meta.max_batch
+    t0 = time.perf_counter()
+    qbase = quantize_base_params(base, quant) if quant else base
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    cmp = compare_step1(torch, cfg, qbase, lora0, batches[0], meta, impl, scales)
+    step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks, base_dtype=quant)
+    lora, opt = lora0, init_opt_state(lora0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        lora, opt, m = step(qbase, lora, opt, batch, scales, lr_vec, None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["per_adapter_loss"].tolist())
+    counts = train_counts()
+    key = f"{impl}+{quant}" if quant else impl
+    finite = all(math.isfinite(v) for row in losses for v in row) and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(lora))
+    row = {"phase": phase, "model": cfg.name, "n_layers": cfg.n_layers, "impl": impl,
+           "quant": quant, "seq": seq, "steps": len(batches),
+           "step_s": times, "step_s_after_first": sum(times[1:]) / (len(times) - 1),
+           "tokens_per_s": nb * seq * (len(times) - 1) / sum(times[1:]),
+           "per_adapter_loss": losses, **cmp, "loss_rtol": LOSS_RTOL,
+           "grad_tol_f32": GRAD_TOL_F32, "bf16_grad_factor": BF16_GRAD_FACTOR,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "base_resident_bytes": resident_bytes(qbase), "quantize_s": quant_s,
+           "launches": counts}
+    emit(row)
+    what = f"{cfg.name} impl={key}"
+    if not finite:
+        fail(f"{what}: non-finite loss or LoRA leaf after {len(batches)} steps")
+    if not cmp["step1_loss_rel_err"] <= LOSS_RTOL:
+        fail(f"{what}: step-1 loss differs from the plain path by "
+             f"{cmp['step1_loss_rel_err']} > {LOSS_RTOL}")
+    if not cmp["step1_grad_rel_err_f32"] <= GRAD_TOL_F32:
+        fail(f"{what}: step-1 LoRA gradient (f32) differs from the plain path by "
+             f"{cmp['step1_grad_rel_err_f32']} > {GRAD_TOL_F32}")
+    noise = BF16_GRAD_FACTOR * cmp["step1_grad_err_vs_f32_plain_bf16"]
+    if not cmp["step1_grad_err_vs_f32_kernel_bf16"] <= noise:
+        fail(f"{what}: step-1 bf16 LoRA gradient is {cmp['step1_grad_err_vs_f32_kernel_bf16']} "
+             f"from the f32 gradient, more than {BF16_GRAD_FACTOR} x the plain path's")
+    for need in NEEDED[(impl, quant)]:
+        if counts[need] == 0:
+            fail(f"{what}: the {need} launch count stayed at 0 over {len(batches)} steps")
+    return row, counts, (qbase, step, lora, opt)
+
+
+def depth_cut(cfg, base, n_layers: int):
+    """The first ``n_layers`` layers of a decoder whose layers are all
+    alike (one stacked block per layer): its config and a view of ``base``."""
+    from repro_torch.models.transformer import find_period, layer_specs
+    from repro_torch.tree import tree_map
+
+    if find_period(layer_specs(cfg)) != 1 or n_layers > cfg.n_layers:
+        fail(f"{cfg.name}: cannot cut {cfg.n_layers} layers to {n_layers}")
+    dec = base["decoder"]
+    return cfg.replace(n_layers=n_layers), {
+        **base, "decoder": {"blocks": tree_map(lambda t: t[:n_layers], dec["blocks"]),
+                            "rest": dec["rest"]}}
+
+
+def train_phase(torch, dev, base, out_dir: Path):
+    """4 steps of ``make_packed_step`` per run of TRAIN_RUNS on the first
+    TRAIN_LAYERS layers of the dense bf16 base ``base`` (quantized per
+    run); returns the launch counts of each run's 4 steps."""
+    from repro_torch.configs import get_config
+
+    cfg, base = depth_cut(get_config("qwen25-7b"), base, TRAIN_LAYERS)
+    cfg, meta, lora0, batches = train_setup(torch, dev, cfg)
     nb = meta.n * max(TRAIN_BATCH)
     emit({"phase": "train_setup", "model": cfg.name, "n_layers": cfg.n_layers, "ranks": list(meta.ranks),
           "alphas": list(meta.alphas), "lrs": list(meta.learning_rates), "batch_sizes": list(TRAIN_BATCH),
@@ -1073,52 +1198,9 @@ def train_phase(torch, dev, base, out_dir: Path):
           "lora_bytes": resident_bytes(lora0)})
     launches = {}
     for impl, quant in TRAIN_RUNS:
-        t0 = time.perf_counter()
-        qbase = quantize_base_params(base, quant) if quant else base
-        torch.cuda.synchronize()
-        quant_s = time.perf_counter() - t0
-        cmp = compare_step1(torch, cfg, qbase, lora0, batches[0], meta, impl, scales)
-        step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks, base_dtype=quant)
-        lora, opt = lora0, init_opt_state(lora0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        zero_counts()
-        times, losses = [], []
-        for batch in batches:
-            t0 = time.perf_counter()
-            lora, opt, m = step(qbase, lora, opt, batch, scales, lr_vec, None)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append(m["per_adapter_loss"].tolist())
-        counts = train_counts()
-        key = f"{impl}+{quant}" if quant else impl
-        launches[key] = counts
-        peak = torch.cuda.max_memory_allocated(dev)
-        finite = all(math.isfinite(v) for row in losses for v in row) and all(
-            bool(torch.isfinite(t).all()) for t in tree_leaves(lora))
-        row = {"phase": "train", "impl": impl, "quant": quant, "steps": TRAIN_STEPS,
-               "step_s": times, "step_s_after_first": sum(times[1:]) / (len(times) - 1),
-               "tokens_per_s": nb * TRAIN_SEQ * (len(times) - 1) / sum(times[1:]),
-               "per_adapter_loss": losses, **cmp, "loss_rtol": LOSS_RTOL,
-               "grad_tol_f32": GRAD_TOL_F32, "bf16_grad_factor": BF16_GRAD_FACTOR,
-               "max_memory_allocated": peak, "base_resident_bytes": resident_bytes(qbase),
-               "quantize_s": quant_s, "launches": counts}
-        emit(row)
-        if not finite:
-            fail(f"impl={key}: non-finite loss or LoRA leaf after {TRAIN_STEPS} steps")
-        if not cmp["step1_loss_rel_err"] <= LOSS_RTOL:
-            fail(f"impl={key}: step-1 loss differs from the plain path by "
-                 f"{cmp['step1_loss_rel_err']} > {LOSS_RTOL}")
-        if not cmp["step1_grad_rel_err_f32"] <= GRAD_TOL_F32:
-            fail(f"impl={key}: step-1 LoRA gradient (f32) differs from the plain path by "
-                 f"{cmp['step1_grad_rel_err_f32']} > {GRAD_TOL_F32}")
-        noise = BF16_GRAD_FACTOR * cmp["step1_grad_err_vs_f32_plain_bf16"]
-        if not cmp["step1_grad_err_vs_f32_kernel_bf16"] <= noise:
-            fail(f"impl={key}: step-1 bf16 LoRA gradient is {cmp['step1_grad_err_vs_f32_kernel_bf16']} "
-                 f"from the f32 gradient, more than {BF16_GRAD_FACTOR} x the plain path's")
-        for need in NEEDED[(impl, quant)]:
-            if counts[need] == 0:
-                fail(f"impl={key}: the {need} launch count stayed at 0 over {TRAIN_STEPS} steps")
+        _, counts, (qbase, step, lora, opt) = train_run(torch, dev, cfg, meta, lora0, batches,
+                                                        base, impl, quant)
+        launches[f"{impl}+{quant}" if quant else impl] = counts
         if quant in (None, "nf4"):
             profile_train(torch, step, qbase, lora, opt, batches[0], meta, out_dir, impl, quant)
             sync_free_train_step(torch, cfg, meta, qbase, lora, opt, batches[0], impl, quant)
@@ -2261,6 +2343,243 @@ def launcher_phase(torch, dev, out_dir: Path):
 
 
 # ---------------------------------------------------------------------------
+# families phase: starcoder2-7b and gemma3-1b at full width and depth
+# ---------------------------------------------------------------------------
+
+# The two dense families besides qwen25-7b, each through train, serve and
+# (starcoder2) the sweep, on a bf16 base of random weights from SEED.
+# starcoder2-7b: LayerNorm, the two-matrix GELU MLP, biased GQA (d 4,608,
+# d_ff 18,432); gemma3-1b: 512-token sliding windows with every 6th layer
+# global, the gated GELU, tied embeddings (d 1,152, a 256-wide k/v output,
+# head_dim 256). gemma3 trains at seq 1,024 (at 512 a 512-token window masks
+# nothing, and the band path needs more than one query chunk of 512) and
+# serves prompts of 520-600 tokens with 8 decode steps past the window.
+FAMILIES = ("starcoder2-7b", "gemma3-1b")
+FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024}
+FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_IMPLS = ("auto", "fused")
+# (impls, prompt lengths [lo, hi), new tokens per request, teacher-forced
+# decode steps)
+FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 16, 4),
+                "gemma3-1b": (("auto", "fused"), (520, 601), 16, 8)}
+# the sweep phase's first three configurations (ranks 8, 8, 16): one job
+FAMILY_SWEEP_IDS = (0, 37, 74)
+# the kernel phase's rows at each family's shapes
+FAMILY_TRAIN_CASE = {"starcoder2-7b": "train_starcoder2", "gemma3-1b": "train_gemma3"}
+FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3"}
+
+
+def family_proj(cfg):
+    """(d_in, d_out) of one layer's projections with their count per layer,
+    as PROJ (equal shapes merged)."""
+    a, d = cfg.attention, cfg.d_model
+    shapes = [(d, a.n_heads * a.head_dim), (d, a.n_kv_heads * a.head_dim),
+              (d, a.n_kv_heads * a.head_dim), (a.n_heads * a.head_dim, d)]
+    shapes += [(d, cfg.d_ff)] * (2 if cfg.mlp_kind in ("swiglu", "gelu") else 1)
+    shapes.append((cfg.d_ff, d))
+    out = {}
+    for sh in shapes:
+        out[sh] = out.get(sh, 0) + 1
+    return list(out.items())
+
+
+def case_proj(case: str):
+    """The projections a kernel-phase case sums over one layer."""
+    from repro_torch.configs import get_config
+
+    for arch in FAMILIES:
+        if case in (FAMILY_TRAIN_CASE.get(arch), FAMILY_DECODE_CASE.get(arch)):
+            return family_proj(get_config(arch))
+    return PROJ
+
+
+def family_serve(torch, dev, arch: str, cfg, base):
+    """8 requests through ``ServeEngine.serve`` under each impl of
+    FAMILY_SERVE (launch counts zeroed just before each drain and read
+    just after), then prefill logits and teacher-forced decode steps held
+    against the plain path. Returns each impl's launch counts."""
+    from repro_torch.serve.engine import ServeEngine, poisson_requests
+
+    impls, (lo, hi), new_tokens, steps = FAMILY_SERVE[arch]
+    adapters = make_adapters(torch, cfg, 8)
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(lo, hi)).astype(np.int32)
+               for _ in range(8)]
+    reqs = poisson_requests([f"ad{i}" for i in range(8)], prompts, 2.0,
+                            max_new_tokens=new_tokens, seed=SEED)
+    smax = (hi + max(new_tokens, steps) + 63) // 64 * 64
+    counters = {"auto": "packed_matmul", "fused": "fused_matmul"}
+    launches = {}
+    for impl in impls:
+        eng = ServeEngine(cfg, base, rows=8, smax=smax, r_bucket=16, slot_capacity=8,
+                          impl=impl, device=dev)
+        for i, (tree, r) in enumerate(adapters):
+            eng.publish(f"ad{i}", tree, {"rank": r, "alpha": float(r)})
+        zero_counts()
+        stats = eng.serve(reqs)
+        torch.cuda.synchronize()
+        launches[impl] = train_counts()
+        bad = [r for r in stats.results if r.error is not None or len(r.tokens) != new_tokens]
+        toks = np.stack([r.tokens for r in stats.results]) if not bad else np.zeros((0,))
+        lat = stats.latency_summaries()
+        emit({"phase": "family_serve", "model": cfg.name, "impl": impl, "smax": smax,
+              "prompt_tokens": [len(p) for p in prompts], "requests": len(stats.results),
+              "tokens": stats.tokens_emitted, "steps": stats.steps,
+              "wall_s": stats.wall_seconds, "tokens_per_s": stats.tokens_per_s,
+              "ttft_p50_s": lat["ttft"]["p50"], "itl_p50_s": lat["itl"]["p50"],
+              "launches": launches[impl]})
+        if launches[impl][counters[impl]] == 0:
+            fail(f"{cfg.name} serve impl={impl}: the {counters[impl]} kernel was never launched")
+        if bad or len(stats.results) != 8:
+            fail(f"{cfg.name} serve impl={impl}: requests failed: "
+                 f"{[(r.request_id, r.error) for r in bad]}")
+        if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            fail(f"{cfg.name} serve impl={impl}: token ids outside the vocabulary")
+        del eng
+        with torch.no_grad():
+            pimpl = {"auto": "plain", "fused": "fused_plain"}[impl]
+            per_step, ref_max, per_dec = teacher_forced(
+                torch, cfg, base, adapters, prompts, smax, impl, pimpl, counters[impl], steps)
+        rel = max(per_step) / ref_max
+        emit({"phase": "family_serve_logits", "model": cfg.name, "impl": impl, "plain": pimpl,
+              "prompt_tokens": [len(p) for p in prompts], "decode_steps": steps,
+              "last_position": max(len(p) for p in prompts) + steps - 1,
+              "window": cfg.attention.sliding_window,
+              "launches_per_decode_step": per_dec, "max_abs_err_prefill": per_step[0],
+              "max_abs_err_decode": per_step[1:], "max_abs_logit": ref_max, "rel_err": rel,
+              "tol": LOGIT_TOL})
+        if not rel <= LOGIT_TOL:
+            fail(f"{cfg.name} impl={impl}: logits differ from {pimpl} by {rel} > {LOGIT_TOL}")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def family_sweep(torch, dev, cfg, base, out_dir: Path):
+    """``ExecutionEngine.run_local`` on FAMILY_SWEEP_IDS of
+    ``default_search_space(300, seq_len=512)``: one job on the H100 preset,
+    captured (impl="auto"), held against an eager run of the same pack from
+    the same initial weights (bit for bit, else losses within LOSS_RTOL),
+    its launches against the eager steps', its own peak to C3. Returns its
+    launch counts."""
+    import shutil
+
+    from repro_torch.cluster import ClusterRunner, DevicePool, SliceExecutor
+    from repro_torch.cluster.executor import WARMUP_STEPS
+    from repro_torch.configs import default_search_space
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.obs import MetricsTracer
+    from repro_torch.sched import H100, CostModel, ExecutionEngine, plan
+    from repro_torch.train.checkpoint import CheckpointPool
+
+    space = default_search_space(300, seq_len=SWEEP_SEQ)
+    configs = [space[i] for i in FAMILY_SWEEP_IDS]
+    cm = CostModel(cfg, H100)
+    sched = plan(cm, configs, 1, SWEEP_SEQ, SWEEP_STEPS)
+    if len(sched.jobs) != 1:
+        fail(f"{cfg.name}: the planner made {len(sched.jobs)} jobs of the 3 configurations")
+    pool_dir = ROOT / "smoke_pool"
+    shutil.rmtree(pool_dir, ignore_errors=True)
+    try:
+        pool = CheckpointPool(str(pool_dir))
+        tracer = MetricsTracer()
+        ex = SliceExecutor(tracer=tracer)
+        runner = ClusterRunner(ex, DevicePool([dev]), tracer=tracer)
+        torch.cuda.synchronize(dev)
+        held = held_bytes(torch, dev, base)
+        zero_counts()
+        records, makespan = ExecutionEngine(cm, 1, tracer=tracer).run_local(
+            sched, configs, cfg, base, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, pool=pool,
+            runner=runner, impl="auto")
+        torch.cuda.synchronize(dev)
+        launches = train_counts()
+        rec, t = records[0], runner.last_result.timings[0]
+        jc = [configs[i] for i in sched.jobs[0].config_ids]
+        m = pack_meta(jc)
+        cap = ex.captures[0] if ex.captures else {}
+        row = {"job": 0, "config_ids": list(sched.jobs[0].config_ids),
+               "space_ids": list(FAMILY_SWEEP_IDS), "ranks": list(m.ranks),
+               "rows": m.n * m.max_batch, "predicted_s_per_iter": t.predicted_iter,
+               "measured_s_per_iter": t.measured_iter, "drift": t.drift,
+               "final_losses": [float(x) for x in rec.final_losses],
+               "peak_allocated_bytes": rec.peak_bytes, "job_peak_bytes": rec.peak_bytes - held,
+               "job_mem_bytes": cm.job_mem_bytes(jc, 1, SWEEP_SEQ),
+               "capture_s": cap.get("seconds"), "captured": rec.captured}
+        cap_ads = [pool.load_adapter(f"adapter_{i:04d}") for i in sched.jobs[0].config_ids]
+        ex.clear()
+        torch.cuda.empty_cache()
+        slice_ = DevicePool([dev]).acquire(1)
+        win = StepWindow(torch, dev)
+        zero_counts()
+        res = SliceExecutor(capture=False).train_pack(
+            cfg, jc, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, base=base,
+            lora=ex.pack_template(cfg, jc, 0, dev)[0], slice_=slice_,
+            budgets=np.full((m.n,), SWEEP_STEPS, np.int32), step_callback=win)
+        eager = train_counts()
+        cmp = compare_runs(torch, f"{cfg.name} sweep job", [rec.final_losses],
+                           torch.stack(win.losses[-1:]), cap_ads, res.lora, m.ranks)
+        del res
+        expect = {k: eager[k] * (WARMUP_STEPS + SWEEP_STEPS) // SWEEP_STEPS for k in launches}
+        emit({"phase": "family_sweep", "model": cfg.name, "job": row, "makespan_s": makespan,
+              "captured_vs_eager": cmp, "eager_step_s": win.seconds, "launches": launches,
+              "launches_expected_from_eager": expect, "held_bytes": held,
+              "metrics": tracer.metrics.to_json()})
+        if not rec.captured:
+            fail(f"{cfg.name}: the sweep's job was not captured")
+        if launches != expect:
+            fail(f"{cfg.name}: the sweep counted {launches} launches; its eager steps make "
+                 f"{expect}")
+        if not all(math.isfinite(x) for x in row["final_losses"]):
+            fail(f"{cfg.name}: a non-finite loss in the sweep")
+        c3_check(f"{cfg.name}'s sweep", [row], [jc])
+        return launches
+    finally:
+        shutil.rmtree(pool_dir, ignore_errors=True)
+
+
+def families_phase(torch, dev, out_dir: Path):
+    """starcoder2-7b, then gemma3-1b, at full width and depth on a bf16
+    base: train (auto and fused: step 1 against the plain path, then
+    FAMILY_TRAIN_STEPS steps with launch counts), serve (FAMILY_SERVE) and,
+    for starcoder2, one captured sweep job. Returns the launch counts by
+    family and run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, _ = init_model(SEED, cfg, None, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        emit({"phase": "family_setup", "model": arch, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+              "params": sum(t.numel() for t in tree_leaves(base)), "dtype": "bfloat16",
+              "init_s": time.perf_counter() - t0, "weights_gb": resident_bytes(base) / 1e9,
+              "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9})
+        counts = {}
+        seq = FAMILY_TRAIN_SEQ[arch]
+        _, meta, lora0, batches = train_setup(torch, dev, cfg, seq, FAMILY_TRAIN_STEPS)
+        for impl in FAMILY_TRAIN_IMPLS:
+            _, counts[f"train:{impl}"], state = train_run(
+                torch, dev, cfg, meta, lora0, batches, base, impl, phase="family_train")
+            del state
+            torch.cuda.empty_cache()
+        del lora0, batches
+        for impl, c in family_serve(torch, dev, arch, cfg, base).items():
+            counts[f"serve:{impl}"] = c
+        if arch == "starcoder2-7b":
+            counts["sweep:auto"] = family_sweep(torch, dev, cfg, base, out_dir)
+        out[arch] = counts
+        emit({"phase": "family_done", "model": arch, "seconds": time.perf_counter() - t0})
+        del base
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2341,6 +2660,34 @@ USES = [
      "fused.cu", "src/repro/kernels/fused.py:275 (fused.py:389-401)",
      ("launcher", "fused", "fused_matmul_dx"), "float32"),
 ]
+# the families phase's runs (families_phase: counts by family, then
+# "train:<impl>" / "serve:<impl>"), at each family's shapes in the kernel
+# phase: the train step's calls of #1 and #2 (N = 2 x M = 1,024, r = 16),
+# and gemma3's decode rows (serve)
+for _arch, _case in FAMILY_TRAIN_CASE.items():
+    _tag = _arch.split("-")[0]
+    USES += [
+        (f"packed_matmul:{_tag}_train_forward", "packed_matmul", ("xA", "xAB"), _case,
+         "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+         (_arch, "train:auto", "packed_matmul")),
+        (f"packed_matmul:{_tag}_train_backward", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), _case,
+         "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
+         (_arch, "train:auto", "packed_matmul_bwd")),
+        (f"fused_matmul:{_tag}_train_forward", "fused_matmul", ("fused",), _case,
+         "fused.cu", "src/repro/kernels/fused.py:275", (_arch, "train:fused", "fused_matmul")),
+        (f"fused_matmul:{_tag}_train_dx", "fused_matmul", ("dx",), _case,
+         "fused.cu", "src/repro/kernels/fused.py:275 (fused.py:389-401)",
+         (_arch, "train:fused", "fused_matmul_dx")),
+    ]
+for _arch, _case in FAMILY_DECODE_CASE.items():
+    _tag = _arch.split("-")[0]
+    USES += [
+        (f"packed_matmul:{_tag}_decode", "packed_matmul", ("xA", "xAB"), _case,
+         "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+         (_arch, "serve:auto", "packed_matmul")),
+        (f"fused_matmul:{_tag}_decode", "fused_matmul", ("fused",), _case,
+         "fused.cu", "src/repro/kernels/fused.py:275", (_arch, "serve:fused", "fused_matmul")),
+    ]
 
 
 # uses with layer sums but no entry in the kernels line: fused_matmul_q at
@@ -2353,6 +2700,7 @@ EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decod
               ("fused_matmul_q:decode_nf4", "fused_matmul_q", ("nf4",), "decode"),
               # the delta's two decode passes as one packed_matmul_pair call, which serve runs
               ("packed_matmul:decode_pair", "packed_matmul", ("pair",), "decode"),
+              ("packed_matmul:gemma3_decode_pair", "packed_matmul", ("pair",), "decode_gemma3"),
               # fused_matmul_q on an f32 x (the launcher's --quant ... --impl fused)
               ("fused_matmul_q:int8_f32", "fused_matmul_q", ("int8",), "train", "float32"),
               ("fused_matmul_q:nf4_f32", "fused_matmul_q", ("nf4",), "train", "float32"),
@@ -2368,7 +2716,7 @@ EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decod
 def layer_sums(rows, kernel, calls, case, dtype="bfloat16"):
     """A use's rows of ``dtype`` and their times summed over one decoder
     layer's projections, weighted by their count per layer."""
-    mult = {shape: k for shape, k in PROJ}
+    mult = dict(case_proj(case))
     sel = [r for r in rows if r["kernel"] == kernel and r["case"] == case
            and r["call"] in calls and r["dtype"] == dtype]
     keys = [k for k in ("ms", "plain_ms", "library_ms", "bytes", "flops", "device_ms",
@@ -2483,10 +2831,15 @@ def main() -> None:
     t0 = time.perf_counter()
     launcher_launches = launcher_phase(torch, dev, out_dir)
     emit({"phase": "launcher_done", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()  # the launcher's f32 base is gone; each family makes its own
+    t0 = time.perf_counter()
+    family_launches = families_phase(torch, dev, out_dir)
+    emit({"phase": "families_done", "seconds": time.perf_counter() - t0})
     summary = summarize(rows, {"serve": serve_launches, "train": train_launches,
                                "sweep": {"auto": sweep_launches},
                                "online": {"auto": online_launches},
-                               "launcher": launcher_launches})
+                               "launcher": launcher_launches, **family_launches})
     (out_dir / "chip_smoke.json").write_text(json.dumps({"records": RECORDS, **summary}, indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 
 Both packages lay parameters out alike: nested dicts with weights
 ``(d_in, d_out)`` as used by ``x @ W``; the base tree holds ``embed``,
-``final_norm``, ``lm_head`` and ``decoder.blocks.l0.*`` stacked on axis 0
-(the layer); a LoRA pack tree has the pack on axis 1 under ``"blocks"`` and
-on axis 0 elsewhere. So the bridge changes no layout: it converts leaves.
+``final_norm``, ``lm_head`` (none when the embeddings are tied) and
+``decoder.blocks.l0.*`` stacked on axis 0 (the layer); a LoRA pack tree
+has the pack on axis 1 under ``"blocks"`` and on axis 0 elsewhere. So the
+bridge changes no layout: it converts leaves.
 JAX → numpy → :func:`to_torch` → :func:`to_numpy` is bit-exact.
 """
 from __future__ import annotations

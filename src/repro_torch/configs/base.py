@@ -1,9 +1,10 @@
 """Model and LoRA configurations for the PyTorch port.
 
 The port keeps its own copy of the reference's configuration dataclasses
-(``repro.configs.base``), cut to what the dense GQA decoder needs: the port
-imports nothing of the JAX package. Field names and defaults match the
-reference, so a test can build the same configuration on both sides.
+(``repro.configs.base``), cut to what the dense GQA decoders need (qwen25-7b,
+starcoder2-7b, gemma3-1b): the port imports nothing of the JAX package.
+Field names and defaults match the reference, so a test can build the same
+configuration on both sides.
 """
 from __future__ import annotations
 
@@ -12,15 +13,28 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Tuple
 
 
+# the MLP's projections per ``mlp_kind``, in the order they are drawn:
+# "gelu2" (the classic up -> GELU -> down) has no gate
+MLP_PROJECTIONS = {"swiglu": ("gate", "up", "down"), "gelu": ("gate", "up", "down"),
+                   "gelu2": ("up", "down")}
+
+
 @dataclass(frozen=True)
 class AttentionConfig:
-    """Grouped-query attention (the only attention kind of the port so far)."""
+    """Grouped-query attention (the only attention kind of the port so far),
+    with the reference's sliding window."""
 
     n_heads: int = 8
     n_kv_heads: int = 8
     head_dim: int = 64
     rope_theta: float = 10_000.0
     use_bias: bool = False
+    # sliding-window attention (gemma3's local layers); 0 = full
+    sliding_window: int = 0
+    # local:global layer pattern: every ``global_every``-th layer is global
+    # (no window, ``global_rope_theta``); 0 = every layer uses the window
+    global_every: int = 0
+    global_rope_theta: float = 0.0
 
     @property
     def is_mla(self) -> bool:
@@ -30,8 +44,10 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One dense decoder: pre-norm RMSNorm, GQA with rope, SwiGLU MLP,
-    untied LM head (the reference's ``family="dense"`` defaults)."""
+    """One dense decoder: pre-norm, GQA with rope, an MLP (the reference's
+    ``family="dense"``). ``mlp_kind``: "swiglu" (gate/up/down, silu),
+    "gelu" (the gated GELU: gate/up/down) or "gelu2" (the classic up ->
+    GELU -> down, no gate); ``norm_kind``: "rmsnorm" or "layernorm"."""
 
     name: str
     n_layers: int
@@ -41,9 +57,12 @@ class ModelConfig:
     attention: AttentionConfig = field(default_factory=AttentionConfig)
     lora_targets: Tuple[str, ...] = ("q", "k", "v", "o", "gate", "up", "down")
     citation: str = ""
-    # the reference's fields that the cost model reads, at the only values
-    # the port's dense decoders have
+    mlp_kind: str = "swiglu"
+    norm_kind: str = "rmsnorm"
+    # the LM head is the embedding's transpose (no ``lm_head`` leaf)
     tie_embeddings: bool = False
+    # the reference's field that the cost model reads, at the only value the
+    # port's dense decoders have
     encoder_layers: int = 0
 
     @property
@@ -101,14 +120,20 @@ def default_search_space(n: int = 120, seq_len: int = 1024) -> list:
 
 def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelConfig:
     """Test-size variant of the same architecture, with the reference's
-    rules for a dense decoder: 2 layers, d_model <= 256, d_ff <= 384,
-    head_dim 32, 2-4 heads, vocab 512."""
+    rules for a dense decoder (``repro/configs/base.py:243-297``): 2 layers
+    (a model with ``global_every`` keeps one whole local:global period, at
+    most 6 layers), d_model <= 256, d_ff <= 384, head_dim 32, 2-4 heads,
+    vocab 512, a window of at most 64."""
     attn = cfg.attention
     n_heads = max(2, min(4, attn.n_heads))
     n_kv = max(1, min(n_heads, attn.n_kv_heads))
     while n_heads % n_kv:
         n_kv -= 1
-    new_attn = dataclasses.replace(attn, n_heads=n_heads, n_kv_heads=n_kv, head_dim=32)
+    new_attn = dataclasses.replace(
+        attn, n_heads=n_heads, n_kv_heads=n_kv, head_dim=32,
+        sliding_window=min(attn.sliding_window, 64) if attn.sliding_window else 0)
+    if attn.global_every:
+        n_layers = min(max(n_layers, attn.global_every), 6)
     return cfg.replace(
         name=cfg.name + "-reduced",
         n_layers=n_layers,
@@ -141,4 +166,4 @@ def list_archs() -> list:
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import qwen25_7b  # noqa: F401  (registers)
+    from repro_torch.configs import gemma3_1b, qwen25_7b, starcoder2_7b  # noqa: F401  (registers)

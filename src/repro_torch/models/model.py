@@ -1,4 +1,5 @@
-"""Top-level model: embedding, decoder stack, LM head; prefill and decode.
+"""Top-level model: embedding, decoder stack, LM head (the embedding's
+transpose when the config ties them); prefill and decode.
 
 Public API (functional; parameters are nested dicts of tensors laid out as
 the reference's pytrees, so ``repro_torch.bridge`` carries them across
@@ -21,7 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLP_PROJECTIONS, ModelConfig
 from repro_torch.core.adapter import PackMeta
 from repro_torch.models.layers.common import apply_norm, init_linear, init_norm
 from repro_torch.models.transformer import (
@@ -40,18 +41,21 @@ def init_model(seed: int, cfg: ModelConfig, meta: Optional[PackMeta],
                dtype=torch.float32, device=None):
     """Random weights from a ``torch.Generator`` seeded with ``seed``:
     embedding N(0, 0.02), linears N(0, 1/d_in), norms 1, biases 0, LoRA A
-    N(0, 1/d_in) and B 0. Runs on CUDA unless ``device`` says otherwise."""
+    N(0, 1/d_in) and B 0, drawn in that order, layer by layer; a tensor the
+    config does not have (a tied LM head, "gelu2"'s gate) is not drawn.
+    Runs on CUDA unless ``device`` says otherwise."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, device=device)
     base: Dict[str, Any] = {
         "embed": {"w": (emb * 0.02).to(dtype)},
-        "final_norm": init_norm(cfg.d_model, dtype, device),
+        "final_norm": init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
     }
     del emb
     dec_p, dec_l, _ = init_stack(gen, cfg, layer_specs(cfg), meta, dtype, device)
     base["decoder"] = dec_p
-    base["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab, False, dtype, device)
+    if not cfg.tie_embeddings:
+        base["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab, False, dtype, device)
     return base, {"decoder": dec_l}
 
 
@@ -71,13 +75,15 @@ def init_lora(seed: int, cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, 
 
 def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=None):
     """A LoRA pack tree of zeros in ``init_model``'s layout, without
-    building a base model (the serve engine's row pack and template)."""
+    building a base model (the serve engine's row pack and template): the
+    targets among the projections the config has ("gelu2" has no gate)."""
     device = resolve_device(device)
     a, d, n, r = cfg.attention, cfg.d_model, meta.n, meta.r_bucket
+    mlp = {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
     dims = {
         "attn": {"q": (d, a.n_heads * a.head_dim), "k": (d, a.n_kv_heads * a.head_dim),
                  "v": (d, a.n_kv_heads * a.head_dim), "o": (a.n_heads * a.head_dim, d)},
-        "mlp": {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)},
+        "mlp": {nm: mlp[nm] for nm in MLP_PROJECTIONS[cfg.mlp_kind]},
     }
     specs = layer_specs(cfg)
     p = find_period(specs)
@@ -112,11 +118,14 @@ def forward(base, lora, scales, batch: Dict[str, torch.Tensor], cfg: ModelConfig
         layer_specs(cfg), n_pack=n_pack, rope_cache=make_rope_cache(cfg, positions),
         make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg, remat=remat,
     )
-    return apply_norm(base["final_norm"], x), caches
+    return apply_norm(base["final_norm"], x, cfg.norm_kind), caches
 
 
 def unembed_w(base, cfg: ModelConfig):
-    """The LM head's (d, V) weight (the port's configs do not tie it)."""
+    """The LM head's (d, V) weight: with tied embeddings the embedding's
+    transpose, a view (no copy of the (V, d) matrix)."""
+    if cfg.tie_embeddings:
+        return base["embed"]["w"].T
     return base["lm_head"]["w"]
 
 
@@ -144,7 +153,7 @@ def decode_step(base, lora, scales, token: torch.Tensor, caches, pos, cfg: Model
         base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
         layer_specs(cfg), n_pack=n_pack, rope_cache=rc, caches=caches, pos=pos, kcfg=kcfg,
     )
-    x = apply_norm(base["final_norm"], x)
+    x = apply_norm(base["final_norm"], x, cfg.norm_kind)
     return logits(base, x, cfg), caches
 
 

@@ -1,4 +1,4 @@
-"""Decoder stack: pre-norm GQA attention + dense SwiGLU FFN layers.
+"""Decoder stack: pre-norm GQA attention + dense MLP layers.
 
 Layers are grouped as in the reference: the per-layer spec sequence has a
 minimal period p, the L//p repeats are stacked under ``"blocks"`` (every
@@ -24,14 +24,27 @@ from repro_torch.tree import tree_index, tree_map, tree_stack
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """What may differ between the layers of a stack: so far, the rope theta
-    (every layer is GQA attention + a dense SwiGLU FFN)."""
+    """What may differ between the layers of a stack: the sliding window
+    (0: full attention) and the rope theta (every layer is GQA attention +
+    a dense MLP)."""
 
+    window: int = 0
     theta: float = 10_000.0
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
-    return [LayerSpec(theta=cfg.attention.rope_theta) for _ in range(cfg.n_layers)]
+    """Per-layer specs, as the reference's (``transformer.py:110-133``):
+    with ``global_every``, every ``global_every``-th layer is global (no
+    window, ``global_rope_theta``) and the others local (the window, the
+    base theta); without it every layer takes ``sliding_window``."""
+    a = cfg.attention
+    specs = []
+    for i in range(cfg.n_layers):
+        window, theta = a.sliding_window, a.rope_theta
+        if a.global_every and i % a.global_every == a.global_every - 1:
+            window, theta = 0, a.global_rope_theta or a.rope_theta
+        specs.append(LayerSpec(window=window, theta=theta))
+    return specs
 
 
 def find_period(specs: List[LayerSpec]) -> int:
@@ -44,15 +57,16 @@ def find_period(specs: List[LayerSpec]) -> int:
 
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None):
     a = cfg.attention
-    params: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, dtype, device)}
+    params: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm_kind, dtype, device)}
     lora: Dict[str, Any] = {}
     p, lo = init_gqa(gen, a, cfg.d_model, meta, cfg.lora_targets, dtype, device)
     params["attn"] = p
     if lo:
         lora["attn"] = lo
-    p, lo = init_mlp(gen, cfg.d_model, cfg.d_ff, a.use_bias, meta, cfg.lora_targets, dtype, device)
+    p, lo = init_mlp(gen, cfg.d_model, cfg.d_ff, a.use_bias, meta, cfg.lora_targets, dtype, device,
+                     kind=cfg.mlp_kind)
     params["mlp"] = p
-    params["norm2"] = init_norm(cfg.d_model, dtype, device)
+    params["norm2"] = init_norm(cfg.d_model, cfg.norm_kind, dtype, device)
     if lo:
         lora["mlp"] = lo
     return params, lora
@@ -65,16 +79,16 @@ def apply_layer(
 ):
     """Pre-norm residual layer. Returns (x, new_cache or None)."""
     lo = lora or {}
-    h = apply_norm(params["norm1"], x)
+    h = apply_norm(params["norm1"], x, cfg.norm_kind)
     y, c = apply_gqa(
         params["attn"], lo.get("attn"), scales, h,
-        acfg=cfg.attention, n_pack=n_pack, rope=rope_cache[spec.theta],
+        acfg=cfg.attention, n_pack=n_pack, rope=rope_cache[spec.theta], window=spec.window,
         cache=cache.get("attn") if cache else None,
         pos=pos, make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg,
     )
     x = x + y
-    h = apply_norm(params["norm2"], x)
-    x = x + apply_mlp(params["mlp"], lo.get("mlp"), scales, h, n_pack, kcfg=kcfg)
+    h = apply_norm(params["norm2"], x, cfg.norm_kind)
+    x = x + apply_mlp(params["mlp"], lo.get("mlp"), scales, h, n_pack, kcfg=kcfg, kind=cfg.mlp_kind)
     return x, ({"attn": c} if c is not None else None)
 
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
-from repro_torch.configs.base import LoraConfig, ModelConfig
+from repro_torch.configs.base import MLP_PROJECTIONS, LoraConfig, ModelConfig
 
 
 class CostEstimator:
@@ -221,11 +221,15 @@ def _dense_only(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds()) | set(cfg.ffn_kinds())
     if kinds != {"attn", "dense"} or cfg.attention.is_mla or cfg.is_encdec:
         raise ValueError(f"{cfg.name}: the port counts dense GQA decoders only, got {kinds}")
+    if cfg.mlp_kind not in MLP_PROJECTIONS or cfg.norm_kind not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"{cfg.name}: unknown mlp_kind {cfg.mlp_kind!r} or norm_kind "
+                         f"{cfg.norm_kind!r}")
 
 
 def model_param_count(cfg: ModelConfig) -> float:
     """Total parameters (embeddings + stack) of a dense GQA decoder: the
-    reference's accounting for ``attn`` mixers and ``dense`` FFNs."""
+    reference's accounting for ``attn`` mixers and ``dense`` FFNs (2 MLP
+    matrices for "gelu2", 3 otherwise; one vocabulary matrix when tied)."""
     _dense_only(cfg)
     a = cfg.attention
     d = cfg.d_model
@@ -233,7 +237,7 @@ def model_param_count(cfg: ModelConfig) -> float:
     for _ in cfg.layer_kinds():
         hd = a.head_dim
         total += d * hd * (a.n_heads + 2 * a.n_kv_heads) + a.n_heads * hd * d
-        total += 3 * d * cfg.d_ff  # SwiGLU: gate, up, down
+        total += len(MLP_PROJECTIONS[cfg.mlp_kind]) * d * cfg.d_ff
     return float(total)
 
 
@@ -243,7 +247,11 @@ def active_param_count(cfg: ModelConfig) -> float:
 
 
 def lora_param_count(cfg: ModelConfig, rank: int) -> float:
-    """Packed-LoRA params for one adapter over cfg.lora_targets."""
+    """Packed-LoRA params for one adapter over the ``cfg.lora_targets``
+    that the model has. The reference counts every target named
+    (``repro/sched/cost_model.py:237-260``), so for a "gelu2" MLP it bills
+    a ``gate`` adapter that its ``init_mlp`` never builds: n_layers x r x
+    (d + d_ff) more than the port (ROADMAP C, "Found in the reference")."""
     _dense_only(cfg)
     a, d = cfg.attention, cfg.d_model
     shapes = {
@@ -255,9 +263,10 @@ def lora_param_count(cfg: ModelConfig, rank: int) -> float:
         "up": (d, cfg.d_ff),
         "down": (cfg.d_ff, d),
     }
+    have = ("q", "k", "v", "o") + MLP_PROJECTIONS[cfg.mlp_kind]
     per_layer = 0.0
     for t in cfg.lora_targets:
-        if t in shapes:
+        if t in have:
             din, dout = shapes[t]
             per_layer += rank * (din + dout)
     n_layers = cfg.n_layers + cfg.encoder_layers

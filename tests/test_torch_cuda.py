@@ -1035,3 +1035,72 @@ def test_the_captured_steps_key_separates_two_splits(cuda):
     assert (ex.n_builds, ex.n_hits, len(ex.captures)) == (2, 0, 2)
     assert np.array_equal(run((2,)), two) and (ex.n_builds, ex.n_hits) == (2, 1)
     np.testing.assert_allclose(two, one, rtol=1e-5)
+
+
+# one layer's projections (d_in, d_out) of the two dense families besides
+# qwen25-7b: starcoder2-7b (d 4,608, k/v 512, d_ff 18,432) and gemma3-1b
+# (d 1,152, q 1,024, k/v 256, d_ff 6,912)
+FAMILY_PROJ = {
+    "starcoder2-7b": [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)],
+    "gemma3-1b": [(1152, 1024), (1152, 256), (1024, 1152), (1152, 6912), (6912, 1152)],
+}
+
+
+def _count(kernel, direction, path):
+    return kernel.launches[direction, path]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_in,d_out", [p for ps in FAMILY_PROJ.values() for p in ps])
+def test_family_training_shapes_match_plain_on_their_paths(cuda, d_in, d_out):
+    """bf16 at each new family's training shapes (N = 2 x M = 1,024, r =
+    16): #1's xA, xAB and backward cases 2 and 4 on "mma", #2's forward and
+    dx (W^T in place) on "wgmma", each launched once on that path and
+    within the tolerance of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    n, m, r, dt = 2, 1024, 16, torch.bfloat16
+    s = torch.tensor([0.5, 2.0], device=cuda)
+    x, w = _rnd(gen, (n, m, d_in), dt), _rnd(gen, (d_in, d_out), dt, d_in ** -0.5)
+    a, b = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), _rnd(gen, (n, r, d_out), dt)
+    g = _rnd(gen, (n, m, d_out), dt)
+    xa = _rnd(gen, (n, m, r), dt)
+    for args, bwd in (((x, a), False), ((xa, b, s), False),
+                      ((g, b.transpose(1, 2)), True), ((xa, a.transpose(1, 2)), True)):
+        assert packed_matmul_path(args[0], args[1]) == "mma"
+        n0 = _count(packed_matmul, "bwd" if bwd else "fwd", "mma")
+        got = packed_matmul(*args, backward=True) if bwd else packed_matmul(*args)
+        assert _count(packed_matmul, "bwd" if bwd else "fwd", "mma") == n0 + 1
+        _close(got, packed_matmul_ref(*args))
+    assert fused_matmul_path(x, w, r, a, b) == "wgmma"
+    n0 = _count(fused_matmul, "fwd", "wgmma")
+    _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+    assert _count(fused_matmul, "fwd", "wgmma") == n0 + 1
+    bt, at = b.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous()
+    assert fused_matmul_path(g, w.t(), r, bt, at) == "wgmma"
+    n0 = _count(fused_matmul, "bwd", "wgmma")
+    _close(fused_matmul(g, w.t(), bt, at, s, backward=True), fused_matmul_ref(g, w.t(), bt, at, s))
+    assert _count(fused_matmul, "bwd", "wgmma") == n0 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_in,d_out", FAMILY_PROJ["gemma3-1b"])
+def test_gemma3_decode_rows_match_plain_on_the_decode_path(cuda, d_in, d_out):
+    """bf16 decode rows at gemma3-1b's widths (8 rows, r = 16; the k/v
+    output 256 wide, d 1,152): #2 and both passes of #1 on "decode", the
+    pair ``torch.equal`` to its two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(51)
+    n, m, r, dt = 8, 1, 16, torch.bfloat16
+    s = torch.linspace(0.5, 2.0, n, device=cuda)
+    x, w = _rnd(gen, (n, m, d_in), dt), _rnd(gen, (d_in, d_out), dt, d_in ** -0.5)
+    a, b = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), _rnd(gen, (n, r, d_out), dt)
+    assert fused_matmul_path(x, w, r, a, b) == "decode"
+    n0 = _count(fused_matmul, "fwd", "decode")
+    _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+    assert _count(fused_matmul, "fwd", "decode") == n0 + 1
+    assert packed_matmul_path(x, a) == "decode"
+    xa = packed_matmul(x, a)
+    _close(xa, packed_matmul_ref(x, a))
+    assert packed_matmul_path(xa, b) == "decode"
+    _close(packed_matmul(xa, b, s), packed_matmul_ref(xa, b, s))
+    y, xa2 = packed_matmul_pair(x, a, b, s)
+    assert torch.equal(xa2, xa) and torch.equal(y, packed_matmul(xa, b, s))
