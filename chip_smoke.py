@@ -23,14 +23,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 4) at the sweep's shapes in bf16 (each same-rank segment of each
    job the sweep phase plans: N, M = rows per adapter x 512 and r of that
    segment, r 8-128, and likewise each of the online plan's segments, M
-   up to 4,096), and in f32 at the launcher's shapes (phase 9's pack:
+   up to 4,096), and in f32 at the launcher's shapes (phase 10's pack:
    N = 1 x M = 1,024 at r = 8 and at r = 16; the fused forward and dx,
    and ``packed_matmul``'s xA, xAB and cases 2 and 4), and in bf16 at the
    training shapes of starcoder2-7b and gemma3-1b (N = 2 x M = 1,024,
    r = 16: ``packed_matmul``'s xA, xAB and cases 2 and 4, the fused
    forward and dx; cases ``train_starcoder2``, ``train_gemma3``) and at
-   gemma3-1b's decode rows (``decode_gemma3``: d = 1,152, k/v 256 wide);
-   holds each against its plain version, and times
+   gemma3-1b's decode rows (``decode_gemma3``: d = 1,152, k/v 256 wide),
+   and at command-r-35b's widths (d 8,192, k/v 1,024, d_ff 22,528):
+   ``fused_matmul_q`` on int8 codes at the training shapes with the dx its
+   backward runs (``train_command_r``), on int8 and nf4 codes at 8 decode
+   rows (``decode_command_r``), and on nf4 codes under an f32 x at the
+   launcher's segments (``launcher_command_r``: N = 1 x M = 512 at r = 8
+   and 16); holds each against its plain version, and times
    kernel, plain
    version and one PyTorch library call (or the named composition where no
    single call exists) with CUDA events. At the decode shapes the delta's
@@ -57,7 +62,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sorted), forward and backward, under
    ``torch.cuda.set_sync_debug_mode("error")``, their output and LoRA
    gradients ``torch.equal`` to the gather/scatter formulation's.
-4. autotune -- ``kernels/autotune.py`` at the launcher's pack (full
+4. command_r -- command-r-35b (40 layers, d 8,192, GQA 64/8, d_ff 22,528,
+   vocab 256,000, tied) at full width and depth, whose bf16 base (60.6 GB)
+   does not fit beside a step. It runs right after the kernel phase, with
+   no base resident and the allocator's cache fresh: its train step peaks
+   near 68 GB, and the leftovers of the later phases fragment the cache
+   past what is left. Its int8 and nf4 bases are built by
+   ``init_model(..., quant=)`` layer by layer (the dense tree never
+   exists), each held ``torch.equal`` to
+   dense-then-quantize at full width cut to 2 layers, and each build's own
+   peak held under CR_BUILD_PEAK. On int8, ``make_packed_step`` under
+   impl="auto" and "fused" on the train phase's pack (step 1 against the
+   plain path to the train phase's limits, then 3 steps whose counts must
+   move; every ``fused_matmul_q`` call on "wgmma", every ``packed_matmul``
+   call on "mma"; the steps' own peak printed against ``job_mem_bytes``);
+   8 requests through ``ServeEngine(base_dtype=...)`` on int8 under fused
+   and auto and on nf4 under fused (``fused_matmul_q`` must launch on
+   "decode"), prefill logits and 4 teacher-forced decode steps held against
+   the plain path at LOGIT_TOL; then ``launch/train.py --arch command-r-35b
+   --quant nf4 --impl fused`` (an f32 x on nf4 codes: every
+   ``fused_matmul_q`` and dx call on "ffma", finite losses).
+5. autotune -- ``kernels/autotune.py`` at the launcher's pack (full
    qwen25-7b, ranks 8 and 16, batch 2, seq 512: N = 2 x M = 1,024 at d x d
    and d x d_ff, r = 16): ``tune_for_model(fast=False)`` in f32 (the fused
    kernel's "ffma" path) and ``tune`` at the same shapes in bf16 ("wgmma"),
@@ -67,15 +92,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``autotune_candidate`` line each: device ms (CUDA events), the two-pass
    tier's ms, the speedup, FLOP/s and the share of the bound. A second tune
    on each cache must measure nothing.
-5. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
-   seed), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
+6. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
+   seed) cut to its first SERVE_LAYERS = 14 layers (a view; the train,
+   sweep and online phases reuse the whole base), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
    and impl="fused" (fused kernel). Launch counts are zeroed just before
    each drain and read just after. Prefill logits and 4 teacher-forced
    decode steps are held against the plain-version path on the same
    weights. Then a short drain of each impl runs under ``torch.profiler``
    (device busy share, device time by kernel).
-6. train   -- full-width qwen25-7b cut to its first TRAIN_LAYERS = 14
+7. train   -- full-width qwen25-7b cut to its first TRAIN_LAYERS = 7
    layers (a view of the serve phase's bf16 base), a pack of 4 adapters
    of ranks (8, 16, 16, 32) (ragged
    segments of one and of two adapters), seq 512, 4096 tokens per step,
@@ -90,7 +116,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    call runs under ``torch.cuda.set_sync_debug_mode("error")`` (after one
    that builds its per-device vectors).
 
-7. sweep   -- the planner-driven sweep on the same base: the 9
+8. sweep   -- the planner-driven sweep on the same base, cut to its first
+   SWEEP_LAYERS = 14 layers (a view; planned on that model): the 9
    configurations of ``default_search_space(300, seq_len=512)[::37]``
    planned on one card with the ``H100`` cost-model preset, then every job
    run by ``ExecutionEngine.run_local`` through a ``ClusterRunner`` and a
@@ -117,7 +144,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    allocated memory (the device's peak less what earlier phases left
    allocated, besides the base) must lie within [peak, 1.3 x peak] of the
    cost model's ``job_mem_bytes`` (ROADMAP C3).
-8. online  -- the online engine on the same base: six configurations of
+9. online  -- the online engine on the same base: six configurations of
    ``default_search_space(300, seq_len=512)`` (two of batch 8, one of rank
    128, ranks 16-128) arrive on a ``poisson_trace``;
    ``ExecutionEngine.plan_online`` on the ``H100`` preset (the port's
@@ -143,7 +170,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step, finish every adapter with a finite loss and round-trip its
    observation store through JSON. Last, ``c3_fit`` fits the memory
    model's logits copies and per-job bytes to every captured job's peak.
-9. launcher -- ``repro_torch.launch.train.main``, the port's training
+10. launcher -- ``repro_torch.launch.train.main``, the port's training
    entry point, on full qwen25-7b with its f32 base (``init_model``'s
    default; the smoke's bf16 base is freed first): ``--seq 512 --ranks
    8,16 --batch-sizes 2,2 --steps 4`` (two adapters of 1,024 tokens, ranks
@@ -170,7 +197,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    metrics count an executor build (it prints the uncalibrated and the
    calibrated prior's s/step beside the measured, and the split it ran),
    and the control's reads above LAUNCH_CONTROL_FACTOR times that limit.
-10. families -- starcoder2-7b (LayerNorm, the two-matrix GELU MLP, biased
+11. families -- starcoder2-7b (LayerNorm, the two-matrix GELU MLP, biased
    GQA) and then gemma3-1b (512-token sliding windows, every 6th layer
    global with its own rope theta, the gated GELU, tied embeddings), each at
    full width and depth on a bf16 base of random weights from a seed (the
@@ -239,10 +266,14 @@ TRAIN_BATCH = (1, 2, 1, 2)
 TRAIN_SEQ = 512
 TRAIN_STEPS = 4
 TRAIN_RUNS = (("auto", None), ("fused", None), ("fused", "nf4"), ("fused", "int8"))
-# The train phase runs the first TRAIN_LAYERS of the 28 (the full width; a
-# view of the serve phase's base, no copy), so that the families phase fits
-# in the smoke's time (PERF.md §4)
-TRAIN_LAYERS = 14
+# The serve, train and sweep phases run the first SERVE_LAYERS,
+# TRAIN_LAYERS and SWEEP_LAYERS of the 28 (the full width; views of the
+# serve phase's base, no copy), so that the families and command_r phases
+# fit in the smoke's time (PERF.md §4). The online phase keeps all 28: at
+# fewer layers its plan preempts an adapter before its first step.
+SERVE_LAYERS = 14
+TRAIN_LAYERS = 7
+SWEEP_LAYERS = 14
 # Step 1 of the kernel path against the plain path on the same weights and
 # batch. bf16 end to end: a 1-ulp difference in one projection's bf16
 # output (the f32 sums run in another order) propagates through 28 layers.
@@ -538,20 +569,22 @@ def kernel_phase(torch, dev):
               path_fn=lambda g, wt, bt, at, s: fused_matmul_path(g, wt, bt.shape[2], bt, at),
               extra=extra)
 
-    def fused_q_rows(case, n, m, d_in, d_out, dtype, scale):
+    def fused_q_rows(case, n, m, d_in, d_out, dtype, scale, modes=("int8", "nf4"), rank=RANK,
+                     extra=None):
         """``fused_matmul_q`` on int8 and nf4 codes, bit-equal to the dense
         kernel on the dequantized W; every call set quantizes a W of its own."""
-        for mode in ("int8", "nf4"):
+        for mode in modes:
             def args_fn(mode=mode):
                 q = quantize_weight(rnd((d_in, d_out), torch.float32, d_in ** -0.5), mode)
                 return (rnd((n, m, d_in), dtype), q["codes"], q["scales"],
-                        rnd((n, d_in, RANK), dtype, d_in ** -0.5), rnd((n, RANK, d_out), dtype), scale)
+                        rnd((n, d_in, rank), dtype, d_in ** -0.5), rnd((n, rank, d_out), dtype), scale)
 
             check("fused_matmul_q", case, mode, d_in, d_out, dtype, fused_matmul_q,
                   fused_matmul_q_ref, lib_fused_q, args_fn,
-                  2 * n * m * (d_in * d_out + d_in * RANK + RANK * d_out),
+                  2 * n * m * (d_in * d_out + d_in * rank + rank * d_out),
                   "dequantize(W) then baddbmm(x@W, bmm(x,A)*s, B)", exact=dense_on_dequantized,
-                  path_fn=lambda x, c, sc, a, b, s: fused_matmul_q_path(x, c, sc, a.shape[2], a, b))
+                  path_fn=lambda x, c, sc, a, b, s: fused_matmul_q_path(x, c, sc, a.shape[2], a, b),
+                  extra=extra)
 
     def packed_rows(case, n, m, d_in, d_out, dtype, scale, backward_cases=False, rank=RANK,
                     only=None, extra=None):
@@ -628,8 +661,27 @@ def kernel_phase(torch, dev):
         for (d_in, d_out), _ in family_proj(get_config(arch)):
             packed_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
             fused_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
-    train_cases = {"train", *FAMILY_TRAIN_CASE.values()}
-    decode_cases = {"decode", *FAMILY_DECODE_CASE.values()}
+    # command-r-35b on its quantized base: #3 int8 at the training shapes
+    # (N = 2 x M = 1,024, r = 16) with the dx its backward runs (#2 on the
+    # dequantized W^T), #3 int8 and nf4 at 8 decode rows, and #3 nf4 on an
+    # f32 x at the launcher's segments (N = 1 x M = 512 at r = 8 and 16)
+    cr = get_config(COMMAND_R)
+    n, m = TRAIN_CASE
+    scale = torch.linspace(0.5, 2.0, n, device=dev)
+    for (d_in, d_out), _ in family_proj(cr):
+        fused_q_rows(CR_TRAIN_CASE, n, m, d_in, d_out, torch.bfloat16, scale, modes=("int8",))
+        dx_rows(CR_TRAIN_CASE, n, m, d_in, d_out, torch.bfloat16, scale)
+    n, m = CASES["decode"]
+    scale = torch.linspace(0.5, 2.0, n, device=dev)
+    for (d_in, d_out), _ in family_proj(cr):
+        fused_q_rows(CR_DECODE_CASE, n, m, d_in, d_out, torch.bfloat16, scale)
+    for n, m, r in launcher_segments(CR_LAUNCH_ARGS):
+        scale = torch.linspace(0.5, 2.0, n, device=dev)
+        for (d_in, d_out), _ in family_proj(cr):
+            fused_q_rows(CR_LAUNCH_CASE, n, m, d_in, d_out, torch.float32, scale, modes=("nf4",),
+                         rank=r, extra={"n": n, "m": m, "rank": r})
+    train_cases = {"train", CR_TRAIN_CASE, *FAMILY_TRAIN_CASE.values()}
+    decode_cases = {"decode", CR_DECODE_CASE, *FAMILY_DECODE_CASE.values()}
     off = [(r["case"], r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] in train_cases and r["dtype"] == "bfloat16"
            and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"]
@@ -647,7 +699,7 @@ def kernel_phase(torch, dev):
             packed_rows("launcher", n, m, d_in, d_out, torch.float32, scale, backward_cases=True,
                         rank=r, only=SWEEP_CALLS, extra=extra)
     off = [(r["case"], r["call"], r["d_in"], r["d_out"], r.get("rank"), r["path"]) for r in rows
-           if r["case"] in ("train", "launcher") and r["dtype"] == "float32"
+           if r["case"] in ("train", "launcher", CR_LAUNCH_CASE) and r["dtype"] == "float32"
            and r["kernel"] != "packed_matmul" and r["path"] != "ffma"]
     if off:
         fail(f"f32 training-shape or launcher fused rows off the ffma path: {off}")
@@ -794,25 +846,30 @@ def sync_free_train_step(torch, cfg, meta, base, lora, opt, batch, impl: str, qu
 # ---------------------------------------------------------------------------
 
 
-def make_adapters(torch, cfg, n: int):
+def make_adapters(torch, cfg, n: int, device="cpu"):
     """``n`` host adapter trees (f32 numpy), ranks alternating 8 and 16, A
     ~ N(0, 1/d_in) and B ~ N(0, 0.25/r): non-zero deltas about half the
-    size of the base projection's output at scale alpha/r = 1."""
+    size of the base projection's output at scale alpha/r = 1. ``device``:
+    where they are drawn (command-r-35b's 9 GB of adapters are drawn on the
+    card)."""
     from repro_torch.configs import LoraConfig
     from repro_torch.core.adapter import pack_meta
     from repro_torch.models.model import lora_zeros
     from repro_torch.tree import tree_map
 
-    gen = torch.Generator().manual_seed(SEED + 1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
     out = []
     for i in range(n):
         r = 8 if i % 2 == 0 else 16
-        tmpl = lora_zeros(cfg, pack_meta([LoraConfig(rank=r, alpha=float(r))]), torch.float32, "cpu")
+        tmpl = lora_zeros(cfg, pack_meta([LoraConfig(rank=r, alpha=float(r))]), torch.float32,
+                          device)
 
         def fill(t, r=r):
             if t.shape[-1] == r:  # a: (L, 1, d_in, r)
-                return (torch.randn(t.shape, generator=gen) * t.shape[-2] ** -0.5).numpy()
-            return (torch.randn(t.shape, generator=gen) * (0.25 / r) ** 0.5).numpy()
+                w = torch.randn(t.shape, generator=gen, device=device) * t.shape[-2] ** -0.5
+            else:
+                w = torch.randn(t.shape, generator=gen, device=device) * (0.25 / r) ** 0.5
+            return w.cpu().numpy()
 
         tree = tree_map(fill, tmpl)
         # drop the width-1 pack axis: what extract_adapter would give
@@ -820,28 +877,44 @@ def make_adapters(torch, cfg, n: int):
     return out
 
 
-def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, counter, steps=4):
+def row_adapters(torch, cfg, adapters, dev):
+    """Each host adapter of ``make_adapters`` as a width-1 bf16 pack tree on
+    ``dev``, zero-padded to rank 16 (what ``ServeEngine`` admits)."""
+    from repro_torch import bridge
+    from repro_torch.configs import LoraConfig
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.core.packed_lora import inject_adapter
+    from repro_torch.models.model import lora_zeros
+    from repro_torch.tree import tree_map
+
+    meta1 = pack_meta([LoraConfig(rank=16, alpha=16.0)])
+    tmpl = tree_map(lambda t: t.numpy(), lora_zeros(cfg, meta1, torch.float32, "cpu"))
+    return [bridge.to_torch(inject_adapter(tmpl, tree, 0), dev, torch.bfloat16)
+            for tree, _r in adapters]
+
+
+def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, counter, steps=4,
+                   lora1s=None):
     """Prefill 8 rows (one adapter each) and decode ``steps`` tokens at
     width 8, once through the kernel path and once through the plain path,
     feeding both the kernel path's greedy tokens. Returns the max abs logit
     difference per step (prefill first), the max abs plain logit, and the
     kernel's launches per decode step (``counter`` names its count in
-    ``kernels/launches.py``)."""
-    from repro_torch import bridge
+    ``kernels/launches.py``). ``lora1s``: ``row_adapters`` of ``adapters``,
+    when the caller has them."""
     from repro_torch.configs import LoraConfig
     from repro_torch.core.adapter import pack_meta
-    from repro_torch.core.packed_lora import inject_adapter
     from repro_torch.kernels.ops import KernelConfig
     from repro_torch.models.model import decode_step, init_caches, lora_zeros, prefill
     from repro_torch.serve.decode import pad_caches
     from repro_torch.serve.engine import write_row_caches
-    from repro_torch.tree import tree_map
 
     dev = base["embed"]["w"].device
     rows = len(adapters)
     meta1 = pack_meta([LoraConfig(rank=16, alpha=16.0)])
     meta = pack_meta([LoraConfig(rank=16, alpha=16.0)] * rows)
-    tmpl = tree_map(lambda t: t.numpy(), lora_zeros(cfg, meta1, torch.float32, "cpu"))
+    if lora1s is None:
+        lora1s = row_adapters(torch, cfg, adapters, dev)
     scales = torch.ones((rows,), dtype=torch.float32, device=dev)  # alpha / r = 1
     teacher = []
     logs = {}
@@ -851,8 +924,7 @@ def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, coun
         caches = init_caches(cfg, rows, smax, device=dev)
         lora = lora_zeros(cfg, meta, torch.bfloat16, dev)
         lg_all = []
-        for i, ((tree, _r), p) in enumerate(zip(adapters, prompts)):
-            lora1 = bridge.to_torch(inject_adapter(tmpl, tree, 0), dev, torch.bfloat16)
+        for i, (lora1, p) in enumerate(zip(lora1s, prompts)):
             write_row_caches(lora, lora1, i)
             lg, c1 = prefill(base, lora1, scales[:1], {"tokens": torch.from_numpy(p[None]).to(dev)},
                              cfg, kcfg=kc1)
@@ -923,17 +995,18 @@ def read_profile(prof, wall_ms: float, table_path: Path) -> dict:
 
 
 def serve_phase(torch, dev):
-    """Returns the launch counts of each impl's drain, and the base model
-    (the train phase reuses it)."""
+    """Serves on the first SERVE_LAYERS layers of full-width qwen25-7b (a
+    view of its base). Returns the launch counts of each impl's drain, and
+    the whole base model (the train, sweep and online phases reuse it)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_model
     from repro_torch.serve.engine import ServeEngine, poisson_requests
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("qwen25-7b")
     t0 = time.perf_counter()
-    base, _ = init_model(SEED, cfg, None, dtype=torch.bfloat16, device=dev)
+    full, _ = init_model(SEED, get_config("qwen25-7b"), None, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
+    cfg, base = depth_cut(get_config("qwen25-7b"), full, SERVE_LAYERS)
     n_params = sum(t.numel() for t in tree_leaves(base))
     adapters = make_adapters(torch, cfg, 8)
     emit({"phase": "serve_setup", "model": cfg.name, "n_layers": cfg.n_layers,
@@ -993,7 +1066,7 @@ def serve_phase(torch, dev):
     out_dir.mkdir(exist_ok=True)
     for impl in ("auto", "fused"):
         profile_serve(torch, cfg, base, adapters, reqs, impl, out_dir)
-    return launches, base
+    return launches, full
 
 
 # ---------------------------------------------------------------------------
@@ -1044,62 +1117,91 @@ def zero_counts():
 NEEDED = {("auto", None): ("packed_matmul", "packed_matmul_bwd"),
           ("fused", None): ("fused_matmul", "fused_matmul_dx"),
           ("fused", "nf4"): ("fused_matmul_q", "fused_matmul_dx"),
-          ("fused", "int8"): ("fused_matmul_q", "fused_matmul_dx")}
+          ("fused", "int8"): ("fused_matmul_q", "fused_matmul_dx"),
+          ("auto", "int8"): ("packed_matmul", "packed_matmul_bwd")}
 
 
 def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales):
     """Step 1's per-adapter loss and LoRA gradients, kernel path against the
     plain path on the same weights and batch: in bf16, and with the base's
     floating-point leaves cast to f32 (the same kernels and autograd
-    Functions on their f32 paths). Returns the comparison's numbers."""
+    Functions on their f32 paths). Returns the comparison's numbers. The f32
+    runs come first, with the f32 copy of the base freed after them; the
+    gradients that later runs are held against wait on the host, so the
+    card holds one set of gradients at a time (command-r-35b's pack: 3.1 GB
+    a set)."""
     from repro_torch.kernels.ops import KernelConfig
     from repro_torch.train.trainer import packed_value_and_grad
     from repro_torch.tree import tree_leaves, tree_map
 
     plain = {"auto": "plain", "fused": "fused_plain"}[impl]
+
+    def grad_rel(ga, gb):  # per leaf: max |a - b| / max |b|
+        out = []
+        for a, b in zip(ga, gb):
+            b = b.to(a.device)
+            out.append(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item())
+        return out
+
+    loss, kept, errs = {}, {}, {}
     base32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, base)
-    res = {}
-    for prec, b in (("bf16", base), ("f32", base32)):
-        for path in (impl, plain):
-            _, per, grads = packed_value_and_grad(
-                lora, b, batch, cfg, meta.n, scales, kcfg=KernelConfig(impl=path, ranks=meta.ranks))
-            if not (torch.isfinite(per).all() and all(bool(torch.isfinite(g).all())
-                                                      for g in tree_leaves(grads))):
-                fail(f"impl={impl}: non-finite step-1 loss or gradient on the {path} path ({prec})")
-            res[prec, path] = (per, tree_leaves(grads))
-    del base32
+    for prec, path in (("f32", plain), ("f32", impl), ("bf16", plain), ("bf16", impl)):
+        if prec == "bf16" and base32 is not None:
+            base32 = None
+            torch.cuda.empty_cache()
+        _, per, grads = packed_value_and_grad(
+            lora, base32 if prec == "f32" else base, batch, cfg, meta.n, scales,
+            kcfg=KernelConfig(impl=path, ranks=meta.ranks))
+        grads = tree_leaves(grads)
+        if not (torch.isfinite(per).all() and all(bool(torch.isfinite(g).all()) for g in grads)):
+            fail(f"impl={impl}: non-finite step-1 loss or gradient on the {path} path ({prec})")
+        loss[prec, path] = per
+        if path == plain:
+            if prec == "bf16":
+                errs["plain_bf16_vs_f32"] = max(grad_rel(grads, kept["f32"]))
+            kept[prec] = [g.cpu() for g in grads]
+        elif prec == "f32":
+            errs["f32"] = max(grad_rel(grads, kept["f32"]))
+        else:
+            errs["bf16"] = max(grad_rel(grads, kept["bf16"]))
+            errs["kernel_bf16_vs_f32"] = max(grad_rel(grads, kept["f32"]))
+        del grads
 
     def loss_rel(a, b):
         return ((a - b).abs() / b.abs()).max().item()
 
-    def grad_rel(ga, gb):  # per leaf: max |a - b| / max |b|
-        return [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(ga, gb)]
-
-    truth = res["f32", plain][1]
     return {
-        "step1_loss_kernel": res["bf16", impl][0].tolist(),
-        "step1_loss_plain": res["bf16", plain][0].tolist(),
-        "step1_loss_rel_err": loss_rel(res["bf16", impl][0], res["bf16", plain][0]),
-        "step1_loss_rel_err_f32": loss_rel(res["f32", impl][0], res["f32", plain][0]),
-        "step1_grad_rel_err_f32": max(grad_rel(res["f32", impl][1], truth)),
-        "step1_grad_rel_err_bf16": max(grad_rel(res["bf16", impl][1], res["bf16", plain][1])),
+        "step1_loss_kernel": loss["bf16", impl].tolist(),
+        "step1_loss_plain": loss["bf16", plain].tolist(),
+        "step1_loss_rel_err": loss_rel(loss["bf16", impl], loss["bf16", plain]),
+        "step1_loss_rel_err_f32": loss_rel(loss["f32", impl], loss["f32", plain]),
+        "step1_grad_rel_err_f32": errs["f32"],
+        "step1_grad_rel_err_bf16": errs["bf16"],
         # the bf16 gradients' distance from the f32 plain gradient: kernel path, plain path
-        "step1_grad_err_vs_f32_kernel_bf16": max(grad_rel(res["bf16", impl][1], truth)),
-        "step1_grad_err_vs_f32_plain_bf16": max(grad_rel(res["bf16", plain][1], truth)),
+        "step1_grad_err_vs_f32_kernel_bf16": errs["kernel_bf16_vs_f32"],
+        "step1_grad_err_vs_f32_plain_bf16": errs["plain_bf16_vs_f32"],
     }
+
+
+def train_setup_configs(seq: int = TRAIN_SEQ):
+    """The train phase's pack as configurations: TRAIN_RANKS, TRAIN_LRS,
+    TRAIN_BATCH, alpha 2r."""
+    from repro_torch.configs import LoraConfig
+
+    return [LoraConfig(rank=r, alpha=2.0 * r, learning_rate=lr, batch_size=b, seq_len=seq)
+            for r, lr, b in zip(TRAIN_RANKS, TRAIN_LRS, TRAIN_BATCH)]
 
 
 def train_setup(torch, dev, cfg=None, seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS):
     """The train phase's model config (qwen25-7b unless given), pack,
     initial LoRA tree and ``steps`` batches of ``seq`` tokens, all from
     seeds."""
-    from repro_torch.configs import LoraConfig, get_config
+    from repro_torch.configs import get_config
     from repro_torch.core.adapter import pack_meta
     from repro_torch.train.data import packed_batch_iterator
 
     cfg = cfg or get_config("qwen25-7b")
-    configs = [LoraConfig(rank=r, alpha=2.0 * r, learning_rate=lr, batch_size=b, seq_len=seq)
-               for r, lr, b in zip(TRAIN_RANKS, TRAIN_LRS, TRAIN_BATCH)]
+    configs = train_setup_configs(seq)
     meta = pack_meta(configs)
     batches = packed_batch_iterator(cfg, configs, seq=seq, seed=SEED, device=dev)
     return cfg, meta, train_lora(torch, cfg, meta, dev), [next(batches) for _ in range(steps)]
@@ -1127,6 +1229,7 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
     step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks, base_dtype=quant)
     lora, opt = lora0, init_opt_state(lora0)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the comparison's cached blocks: the steps start unfragmented
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     times, losses = [], []
@@ -1272,7 +1375,7 @@ def sweep_plan():
     from repro_torch.configs import default_search_space, get_config
     from repro_torch.sched import H100, CostModel, min_gpu_schedule, plan
 
-    cfg = get_config("qwen25-7b")
+    cfg = get_config("qwen25-7b").replace(n_layers=SWEEP_LAYERS)
     space = default_search_space(300, seq_len=SWEEP_SEQ)[::SWEEP_EVERY]
     cm = CostModel(cfg, H100)
     t0 = time.perf_counter()
@@ -1376,7 +1479,8 @@ def compare_runs(torch, what: str, cap_losses, eager_losses, cap_adapters, eager
 
 
 def sweep_phase(torch, dev, base, out_dir: Path):
-    """The planner-driven sweep on full qwen25-7b: plan the space on the H100
+    """The planner-driven sweep on qwen25-7b at full width cut to its first
+    SWEEP_LAYERS layers (a view of ``base``): plan the space on the H100
     preset, run every job through ``ExecutionEngine.run_local`` with the
     captured executor (impl="auto"), then hold each job, and a cache hit of
     the last job's shape, against runs of an eager executor
@@ -1384,11 +1488,13 @@ def sweep_phase(torch, dev, base, out_dir: Path):
     run."""
     import shutil
 
+    from repro_torch.configs import get_config
     from repro_torch.sched import H100
     from repro_torch.train.checkpoint import CheckpointPool
 
     sw = sweep_plan()
-    emit({"phase": "sweep_plan", "hw": H100.name, "configs": [
+    _, base = depth_cut(get_config("qwen25-7b"), base, SWEEP_LAYERS)
+    emit({"phase": "sweep_plan", "hw": H100.name, "n_layers": sw.cfg.n_layers, "configs": [
               {"id": i, "rank": c.rank, "alpha": c.alpha, "lr": c.learning_rate,
                "batch_size": c.batch_size} for i, c in enumerate(sw.space)],
           "jobs": [{"config_ids": list(j.config_ids), "start": j.start, "end": j.end,
@@ -1479,7 +1585,7 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
     if ((builds, hits) != (len(records), 0) or len(ex.captures) != len(records)
             or not all(rec.captured for rec in records)):
         fail(f"the sweep built {builds} steps and hit {hits} for {len(records)} job shapes")
-    c3_check("the sweep", rows, [[space[i] for i in j.config_ids] for j in sched.jobs])
+    c3_check("the sweep", rows, [[space[i] for i in j.config_ids] for j in sched.jobs], cfg)
 
     # a further pack of job 1's shape (the last job, whose graph the cache
     # holds), with other learning rates and alphas: the cache must hit, and
@@ -1668,18 +1774,18 @@ def held_bytes(torch, dev, base) -> int:
     return torch.cuda.memory_allocated(dev) - resident_bytes(base)
 
 
-def c3_check(what: str, rows, packs) -> None:
+def c3_check(what: str, rows, packs, cfg) -> None:
     """ROADMAP C3: every captured job's own peak allocated memory
     (``job_peak_bytes``) lies within [peak, C3_SLACK x peak] of the cost
     model's ``job_mem_bytes``. A cache hit replays in the memory its graph
     reserved at the capture, so only captures are held (and fitted:
-    C3_POINTS)."""
+    C3_POINTS, with the model ``cfg`` they ran)."""
     over = []
     for r, jc in zip(rows, packs):
         if not r["captured"]:
             continue
         peak = r["job_peak_bytes"]
-        C3_POINTS.append((jc, peak))
+        C3_POINTS.append((cfg, jc, peak))
         if not peak <= r["job_mem_bytes"] <= C3_SLACK * peak:
             over.append(r)
     if over:
@@ -1692,26 +1798,25 @@ def c3_fit(seq: int) -> dict:
     each number of copies on a grid, the least per-job term that prices
     every job at or above its peak; the grid point whose largest price over
     peak is least."""
-    from repro_torch.configs import get_config
     from repro_torch.sched import H100, CostModel
 
-    cfg = get_config("qwen25-7b")
     best = None
     for copies in np.arange(0.0, 10.001, 0.05):
-        cm = CostModel(cfg, H100, logits_copies=float(copies), job_overhead_bytes=0.0)
-        price = [cm.job_mem_bytes(jc, 1, seq) for jc, _ in C3_POINTS]
-        fixed = max(0.0, max(p - q for (_, p), q in zip(C3_POINTS, price)))
-        worst = max((q + fixed) / p for (_, p), q in zip(C3_POINTS, price))
+        price = [CostModel(cfg, H100, logits_copies=float(copies),
+                           job_overhead_bytes=0.0).job_mem_bytes(jc, 1, seq)
+                 for cfg, jc, _ in C3_POINTS]
+        fixed = max(0.0, max(p - q for (_, _, p), q in zip(C3_POINTS, price)))
+        worst = max((q + fixed) / p for (_, _, p), q in zip(C3_POINTS, price))
         if best is None or worst < best["max_price_over_peak"]:
             best = {"logits_copies": float(copies), "job_overhead_bytes": fixed,
                     "max_price_over_peak": worst}
-    default = CostModel(cfg, H100)
+    default = CostModel(C3_POINTS[0][0], H100)
     best.update(n_points=len(C3_POINTS), model_logits_copies=default.logits_copies,
                 model_job_overhead_bytes=default.job_overhead_bytes,
-                points=[{"rows": _rows(jc), "ranks": [c.rank for c in jc],
+                points=[{"n_layers": cfg.n_layers, "rows": _rows(jc), "ranks": [c.rank for c in jc],
                          "batch_sizes": [c.batch_size for c in jc], "peak_allocated_bytes": p,
-                         "job_mem_bytes": default.job_mem_bytes(jc, 1, seq)}
-                        for jc, p in C3_POINTS])
+                         "job_mem_bytes": CostModel(cfg, H100).job_mem_bytes(jc, 1, seq)}
+                        for cfg, jc, p in C3_POINTS])
     return best
 
 
@@ -1922,7 +2027,7 @@ def _online(torch, dev, base, on, pool_dir):
                                    "job_mem_over_peak")} for r in rows]})
     if launches != expect:
         fail(f"the online run counted {launches} launches; its eager steps make {expect}")
-    c3_check("the online run", rows, [[configs[c] for c in sg.config_ids] for sg in order])
+    c3_check("the online run", rows, [[configs[c] for c in sg.config_ids] for sg in order], cfg)
     return launches, adaptive
 
 
@@ -1992,7 +2097,7 @@ def _adaptive(torch, dev, base, pool, ex, held: int):
     if (ex.n_builds - builds0, ex.n_hits - hits0) != (
             sum(r["captured"] for r in rows), len(rows) - sum(r["captured"] for r in rows)):
         fail(f"the adaptive run built {ex.n_builds - builds0} steps and hit {ex.n_hits - hits0}")
-    c3_check("the adaptive run", rows, packs)
+    c3_check("the adaptive run", rows, packs, cfg)
     for need in ("packed_matmul", "packed_matmul_bwd"):
         if launches[need] == 0:
             fail(f"the adaptive run launched {need} no time")
@@ -2004,14 +2109,14 @@ def _adaptive(torch, dev, base, pool, ex, held: int):
 # ---------------------------------------------------------------------------
 
 
-def launcher_configs():
-    """The launcher's pack from LAUNCH_ARGS: its configurations and
-    sequence length (the autotuner's shapes follow from ranks, batches and
-    seq alone)."""
+def launcher_configs(argv=None):
+    """The launcher's pack from ``argv`` (LAUNCH_ARGS unless given): its
+    configurations and sequence length (the autotuner's shapes follow from
+    ranks, batches and seq alone)."""
     from repro_torch.configs.base import LoraConfig
     from repro_torch.launch.train import parse_args
 
-    args = parse_args(LAUNCH_ARGS)
+    args = parse_args(argv or LAUNCH_ARGS)
     return [LoraConfig(rank=int(r), alpha=2.0 * int(r), batch_size=int(b), seq_len=args.seq)
             for r, b in zip(args.ranks.split(","), args.batch_sizes.split(","))], args.seq
 
@@ -2140,14 +2245,15 @@ LAUNCH_NEEDED = {"fused": ("fused_matmul", "fused_matmul_dx"),
                  "auto": ("packed_matmul", "packed_matmul_bwd")}
 
 
-def launcher_segments():
+def launcher_segments(argv=None):
     """(N, M, r) of each same-rank segment of the launcher's pack, from
-    LAUNCH_ARGS: a step runs every projection once per segment, at the
-    segment's own rank (``ops._ragged_call``), M = the pack's rows per
-    adapter (each padded to the largest batch) times the sequence."""
+    ``argv`` (LAUNCH_ARGS unless given): a step runs every projection once
+    per segment, at the segment's own rank (``ops._ragged_call``), M = the
+    pack's rows per adapter (each padded to the largest batch) times the
+    sequence."""
     from repro_torch.kernels.ops import rank_segments
 
-    configs, seq = launcher_configs()
+    configs, seq = launcher_configs(argv)
     m = max(c.batch_size for c in configs) * seq
     return [(hi - lo, m, r) for lo, hi, r in rank_segments([c.rank for c in configs])[2]]
 
@@ -2387,6 +2493,8 @@ def case_proj(case: str):
     """The projections a kernel-phase case sums over one layer."""
     from repro_torch.configs import get_config
 
+    if case in (CR_TRAIN_CASE, CR_DECODE_CASE, CR_LAUNCH_CASE):
+        return family_proj(get_config(COMMAND_R))
     for arch in FAMILIES:
         if case in (FAMILY_TRAIN_CASE.get(arch), FAMILY_DECODE_CASE.get(arch)):
             return family_proj(get_config(arch))
@@ -2530,7 +2638,7 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
                  f"{expect}")
         if not all(math.isfinite(x) for x in row["final_losses"]):
             fail(f"{cfg.name}: a non-finite loss in the sweep")
-        c3_check(f"{cfg.name}'s sweep", [row], [jc])
+        c3_check(f"{cfg.name}'s sweep", [row], [jc], cfg)
         return launches
     finally:
         shutil.rmtree(pool_dir, ignore_errors=True)
@@ -2577,6 +2685,294 @@ def families_phase(torch, dev, out_dir: Path):
         del base
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# command_r phase: command-r-35b at full width and depth on a quantized base
+# ---------------------------------------------------------------------------
+
+# command-r-35b (hf:CohereForAI/c4ai-command-r-v01: 40 layers, d 8,192, GQA
+# 64/8 of 128, d_ff 22,528, vocab 256,000, tied): 30.28 B parameters, 60.6 GB
+# of bf16, so one card holds it only quantized. Its int8 and nf4 bases are
+# built layer by layer (``init_model(..., quant=)``: the dense tree never
+# exists) from SEED, after every earlier base is freed.
+COMMAND_R = "command-r-35b"
+# the streamed build against dense-then-quantize, at full width cut to
+# this depth (the dense base of 40 layers does not fit beside it)
+CR_CHECK_LAYERS = 2
+# each streamed build's own peak must stay under these bytes: the quantized
+# tree (int8 32.4 GB, nf4 20.0 GB) plus one layer's temporaries, or the
+# embedding's f32 draw (12.6 GB with the bf16 copy)
+CR_BUILD_PEAK = {"int8": 40e9, "nf4": 28e9}
+CR_TRAIN_STEPS = 3
+CR_TRAIN_IMPLS = ("auto", "fused")
+# (base, impl) of each serve run: 8 requests of 64-256 prompt tokens, 16
+# new tokens each, 8 rows; under "fused" each decode step runs
+# fused_matmul_q's decode rows, under "auto" each projection is
+# dequantized per call (the reference's formulation: slow by design)
+CR_SERVE_RUNS = (("int8", "fused"), ("int8", "auto"), ("nf4", "fused"))
+CR_SERVE_PROMPT = (64, 257)
+CR_SERVE_NEW = 16
+CR_SERVE_STEPS = 4  # teacher-forced decode steps held against the plain path
+# the launcher on an nf4 base with an f32 x (the launcher draws in f32):
+# fused_matmul_q on its "ffma" path, 2 captured steps after the warm-up
+CR_LAUNCH_ARGS = ["--arch", COMMAND_R, "--quant", "nf4", "--impl", "fused", "--seq", "512",
+                  "--ranks", "8,16", "--batch-sizes", "1,1", "--steps", "2", "--log-every", "0"]
+# the kernel phase's command-r cases
+CR_TRAIN_CASE, CR_DECODE_CASE, CR_LAUNCH_CASE = "train_command_r", "decode_command_r", \
+    "launcher_command_r"
+
+
+def cr_build_check(torch, dev, cfg, mode: str) -> None:
+    """The streamed build at full width cut to CR_CHECK_LAYERS layers,
+    ``torch.equal`` leaf by leaf to ``quantize_base_params`` of the dense
+    init."""
+    from repro_torch.kernels.quant import quantize_base_params
+    from repro_torch.models.model import init_model
+    from repro_torch.tree import tree_leaves
+
+    cut = cfg.replace(n_layers=CR_CHECK_LAYERS)
+    got, _ = init_model(SEED, cut, None, dtype=torch.bfloat16, device=dev, quant=mode)
+    dense, _ = init_model(SEED, cut, None, dtype=torch.bfloat16, device=dev)
+    want = quantize_base_params(dense, mode)
+    del dense
+    a, b = tree_leaves(got), tree_leaves(want)
+    equal = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    emit({"phase": "command_r_build_check", "quant": mode, "n_layers": CR_CHECK_LAYERS,
+          "leaves": len(a), "equal": equal})
+    if not equal:
+        fail(f"{COMMAND_R} {mode}: the streamed build at depth {CR_CHECK_LAYERS} differs from "
+             "dense-then-quantize")
+
+
+def cr_build(torch, dev, cfg, mode: str):
+    """The full base (40 layers, bf16 embedding) through the streamed
+    init, its seconds, resident bytes and own peak held to CR_BUILD_PEAK."""
+    from repro_torch.models.model import init_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    base, _ = init_model(SEED, cfg, None, dtype=torch.bfloat16, device=dev, quant=mode)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    emit({"phase": "command_r_build", "model": cfg.name, "n_layers": cfg.n_layers,
+          "quant": mode, "dtype": "bfloat16", "seconds": time.perf_counter() - t0,
+          "resident_bytes": resident_bytes(base), "held_bytes": held,
+          "max_memory_allocated": peak, "build_peak_bytes": peak - held,
+          "limit_bytes": CR_BUILD_PEAK[mode]})
+    if not peak - held <= CR_BUILD_PEAK[mode]:
+        fail(f"{cfg.name} {mode}: the streamed build peaked at {peak - held} bytes, over "
+             f"{CR_BUILD_PEAK[mode]}")
+    return base
+
+
+def cr_train(torch, dev, cfg, base) -> dict:
+    """The train phase's pack on the int8 base under each of CR_TRAIN_IMPLS:
+    step 1 against the plain path (``train_run``: loss LOSS_RTOL, f32
+    gradients GRAD_TOL_F32), then CR_TRAIN_STEPS steps whose counts must
+    move, every fused_matmul_q call on "wgmma" (fused) and every
+    packed_matmul call on "mma" (auto); the steps' own peak is printed
+    against the port's ``job_mem_bytes(base_dtype="int8")``, not held."""
+    from repro_torch.kernels import launches as launch_counts
+    from repro_torch.sched import H100, CostModel
+
+    _, meta, lora0, batches = train_setup(torch, dev, cfg, TRAIN_SEQ, CR_TRAIN_STEPS)
+    price = CostModel(cfg, H100, base_dtype="int8").job_mem_bytes(train_setup_configs(), 1,
+                                                                 TRAIN_SEQ)
+    counts = {}
+    for impl in CR_TRAIN_IMPLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev) - resident_bytes(base) - resident_bytes(lora0)
+        row, counts[f"train:{impl}"], state = train_run(
+            torch, dev, cfg, meta, lora0, batches, base, impl, quant="int8",
+            phase="command_r_train")
+        paths = launch_counts.read_paths()
+        del state
+        own = row["max_memory_allocated"] - held
+        emit({"phase": "command_r_train_memory", "impl": impl, "held_bytes": held,
+              "job_peak_bytes": own, "job_mem_bytes_int8": price, "price_over_peak": price / own,
+              "launches_by_path": paths})
+        kernel, path = ("fused_matmul_q", "wgmma") if impl == "fused" else ("packed_matmul", "mma")
+        off = {p: k for p, k in paths[kernel].items() if p != path and k}
+        if off or not paths[kernel][path]:
+            fail(f"{cfg.name} train impl={impl}: {kernel} calls off the {path} path: "
+                 f"{paths[kernel]}")
+        if impl == "fused" and any(k for p, k in paths["fused_matmul"].items() if p != "wgmma"):
+            fail(f"{cfg.name} train impl=fused: dx calls off the wgmma path: {paths['fused_matmul']}")
+    del lora0, batches
+    return counts
+
+
+def cr_serve(torch, dev, cfg, base, mode: str, impls, adapters, lora1s, prompts) -> dict:
+    """8 requests through ``ServeEngine(base_dtype=mode)`` under each impl
+    (counts zeroed just before each drain and read just after), then
+    prefill logits and CR_SERVE_STEPS teacher-forced decode steps held
+    against the plain path at LOGIT_TOL. Under "fused", fused_matmul_q must
+    launch on "decode" (the decode steps) and on nothing but "decode" and
+    "wgmma" (the prefills). Returns each run's counts."""
+    from repro_torch.kernels import launches as launch_counts
+    from repro_torch.serve.engine import ServeEngine, poisson_requests
+
+    reqs = poisson_requests([f"ad{i}" for i in range(8)], prompts, 2.0,
+                            max_new_tokens=CR_SERVE_NEW, seed=SEED)
+    smax = (CR_SERVE_PROMPT[1] + CR_SERVE_NEW + 63) // 64 * 64
+    counter = {"auto": "packed_matmul", "fused": "fused_matmul_q"}
+    out = {}
+    for impl in impls:
+        eng = ServeEngine(cfg, base, rows=8, smax=smax, r_bucket=16, slot_capacity=8,
+                          impl=impl, base_dtype=mode, device=dev)
+        for i, (tree, r) in enumerate(adapters):
+            eng.publish(f"ad{i}", tree, {"rank": r, "alpha": float(r)})
+        zero_counts()
+        stats = eng.serve(reqs)
+        torch.cuda.synchronize()
+        counts, paths = train_counts(), launch_counts.read_paths()
+        counts["fused_matmul_q_decode"] = paths["fused_matmul_q"]["decode"]
+        out[f"serve:{impl}:{mode}"] = counts
+        bad = [r for r in stats.results if r.error is not None or len(r.tokens) != CR_SERVE_NEW]
+        toks = np.stack([r.tokens for r in stats.results]) if not bad else np.zeros((0,))
+        lat = stats.latency_summaries()
+        emit({"phase": "command_r_serve", "model": cfg.name, "quant": mode, "impl": impl,
+              "smax": smax, "prompt_tokens": [len(p) for p in prompts],
+              "requests": len(stats.results), "tokens": stats.tokens_emitted,
+              "steps": stats.steps, "wall_s": stats.wall_seconds,
+              "tokens_per_s": stats.tokens_per_s, "ttft_p50_s": lat["ttft"]["p50"],
+              "itl_p50_s": lat["itl"]["p50"], "launches": counts, "launches_by_path": paths})
+        del eng
+        if counts[counter[impl]] == 0:
+            fail(f"{cfg.name} {mode} serve impl={impl}: the {counter[impl]} kernel never launched")
+        if impl == "fused":
+            off = {p: k for p, k in paths["fused_matmul_q"].items()
+                   if p not in ("decode", "wgmma") and k}
+            if off or not paths["fused_matmul_q"]["decode"]:
+                fail(f"{cfg.name} {mode} serve: fused_matmul_q on {paths['fused_matmul_q']}, "
+                     "no decode rows or off the decode and wgmma paths")
+        if bad or len(stats.results) != 8:
+            fail(f"{cfg.name} {mode} serve impl={impl}: requests failed: "
+                 f"{[(r.request_id, r.error) for r in bad]}")
+        if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            fail(f"{cfg.name} {mode} serve impl={impl}: token ids outside the vocabulary")
+        pimpl = {"auto": "plain", "fused": "fused_plain"}[impl]
+        with torch.no_grad():
+            per_step, ref_max, per_dec = teacher_forced(
+                torch, cfg, base, adapters, prompts, smax, impl, pimpl, counter[impl],
+                CR_SERVE_STEPS, lora1s=lora1s)
+        rel = max(per_step) / ref_max
+        emit({"phase": "command_r_serve_logits", "model": cfg.name, "quant": mode, "impl": impl,
+              "plain": pimpl, "decode_steps": CR_SERVE_STEPS,
+              "launches_per_decode_step": per_dec, "max_abs_err_prefill": per_step[0],
+              "max_abs_err_decode": per_step[1:], "max_abs_logit": ref_max, "rel_err": rel,
+              "tol": LOGIT_TOL})
+        if not rel <= LOGIT_TOL:
+            fail(f"{cfg.name} {mode} impl={impl}: logits differ from {pimpl} by {rel} > "
+                 f"{LOGIT_TOL}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def cr_launcher(torch, dev, out_dir: Path) -> dict:
+    """``launch/train.py`` with CR_LAUNCH_ARGS: the nf4 base built layer by
+    layer under an f32 x. Losses finite, every fused_matmul_q call and every
+    dx on "ffma"; its own peak printed against the price of the launcher's
+    own ``CostModel`` (base_dtype "nf4"), not held. Returns its counts."""
+    from repro_torch.kernels import launches as launch_counts
+    from repro_torch.launch import train as launch_train
+
+    cost_model, priced = launch_train.CostModel, []
+
+    def pricing(*args, **kw):
+        priced.append(cost_model(*args, **kw))
+        return priced[-1]
+
+    ex = launcher_executor()
+    win = StepWindow(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    zero_counts()
+    launch_train.CostModel = pricing
+    t0 = time.perf_counter()
+    try:
+        per = launch_train.main(CR_LAUNCH_ARGS, executor=ex, step_callback=win)
+    finally:
+        launch_train.CostModel = cost_model
+    wall = time.perf_counter() - t0
+    counts, paths = launch_counts.read(), launch_counts.read_paths()
+    peak = torch.cuda.max_memory_allocated(dev)
+    cm = priced[-1]
+    price = cm.job_mem_bytes(ex.configs, 1, ex.seq)
+    losses = np.asarray(per, dtype=np.float64)
+    emit({"phase": "command_r_launcher", "args": CR_LAUNCH_ARGS, "x_dtype": "float32",
+          "per_adapter_loss": losses.tolist(), "step_s": win.seconds,
+          "s_per_step": sum(win.seconds) / max(len(win.seconds), 1),
+          "capture_s": ex.captures[-1]["seconds"] if ex.captures else None, "wall_s": wall,
+          "held_bytes": held, "max_memory_allocated": peak, "job_peak_bytes": peak - held,
+          "priced_base_dtype": cm.base_dtype, "job_mem_bytes": price,
+          "price_over_peak": price / (peak - held), "launches": counts, "launches_by_path": paths})
+    ex.clear()
+    del ex, win
+    if not np.isfinite(losses).all():
+        fail(f"{COMMAND_R} launcher: non-finite final loss {losses.tolist()}")
+    for kernel in ("fused_matmul_q", "fused_matmul"):
+        on = paths[kernel]
+        off = {p: k for p, k in on.items() if p != "ffma" and k}
+        if off or not on["ffma"]:
+            fail(f"{COMMAND_R} launcher: f32 {kernel} calls off the ffma path: {on}")
+    return counts
+
+
+def command_r_phase(torch, dev, out_dir: Path) -> dict:
+    """command-r-35b at full width and depth, with no earlier base
+    resident: the streamed builds (depth-2 checks, then the int8 base),
+    train and serve on int8, the nf4 base and its serve run, then the
+    launcher on nf4 with an f32 x. Returns the launch counts by run."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(COMMAND_R)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    emit({"phase": "command_r_setup", "model": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "allocated_bytes": torch.cuda.memory_allocated(dev)})
+    t0 = time.perf_counter()
+    for mode in ("int8", "nf4"):
+        cr_build_check(torch, dev, cfg, mode)
+    counts = {}
+    base = cr_build(torch, dev, cfg, "int8")
+    emit({"phase": "command_r_stage", "stage": "build", "seconds": time.perf_counter() - t0})
+    t1 = time.perf_counter()
+    counts.update(cr_train(torch, dev, cfg, base))
+    emit({"phase": "command_r_stage", "stage": "train", "seconds": time.perf_counter() - t1})
+    t1 = time.perf_counter()
+    adapters = make_adapters(torch, cfg, 8, device=dev)
+    lora1s = row_adapters(torch, cfg, adapters, dev)
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(*CR_SERVE_PROMPT)).astype(np.int32)
+               for _ in range(8)]
+    counts.update(cr_serve(torch, dev, cfg, base, "int8",
+                           [impl for mode, impl in CR_SERVE_RUNS if mode == "int8"],
+                           adapters, lora1s, prompts))
+    del base
+    base = cr_build(torch, dev, cfg, "nf4")
+    counts.update(cr_serve(torch, dev, cfg, base, "nf4",
+                           [impl for mode, impl in CR_SERVE_RUNS if mode == "nf4"],
+                           adapters, lora1s, prompts))
+    del base, lora1s, adapters
+    emit({"phase": "command_r_stage", "stage": "serve", "seconds": time.perf_counter() - t1})
+    t1 = time.perf_counter()
+    counts["launcher:fused"] = cr_launcher(torch, dev, out_dir)
+    emit({"phase": "command_r_stage", "stage": "launcher", "seconds": time.perf_counter() - t1})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2689,10 +3085,27 @@ for _arch, _case in FAMILY_DECODE_CASE.items():
          "fused.cu", "src/repro/kernels/fused.py:275", (_arch, "serve:fused", "fused_matmul")),
     ]
 
+# command-r-35b's quantized base (command_r_phase: its runs' counts; the
+# decode entries count fused_matmul_q's launches on "decode" alone)
+_Q = "src/repro/kernels/fused.py:275 (_fused_kernel_q :133, _dequant_tile :107)"
+USES += [
+    ("fused_matmul_q:command_r_train_int8", "fused_matmul_q", ("int8",), CR_TRAIN_CASE,
+     "fused_q.cu", _Q, (COMMAND_R, "train:fused", "fused_matmul_q")),
+    ("fused_matmul:command_r_train_dx", "fused_matmul", ("dx",), CR_TRAIN_CASE,
+     "fused.cu", "src/repro/kernels/fused.py:275 (fused.py:389-401)",
+     (COMMAND_R, "train:fused", "fused_matmul_dx")),
+    ("fused_matmul_q:command_r_decode_int8", "fused_matmul_q", ("int8",), CR_DECODE_CASE,
+     "fused_q.cu", _Q, (COMMAND_R, "serve:fused:int8", "fused_matmul_q_decode")),
+    ("fused_matmul_q:command_r_decode_nf4", "fused_matmul_q", ("nf4",), CR_DECODE_CASE,
+     "fused_q.cu", _Q, (COMMAND_R, "serve:fused:nf4", "fused_matmul_q_decode")),
+    ("fused_matmul_q:command_r_launcher_nf4_f32", "fused_matmul_q", ("nf4",), CR_LAUNCH_CASE,
+     "fused_q.cu", _Q, (COMMAND_R, "launcher:fused", "fused_matmul_q"), "float32"),
+]
+
 
 # uses with layer sums but no entry in the kernels line: fused_matmul_q at
-# decode rows, which no main path runs (serve runs a dense base), and on an
-# f32 x (the launcher's --quant path, which the smoke does not run),
+# qwen25-7b's decode rows and on an f32 x at its widths (the main paths run
+# them at command-r-35b's: the entries above),
 # packed_matmul's decode pair (the serve entry's kernels, launched by one
 # call), and #1/#2 in f32 at the training shapes (N = 2 x M = 1,024, r = 16:
 # the bf16 train entries' shapes)
@@ -2810,6 +3223,9 @@ def main() -> None:
     rows = kernel_phase(torch, dev)
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    command_r_launches = command_r_phase(torch, dev, out_dir)
+    emit({"phase": "command_r_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     autotune_phase(torch, dev, out_dir)
     emit({"phase": "autotune_done", "seconds": time.perf_counter() - t0})
     sync_phase(torch, dev)
@@ -2839,7 +3255,8 @@ def main() -> None:
     summary = summarize(rows, {"serve": serve_launches, "train": train_launches,
                                "sweep": {"auto": sweep_launches},
                                "online": {"auto": online_launches},
-                               "launcher": launcher_launches, **family_launches})
+                               "launcher": launcher_launches, **family_launches,
+                               COMMAND_R: command_r_launches})
     (out_dir / "chip_smoke.json").write_text(json.dumps({"records": RECORDS, **summary}, indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""Run some of ``chip_smoke.py``'s phases alone on one CUDA card.
+
+    python3 scripts/smoke_phases.py              # kernels, then command_r
+    python3 scripts/smoke_phases.py kernels      # the kernel phase alone
+    python3 scripts/smoke_phases.py command_r    # the command_r phase alone
+
+Builds the kernels, then runs ``chip_smoke.kernel_phase`` and/or
+``chip_smoke.command_r_phase`` with the smoke's own checks (a failed check
+exits non-zero), printing the smoke's JSON lines. With both phases, one
+``phase_use`` line per ``kernels`` entry of command-r-35b: its layer sums,
+bound and launches, as the smoke's ``kernels`` line would carry them.
+Every record also goes to ``smoke_out/smoke_phases.json``.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PHASES = ("kernels", "command_r")
+
+
+def main() -> None:
+    which = sys.argv[1:] or list(PHASES)
+    if any(p not in PHASES for p in which):
+        sys.exit(f"phases must be among {PHASES}, got {which}")
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.zeros(1, device=dev)
+    t0 = time.perf_counter()
+    _build.build_all()
+    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    out = ROOT / "smoke_out"
+    out.mkdir(exist_ok=True)
+    rows, counts = [], None
+    if "kernels" in which:
+        t0 = time.perf_counter()
+        rows = cs.kernel_phase(torch, dev)
+        cs.emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
+    if "command_r" in which:
+        t0 = time.perf_counter()
+        counts = cs.command_r_phase(torch, dev, out)
+        cs.emit({"phase": "command_r_done", "seconds": time.perf_counter() - t0})
+    if rows and counts is not None:
+        for entry, kernel, calls, case, _src, _rep, (path, run, count), *dtype in cs.USES:
+            if path != cs.COMMAND_R:
+                continue
+            dtype = dtype[0] if dtype else "bfloat16"
+            sel, tot = cs.layer_sums(rows, kernel, calls, case, dtype)
+            cs.emit({"phase": "phase_use", "use": entry, "launches": counts[run][count],
+                     "bound_ms": cs.bound(tot["bytes"], tot["flops"], dtype)[0],
+                     "paths": sorted({r.get("path", "") for r in sel}), **tot})
+    (out / "smoke_phases.json").write_text(json.dumps(cs.RECORDS, indent=1))
+
+
+if __name__ == "__main__":
+    main()

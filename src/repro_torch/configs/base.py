@@ -2,7 +2,7 @@
 
 The port keeps its own copy of the reference's configuration dataclasses
 (``repro.configs.base``), cut to what the dense GQA decoders need (qwen25-7b,
-starcoder2-7b, gemma3-1b): the port imports nothing of the JAX package.
+starcoder2-7b, gemma3-1b, command-r-35b): the port imports nothing of the JAX package.
 Field names and defaults match the reference, so a test can build the same
 configuration on both sides.
 """
@@ -166,4 +166,9 @@ def list_archs() -> list:
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import gemma3_1b, qwen25_7b, starcoder2_7b  # noqa: F401  (registers)
+    from repro_torch.configs import (  # noqa: F401  (registers)
+        command_r_35b,
+        gemma3_1b,
+        qwen25_7b,
+        starcoder2_7b,
+    )

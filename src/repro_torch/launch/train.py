@@ -10,7 +10,10 @@ The pack trains on a one-device slice of a ``DevicePool`` through
 step, on the CPU eagerly. It runs on CUDA unless ``--device`` says
 otherwise (``--device cpu`` for a run without a card; with no device given
 and no CUDA it raises). The model is initialized
-from a seed in f32, as the reference's launcher does.
+from a seed in f32, as the reference's launcher does; with ``--quant
+int8|nf4`` its projections are quantized layer by layer as they are drawn
+(``init_model(..., quant=)``), so a model whose dense base does not fit the
+card (``--arch command-r-35b``) still builds.
 
 Ported flags besides the pack's: ``--impl``/``--quant``/``--remat`` (the
 kernel policy), ``--pool`` (save each adapter), ``--save-state`` /
@@ -39,7 +42,7 @@ from repro_torch.configs.base import LoraConfig, get_config, list_archs, reduced
 from repro_torch.core.adapter import pack_meta
 from repro_torch.core.packed_lora import extract_adapter
 from repro_torch.kernels.ops import IMPLS, REMATS
-from repro_torch.kernels.quant import base_storage, quantize_base_params
+from repro_torch.kernels.quant import base_storage
 from repro_torch.models.model import init_model
 from repro_torch.obs import NULL_TRACER, Tracer
 from repro_torch.sched.cost_model import PRESETS, CostModel
@@ -171,11 +174,12 @@ def main(argv=None, *, executor=None, step_callback=None):
 
     device_pool = DevicePool([dev])
     slice_ = device_pool.acquire(1)
-    base, lora = init_model(0, cfg, meta, device=dev)
     quant = None if args.quant == "none" else args.quant
+    # a quantized base is built layer by layer: the dense tree never exists
+    base, lora = init_model(0, cfg, meta, device=dev, quant=quant)
     if quant:
-        base = quantize_base_params(base, quant)
-        print(f"quantized frozen base to {quant} (projection weights -> codes+scales dicts)")
+        print(f"quantized frozen base to {quant} (projection weights -> codes+scales dicts, "
+              "layer by layer)")
 
     opt, start_steps = None, None
     state_id = args.state_id or cfg.name

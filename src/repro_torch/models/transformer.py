@@ -10,12 +10,13 @@ reference wraps the scanned block in ``jax.checkpoint``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.quant import quantize_base_params
 from repro_torch.models.layers.attention import apply_gqa, init_gqa
 from repro_torch.models.layers.common import apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.models.layers.rope import rope_tables
@@ -93,13 +94,18 @@ def apply_layer(
 
 
 def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, device=None,
-               keep_base: bool = True):
+               keep_base: bool = True, quant: Optional[str] = None):
     """Returns ({"blocks": stacked, "rest": dict}, same for lora, period).
 
     Block leaves are allocated stacked once and filled block by block, so a
     full-size model never holds two copies of its weights. ``keep_base=False``
     draws each layer's base weights (so ``gen`` moves as it does for the
-    whole model) and drops them at once: the base trees come back empty."""
+    whole model) and drops them at once: the base trees come back empty.
+    ``quant`` ("int8" | "nf4") quantizes each layer's eligible projections
+    as soon as the layer is drawn (``quantize_base_params`` on the layer),
+    so the stacked leaves hold codes and scales and the dense stack never
+    exists; every quantized value depends on its own layer only, so the
+    result is ``quantize_base_params`` of the dense stack, bit for bit."""
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
 
@@ -108,7 +114,7 @@ def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, devic
         for i, spec in enumerate(spec_slice):
             lp, ll = init_layer(gen, cfg, spec, meta, dtype, device)
             if keep_base:
-                bp[f"l{i}"] = lp
+                bp[f"l{i}"] = quantize_base_params(lp, quant)
             if ll:
                 bl[f"l{i}"] = ll
         return bp, bl

@@ -42,6 +42,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import LoraConfig, ModelConfig
 from repro_torch.core.adapter import pack_meta
 from repro_torch.core.packed_lora import inject_adapter
+from repro_torch.kernels.quant import base_storage
 from repro_torch.models.model import decode_step, init_caches, lora_zeros, prefill
 from repro_torch.obs import NULL_TRACER, Histogram
 from repro_torch.serve.decode import pad_caches
@@ -300,16 +301,28 @@ class ServeEngine:
 
     The base parameters must lie on ``device`` (CUDA unless given); their
     embedding's dtype is the compute dtype, and the row pack of adapters is
-    kept in it. Decode caches are bf16, as in the reference."""
+    kept in it. Decode caches are bf16, as in the reference.
+
+    ``impl``, ``remat`` and ``base_dtype`` form the kernel policy of
+    prefill and every decode step, as in the reference. ``base_dtype``
+    ("int8" | "nf4") marks a quantized base (``kernels/quant.py``; the
+    tree's own storage must be that scheme): under a fused impl prefill and
+    each decode step run ``fused_matmul_q`` on the codes, at prefill rows
+    and at decode rows; under "auto" each projection is dequantized per
+    call, the reference's two-pass formulation."""
 
     def __init__(self, cfg: ModelConfig, base_params, *, rows: int = 4, smax: int = 64,
                  r_bucket: int = 8, slot_capacity: int = 8,
                  serve_executor: Optional[ServeExecutor] = None, impl: Optional[str] = None,
+                 remat: Optional[str] = None, base_dtype: Optional[str] = None,
                  tracer=None, device=None):
         self.device = resolve_device(device)
         emb = base_params["embed"]["w"]
         if emb.device != self.device:
             raise ValueError(f"base params on {emb.device}, engine on {self.device}")
+        if base_dtype is not None and base_storage(base_params) != base_dtype:
+            raise ValueError(f"base_dtype={base_dtype!r}, but the base is stored as "
+                             f"{base_storage(base_params)!r}")
         self.dtype = emb.dtype
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.cfg = cfg
@@ -319,8 +332,8 @@ class ServeEngine:
         # zero-padded to r_bucket, so the pack shape never changes
         self.meta = pack_meta([LoraConfig(rank=r_bucket, alpha=float(r_bucket))] * rows)
         self.meta1 = pack_meta([LoraConfig(rank=r_bucket, alpha=float(r_bucket))])
-        self.kcfg = self.meta.kernel_config(impl)
-        self.kcfg1 = self.meta1.kernel_config(impl)
+        self.kcfg = self.meta.kernel_config(impl, remat, base_dtype)
+        self.kcfg1 = self.meta1.kernel_config(impl, remat, base_dtype)
         self.base = base_params
         # device-resident R-row pack (zero: empty rows add exactly nothing)
         # and the width-1 host template that admission injects into

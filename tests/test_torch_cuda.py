@@ -1104,3 +1104,80 @@ def test_gemma3_decode_rows_match_plain_on_the_decode_path(cuda, d_in, d_out):
     _close(packed_matmul(xa, b, s), packed_matmul_ref(xa, b, s))
     y, xa2 = packed_matmul_pair(x, a, b, s)
     assert torch.equal(xa2, xa) and torch.equal(y, packed_matmul(xa, b, s))
+
+
+# one layer's projections (d_in, d_out) of command-r-35b (d 8,192, k/v 1,024,
+# d_ff 22,528), which the card holds only on a quantized base
+CR_PROJ = [(8192, 8192), (8192, 1024), (8192, 22528), (22528, 8192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+def test_command_r_streamed_init_equals_dense_then_quantize(cuda, mode):
+    """``init_model(..., quant=mode)`` at command-r-35b's full width cut to
+    2 layers, bf16, on the card: ``torch.equal`` leaf by leaf to
+    ``quantize_base_params`` of the dense init (the dense base of 40 layers
+    does not fit beside it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant import quantize_base_params
+    from repro_torch.models.model import init_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("command-r-35b").replace(n_layers=2)
+    got, _ = init_model(0, cfg, None, torch.bfloat16, cuda, quant=mode)
+    dense, _ = init_model(0, cfg, None, torch.bfloat16, cuda)
+    want = quantize_base_params(dense, mode)
+    del dense
+    a, b = tree_leaves(got), tree_leaves(want)
+    assert len(a) == len(b) == 18
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _quantized(gen, d_in, d_out, mode):
+    q = quantize_weight(_rnd(gen, (d_in, d_out), torch.float32, d_in ** -0.5), mode)
+    return q["codes"], q["scales"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+@pytest.mark.parametrize("d_in,d_out", CR_PROJ)
+def test_command_r_decode_rows_match_plain_on_the_decode_path(cuda, mode, d_in, d_out):
+    """#3 at 8 bf16 decode rows (r = 16) at command-r-35b's widths (K and L
+    up to 22,528; the nf4 block 64): on "decode", launched once there,
+    within the tolerance of its plain version and ``torch.equal`` to the
+    dense kernel on the dequantized W."""
+    gen = torch.Generator(device=cuda).manual_seed(60)
+    n, m, r, dt = 8, 1, 16, torch.bfloat16
+    s = torch.linspace(0.5, 2.0, n, device=cuda)
+    codes, scales = _quantized(gen, d_in, d_out, mode)
+    x = _rnd(gen, (n, m, d_in), dt)
+    a, b = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), _rnd(gen, (n, r, d_out), dt)
+    assert fused_matmul_q_path(x, codes, scales, r, a, b) == "decode"
+    n0 = _count(fused_matmul_q, "fwd", "decode")
+    got = fused_matmul_q(x, codes, scales, a, b, s)
+    assert _count(fused_matmul_q, "fwd", "decode") == n0 + 1
+    _close(got, fused_matmul_q_ref(x, codes, scales, a, b, s))
+    w = dequantize({"codes": codes, "scales": scales}, dt)
+    assert torch.equal(got, fused_matmul(x, w, a, b, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_in,d_out", CR_PROJ)
+def test_command_r_training_rows_match_plain_on_their_paths(cuda, d_in, d_out):
+    """#3 at command-r-35b's training widths: int8 codes under a bf16 x (N =
+    2 x M = 1,024, r = 16) on "wgmma", and nf4 codes under an f32 x at the
+    launcher's segment (N = 1 x M = 512, r = 8) on "ffma"; each launched
+    once on its path, within the tolerance of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    for mode, dt, n, m, r, path in (("int8", torch.bfloat16, 2, 1024, 16, "wgmma"),
+                                    ("nf4", torch.float32, 1, 512, 8, "ffma")):
+        s = torch.linspace(0.5, 2.0, n, device=cuda)
+        codes, scales = _quantized(gen, d_in, d_out, mode)
+        x = _rnd(gen, (n, m, d_in), dt)
+        a, b = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), _rnd(gen, (n, r, d_out), dt)
+        assert fused_matmul_q_path(x, codes, scales, r, a, b) == path
+        n0 = _count(fused_matmul_q, "fwd", path)
+        got = fused_matmul_q(x, codes, scales, a, b, s)
+        assert _count(fused_matmul_q, "fwd", path) == n0 + 1
+        _close(got, fused_matmul_q_ref(x, codes, scales, a, b, s))
