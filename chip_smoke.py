@@ -75,13 +75,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    impl="auto" and "fused" on the train phase's pack (step 1 against the
    plain path to the train phase's limits, then 3 steps whose counts must
    move; every ``fused_matmul_q`` call on "wgmma", every ``packed_matmul``
-   call on "mma"; the steps' own peak printed against ``job_mem_bytes``);
+   call on "mma"; the steps' own peak within [1, C3_SLACK] of
+   ``job_mem_bytes`` priced at the tree's storage and dense dtype: ROADMAP
+   C6);
    8 requests through ``ServeEngine(base_dtype=...)`` on int8 under fused
    and auto and on nf4 under fused (``fused_matmul_q`` must launch on
    "decode"), prefill logits and 4 teacher-forced decode steps held against
    the plain path at LOGIT_TOL; then ``launch/train.py --arch command-r-35b
    --quant nf4 --impl fused`` (an f32 x on nf4 codes: every
-   ``fused_matmul_q`` and dx call on "ffma", finite losses).
+   ``fused_matmul_q`` and dx call on "ffma", finite losses, its own peak
+   within [1, C3_SLACK] of its own ``CostModel``'s price: the nf4 codes,
+   the f32 embedding, f32 activations).
 5. autotune -- ``kernels/autotune.py`` at the launcher's pack (full
    qwen25-7b, ranks 8 and 16, batch 2, seq 512: N = 2 x M = 1,024 at d x d
    and d x d_ff, r = 16): ``tune_for_model(fast=False)`` in f32 (the fused
@@ -93,7 +97,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tier's ms, the speedup, FLOP/s and the share of the bound. A second tune
    on each cache must measure nothing.
 6. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
-   seed) cut to its first SERVE_LAYERS = 14 layers (a view; the train,
+   seed) cut to its first SERVE_LAYERS = 7 layers (a view; the train,
    sweep and online phases reuse the whole base), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
    and impl="fused" (fused kernel). Launch counts are zeroed just before
@@ -198,21 +202,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    calibrated prior's s/step beside the measured, and the split it ran),
    and the control's reads above LAUNCH_CONTROL_FACTOR times that limit.
 11. families -- starcoder2-7b (LayerNorm, the two-matrix GELU MLP, biased
-   GQA) and then gemma3-1b (512-token sliding windows, every 6th layer
-   global with its own rope theta, the gated GELU, tied embeddings), each at
-   full width and depth on a bf16 base of random weights from a seed (the
-   launcher's f32 base freed first, each family's base freed after it):
+   GQA; cut to its first 16 of 32 layers, FAMILY_LAYERS), gemma3-1b
+   (512-token sliding windows, every 6th layer global with its own rope
+   theta, the gated GELU, tied embeddings) and minicpm3-4b (multi-head
+   latent attention: kv_a's 288-wide output, the absorbed decode; 62
+   layers), each at full width on a bf16 base of random weights from a
+   seed (the launcher's f32 base freed first, each family's base freed
+   after it):
    ``make_packed_step`` under impl="auto" and impl="fused" on the train
    phase's pack (seq 512; gemma3 1,024, so the window masks and attention
    reads a band per query chunk), step 1 held against the plain path to the
    train phase's limits, then 3 steps whose counts must move; 8 requests
-   through ``ServeEngine.serve`` (starcoder2 under auto, gemma3 under auto
-   and fused, prompts of 520-600 tokens), prefill logits and teacher-forced
-   decode steps (gemma3: 8, past the window) held against the plain path
-   at LOGIT_TOL; and, for starcoder2, one captured ``run_local`` job of
-   three configurations of ``default_search_space(300, seq_len=512)``
-   (FAMILY_SWEEP_IDS), equal to an eager run, its launches equal to the
-   eager steps', its own peak held to C3.
+   through ``ServeEngine.serve`` (starcoder2 under auto, gemma3 and
+   minicpm3 under auto and fused, gemma3's prompts of 520-600 tokens),
+   prefill logits and teacher-forced decode steps (gemma3: 8, past the
+   window) held against the plain path at LOGIT_TOL; and, for starcoder2
+   and minicpm3, one captured ``run_local`` job of three configurations of
+   ``default_search_space(300, seq_len=512)`` (FAMILY_SWEEP_IDS), equal to
+   an eager run, its launches equal to the eager steps', its own peak held
+   to C3.
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
@@ -271,7 +279,7 @@ TRAIN_RUNS = (("auto", None), ("fused", None), ("fused", "nf4"), ("fused", "int8
 # serve phase's base, no copy), so that the families and command_r phases
 # fit in the smoke's time (PERF.md §4). The online phase keeps all 28: at
 # fewer layers its plan preempts an adapter before its first step.
-SERVE_LAYERS = 14
+SERVE_LAYERS = 7
 TRAIN_LAYERS = 7
 SWEEP_LAYERS = 14
 # Step 1 of the kernel path against the plain path on the same weights and
@@ -2460,32 +2468,43 @@ def launcher_phase(torch, dev, out_dir: Path):
 # head_dim 256). gemma3 trains at seq 1,024 (at 512 a 512-token window masks
 # nothing, and the band path needs more than one query chunk of 512) and
 # serves prompts of 520-600 tokens with 8 decode steps past the window.
-FAMILIES = ("starcoder2-7b", "gemma3-1b")
-FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024}
+# minicpm3-4b: multi-head latent attention (q_a 768, kv_a 288 = the
+# 256-wide latent + the 32-wide rope part, heads of 64 + 32 / 64), served
+# through the absorbed decode; d 2,560, d_ff 6,400, 62 layers.
+FAMILIES = ("starcoder2-7b", "gemma3-1b", "minicpm3-4b")
+# depth cuts (a view of the family's base, ``depth_cut``) that keep the
+# smoke inside its time
+FAMILY_LAYERS = {"starcoder2-7b": 16}
+FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024, "minicpm3-4b": 512}
 FAMILY_TRAIN_STEPS = 3
 FAMILY_TRAIN_IMPLS = ("auto", "fused")
 # (impls, prompt lengths [lo, hi), new tokens per request, teacher-forced
 # decode steps)
 FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 16, 4),
-                "gemma3-1b": (("auto", "fused"), (520, 601), 16, 8)}
+                "gemma3-1b": (("auto", "fused"), (520, 601), 16, 8),
+                "minicpm3-4b": (("auto", "fused"), (64, 257), 16, 4)}
 # the sweep phase's first three configurations (ranks 8, 8, 16): one job
 FAMILY_SWEEP_IDS = (0, 37, 74)
+FAMILY_SWEEPS = ("starcoder2-7b", "minicpm3-4b")
 # the kernel phase's rows at each family's shapes
-FAMILY_TRAIN_CASE = {"starcoder2-7b": "train_starcoder2", "gemma3-1b": "train_gemma3"}
-FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3"}
+FAMILY_TRAIN_CASE = {"starcoder2-7b": "train_starcoder2", "gemma3-1b": "train_gemma3",
+                     "minicpm3-4b": "train_minicpm3"}
+FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3", "minicpm3-4b": "decode_minicpm3"}
+# minicpm3-4b's kv_a (K = 2,560 -> L = 288; its dx at K = 288): the first
+# main-path width that is not a multiple of 64, listed on a line of its own
+KV_A = (2560, 288)
 
 
 def family_proj(cfg):
-    """(d_in, d_out) of one layer's projections with their count per layer,
-    as PROJ (equal shapes merged)."""
-    a, d = cfg.attention, cfg.d_model
-    shapes = [(d, a.n_heads * a.head_dim), (d, a.n_kv_heads * a.head_dim),
-              (d, a.n_kv_heads * a.head_dim), (a.n_heads * a.head_dim, d)]
-    shapes += [(d, cfg.d_ff)] * (2 if cfg.mlp_kind in ("swiglu", "gelu") else 1)
-    shapes.append((cfg.d_ff, d))
+    """(d_in, d_out) of one layer's projections that carry an adapter (the
+    kernels' calls; MLA's q_b, kv_b_k and kv_b_v are plain products) with
+    their count per layer, as PROJ (equal shapes merged)."""
+    from repro_torch.configs.base import layer_projections, lora_leaves
+
+    shapes = layer_projections(cfg)
     out = {}
-    for sh in shapes:
-        out[sh] = out.get(sh, 0) + 1
+    for leaf in lora_leaves(cfg).values():
+        out[shapes[leaf]] = out.get(shapes[leaf], 0) + 1
     return list(out.items())
 
 
@@ -2645,11 +2664,11 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
 
 
 def families_phase(torch, dev, out_dir: Path):
-    """starcoder2-7b, then gemma3-1b, at full width and depth on a bf16
-    base: train (auto and fused: step 1 against the plain path, then
-    FAMILY_TRAIN_STEPS steps with launch counts), serve (FAMILY_SERVE) and,
-    for starcoder2, one captured sweep job. Returns the launch counts by
-    family and run."""
+    """starcoder2-7b, gemma3-1b, then minicpm3-4b, at full width on a bf16
+    base (at full depth but for FAMILY_LAYERS' cuts): train (auto and fused:
+    step 1 against the plain path, then FAMILY_TRAIN_STEPS steps with launch
+    counts), serve (FAMILY_SERVE) and, for FAMILY_SWEEPS, one captured
+    sweep job. Returns the launch counts by family and run."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_model
     from repro_torch.tree import tree_leaves
@@ -2662,6 +2681,8 @@ def families_phase(torch, dev, out_dir: Path):
         torch.cuda.empty_cache()
         base, _ = init_model(SEED, cfg, None, dtype=torch.bfloat16, device=dev)
         torch.cuda.synchronize()
+        if arch in FAMILY_LAYERS:
+            cfg, base = depth_cut(cfg, base, FAMILY_LAYERS[arch])
         emit({"phase": "family_setup", "model": arch, "n_layers": cfg.n_layers,
               "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
               "params": sum(t.numel() for t in tree_leaves(base)), "dtype": "bfloat16",
@@ -2678,7 +2699,7 @@ def families_phase(torch, dev, out_dir: Path):
         del lora0, batches
         for impl, c in family_serve(torch, dev, arch, cfg, base).items():
             counts[f"serve:{impl}"] = c
-        if arch == "starcoder2-7b":
+        if arch in FAMILY_SWEEPS:
             counts["sweep:auto"] = family_sweep(torch, dev, cfg, base, out_dir)
         out[arch] = counts
         emit({"phase": "family_done", "model": arch, "seconds": time.perf_counter() - t0})
@@ -2775,14 +2796,17 @@ def cr_train(torch, dev, cfg, base) -> dict:
     step 1 against the plain path (``train_run``: loss LOSS_RTOL, f32
     gradients GRAD_TOL_F32), then CR_TRAIN_STEPS steps whose counts must
     move, every fused_matmul_q call on "wgmma" (fused) and every
-    packed_matmul call on "mma" (auto); the steps' own peak is printed
-    against the port's ``job_mem_bytes(base_dtype="int8")``, not held."""
+    packed_matmul call on "mma" (auto); the steps' own peak must lie within
+    [1, C3_SLACK] of the port's ``job_mem_bytes`` priced at the tree's
+    storage and dense dtype (int8 codes, a bf16 embedding: ROADMAP C6)."""
     from repro_torch.kernels import launches as launch_counts
+    from repro_torch.kernels.quant import base_storage
     from repro_torch.sched import H100, CostModel
 
     _, meta, lora0, batches = train_setup(torch, dev, cfg, TRAIN_SEQ, CR_TRAIN_STEPS)
-    price = CostModel(cfg, H100, base_dtype="int8").job_mem_bytes(train_setup_configs(), 1,
-                                                                 TRAIN_SEQ)
+    storage, dense = base_storage(base, dense=True)
+    price = CostModel(cfg, H100, base_dtype=storage, dense_dtype=dense).job_mem_bytes(
+        train_setup_configs(), 1, TRAIN_SEQ)
     counts = {}
     for impl in CR_TRAIN_IMPLS:
         gc.collect()
@@ -2797,7 +2821,10 @@ def cr_train(torch, dev, cfg, base) -> dict:
         own = row["max_memory_allocated"] - held
         emit({"phase": "command_r_train_memory", "impl": impl, "held_bytes": held,
               "job_peak_bytes": own, "job_mem_bytes_int8": price, "price_over_peak": price / own,
-              "launches_by_path": paths})
+              "base_dtype": storage, "dense_dtype": dense, "launches_by_path": paths})
+        if not own <= price <= C3_SLACK * own:
+            fail(f"C6: {cfg.name} int8 train impl={impl}: job_mem_bytes {price} is not within "
+                 f"[peak, {C3_SLACK} x peak] of its own peak {own}")
         kernel, path = ("fused_matmul_q", "wgmma") if impl == "fused" else ("packed_matmul", "mma")
         off = {p: k for p, k in paths[kernel].items() if p != path and k}
         if off or not paths[kernel][path]:
@@ -2879,8 +2906,9 @@ def cr_serve(torch, dev, cfg, base, mode: str, impls, adapters, lora1s, prompts)
 def cr_launcher(torch, dev, out_dir: Path) -> dict:
     """``launch/train.py`` with CR_LAUNCH_ARGS: the nf4 base built layer by
     layer under an f32 x. Losses finite, every fused_matmul_q call and every
-    dx on "ffma"; its own peak printed against the price of the launcher's
-    own ``CostModel`` (base_dtype "nf4"), not held. Returns its counts."""
+    dx on "ffma"; its own peak within [1, C3_SLACK] of the price of the
+    launcher's own ``CostModel`` (base_dtype "nf4" with dense_dtype "f32":
+    ROADMAP C6). Returns its counts."""
     from repro_torch.kernels import launches as launch_counts
     from repro_torch.launch import train as launch_train
 
@@ -2914,12 +2942,16 @@ def cr_launcher(torch, dev, out_dir: Path) -> dict:
           "s_per_step": sum(win.seconds) / max(len(win.seconds), 1),
           "capture_s": ex.captures[-1]["seconds"] if ex.captures else None, "wall_s": wall,
           "held_bytes": held, "max_memory_allocated": peak, "job_peak_bytes": peak - held,
-          "priced_base_dtype": cm.base_dtype, "job_mem_bytes": price,
-          "price_over_peak": price / (peak - held), "launches": counts, "launches_by_path": paths})
+          "priced_base_dtype": cm.base_dtype, "priced_dense_dtype": cm.dense_dtype,
+          "job_mem_bytes": price, "price_over_peak": price / (peak - held), "launches": counts,
+          "launches_by_path": paths})
     ex.clear()
     del ex, win
     if not np.isfinite(losses).all():
         fail(f"{COMMAND_R} launcher: non-finite final loss {losses.tolist()}")
+    if not peak - held <= price <= C3_SLACK * (peak - held):
+        fail(f"C6: {COMMAND_R} launcher: job_mem_bytes {price} is not within "
+             f"[peak, {C3_SLACK} x peak] of its own peak {peak - held}")
     for kernel in ("fused_matmul_q", "fused_matmul"):
         on = paths[kernel]
         off = {p: k for p, k in on.items() if p != "ffma" and k}
@@ -3114,6 +3146,8 @@ EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decod
               # the delta's two decode passes as one packed_matmul_pair call, which serve runs
               ("packed_matmul:decode_pair", "packed_matmul", ("pair",), "decode"),
               ("packed_matmul:gemma3_decode_pair", "packed_matmul", ("pair",), "decode_gemma3"),
+              ("packed_matmul:minicpm3_decode_pair", "packed_matmul", ("pair",),
+               "decode_minicpm3"),
               # fused_matmul_q on an f32 x (the launcher's --quant ... --impl fused)
               ("fused_matmul_q:int8_f32", "fused_matmul_q", ("int8",), "train", "float32"),
               ("fused_matmul_q:nf4_f32", "fused_matmul_q", ("nf4",), "train", "float32"),
@@ -3168,6 +3202,18 @@ def summarize(rows, launches):
                     "max_abs_err": max(r["max_abs_err"] for r in sel),
                     "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": tot["library_ms"]})
+        if case in (FAMILY_TRAIN_CASE["minicpm3-4b"], FAMILY_DECODE_CASE["minicpm3-4b"]):
+            # the use's kv_a call alone (L = 288; the dx's K = 288), beside its layer
+            for r in sel:
+                if (r["d_in"], r["d_out"]) == KV_A:
+                    emit({"phase": "kv_a", "use": entry, "call": r["call"], "path": r.get("path"),
+                          "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+                          "device_ms": r["device_ms"],
+                          "library_device_ms": r["library_device_ms"],
+                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                          "host_us": r["host_us"], "library_host_us": r["library_host_us"],
+                          "ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                          "layer_device_ms": tot["device_ms"]})
     return {"kernels": out}
 
 

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s phases alone on one CUDA card.
 
-    python3 scripts/smoke_phases.py              # kernels, then command_r
+    python3 scripts/smoke_phases.py              # kernels, command_r, families
     python3 scripts/smoke_phases.py kernels      # the kernel phase alone
     python3 scripts/smoke_phases.py command_r    # the command_r phase alone
+    python3 scripts/smoke_phases.py kernels families
 
-Builds the kernels, then runs ``chip_smoke.kernel_phase`` and/or
-``chip_smoke.command_r_phase`` with the smoke's own checks (a failed check
-exits non-zero), printing the smoke's JSON lines. With both phases, one
-``phase_use`` line per ``kernels`` entry of command-r-35b: its layer sums,
-bound and launches, as the smoke's ``kernels`` line would carry them.
-Every record also goes to ``smoke_out/smoke_phases.json``.
+Builds the kernels, then runs ``chip_smoke.kernel_phase``,
+``chip_smoke.command_r_phase`` and/or ``chip_smoke.families_phase`` (in
+the smoke's order) with the smoke's own checks (a failed check exits
+non-zero), printing the smoke's JSON lines. With the kernel phase and
+another, one ``phase_use`` line per ``kernels`` entry of that phase's
+models: its layer sums, bound and launches, as the smoke's ``kernels`` line
+would carry them. Every record also goes to
+``smoke_out/smoke_phases.json``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("kernels", "command_r")
+PHASES = ("kernels", "command_r", "families")
 
 
 def main() -> None:
@@ -44,22 +47,26 @@ def main() -> None:
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
     out = ROOT / "smoke_out"
     out.mkdir(exist_ok=True)
-    rows, counts = [], None
+    rows, counts = [], {}
     if "kernels" in which:
         t0 = time.perf_counter()
         rows = cs.kernel_phase(torch, dev)
         cs.emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
     if "command_r" in which:
         t0 = time.perf_counter()
-        counts = cs.command_r_phase(torch, dev, out)
+        counts[cs.COMMAND_R] = cs.command_r_phase(torch, dev, out)
         cs.emit({"phase": "command_r_done", "seconds": time.perf_counter() - t0})
-    if rows and counts is not None:
+    if "families" in which:
+        t0 = time.perf_counter()
+        counts.update(cs.families_phase(torch, dev, out))
+        cs.emit({"phase": "families_done", "seconds": time.perf_counter() - t0})
+    if rows:
         for entry, kernel, calls, case, _src, _rep, (path, run, count), *dtype in cs.USES:
-            if path != cs.COMMAND_R:
+            if path not in counts:
                 continue
             dtype = dtype[0] if dtype else "bfloat16"
             sel, tot = cs.layer_sums(rows, kernel, calls, case, dtype)
-            cs.emit({"phase": "phase_use", "use": entry, "launches": counts[run][count],
+            cs.emit({"phase": "phase_use", "use": entry, "launches": counts[path][run][count],
                      "bound_ms": cs.bound(tot["bytes"], tot["flops"], dtype)[0],
                      "paths": sorted({r.get("path", "") for r in sel}), **tot})
     (out / "smoke_phases.json").write_text(json.dumps(cs.RECORDS, indent=1))

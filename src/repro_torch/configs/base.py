@@ -1,8 +1,9 @@
 """Model and LoRA configurations for the PyTorch port.
 
 The port keeps its own copy of the reference's configuration dataclasses
-(``repro.configs.base``), cut to what the dense GQA decoders need (qwen25-7b,
-starcoder2-7b, gemma3-1b, command-r-35b): the port imports nothing of the JAX package.
+(``repro.configs.base``), cut to what the dense decoders need (GQA:
+qwen25-7b, starcoder2-7b, gemma3-1b, command-r-35b; MLA: minicpm3-4b): the
+port imports nothing of the JAX package.
 Field names and defaults match the reference, so a test can build the same
 configuration on both sides.
 """
@@ -17,12 +18,16 @@ from typing import Callable, Dict, Tuple
 # "gelu2" (the classic up -> GELU -> down) has no gate
 MLP_PROJECTIONS = {"swiglu": ("gate", "up", "down"), "gelu": ("gate", "up", "down"),
                    "gelu2": ("up", "down")}
+# the LoRA target name -> the MLA projection it adapts (q_b, kv_b_k and
+# kv_b_v carry no adapter)
+MLA_TARGETS = {"q": "q_a", "kv": "kv_a", "o": "o"}
 
 
 @dataclass(frozen=True)
 class AttentionConfig:
-    """Grouped-query attention (the only attention kind of the port so far),
-    with the reference's sliding window."""
+    """Grouped-query attention with the reference's sliding window, or
+    multi-head latent attention (MiniCPM3 / DeepSeek-V2) when
+    ``kv_lora_rank`` > 0."""
 
     n_heads: int = 8
     n_kv_heads: int = 8
@@ -35,11 +40,18 @@ class AttentionConfig:
     # (no window, ``global_rope_theta``); 0 = every layer uses the window
     global_every: int = 0
     global_rope_theta: float = 0.0
+    # multi-head latent attention: q and kv through low-rank projections
+    # (q_a -> q_b, kv_a -> kv_b_k / kv_b_v), q/k heads of nope + rope
+    # widths, v heads of ``v_head_dim``
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     @property
     def is_mla(self) -> bool:
-        """Multi-head latent attention: not a kind the port has yet."""
-        return False
+        return self.kv_lora_rank > 0
 
 
 @dataclass(frozen=True)
@@ -104,6 +116,40 @@ class LoraConfig:
         return (self.rank, self.alpha, self.learning_rate, self.batch_size)
 
 
+def attn_projections(acfg: AttentionConfig, d_model: int) -> Dict[str, Tuple[int, int]]:
+    """(d_in, d_out) of one layer's attention projections, in the order the
+    init draws them: q, k, v, o (GQA) or q_a, q_b, kv_a, kv_b_k, kv_b_v, o
+    (MLA: q_b's heads are nope + rope wide, kv_a's output is the latent
+    plus the shared rope part, o reads the v heads)."""
+    h = acfg.n_heads
+    if not acfg.is_mla:
+        hd = acfg.head_dim
+        return {"q": (d_model, h * hd), "k": (d_model, acfg.n_kv_heads * hd),
+                "v": (d_model, acfg.n_kv_heads * hd), "o": (h * hd, d_model)}
+    qlr, kvlr = acfg.q_lora_rank, acfg.kv_lora_rank
+    dn, dr, dv = acfg.qk_nope_head_dim, acfg.qk_rope_head_dim, acfg.v_head_dim
+    return {"q_a": (d_model, qlr), "q_b": (qlr, h * (dn + dr)), "kv_a": (d_model, kvlr + dr),
+            "kv_b_k": (kvlr, h * dn), "kv_b_v": (kvlr, h * dv), "o": (h * dv, d_model)}
+
+
+def layer_projections(cfg: "ModelConfig") -> Dict[str, Tuple[int, int]]:
+    """(d_in, d_out) of every projection of one decoder layer: the
+    attention's, then the MLP's."""
+    d = cfg.d_model
+    mlp = {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
+    return {**attn_projections(cfg.attention, d),
+            **{nm: mlp[nm] for nm in MLP_PROJECTIONS[cfg.mlp_kind]}}
+
+
+def lora_leaves(cfg: "ModelConfig") -> Dict[str, str]:
+    """Each LoRA target of ``cfg.lora_targets`` that the model has -> the
+    projection it adapts (MLA's "q" and "kv": ``q_a`` and ``kv_a``; a
+    "gelu2" MLP has no gate)."""
+    attn = MLA_TARGETS if cfg.attention.is_mla else {t: t for t in ("q", "k", "v", "o")}
+    names = {**attn, **{nm: nm for nm in MLP_PROJECTIONS[cfg.mlp_kind]}}
+    return {t: names[t] for t in cfg.lora_targets if t in names}
+
+
 def default_search_space(n: int = 120, seq_len: int = 1024) -> list:
     """Grid over the paper's Table 1 ranges: LR 2e-5..4e-4, BS 1..8, r
     8..128, alpha r/4..4r. The first ``n`` points of a deterministic grid,
@@ -123,15 +169,20 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
     rules for a dense decoder (``repro/configs/base.py:243-297``): 2 layers
     (a model with ``global_every`` keeps one whole local:global period, at
     most 6 layers), d_model <= 256, d_ff <= 384, head_dim 32, 2-4 heads,
-    vocab 512, a window of at most 64."""
+    vocab 512, a window of at most 64; MLA ranks 48 (q) and 32 (kv), q/k
+    heads of 16 nope + 16 rope, v heads of 32."""
     attn = cfg.attention
     n_heads = max(2, min(4, attn.n_heads))
     n_kv = max(1, min(n_heads, attn.n_kv_heads))
     while n_heads % n_kv:
         n_kv -= 1
+    mla = attn.is_mla
     new_attn = dataclasses.replace(
         attn, n_heads=n_heads, n_kv_heads=n_kv, head_dim=32,
-        sliding_window=min(attn.sliding_window, 64) if attn.sliding_window else 0)
+        sliding_window=min(attn.sliding_window, 64) if attn.sliding_window else 0,
+        q_lora_rank=48 if attn.q_lora_rank else 0, kv_lora_rank=32 if attn.kv_lora_rank else 0,
+        qk_nope_head_dim=16 if mla else 0, qk_rope_head_dim=16 if mla else 0,
+        v_head_dim=32 if mla else 0)
     if attn.global_every:
         n_layers = min(max(n_layers, attn.global_every), 6)
     return cfg.replace(
@@ -169,6 +220,7 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (registers)
         command_r_35b,
         gemma3_1b,
+        minicpm3_4b,
         qwen25_7b,
         starcoder2_7b,
     )

@@ -93,15 +93,18 @@ def logical_shape(w) -> tuple:
     return shape
 
 
-def base_storage(params) -> str:
+def base_storage(params, dense: bool = False):
     """How a frozen-base tree stores its weights, as ``CostModel``'s
     ``base_dtype`` names it: "int8" or "nf4" when its projections are
-    quantized, else its dense dtype, "f32" or "bf16"."""
-    dtypes = set()
+    quantized, else its dense dtype, "f32" or "bf16". With ``dense``:
+    (that name, the dtype of its dense floating-point leaves -- for a
+    quantized tree its embedding, norms and whatever else stays dense, as
+    ``CostModel``'s ``dense_dtype`` names it)."""
+    modes, dtypes = set(), set()
 
     def walk(node):
         if is_quantized(node):
-            dtypes.add(quant_mode(node))
+            modes.add(quant_mode(node))
         elif isinstance(node, dict):
             for v in node.values():
                 walk(v)
@@ -109,13 +112,14 @@ def base_storage(params) -> str:
             dtypes.add(node.dtype)
 
     walk(params)
-    for mode in ("int8", "nf4"):
-        if mode in dtypes:
-            return mode
+    mode = next((m for m in MODES if m in modes), None)
+    if mode is not None and not dense:
+        return mode
     names = {torch.float32: "f32", torch.bfloat16: "bf16"}
     if len(dtypes) != 1 or next(iter(dtypes)) not in names:
         raise ValueError(f"a frozen base of one float32 or bfloat16 dtype expected, got {dtypes}")
-    return names[dtypes.pop()]
+    held = names[dtypes.pop()]
+    return (mode or held, held) if dense else held
 
 
 def quantized_nbytes(w) -> int:

@@ -199,9 +199,11 @@ def main(argv=None, *, executor=None, step_callback=None):
             step_callback(i, m)
 
     store = ObservationStore.load(args.profile_in) if args.profile_in else ObservationStore()
-    # priced at the tree's own storage; the kernel policy below stays ``quant``
+    # priced at the tree's own storage and its dense leaves' dtype; the
+    # kernel policy below stays ``quant``
+    storage, dense = base_storage(base, dense=True)
     est = ProfiledCostModel(
-        CostModel(cfg, PRESETS[args.hw], base_dtype=quant or base_storage(base)), store)
+        CostModel(cfg, PRESETS[args.hw], base_dtype=storage, dense_dtype=dense), store)
     tracer = _make_tracer(args)
     blocks, pred_uncalibrated = None, None
     if args.autotune_cache:

@@ -1,4 +1,5 @@
-"""Causal grouped-query attention: prefill over query chunks, cached decode.
+"""Causal attention, GQA (with sliding window) and MLA: prefill over query
+chunks, cached decode.
 
 Attention is not a kernel of the reference (it is plain jnp there), so it
 is plain PyTorch here: scores in f32, masked with -1e30, softmax in f32,
@@ -10,10 +11,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import AttentionConfig
+from repro_torch.configs.base import MLA_TARGETS, AttentionConfig, attn_projections
 from repro_torch.core.adapter import init_lora_pair
 from repro_torch.core.packed_lora import lora_linear
-from repro_torch.models.layers.common import init_linear
+from repro_torch.models.layers.common import apply_norm, init_linear
 from repro_torch.models.layers.rope import apply_rope
 
 NEG_INF = -1e30
@@ -21,7 +22,8 @@ NEG_INF = -1e30
 
 def _attend_chunk(q, k, v, qpos, kpos, scale, window: int = 0):
     """Causal attention of a query chunk, within ``window`` positions when
-    it is set. q: (B, cq, H, D); k/v: (B, Sk, KV, D); returns (B, cq, H, D)."""
+    it is set. q: (B, cq, H, D); k/v: (B, Sk, KV, D / Dv); returns (B, cq,
+    H, Dv)."""
     b, cq, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, cq, kv, h // kv, d)
@@ -38,7 +40,8 @@ def _attend_chunk(q, k, v, qpos, kpos, scale, window: int = 0):
 def flash_attention(q, k, v, *, window: int = 0, chunk_q: int = 512,
                     scale: Optional[float] = None):
     """Causal attention over query chunks of ``chunk_q`` (scores never
-    exceed chunk_q x Sk). q: (B, Sq, H, D); k/v: (B, Sk, KV, D). With a
+    exceed chunk_q x Sk). q: (B, Sq, H, D); k/v: (B, Sk, KV, D / Dv), the
+    output's head width V's (MLA's v heads are narrower than its q/k). With a
     ``window`` and more than one chunk, each chunk reads only the K/V band
     its queries reach, [c0 - window + 1, c0 + chunk_q) (the reference's
     band slice, ``attention.py:84-104``): local layers cost
@@ -145,4 +148,107 @@ def init_gqa_cache(nb, smax, acfg: AttentionConfig, dtype=torch.bfloat16, device
     return {
         "k": torch.zeros((nb, smax, kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((nb, smax, kv, hd), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA (MiniCPM3 / DeepSeek-V2 style), the reference's ``attention.py:259-417``
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, acfg: AttentionConfig, d_model, meta, targets, dtype=torch.float32, device=None):
+    """The six MLA projections (no bias) and the two latent RMSNorms, then
+    LoRA pairs on ``q_a``, ``kv_a`` and ``o`` for the targets "q", "kv"
+    and "o"."""
+    shapes = attn_projections(acfg, d_model)
+    params = {nm: init_linear(gen, *shapes[nm], False, dtype, device) for nm in shapes}
+    params["q_norm"] = {"scale": torch.ones((acfg.q_lora_rank,), dtype=dtype, device=device)}
+    params["kv_norm"] = {"scale": torch.ones((acfg.kv_lora_rank,), dtype=dtype, device=device)}
+    lora = {}
+    if meta is not None:
+        for t, nm in MLA_TARGETS.items():
+            if t in targets:
+                lora[nm] = init_lora_pair(gen, meta, *shapes[nm], dtype, device)
+    return params, lora
+
+
+def _mla_qkv(params, lo, scales, x, n_pack, acfg, rope, kcfg=None):
+    """The projections shared by every MLA path: q_nope (NB, S, H, dn),
+    q_rope (NB, S, H, dr), the normed latent ckv (NB, S, kvlr) and k_rope
+    (NB, S, 1, dr). ``q_b`` carries no adapter: a plain ``x @ W``."""
+    nb, s, _ = x.shape
+    h, dn, dr = acfg.n_heads, acfg.qk_nope_head_dim, acfg.qk_rope_head_dim
+    cos, sin = rope
+    cq = lora_linear(x, params["q_a"], lo.get("q_a"), scales, n_pack, kcfg=kcfg)
+    cq = apply_norm(params["q_norm"], cq, "rmsnorm")
+    q = lora_linear(cq, params["q_b"], None, scales, n_pack, kcfg=kcfg).reshape(nb, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+    ckv_full = lora_linear(x, params["kv_a"], lo.get("kv_a"), scales, n_pack, kcfg=kcfg)
+    ckv = apply_norm(params["kv_norm"], ckv_full[..., : acfg.kv_lora_rank], "rmsnorm")
+    k_rope = apply_rope(ckv_full[..., acfg.kv_lora_rank :][:, :, None, :], cos, sin)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def apply_mla(
+    params, lora, scales, x, *,
+    acfg: AttentionConfig,
+    n_pack: int,
+    rope: Tuple[torch.Tensor, torch.Tensor],
+    cache: Optional[dict] = None,
+    pos=None,
+    make_cache: bool = False,
+    chunk_q: int = 512,
+    kcfg=None,
+):
+    """x: (NB, S, d). Returns (out, cache or None); the softmax scale is
+    (dn + dr)^-0.5.
+
+    Train and prefill expand the latent ckv through ``kv_b_k`` / ``kv_b_v``
+    into per-head K (nope + the shared rope part) and V, and attend over
+    query chunks. With a cache (single-token decode) this step's ckv and
+    k_rope are written into it in place at ``pos`` (a (NB,) vector writes
+    each row at its own slot) and the step attends in the latent space:
+    W_uk folded into q, scores against the compressed cache, the context
+    expanded through W_uv (the absorbed decode)."""
+    lo = lora or {}
+    nb, s, _ = x.shape
+    h = acfg.n_heads
+    dn, dr, dv = acfg.qk_nope_head_dim, acfg.qk_rope_head_dim, acfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, lo, scales, x, n_pack, acfg, rope, kcfg)
+    if cache is None:
+        k_nope = (ckv @ params["kv_b_k"]["w"].to(ckv.dtype)).reshape(nb, s, h, dn)
+        v = (ckv @ params["kv_b_v"]["w"].to(ckv.dtype)).reshape(nb, s, h, dv)
+        k = torch.cat([k_nope, k_rope.expand(nb, s, h, dr)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(q, k, v, chunk_q=chunk_q, scale=scale)
+        new_cache = {"ckv": ckv, "k_rope": k_rope[:, :, 0, :]} if make_cache else None
+    else:
+        if s != 1:
+            raise ValueError("cached attention takes one token per row")
+        ckv_c, kr_c = cache["ckv"], cache["k_rope"]
+        rows = torch.arange(nb, device=x.device)
+        ckv_c[rows, pos] = ckv[:, 0].to(ckv_c.dtype)
+        kr_c[rows, pos] = k_rope[:, 0, 0].to(kr_c.dtype)
+        wk = params["kv_b_k"]["w"].reshape(acfg.kv_lora_rank, h, dn)
+        q_abs = torch.einsum("bshd,rhd->bhr", q_nope, wk.to(q_nope.dtype))
+        s1 = torch.einsum("bhr,bkr->bhk", q_abs.float(), ckv_c.to(q_abs.dtype).float())
+        s2 = torch.einsum("bshd,bkd->bhk", q_rope.float(), kr_c.to(q_rope.dtype).float())
+        scores = (s1 + s2) * scale
+        kpos = torch.arange(ckv_c.shape[1], device=x.device)
+        mask = kpos[None, :] <= pos.reshape(-1, 1)  # (NB or 1, Smax)
+        scores = torch.where(mask[:, None, :], scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhk,bkr->bhr", p.to(ckv_c.dtype), ckv_c)
+        wv = params["kv_b_v"]["w"].reshape(acfg.kv_lora_rank, h, dv)
+        out = torch.einsum("bhr,rhd->bhd", ctx, wv.to(ctx.dtype))[:, None]
+        new_cache = cache
+    out = out.reshape(nb, s, h * dv)
+    out = lora_linear(out, params["o"], lo.get("o"), scales, n_pack, kcfg=kcfg)
+    return out, new_cache
+
+
+def init_mla_cache(nb, smax, acfg: AttentionConfig, dtype=torch.bfloat16, device=None):
+    return {
+        "ckv": torch.zeros((nb, smax, acfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((nb, smax, acfg.qk_rope_head_dim), dtype=dtype, device=device),
     }

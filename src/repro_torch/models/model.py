@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import MLP_PROJECTIONS, ModelConfig
+from repro_torch.configs.base import MLP_PROJECTIONS, ModelConfig, layer_projections, lora_leaves
 from repro_torch.core.adapter import PackMeta
 from repro_torch.models.layers.common import apply_norm, init_linear, init_norm
 from repro_torch.models.transformer import (
@@ -87,15 +87,14 @@ def init_lora(seed: int, cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, 
 def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=None):
     """A LoRA pack tree of zeros in ``init_model``'s layout, without
     building a base model (the serve engine's row pack and template): the
-    targets among the projections the config has ("gelu2" has no gate)."""
+    targets among the projections the config has ("gelu2" has no gate; MLA's
+    "q" and "kv" adapt ``q_a`` and ``kv_a``)."""
     device = resolve_device(device)
-    a, d, n, r = cfg.attention, cfg.d_model, meta.n, meta.r_bucket
-    mlp = {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
-    dims = {
-        "attn": {"q": (d, a.n_heads * a.head_dim), "k": (d, a.n_kv_heads * a.head_dim),
-                 "v": (d, a.n_kv_heads * a.head_dim), "o": (a.n_heads * a.head_dim, d)},
-        "mlp": {nm: mlp[nm] for nm in MLP_PROJECTIONS[cfg.mlp_kind]},
-    }
+    n, r = meta.n, meta.r_bucket
+    shapes, leaves = layer_projections(cfg), set(lora_leaves(cfg).values())
+    mlp = MLP_PROJECTIONS[cfg.mlp_kind]
+    dims = {"attn": {nm: sh for nm, sh in shapes.items() if nm in leaves and nm not in mlp},
+            "mlp": {nm: sh for nm, sh in shapes.items() if nm in leaves and nm in mlp}}
     specs = layer_specs(cfg)
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
@@ -105,7 +104,7 @@ def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=Non
             grp: {
                 nm: {"a": torch.zeros((*lead, n, di, r), dtype=dtype, device=device),
                      "b": torch.zeros((*lead, n, r, do), dtype=dtype, device=device)}
-                for nm, (di, do) in projs.items() if nm in cfg.lora_targets
+                for nm, (di, do) in projs.items()
             }
             for grp, projs in dims.items()
         }

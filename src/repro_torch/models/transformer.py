@@ -1,4 +1,5 @@
-"""Decoder stack: pre-norm GQA attention + dense MLP layers.
+"""Decoder stack: pre-norm attention (GQA, or MLA when the config has a
+``kv_lora_rank``) + dense MLP layers.
 
 Layers are grouped as in the reference: the per-layer spec sequence has a
 minimal period p, the L//p repeats are stacked under ``"blocks"`` (every
@@ -17,7 +18,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.quant import quantize_base_params
-from repro_torch.models.layers.attention import apply_gqa, init_gqa
+from repro_torch.models.layers.attention import (
+    apply_gqa,
+    apply_mla,
+    init_gqa,
+    init_gqa_cache,
+    init_mla,
+    init_mla_cache,
+)
 from repro_torch.models.layers.common import apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.models.layers.rope import rope_tables
 from repro_torch.tree import tree_index, tree_map, tree_stack
@@ -26,8 +34,8 @@ from repro_torch.tree import tree_index, tree_map, tree_stack
 @dataclass(frozen=True)
 class LayerSpec:
     """What may differ between the layers of a stack: the sliding window
-    (0: full attention) and the rope theta (every layer is GQA attention +
-    a dense MLP)."""
+    (0: full attention) and the rope theta (every layer is attention of the
+    config's kind + a dense MLP)."""
 
     window: int = 0
     theta: float = 10_000.0
@@ -60,7 +68,8 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None)
     a = cfg.attention
     params: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm_kind, dtype, device)}
     lora: Dict[str, Any] = {}
-    p, lo = init_gqa(gen, a, cfg.d_model, meta, cfg.lora_targets, dtype, device)
+    init_attn = init_mla if a.is_mla else init_gqa
+    p, lo = init_attn(gen, a, cfg.d_model, meta, cfg.lora_targets, dtype, device)
     params["attn"] = p
     if lo:
         lora["attn"] = lo
@@ -81,12 +90,13 @@ def apply_layer(
     """Pre-norm residual layer. Returns (x, new_cache or None)."""
     lo = lora or {}
     h = apply_norm(params["norm1"], x, cfg.norm_kind)
-    y, c = apply_gqa(
-        params["attn"], lo.get("attn"), scales, h,
-        acfg=cfg.attention, n_pack=n_pack, rope=rope_cache[spec.theta], window=spec.window,
-        cache=cache.get("attn") if cache else None,
-        pos=pos, make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg,
-    )
+    kw = dict(acfg=cfg.attention, n_pack=n_pack, rope=rope_cache[spec.theta],
+              cache=cache.get("attn") if cache else None, pos=pos, make_cache=make_cache,
+              chunk_q=chunk_q, kcfg=kcfg)
+    if cfg.attention.is_mla:
+        y, c = apply_mla(params["attn"], lo.get("attn"), scales, h, **kw)
+    else:
+        y, c = apply_gqa(params["attn"], lo.get("attn"), scales, h, window=spec.window, **kw)
     x = x + y
     h = apply_norm(params["norm2"], x, cfg.norm_kind)
     x = x + apply_mlp(params["mlp"], lo.get("mlp"), scales, h, n_pack, kcfg=kcfg, kind=cfg.mlp_kind)
@@ -182,20 +192,26 @@ def apply_stack(
 
 
 def make_rope_cache(cfg: ModelConfig, positions: torch.Tensor):
-    """cos/sin tables per distinct rope theta of the stack."""
-    thetas = {s.theta for s in layer_specs(cfg)}
-    return {t: rope_tables(positions, cfg.attention.head_dim, t) for t in thetas}
+    """cos/sin tables per distinct rope theta of the stack, over the heads'
+    rotated width: ``head_dim``, or MLA's ``qk_rope_head_dim``."""
+    a = cfg.attention
+    dim = a.qk_rope_head_dim if a.is_mla else a.head_dim
+    return {t: rope_tables(positions, dim, t) for t in {s.theta for s in layer_specs(cfg)}}
 
 
 def init_stack_cache(cfg, specs, nb: int, smax: int, dtype=torch.bfloat16, device=None):
-    """Cache tree matching ``apply_stack(caches=...)``."""
+    """Cache tree matching ``apply_stack(caches=...)``: k/v (NB, Smax, KV,
+    D) per layer, or MLA's latent ckv (NB, Smax, kvlr) and k_rope (NB,
+    Smax, dr); a stacked block's leaves lead with the block axis."""
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
-    kv, hd = cfg.attention.n_kv_heads, cfg.attention.head_dim
+    a = cfg.attention
+    init = init_mla_cache if a.is_mla else init_gqa_cache
 
-    def one(*lead):
-        shape = (*lead, nb, smax, kv, hd)
-        return {"attn": {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}}
+    def one(*lead):  # the leaves' shapes from a cache on the meta device
+        like = init(nb, smax, a, dtype, torch.device("meta"))
+        return {"attn": {k: torch.zeros((*lead, *t.shape), dtype=dtype, device=device)
+                         for k, t in like.items()}}
 
     return {
         "blocks": {f"l{i}": one(n_blocks) for i in range(p)} if n_blocks else None,

@@ -19,8 +19,8 @@ against :class:`CostEstimator`; the analytic :class:`CostModel` is the
 prior, and :class:`repro_torch.sched.profile.ProfiledCostModel` layers
 measured step times on top of it. The port's copy differs from the
 reference in three places: an ``H100`` preset, parameter counts for the
-dense GQA decoders, the only family the port has (a config of another kind
-raises), and the memory accounting above. Every other number is the
+dense GQA and MLA decoders, the only families the port has (a config of
+another kind raises), and the memory accounting above. Every other number is the
 reference's, so with ``REFERENCE_MEMORY`` the two plan alike.
 """
 from __future__ import annotations
@@ -28,7 +28,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
-from repro_torch.configs.base import MLP_PROJECTIONS, LoraConfig, ModelConfig
+from repro_torch.configs.base import (
+    MLP_PROJECTIONS,
+    LoraConfig,
+    ModelConfig,
+    layer_projections,
+    lora_leaves,
+)
+from repro_torch.kernels.quant import ELIGIBLE_NAMES, MODES
 
 
 class CostEstimator:
@@ -214,31 +221,39 @@ CE_CHUNK = 512
 # at the defaults, 1 GB per adapter, no logits workspace and no per-job term.
 # ``CostModel(cfg, hw, **REFERENCE_MEMORY)`` plans as the reference does.
 REFERENCE_MEMORY = dict(lora_state_bytes=8.0, logits_copies=0.0, job_overhead_bytes=0.0,
-                        adapter_overhead_bytes=1.0e9)
+                        adapter_overhead_bytes=1.0e9, price_dense_leaves=False)
 
 
 def _dense_only(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds()) | set(cfg.ffn_kinds())
-    if kinds != {"attn", "dense"} or cfg.attention.is_mla or cfg.is_encdec:
-        raise ValueError(f"{cfg.name}: the port counts dense GQA decoders only, got {kinds}")
+    if kinds != {"attn", "dense"} or cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: the port counts dense GQA or MLA decoders only, got {kinds}")
     if cfg.mlp_kind not in MLP_PROJECTIONS or cfg.norm_kind not in ("rmsnorm", "layernorm"):
         raise ValueError(f"{cfg.name}: unknown mlp_kind {cfg.mlp_kind!r} or norm_kind "
                          f"{cfg.norm_kind!r}")
 
 
 def model_param_count(cfg: ModelConfig) -> float:
-    """Total parameters (embeddings + stack) of a dense GQA decoder: the
-    reference's accounting for ``attn`` mixers and ``dense`` FFNs (2 MLP
-    matrices for "gelu2", 3 otherwise; one vocabulary matrix when tied)."""
+    """Total parameters (embeddings + stack) of a dense decoder: the
+    reference's accounting for ``attn`` mixers, GQA or MLA, and ``dense``
+    FFNs (2 MLP matrices for "gelu2", 3 otherwise; one vocabulary matrix
+    when tied). Norms and biases are not counted, as in the reference."""
     _dense_only(cfg)
-    a = cfg.attention
-    d = cfg.d_model
-    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    per_layer = sum(din * dout for din, dout in layer_projections(cfg).values())
     for _ in cfg.layer_kinds():
-        hd = a.head_dim
-        total += d * hd * (a.n_heads + 2 * a.n_kv_heads) + a.n_heads * hd * d
-        total += len(MLP_PROJECTIONS[cfg.mlp_kind]) * d * cfg.d_ff
+        total += per_layer
     return float(total)
+
+
+def quantized_param_count(cfg: ModelConfig, mode: str) -> float:
+    """Parameters that ``quantize_base_params(tree, mode)`` turns into codes:
+    the projections of ``kernels.quant.ELIGIBLE_NAMES`` (nf4: of even d_in).
+    The embedding, the LM head, the norms and MLA's ``kv_b_k``/``kv_b_v``
+    stay dense."""
+    per_layer = sum(din * dout for nm, (din, dout) in layer_projections(cfg).items()
+                    if nm in ELIGIBLE_NAMES and (mode == "int8" or din % 2 == 0))
+    return float(per_layer * cfg.n_layers)
 
 
 def active_param_count(cfg: ModelConfig) -> float:
@@ -248,27 +263,19 @@ def active_param_count(cfg: ModelConfig) -> float:
 
 def lora_param_count(cfg: ModelConfig, rank: int) -> float:
     """Packed-LoRA params for one adapter over the ``cfg.lora_targets``
-    that the model has. The reference counts every target named
-    (``repro/sched/cost_model.py:237-260``), so for a "gelu2" MLP it bills
-    a ``gate`` adapter that its ``init_mlp`` never builds: n_layers x r x
-    (d + d_ff) more than the port (ROADMAP C, "Found in the reference")."""
+    that the model has, at the widths of the projection each adapts. The
+    reference counts every target named (``repro/sched/cost_model.py:237-260``),
+    so for a "gelu2" MLP it bills a ``gate`` adapter that its ``init_mlp``
+    never builds: n_layers x r x (d + d_ff) more than the port; and it bills
+    MLA's ``o`` at ``n_heads * head_dim`` inputs, where the projection reads
+    ``n_heads * v_head_dim``: n_layers x r x n_heads x (head_dim -
+    v_head_dim) more (ROADMAP C, "Found in the reference")."""
     _dense_only(cfg)
-    a, d = cfg.attention, cfg.d_model
-    shapes = {
-        "q": (d, a.n_heads * a.head_dim),
-        "k": (d, a.n_kv_heads * a.head_dim),
-        "v": (d, a.n_kv_heads * a.head_dim),
-        "o": (a.n_heads * a.head_dim, d),
-        "gate": (d, cfg.d_ff),
-        "up": (d, cfg.d_ff),
-        "down": (cfg.d_ff, d),
-    }
-    have = ("q", "k", "v", "o") + MLP_PROJECTIONS[cfg.mlp_kind]
+    shapes = layer_projections(cfg)
     per_layer = 0.0
-    for t in cfg.lora_targets:
-        if t in have:
-            din, dout = shapes[t]
-            per_layer += rank * (din + dout)
+    for leaf in lora_leaves(cfg).values():
+        din, dout = shapes[leaf]
+        per_layer += rank * (din + dout)
     n_layers = cfg.n_layers + cfg.encoder_layers
     return float(per_layer * n_layers)
 
@@ -355,6 +362,16 @@ class CostModel(CostEstimator):
     # planner-shift this tier claims). ``kernels.quant.base_storage`` names a
     # tree's.
     base_dtype: Optional[str] = None
+    # A quantized base's dense leaves and compute (``base_storage(tree,
+    # dense=True)``): None or "bf16" (``prec_bytes``) or "f32" (the
+    # launcher's base). The leaves ``quantize_base_params`` leaves dense --
+    # the embedding, the LM head, MLA's kv_b_k / kv_b_v -- are priced at
+    # it, and the activations too. Read only when ``base_dtype`` is int8 or
+    # nf4.
+    dense_dtype: Optional[str] = None
+    # False bills every parameter of a quantized base at the scheme's bytes,
+    # the dense leaves too (the reference's accounting, REFERENCE_MEMORY)
+    price_dense_leaves: bool = True
 
     @staticmethod
     def bucket_rank(configs: Sequence[LoraConfig]) -> int:
@@ -373,12 +390,23 @@ class CostModel(CostEstimator):
         (:func:`base_param_bytes`)."""
         return base_param_bytes(self.base_dtype, self.prec_bytes)
 
+    def compute_dtype(self) -> Optional[str]:
+        """The dtype the base computes in: a quantized base's
+        ``dense_dtype``, else its own storage."""
+        return self.dense_dtype if self.base_dtype in MODES else self.base_dtype
+
     def base_weight_bytes(self) -> float:
-        return model_param_count(self.cfg) * self.base_bytes_per_param()
+        n = model_param_count(self.cfg)
+        if self.base_dtype not in MODES or not self.price_dense_leaves:
+            return n * self.base_bytes_per_param()
+        q = quantized_param_count(self.cfg, self.base_dtype)
+        return (q * self.base_bytes_per_param()
+                + (n - q) * base_param_bytes(self.dense_dtype, self.prec_bytes))
 
     def base_act_bytes(self, total_batch: int, seq: int) -> float:
-        # an f32 base computes in f32, any other in prec_bytes
-        elem = 4.0 if self.base_dtype == "f32" else self.prec_bytes
+        # an f32 base (or a quantized one on f32 dense leaves) computes in
+        # f32, any other in prec_bytes
+        elem = 4.0 if self.compute_dtype() == "f32" else self.prec_bytes
         return self.act_factor * total_batch * seq * self.cfg.d_model * elem
 
     def logits_bytes(self, rows: int, seq: int) -> float:

@@ -51,7 +51,7 @@ import numpy as np
 
 from repro_torch.cluster.pool import pick_class_units, pick_host_units
 from repro_torch.configs.base import LoraConfig, ModelConfig
-from repro_torch.kernels.quant import base_storage
+from repro_torch.kernels.quant import MODES, base_storage
 from repro_torch.obs import NULL_TRACER
 from repro_torch.sched.cost_model import CostEstimator, base_param_bytes
 from repro_torch.sched.planner import Schedule, ScheduledJob, replan
@@ -319,18 +319,26 @@ class ExecutionEngine:
     def _check_base(self, base_params) -> None:
         """Raise unless the cost model prices ``base_params`` at the bytes
         a parameter it holds (an f32 tree under a model priced at 2 bytes,
-        say): a plan made for another footprint packs jobs that may not
+        say), and a quantized tree's dense leaves and compute at their
+        dtype's: a plan made for another footprint packs jobs that may not
         fit. ``None`` (no tree) and an estimator with no memory model
         pass."""
         priced = getattr(self.cm, "base_bytes_per_param", None)
         if base_params is None or priced is None:
             return
-        held = base_storage(base_params)
+        held, dense = base_storage(base_params, dense=True)
         if priced() != base_param_bytes(held):
             raise ValueError(
                 f"the cost model prices the frozen base at {priced()} bytes a parameter "
                 f"(base_dtype={self.cm.base_dtype!r}), but the tree handed to the engine holds "
                 f"{held} ({base_param_bytes(held)} bytes): plan with base_dtype={held!r}")
+        prec = self.cm.prec_bytes
+        if held in MODES and base_param_bytes(self.cm.dense_dtype, prec) != base_param_bytes(
+                dense, prec):
+            raise ValueError(
+                f"the cost model prices the {held} base's dense leaves as "
+                f"dense_dtype={self.cm.dense_dtype!r}, but the tree's are {dense}: plan with "
+                f"dense_dtype={dense!r}")
 
     def _unschedulable(self, n_pending: int) -> RuntimeError:
         g = self.monitor.total

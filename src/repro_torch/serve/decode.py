@@ -44,27 +44,36 @@ def make_prefill(cfg: ModelConfig, meta: Optional[PackMeta], *, chunk_q: int = 5
     return prefill_fn
 
 
+# the sequence-indexed leaves of a cache: attention k/v (NB, S, KV, D) and
+# MLA's ckv (NB, S, kvlr) / k_rope (NB, S, dr)
+SEQ_LEAVES = ("k", "v", "ckv", "k_rope")
+
+
 def pad_caches(caches, target_len: int):
     """Grow prefill caches along the sequence axis to ``target_len`` with
-    zeros. Attention k/v are (NB, S, KV, D); under a stacked ``"blocks"``
-    subtree every leaf has a leading layer axis, moving the sequence axis
-    from 1 to 2. Keeps the dtype."""
+    zeros: every leaf of SEQ_LEAVES, whose sequence axis is 1, or 2 under a
+    stacked ``"blocks"`` subtree (a leading layer axis). Keeps the dtype.
+    Raises on a tensor leaf of another name: the port's caches hold no
+    fixed-size leaf, so an unknown one would pass through unpadded."""
 
     def walk(t, in_blocks=False):
         if isinstance(t, dict):
             out = {}
             for k, v in t.items():
-                if k in ("k", "v") and isinstance(v, torch.Tensor):
-                    ax = 2 if in_blocks else 1
-                    if v.shape[ax] > target_len:
-                        raise ValueError(f"cache {k} {tuple(v.shape)} longer than {target_len}")
-                    shape = list(v.shape)
-                    shape[ax] = target_len
-                    new = v.new_zeros(shape)
-                    new.narrow(ax, 0, v.shape[ax]).copy_(v)
-                    out[k] = new
-                else:
+                if not isinstance(v, torch.Tensor):
                     out[k] = walk(v, in_blocks or k == "blocks")
+                    continue
+                if k not in SEQ_LEAVES:
+                    raise ValueError(f"cache leaf {k!r} {tuple(v.shape)} is not one of "
+                                     f"{SEQ_LEAVES}: its sequence axis is unknown")
+                ax = 2 if in_blocks else 1
+                if v.shape[ax] > target_len:
+                    raise ValueError(f"cache {k} {tuple(v.shape)} longer than {target_len}")
+                shape = list(v.shape)
+                shape[ax] = target_len
+                new = v.new_zeros(shape)
+                new.narrow(ax, 0, v.shape[ax]).copy_(v)
+                out[k] = new
             return out
         return t
 

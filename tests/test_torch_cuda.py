@@ -1043,6 +1043,9 @@ def test_the_captured_steps_key_separates_two_splits(cuda):
 FAMILY_PROJ = {
     "starcoder2-7b": [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)],
     "gemma3-1b": [(1152, 1024), (1152, 256), (1024, 1152), (1152, 6912), (6912, 1152)],
+    # minicpm3-4b's adapted projections: q_a, kv_a (the 256-wide latent and
+    # the 32-wide rope part), o, gate/up, down
+    "minicpm3-4b": [(2560, 768), (2560, 288), (2560, 2560), (2560, 6400), (6400, 2560)],
 }
 
 
@@ -1093,6 +1096,59 @@ def test_gemma3_decode_rows_match_plain_on_the_decode_path(cuda, d_in, d_out):
     s = torch.linspace(0.5, 2.0, n, device=cuda)
     x, w = _rnd(gen, (n, m, d_in), dt), _rnd(gen, (d_in, d_out), dt, d_in ** -0.5)
     a, b = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), _rnd(gen, (n, r, d_out), dt)
+    assert fused_matmul_path(x, w, r, a, b) == "decode"
+    n0 = _count(fused_matmul, "fwd", "decode")
+    _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+    assert _count(fused_matmul, "fwd", "decode") == n0 + 1
+    assert packed_matmul_path(x, a) == "decode"
+    xa = packed_matmul(x, a)
+    _close(xa, packed_matmul_ref(x, a))
+    assert packed_matmul_path(xa, b) == "decode"
+    _close(packed_matmul(xa, b, s), packed_matmul_ref(xa, b, s))
+    y, xa2 = packed_matmul_pair(x, a, b, s)
+    assert torch.equal(xa2, xa) and torch.equal(y, packed_matmul(xa, b, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [8, 16])
+def test_kv_a_width_288_matches_plain_on_its_paths(cuda, r):
+    """minicpm3-4b's kv_a, K = 2,560 -> L = 288, the first main-path width
+    that is not a multiple of 64 (the wgmma kernel's K step): at the
+    training shapes (N = 2 x M = 1,024) #1's xA and (xA)B and all four
+    backward cases on "mma" (case 2 contracts over K = 288), #2's forward
+    (a 256-wide column tile and a 32-wide one) and its dx (a K of 288) on
+    "wgmma"; at 8 decode rows #2 and both passes of #1 on "decode", the
+    pair ``torch.equal`` to its two calls. Each launched once on its path,
+    within the tolerance of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(70 + r)
+    d, l, dt = 2560, 288, torch.bfloat16
+    n, m = 2, 1024
+    s = torch.tensor([0.5, 2.0], device=cuda)
+    x, w = _rnd(gen, (n, m, d), dt), _rnd(gen, (d, l), dt, d ** -0.5)
+    a, b = _rnd(gen, (n, d, r), dt, d ** -0.5), _rnd(gen, (n, r, l), dt)
+    g, xa = _rnd(gen, (n, m, l), dt), _rnd(gen, (n, m, r), dt)
+    for args, bwd in (((x, a), False), ((xa, b, s), False),
+                      ((g, b.transpose(1, 2)), True), ((xa, a.transpose(1, 2)), True)):
+        assert packed_matmul_path(args[0], args[1]) == "mma"
+        n0 = _count(packed_matmul, "bwd" if bwd else "fwd", "mma")
+        got = packed_matmul(*args, backward=True) if bwd else packed_matmul(*args)
+        assert _count(packed_matmul, "bwd" if bwd else "fwd", "mma") == n0 + 1
+        _close(got, packed_matmul_ref(*args))
+    for lhs, rhs in ((xa.transpose(1, 2), g), (x.transpose(1, 2), xa)):  # cases 1 (dB), 3 (dA)
+        _close(packed_matmul(lhs, rhs, backward=True), packed_matmul_ref(lhs, rhs))
+    assert fused_matmul_path(x, w, r, a, b) == "wgmma"
+    n0 = _count(fused_matmul, "fwd", "wgmma")
+    _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+    assert _count(fused_matmul, "fwd", "wgmma") == n0 + 1
+    bt, at = b.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous()
+    assert fused_matmul_path(g, w.t(), r, bt, at) == "wgmma"
+    n0 = _count(fused_matmul, "bwd", "wgmma")
+    _close(fused_matmul(g, w.t(), bt, at, s, backward=True), fused_matmul_ref(g, w.t(), bt, at, s))
+    assert _count(fused_matmul, "bwd", "wgmma") == n0 + 1
+    n, m = 8, 1
+    s = torch.linspace(0.5, 2.0, n, device=cuda)
+    x = _rnd(gen, (n, m, d), dt)
+    a, b = _rnd(gen, (n, d, r), dt, d ** -0.5), _rnd(gen, (n, r, l), dt)
     assert fused_matmul_path(x, w, r, a, b) == "decode"
     n0 = _count(fused_matmul, "fwd", "decode")
     _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
