@@ -26,10 +26,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    up to 4,096), and in f32 at the launcher's shapes (phase 10's pack:
    N = 1 x M = 1,024 at r = 8 and at r = 16; the fused forward and dx,
    and ``packed_matmul``'s xA, xAB and cases 2 and 4), and in bf16 at the
-   training shapes of starcoder2-7b and gemma3-1b (N = 2 x M = 1,024,
-   r = 16: ``packed_matmul``'s xA, xAB and cases 2 and 4, the fused
-   forward and dx; cases ``train_starcoder2``, ``train_gemma3``) and at
-   gemma3-1b's decode rows (``decode_gemma3``: d = 1,152, k/v 256 wide),
+   training shapes of starcoder2-7b, gemma3-1b, minicpm3-4b and
+   mamba2-370m (N = 2 x M = 1,024, r = 16: ``packed_matmul``'s xA, xAB and
+   cases 2 and 4, the fused forward and dx; cases ``train_starcoder2``,
+   ``train_gemma3``, ``train_minicpm3``, ``train_mamba2``: zx 1,024 ->
+   4,096 and out 2,048 -> 1,024) and at the decode rows of gemma3-1b,
+   minicpm3-4b and mamba2-370m (``decode_gemma3``: d = 1,152, k/v 256
+   wide; ``decode_minicpm3``; ``decode_mamba2``),
    and at command-r-35b's widths (d 8,192, k/v 1,024, d_ff 22,528):
    ``fused_matmul_q`` on int8 codes at the training shapes with the dx its
    backward runs (``train_command_r``), on int8 and nf4 codes at 8 decode
@@ -204,23 +207,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. families -- starcoder2-7b (LayerNorm, the two-matrix GELU MLP, biased
    GQA; cut to its first 16 of 32 layers, FAMILY_LAYERS), gemma3-1b
    (512-token sliding windows, every 6th layer global with its own rope
-   theta, the gated GELU, tied embeddings) and minicpm3-4b (multi-head
-   latent attention: kv_a's 288-wide output, the absorbed decode; 62
-   layers), each at full width on a bf16 base of random weights from a
+   theta, the gated GELU, tied embeddings; cut to 13 of 26), minicpm3-4b (multi-head
+   latent attention: kv_a's 288-wide output, the absorbed decode; cut to
+   31 of its 62 layers) and mamba2-370m (attention-free: 48 SSD layers,
+   a chunked scan with a fixed-size f32 decode cache, no FFN; LoRA on zx
+   and out), each at full width on a bf16 base of random weights from a
    seed (the launcher's f32 base freed first, each family's base freed
    after it):
    ``make_packed_step`` under impl="auto" and impl="fused" on the train
    phase's pack (seq 512; gemma3 1,024, so the window masks and attention
-   reads a band per query chunk), step 1 held against the plain path to the
-   train phase's limits, then 3 steps whose counts must move; 8 requests
-   through ``ServeEngine.serve`` (starcoder2 under auto, gemma3 and
-   minicpm3 under auto and fused, gemma3's prompts of 520-600 tokens),
-   prefill logits and teacher-forced decode steps (gemma3: 8, past the
-   window) held against the plain path at LOGIT_TOL; and, for starcoder2
-   and minicpm3, one captured ``run_local`` job of three configurations of
+   reads a band per query chunk; mamba2 1,024, 4 chunks of the scan), step
+   1 held against the plain path to the train phase's limits, then 3 steps
+   whose counts must move; 8 requests through ``ServeEngine.serve``
+   (starcoder2 under auto, the others under auto and fused, gemma3's and
+   mamba2's prompts of 200-600 tokens), prefill logits and teacher-forced
+   decode steps (gemma3 and mamba2: 8) held against the plain path at
+   LOGIT_TOL; and, for starcoder2, minicpm3 and mamba2, one captured
+   ``run_local`` job of three configurations of
    ``default_search_space(300, seq_len=512)`` (FAMILY_SWEEP_IDS), equal to
    an eager run, its launches equal to the eager steps', its own peak held
-   to C3.
+   to C3. mamba2 also: ``launch/train.py --arch mamba2-370m --seq 1024
+   --ranks 8,16 --steps 6`` on its own f32 base (s/step, peak against its
+   price). ``scripts/ssd_share.py`` profiles the SSD's device share.
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
@@ -1233,7 +1241,9 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
     qbase = quantize_base_params(base, quant) if quant else base
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cmp = compare_step1(torch, cfg, qbase, lora0, batches[0], meta, impl, scales)
+    compare_s = time.perf_counter() - t0
     step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks, base_dtype=quant)
     lora, opt = lora0, init_opt_state(lora0)
     torch.cuda.synchronize()
@@ -1259,7 +1269,7 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
            "grad_tol_f32": GRAD_TOL_F32, "bf16_grad_factor": BF16_GRAD_FACTOR,
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "base_resident_bytes": resident_bytes(qbase), "quantize_s": quant_s,
-           "launches": counts}
+           "compare_s": compare_s, "launches": counts}
     emit(row)
     what = f"{cfg.name} impl={key}"
     if not finite:
@@ -1281,17 +1291,26 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
 
 
 def depth_cut(cfg, base, n_layers: int):
-    """The first ``n_layers`` layers of a decoder whose layers are all
-    alike (one stacked block per layer): its config and a view of ``base``."""
+    """A decoder cut to ``n_layers`` layers: its config and a view of
+    ``base``. With a layer period p (gemma3's 6), the cut keeps the first
+    n_layers // p stacked blocks and, as its ``rest``, layers of the
+    pattern's first n_layers % p specs: the base's own ``rest`` where it
+    has them (random weights: any layer of the right spec will do), else
+    the next block's."""
     from repro_torch.models.transformer import find_period, layer_specs
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_index, tree_map
 
-    if find_period(layer_specs(cfg)) != 1 or n_layers > cfg.n_layers:
+    p = find_period(layer_specs(cfg))
+    n_blocks, n_rest = divmod(n_layers, p)
+    if n_layers > cfg.n_layers or find_period(layer_specs(cfg.replace(n_layers=n_layers))) != p:
         fail(f"{cfg.name}: cannot cut {cfg.n_layers} layers to {n_layers}")
     dec = base["decoder"]
+    have = len(dec["rest"])
+    rest = {f"l{i}": dec["rest"][f"l{i}"] if n_rest <= have
+            else tree_index(dec["blocks"][f"l{i}"], n_blocks) for i in range(n_rest)}
     return cfg.replace(n_layers=n_layers), {
-        **base, "decoder": {"blocks": tree_map(lambda t: t[:n_layers], dec["blocks"]),
-                            "rest": dec["rest"]}}
+        **base, "decoder": {"blocks": tree_map(lambda t: t[:n_blocks], dec["blocks"]),
+                            "rest": rest}}
 
 
 def train_phase(torch, dev, base, out_dir: Path):
@@ -2471,25 +2490,40 @@ def launcher_phase(torch, dev, out_dir: Path):
 # minicpm3-4b: multi-head latent attention (q_a 768, kv_a 288 = the
 # 256-wide latent + the 32-wide rope part, heads of 64 + 32 / 64), served
 # through the absorbed decode; d 2,560, d_ff 6,400, 62 layers.
-FAMILIES = ("starcoder2-7b", "gemma3-1b", "minicpm3-4b")
+# mamba2-370m: attention-free, 48 SSD layers (d 1,024, d_inner 2,048, 32
+# heads of 64, d_state 128, chunks of 256), no FFN, tied embeddings; LoRA
+# on zx (1,024 -> 4,096) and out (2,048 -> 1,024); a fixed-size decode
+# cache (conv window and state, f32).
+FAMILIES = ("starcoder2-7b", "gemma3-1b", "minicpm3-4b", "mamba2-370m")
+MAMBA2 = "mamba2-370m"
 # depth cuts (a view of the family's base, ``depth_cut``) that keep the
 # smoke inside its time
-FAMILY_LAYERS = {"starcoder2-7b": 16}
-FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024, "minicpm3-4b": 512}
+FAMILY_LAYERS = {"starcoder2-7b": 16, "gemma3-1b": 13, "minicpm3-4b": 31}
+# mamba2's 1,024 tokens: the scan carries its state across 4 chunks
+FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024, "minicpm3-4b": 512,
+                    MAMBA2: 1024}
 FAMILY_TRAIN_STEPS = 3
 FAMILY_TRAIN_IMPLS = ("auto", "fused")
 # (impls, prompt lengths [lo, hi), new tokens per request, teacher-forced
 # decode steps)
 FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 16, 4),
                 "gemma3-1b": (("auto", "fused"), (520, 601), 16, 8),
-                "minicpm3-4b": (("auto", "fused"), (64, 257), 16, 4)}
+                "minicpm3-4b": (("auto", "fused"), (64, 257), 16, 4),
+                # prompts of 200-600 tokens: below, across and past the scan's
+                # 256- and 512-token chunk boundaries
+                MAMBA2: (("auto", "fused"), (200, 601), 16, 8)}
 # the sweep phase's first three configurations (ranks 8, 8, 16): one job
 FAMILY_SWEEP_IDS = (0, 37, 74)
-FAMILY_SWEEPS = ("starcoder2-7b", "minicpm3-4b")
+FAMILY_SWEEPS = ("starcoder2-7b", "minicpm3-4b", MAMBA2)
 # the kernel phase's rows at each family's shapes
 FAMILY_TRAIN_CASE = {"starcoder2-7b": "train_starcoder2", "gemma3-1b": "train_gemma3",
-                     "minicpm3-4b": "train_minicpm3"}
-FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3", "minicpm3-4b": "decode_minicpm3"}
+                     "minicpm3-4b": "train_minicpm3", MAMBA2: "train_mamba2"}
+FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3", "minicpm3-4b": "decode_minicpm3",
+                      MAMBA2: "decode_mamba2"}
+# mamba2 through the launcher on its own f32 base (the command a user
+# runs, at full width and depth): 6 captured steps of 2 x 1,024 tokens
+MAMBA2_LAUNCH_ARGS = ["--arch", MAMBA2, "--seq", "1024", "--ranks", "8,16", "--steps", "6",
+                      "--log-every", "0"]
 # minicpm3-4b's kv_a (K = 2,560 -> L = 288; its dx at K = 288): the first
 # main-path width that is not a multiple of 64, listed on a line of its own
 KV_A = (2560, 288)
@@ -2563,12 +2597,14 @@ def family_serve(torch, dev, arch: str, cfg, base):
         if toks.min() < 0 or toks.max() >= cfg.vocab_size:
             fail(f"{cfg.name} serve impl={impl}: token ids outside the vocabulary")
         del eng
+        t0 = time.perf_counter()
         with torch.no_grad():
             pimpl = {"auto": "plain", "fused": "fused_plain"}[impl]
             per_step, ref_max, per_dec = teacher_forced(
                 torch, cfg, base, adapters, prompts, smax, impl, pimpl, counters[impl], steps)
         rel = max(per_step) / ref_max
         emit({"phase": "family_serve_logits", "model": cfg.name, "impl": impl, "plain": pimpl,
+              "seconds": time.perf_counter() - t0,
               "prompt_tokens": [len(p) for p in prompts], "decode_steps": steps,
               "last_position": max(len(p) for p in prompts) + steps - 1,
               "window": cfg.attention.sliding_window,
@@ -2663,12 +2699,29 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
         shutil.rmtree(pool_dir, ignore_errors=True)
 
 
+def mamba2_launcher(torch, dev) -> dict:
+    """``launch/train.py`` with MAMBA2_LAUNCH_ARGS: full mamba2-370m on the
+    launcher's own f32 base, captured steps (``launcher_run``: s/step, its
+    own peak beside its price); fails on a non-finite loss or a
+    ``packed_matmul`` count that stayed at 0. Returns its counts."""
+    rec = launcher_run(torch, dev, MAMBA2_LAUNCH_ARGS)
+    emit({"phase": "mamba2_launcher", **rec})
+    if not np.isfinite(rec["per_adapter_loss"]).all():
+        fail(f"{MAMBA2} launcher: non-finite final loss {rec['per_adapter_loss']}")
+    for need in ("packed_matmul", "packed_matmul_bwd"):
+        if rec["launches"][need] == 0:
+            fail(f"{MAMBA2} launcher: the {need} launch count stayed at 0")
+    return rec["launches"]
+
+
 def families_phase(torch, dev, out_dir: Path):
-    """starcoder2-7b, gemma3-1b, then minicpm3-4b, at full width on a bf16
-    base (at full depth but for FAMILY_LAYERS' cuts): train (auto and fused:
-    step 1 against the plain path, then FAMILY_TRAIN_STEPS steps with launch
-    counts), serve (FAMILY_SERVE) and, for FAMILY_SWEEPS, one captured
-    sweep job. Returns the launch counts by family and run."""
+    """starcoder2-7b, gemma3-1b, minicpm3-4b, then mamba2-370m, at full
+    width on a bf16 base (at full depth but for FAMILY_LAYERS' cuts): train
+    (auto and fused: step 1 against the plain path, then FAMILY_TRAIN_STEPS
+    steps with launch counts), serve (FAMILY_SERVE) and, for FAMILY_SWEEPS,
+    one captured sweep job; for mamba2 also the launcher on its own f32
+    base (``mamba2_launcher``). Returns the launch counts by family and
+    run."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_model
     from repro_torch.tree import tree_leaves
@@ -2688,7 +2741,12 @@ def families_phase(torch, dev, out_dir: Path):
               "params": sum(t.numel() for t in tree_leaves(base)), "dtype": "bfloat16",
               "init_s": time.perf_counter() - t0, "weights_gb": resident_bytes(base) / 1e9,
               "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9})
-        counts = {}
+        counts, stages, lap = {}, {}, time.perf_counter()
+
+        def stage(name):  # the seconds since the last stage ended
+            nonlocal lap
+            stages[name], lap = time.perf_counter() - lap, time.perf_counter()
+
         seq = FAMILY_TRAIN_SEQ[arch]
         _, meta, lora0, batches = train_setup(torch, dev, cfg, seq, FAMILY_TRAIN_STEPS)
         for impl in FAMILY_TRAIN_IMPLS:
@@ -2697,12 +2755,19 @@ def families_phase(torch, dev, out_dir: Path):
             del state
             torch.cuda.empty_cache()
         del lora0, batches
+        stage("train")
         for impl, c in family_serve(torch, dev, arch, cfg, base).items():
             counts[f"serve:{impl}"] = c
+        stage("serve")
         if arch in FAMILY_SWEEPS:
             counts["sweep:auto"] = family_sweep(torch, dev, cfg, base, out_dir)
+            stage("sweep")
+        if arch == MAMBA2:
+            counts["launcher"] = mamba2_launcher(torch, dev)
+            stage("launcher")
         out[arch] = counts
-        emit({"phase": "family_done", "model": arch, "seconds": time.perf_counter() - t0})
+        emit({"phase": "family_done", "model": arch, "seconds": time.perf_counter() - t0,
+              "stages_s": stages})
         del base
         torch.cuda.empty_cache()
     return out
@@ -2903,12 +2968,12 @@ def cr_serve(torch, dev, cfg, base, mode: str, impls, adapters, lora1s, prompts)
     return out
 
 
-def cr_launcher(torch, dev, out_dir: Path) -> dict:
-    """``launch/train.py`` with CR_LAUNCH_ARGS: the nf4 base built layer by
-    layer under an f32 x. Losses finite, every fused_matmul_q call and every
-    dx on "ffma"; its own peak within [1, C3_SLACK] of the price of the
-    launcher's own ``CostModel`` (base_dtype "nf4" with dense_dtype "f32":
-    ROADMAP C6). Returns its counts."""
+def launcher_run(torch, dev, argv) -> dict:
+    """``launch/train.py``'s ``main`` on ``argv`` with a ``launcher_executor``
+    and a ``StepWindow``, the launcher's own ``CostModel`` kept: its losses,
+    s/step, capture s, peaks (the device's, and its own: less what was
+    allocated before it) beside that model's price, and its counts and
+    paths, as one record."""
     from repro_torch.kernels import launches as launch_counts
     from repro_torch.launch import train as launch_train
 
@@ -2928,36 +2993,44 @@ def cr_launcher(torch, dev, out_dir: Path) -> dict:
     launch_train.CostModel = pricing
     t0 = time.perf_counter()
     try:
-        per = launch_train.main(CR_LAUNCH_ARGS, executor=ex, step_callback=win)
+        per = launch_train.main(argv, executor=ex, step_callback=win)
     finally:
         launch_train.CostModel = cost_model
     wall = time.perf_counter() - t0
-    counts, paths = launch_counts.read(), launch_counts.read_paths()
     peak = torch.cuda.max_memory_allocated(dev)
     cm = priced[-1]
     price = cm.job_mem_bytes(ex.configs, 1, ex.seq)
-    losses = np.asarray(per, dtype=np.float64)
-    emit({"phase": "command_r_launcher", "args": CR_LAUNCH_ARGS, "x_dtype": "float32",
-          "per_adapter_loss": losses.tolist(), "step_s": win.seconds,
-          "s_per_step": sum(win.seconds) / max(len(win.seconds), 1),
-          "capture_s": ex.captures[-1]["seconds"] if ex.captures else None, "wall_s": wall,
-          "held_bytes": held, "max_memory_allocated": peak, "job_peak_bytes": peak - held,
-          "priced_base_dtype": cm.base_dtype, "priced_dense_dtype": cm.dense_dtype,
-          "job_mem_bytes": price, "price_over_peak": price / (peak - held), "launches": counts,
-          "launches_by_path": paths})
+    rec = {"args": argv, "per_adapter_loss": np.asarray(per, dtype=np.float64).tolist(),
+           "step_s": win.seconds, "s_per_step": sum(win.seconds) / max(len(win.seconds), 1),
+           "capture_s": ex.captures[-1]["seconds"] if ex.captures else None, "wall_s": wall,
+           "held_bytes": held, "max_memory_allocated": peak, "job_peak_bytes": peak - held,
+           "priced_base_dtype": cm.base_dtype, "priced_dense_dtype": cm.dense_dtype,
+           "job_mem_bytes": price, "price_over_peak": price / (peak - held),
+           "launches": launch_counts.read(), "launches_by_path": launch_counts.read_paths()}
     ex.clear()
-    del ex, win
+    return rec
+
+
+def cr_launcher(torch, dev, out_dir: Path) -> dict:
+    """``launch/train.py`` with CR_LAUNCH_ARGS: the nf4 base built layer by
+    layer under an f32 x. Losses finite, every fused_matmul_q call and every
+    dx on "ffma"; its own peak within [1, C3_SLACK] of the price of the
+    launcher's own ``CostModel`` (base_dtype "nf4" with dense_dtype "f32":
+    ROADMAP C6). Returns its counts."""
+    rec = launcher_run(torch, dev, CR_LAUNCH_ARGS)
+    emit({"phase": "command_r_launcher", "x_dtype": "float32", **rec})
+    losses, peak, price = rec["per_adapter_loss"], rec["job_peak_bytes"], rec["job_mem_bytes"]
     if not np.isfinite(losses).all():
-        fail(f"{COMMAND_R} launcher: non-finite final loss {losses.tolist()}")
-    if not peak - held <= price <= C3_SLACK * (peak - held):
+        fail(f"{COMMAND_R} launcher: non-finite final loss {losses}")
+    if not peak <= price <= C3_SLACK * peak:
         fail(f"C6: {COMMAND_R} launcher: job_mem_bytes {price} is not within "
-             f"[peak, {C3_SLACK} x peak] of its own peak {peak - held}")
+             f"[peak, {C3_SLACK} x peak] of its own peak {peak}")
     for kernel in ("fused_matmul_q", "fused_matmul"):
-        on = paths[kernel]
+        on = rec["launches_by_path"][kernel]
         off = {p: k for p, k in on.items() if p != "ffma" and k}
         if off or not on["ffma"]:
             fail(f"{COMMAND_R} launcher: f32 {kernel} calls off the ffma path: {on}")
-    return counts
+    return rec["launches"]
 
 
 def command_r_phase(torch, dev, out_dir: Path) -> dict:
@@ -3148,6 +3221,7 @@ EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decod
               ("packed_matmul:gemma3_decode_pair", "packed_matmul", ("pair",), "decode_gemma3"),
               ("packed_matmul:minicpm3_decode_pair", "packed_matmul", ("pair",),
                "decode_minicpm3"),
+              ("packed_matmul:mamba2_decode_pair", "packed_matmul", ("pair",), "decode_mamba2"),
               # fused_matmul_q on an f32 x (the launcher's --quant ... --impl fused)
               ("fused_matmul_q:int8_f32", "fused_matmul_q", ("int8",), "train", "float32"),
               ("fused_matmul_q:nf4_f32", "fused_matmul_q", ("nf4",), "train", "float32"),

@@ -2,6 +2,7 @@ from repro_torch.configs.base import (
     AttentionConfig,
     LoraConfig,
     ModelConfig,
+    SSMConfig,
     default_search_space,
     get_config,
     list_archs,
@@ -12,6 +13,7 @@ __all__ = [
     "AttentionConfig",
     "LoraConfig",
     "ModelConfig",
+    "SSMConfig",
     "default_search_space",
     "get_config",
     "list_archs",

@@ -1,9 +1,9 @@
 """Model and LoRA configurations for the PyTorch port.
 
 The port keeps its own copy of the reference's configuration dataclasses
-(``repro.configs.base``), cut to what the dense decoders need (GQA:
-qwen25-7b, starcoder2-7b, gemma3-1b, command-r-35b; MLA: minicpm3-4b): the
-port imports nothing of the JAX package.
+(``repro.configs.base``), cut to what the ported families need (GQA:
+qwen25-7b, starcoder2-7b, gemma3-1b, command-r-35b; MLA: minicpm3-4b;
+SSD: mamba2-370m): the port imports nothing of the JAX package.
 Field names and defaults match the reference, so a test can build the same
 configuration on both sides.
 """
@@ -21,6 +21,9 @@ MLP_PROJECTIONS = {"swiglu": ("gate", "up", "down"), "gelu": ("gate", "up", "dow
 # the LoRA target name -> the MLA projection it adapts (q_b, kv_b_k and
 # kv_b_v carry no adapter)
 MLA_TARGETS = {"q": "q_a", "kv": "kv_a", "o": "o"}
+# the LoRA target name -> the SSD projection it adapts (bc and dt carry no
+# adapter)
+SSM_TARGETS = {"ssm_in": "zx", "ssm_out": "out"}
 
 
 @dataclass(frozen=True)
@@ -55,11 +58,44 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block configuration [arXiv:2405.21060]; single-group
+    B/C, as the reference runs it."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+
+    @property
+    def enabled(self) -> bool:
+        return self.d_state > 0
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+    def __eq__(self, other) -> bool:
+        # field for field, against the reference's SSMConfig too: a port
+        # config and the JAX package's compare equal when their values do
+        if type(other).__name__ != "SSMConfig":
+            return NotImplemented
+        return all(getattr(self, f.name) == getattr(other, f.name, None)
+                   for f in dataclasses.fields(self))
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """One dense decoder: pre-norm, GQA with rope, an MLP (the reference's
-    ``family="dense"``). ``mlp_kind``: "swiglu" (gate/up/down, silu),
-    "gelu" (the gated GELU: gate/up/down) or "gelu2" (the classic up ->
-    GELU -> down, no gate); ``norm_kind``: "rmsnorm" or "layernorm"."""
+    """One decoder: pre-norm layers of a mixer and an FFN. ``family``
+    "dense": GQA with rope (or MLA) + an MLP in every layer; "ssm": an SSD
+    mixer (``ssm``) and no FFN (mamba2). ``mlp_kind``: "swiglu"
+    (gate/up/down, silu), "gelu" (the gated GELU: gate/up/down) or "gelu2"
+    (the classic up -> GELU -> down, no gate); ``norm_kind``: "rmsnorm" or
+    "layernorm"."""
 
     name: str
     n_layers: int
@@ -74,20 +110,24 @@ class ModelConfig:
     # the LM head is the embedding's transpose (no ``lm_head`` leaf)
     tie_embeddings: bool = False
     # the reference's field that the cost model reads, at the only value the
-    # port's dense decoders have
+    # port's decoders have
     encoder_layers: int = 0
+    family: str = "dense"
+    ssm: SSMConfig = field(default_factory=SSMConfig)
 
     @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Mixer kind per decoder layer: attention in every layer."""
-        return ("attn",) * self.n_layers
+        """Mixer kind per decoder layer: "ssm" in an SSM family, else
+        "attn"."""
+        return ("ssm" if self.family == "ssm" else "attn",) * self.n_layers
 
     def ffn_kinds(self) -> Tuple[str, ...]:
-        """FFN kind per decoder layer: a dense MLP in every layer."""
-        return ("dense",) * self.n_layers
+        """FFN kind per decoder layer: "none" in an SSM family (mamba2
+        blocks have no separate FFN), else a "dense" MLP."""
+        return ("none" if self.family == "ssm" else "dense",) * self.n_layers
 
     @property
     def padded_vocab(self) -> int:
@@ -132,10 +172,20 @@ def attn_projections(acfg: AttentionConfig, d_model: int) -> Dict[str, Tuple[int
             "kv_b_k": (kvlr, h * dn), "kv_b_v": (kvlr, h * dv), "o": (h * dv, d_model)}
 
 
+def ssm_projections(scfg: SSMConfig, d_model: int) -> Dict[str, Tuple[int, int]]:
+    """(d_in, d_out) of one SSD layer's projections, in the order the init
+    draws them: zx (z and x), bc (B and C), dt (a step per head), out."""
+    di = scfg.d_inner(d_model)
+    return {"zx": (d_model, 2 * di), "bc": (d_model, 2 * scfg.n_groups * scfg.d_state),
+            "dt": (d_model, scfg.n_heads(d_model)), "out": (di, d_model)}
+
+
 def layer_projections(cfg: "ModelConfig") -> Dict[str, Tuple[int, int]]:
     """(d_in, d_out) of every projection of one decoder layer: the
-    attention's, then the MLP's."""
+    mixer's (attention or SSD), then the MLP's (none in an SSM family)."""
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return ssm_projections(cfg.ssm, d)
     mlp = {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
     return {**attn_projections(cfg.attention, d),
             **{nm: mlp[nm] for nm in MLP_PROJECTIONS[cfg.mlp_kind]}}
@@ -144,9 +194,13 @@ def layer_projections(cfg: "ModelConfig") -> Dict[str, Tuple[int, int]]:
 def lora_leaves(cfg: "ModelConfig") -> Dict[str, str]:
     """Each LoRA target of ``cfg.lora_targets`` that the model has -> the
     projection it adapts (MLA's "q" and "kv": ``q_a`` and ``kv_a``; a
-    "gelu2" MLP has no gate)."""
-    attn = MLA_TARGETS if cfg.attention.is_mla else {t: t for t in ("q", "k", "v", "o")}
-    names = {**attn, **{nm: nm for nm in MLP_PROJECTIONS[cfg.mlp_kind]}}
+    "gelu2" MLP has no gate; SSD's "ssm_in" and "ssm_out": ``zx`` and
+    ``out``)."""
+    if cfg.family == "ssm":
+        names = SSM_TARGETS
+    else:
+        attn = MLA_TARGETS if cfg.attention.is_mla else {t: t for t in ("q", "k", "v", "o")}
+        names = {**attn, **{nm: nm for nm in MLP_PROJECTIONS[cfg.mlp_kind]}}
     return {t: names[t] for t in cfg.lora_targets if t in names}
 
 
@@ -166,11 +220,13 @@ def default_search_space(n: int = 120, seq_len: int = 1024) -> list:
 
 def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelConfig:
     """Test-size variant of the same architecture, with the reference's
-    rules for a dense decoder (``repro/configs/base.py:243-297``): 2 layers
-    (a model with ``global_every`` keeps one whole local:global period, at
-    most 6 layers), d_model <= 256, d_ff <= 384, head_dim 32, 2-4 heads,
-    vocab 512, a window of at most 64; MLA ranks 48 (q) and 32 (kv), q/k
-    heads of 16 nope + 16 rope, v heads of 32."""
+    rules (``repro/configs/base.py:243-297``): 2 layers (a model with
+    ``global_every`` keeps one whole local:global period, at most 6
+    layers), d_model <= 256, d_ff <= 384, head_dim 32, 2-4 heads, vocab
+    512, a window of at most 64; MLA ranks 48 (q) and 32 (kv), q/k heads of
+    16 nope + 16 rope, v heads of 32; SSD d_state 16, heads of 32, chunks of
+    32 (every config carries an enabled ``ssm``, so every one shrinks, as
+    in the reference)."""
     attn = cfg.attention
     n_heads = max(2, min(4, attn.n_heads))
     n_kv = max(1, min(n_heads, attn.n_kv_heads))
@@ -183,6 +239,9 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
         q_lora_rank=48 if attn.q_lora_rank else 0, kv_lora_rank=32 if attn.kv_lora_rank else 0,
         qk_nope_head_dim=16 if mla else 0, qk_rope_head_dim=16 if mla else 0,
         v_head_dim=32 if mla else 0)
+    ssm = cfg.ssm
+    if ssm.enabled:
+        ssm = dataclasses.replace(ssm, d_state=16, head_dim=32, chunk_size=32)
     if attn.global_every:
         n_layers = min(max(n_layers, attn.global_every), 6)
     return cfg.replace(
@@ -192,6 +251,7 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
         d_ff=min(384, cfg.d_ff),
         vocab_size=512,
         attention=new_attn,
+        ssm=ssm,
     )
 
 
@@ -220,6 +280,7 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (registers)
         command_r_35b,
         gemma3_1b,
+        mamba2_370m,
         minicpm3_4b,
         qwen25_7b,
         starcoder2_7b,

@@ -88,13 +88,18 @@ def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=Non
     """A LoRA pack tree of zeros in ``init_model``'s layout, without
     building a base model (the serve engine's row pack and template): the
     targets among the projections the config has ("gelu2" has no gate; MLA's
-    "q" and "kv" adapt ``q_a`` and ``kv_a``)."""
+    "q" and "kv" adapt ``q_a`` and ``kv_a``; SSD's "ssm_in" and "ssm_out",
+    under ``"ssm"``, adapt ``zx`` and ``out``)."""
     device = resolve_device(device)
     n, r = meta.n, meta.r_bucket
     shapes, leaves = layer_projections(cfg), set(lora_leaves(cfg).values())
     mlp = MLP_PROJECTIONS[cfg.mlp_kind]
-    dims = {"attn": {nm: sh for nm, sh in shapes.items() if nm in leaves and nm not in mlp},
-            "mlp": {nm: sh for nm, sh in shapes.items() if nm in leaves and nm in mlp}}
+
+    dims = {}
+    for nm, sh in shapes.items():
+        if nm in leaves:
+            grp = "ssm" if cfg.family == "ssm" else "mlp" if nm in mlp else "attn"
+            dims.setdefault(grp, {})[nm] = sh
     specs = layer_specs(cfg)
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
@@ -115,20 +120,32 @@ def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=Non
     }}
 
 
+def _embed(base, tokens, cfg: ModelConfig):
+    """The residual stream's start: the embedding's rows, in f32 for an SSM
+    family (its stream stays f32 through the stack: ``layers/ssm.py``)."""
+    x = base["embed"]["w"][tokens]
+    return x.float() if cfg.family == "ssm" else x
+
+
+def _final_norm(base, x, cfg: ModelConfig):
+    """The final norm, in the embedding's dtype (the compute dtype)."""
+    return apply_norm(base["final_norm"], x, cfg.norm_kind).to(base["embed"]["w"].dtype)
+
+
 def forward(base, lora, scales, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             n_pack: int = 1, chunk_q: int = 512, make_cache: bool = False, kcfg=None,
             remat: bool = True):
     """batch: {"tokens": (NB, S)}. Returns (hidden (NB, S, d), caches|None).
     ``remat``: checkpoint each block when grad mode is on (training)."""
     tokens = batch["tokens"]
-    x = base["embed"]["w"][tokens]
+    x = _embed(base, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, caches = apply_stack(
         base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
         layer_specs(cfg), n_pack=n_pack, rope_cache=make_rope_cache(cfg, positions),
         make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg, remat=remat,
     )
-    return apply_norm(base["final_norm"], x, cfg.norm_kind), caches
+    return _final_norm(base, x, cfg), caches
 
 
 def unembed_w(base, cfg: ModelConfig):
@@ -156,15 +173,14 @@ def decode_step(base, lora, scales, token: torch.Tensor, caches, pos, cfg: Model
     """One serve step: embed ``token`` (NB, 1) at ``pos`` (() shared, or (NB,)
     per row), run the stack against ``caches`` (updated in place), return
     (logits (NB, 1, V), caches)."""
-    x = base["embed"]["w"][token]
+    x = _embed(base, token, cfg)
     # scalar pos -> shared (1, D/2) tables; vector pos -> per-row (NB, 1, D/2)
     rc = make_rope_cache(cfg, pos[None] if pos.dim() == 0 else pos[:, None])
     x, caches = apply_stack(
         base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
         layer_specs(cfg), n_pack=n_pack, rope_cache=rc, caches=caches, pos=pos, kcfg=kcfg,
     )
-    x = apply_norm(base["final_norm"], x, cfg.norm_kind)
-    return logits(base, x, cfg), caches
+    return logits(base, _final_norm(base, x, cfg), cfg), caches
 
 
 def prefill(base, lora, scales, batch, cfg: ModelConfig, *,

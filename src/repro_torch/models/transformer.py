@@ -1,5 +1,6 @@
-"""Decoder stack: pre-norm attention (GQA, or MLA when the config has a
-``kv_lora_rank``) + dense MLP layers.
+"""Decoder stack: pre-norm layers of a mixer -- attention (GQA, or MLA when
+the config has a ``kv_lora_rank``) or an SSD block (an "ssm" family) --
+and a dense MLP (none in an "ssm" family).
 
 Layers are grouped as in the reference: the per-layer spec sequence has a
 minimal period p, the L//p repeats are stacked under ``"blocks"`` (every
@@ -28,31 +29,36 @@ from repro_torch.models.layers.attention import (
 )
 from repro_torch.models.layers.common import apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.models.layers.rope import rope_tables
+from repro_torch.models.layers.ssm import apply_ssm, apply_ssm_decode, init_ssm, init_ssm_cache
 from repro_torch.tree import tree_index, tree_map, tree_stack
 
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """What may differ between the layers of a stack: the sliding window
-    (0: full attention) and the rope theta (every layer is attention of the
-    config's kind + a dense MLP)."""
+    """What may differ between the layers of a stack: the mixer ("attn":
+    attention of the config's kind, or "ssm"), the FFN ("dense" or
+    "none"), the sliding window (0: full attention) and the rope theta."""
 
+    mixer: str = "attn"
+    ffn: str = "dense"
     window: int = 0
     theta: float = 10_000.0
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     """Per-layer specs, as the reference's (``transformer.py:110-133``):
-    with ``global_every``, every ``global_every``-th layer is global (no
-    window, ``global_rope_theta``) and the others local (the window, the
-    base theta); without it every layer takes ``sliding_window``."""
+    the mixer and FFN kinds of ``cfg.layer_kinds()`` / ``ffn_kinds()``;
+    for an attention layer with ``global_every``, every
+    ``global_every``-th layer is global (no window, ``global_rope_theta``)
+    and the others local (the window, the base theta); without it every
+    attention layer takes ``sliding_window``. An SSM layer has no window."""
     a = cfg.attention
     specs = []
-    for i in range(cfg.n_layers):
-        window, theta = a.sliding_window, a.rope_theta
-        if a.global_every and i % a.global_every == a.global_every - 1:
+    for i, (mixer, ffn) in enumerate(zip(cfg.layer_kinds(), cfg.ffn_kinds())):
+        window, theta = (a.sliding_window if mixer == "attn" else 0), a.rope_theta
+        if mixer == "attn" and a.global_every and i % a.global_every == a.global_every - 1:
             window, theta = 0, a.global_rope_theta or a.rope_theta
-        specs.append(LayerSpec(window=window, theta=theta))
+        specs.append(LayerSpec(mixer=mixer, ffn=ffn, window=window, theta=theta))
     return specs
 
 
@@ -65,20 +71,28 @@ def find_period(specs: List[LayerSpec]) -> int:
 
 
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None):
+    """norm1 and the mixer ("attn" or "ssm"), then, for a "dense" FFN, the
+    MLP and norm2 ("none": neither)."""
     a = cfg.attention
     params: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm_kind, dtype, device)}
     lora: Dict[str, Any] = {}
-    init_attn = init_mla if a.is_mla else init_gqa
-    p, lo = init_attn(gen, a, cfg.d_model, meta, cfg.lora_targets, dtype, device)
-    params["attn"] = p
+    if spec.mixer == "ssm":
+        grp = "ssm"
+        p, lo = init_ssm(gen, cfg.d_model, cfg.ssm, meta, cfg.lora_targets, dtype, device)
+    else:
+        grp = "attn"
+        init_attn = init_mla if a.is_mla else init_gqa
+        p, lo = init_attn(gen, a, cfg.d_model, meta, cfg.lora_targets, dtype, device)
+    params[grp] = p
     if lo:
-        lora["attn"] = lo
-    p, lo = init_mlp(gen, cfg.d_model, cfg.d_ff, a.use_bias, meta, cfg.lora_targets, dtype, device,
-                     kind=cfg.mlp_kind)
-    params["mlp"] = p
-    params["norm2"] = init_norm(cfg.d_model, cfg.norm_kind, dtype, device)
-    if lo:
-        lora["mlp"] = lo
+        lora[grp] = lo
+    if spec.ffn == "dense":
+        p, lo = init_mlp(gen, cfg.d_model, cfg.d_ff, a.use_bias, meta, cfg.lora_targets, dtype,
+                         device, kind=cfg.mlp_kind)
+        params["mlp"] = p
+        params["norm2"] = init_norm(cfg.d_model, cfg.norm_kind, dtype, device)
+        if lo:
+            lora["mlp"] = lo
     return params, lora
 
 
@@ -87,20 +101,43 @@ def apply_layer(
     n_pack: int, rope_cache, cache=None, pos=None, make_cache: bool = False,
     chunk_q: int = 512, kcfg=None,
 ):
-    """Pre-norm residual layer. Returns (x, new_cache or None)."""
+    """Pre-norm residual layer. Returns (x, new_cache or None).
+
+    An SSM family's residual stream ``x`` is f32 (``model.forward``): the
+    norm's output is cast to the base's dtype, and the residual add stays
+    f32 (see ``layers/ssm.py``). An SSM layer with a cache takes one token
+    per row (``apply_ssm_decode``, the cache updated in place); the
+    reference's chunk-resumable prefill (``apply_ssm_chunk``) is not
+    ported, so a cached call with S > 1 raises, as MLA's does."""
     lo = lora or {}
     h = apply_norm(params["norm1"], x, cfg.norm_kind)
-    kw = dict(acfg=cfg.attention, n_pack=n_pack, rope=rope_cache[spec.theta],
-              cache=cache.get("attn") if cache else None, pos=pos, make_cache=make_cache,
-              chunk_q=chunk_q, kcfg=kcfg)
-    if cfg.attention.is_mla:
-        y, c = apply_mla(params["attn"], lo.get("attn"), scales, h, **kw)
+    if spec.mixer == "ssm":
+        grp = "ssm"
+        h = h.to(params["norm1"]["scale"].dtype)
+        kw = dict(scfg=cfg.ssm, n_pack=n_pack, kcfg=kcfg)
+        if cache:
+            if h.shape[1] != 1:
+                raise ValueError("a cached SSM layer takes one token per row (chunked "
+                                 "prefill is not ported)")
+            y, c = apply_ssm_decode(params["ssm"], lo.get("ssm"), scales, h, cache["ssm"], **kw)
+        else:
+            y, c = apply_ssm(params["ssm"], lo.get("ssm"), scales, h, return_state=make_cache,
+                             **kw)
     else:
-        y, c = apply_gqa(params["attn"], lo.get("attn"), scales, h, window=spec.window, **kw)
+        grp = "attn"
+        kw = dict(acfg=cfg.attention, n_pack=n_pack, rope=rope_cache[spec.theta],
+                  cache=cache.get("attn") if cache else None, pos=pos, make_cache=make_cache,
+                  chunk_q=chunk_q, kcfg=kcfg)
+        if cfg.attention.is_mla:
+            y, c = apply_mla(params["attn"], lo.get("attn"), scales, h, **kw)
+        else:
+            y, c = apply_gqa(params["attn"], lo.get("attn"), scales, h, window=spec.window, **kw)
     x = x + y
-    h = apply_norm(params["norm2"], x, cfg.norm_kind)
-    x = x + apply_mlp(params["mlp"], lo.get("mlp"), scales, h, n_pack, kcfg=kcfg, kind=cfg.mlp_kind)
-    return x, ({"attn": c} if c is not None else None)
+    if spec.ffn == "dense":
+        h = apply_norm(params["norm2"], x, cfg.norm_kind)
+        x = x + apply_mlp(params["mlp"], lo.get("mlp"), scales, h, n_pack, kcfg=kcfg,
+                          kind=cfg.mlp_kind)
+    return x, ({grp: c} if c is not None else None)
 
 
 def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, device=None,
@@ -192,28 +229,37 @@ def apply_stack(
 
 
 def make_rope_cache(cfg: ModelConfig, positions: torch.Tensor):
-    """cos/sin tables per distinct rope theta of the stack, over the heads'
-    rotated width: ``head_dim``, or MLA's ``qk_rope_head_dim``."""
+    """cos/sin tables per distinct rope theta of the stack's attention
+    layers (``rope_theta`` alone when it has none, as the reference), over
+    the heads' rotated width: ``head_dim``, or MLA's ``qk_rope_head_dim``."""
     a = cfg.attention
     dim = a.qk_rope_head_dim if a.is_mla else a.head_dim
-    return {t: rope_tables(positions, dim, t) for t in {s.theta for s in layer_specs(cfg)}}
+    thetas = {s.theta for s in layer_specs(cfg) if s.mixer == "attn"} or {a.rope_theta}
+    return {t: rope_tables(positions, dim, t) for t in thetas}
 
 
 def init_stack_cache(cfg, specs, nb: int, smax: int, dtype=torch.bfloat16, device=None):
     """Cache tree matching ``apply_stack(caches=...)``: k/v (NB, Smax, KV,
-    D) per layer, or MLA's latent ckv (NB, Smax, kvlr) and k_rope (NB,
-    Smax, dr); a stacked block's leaves lead with the block axis."""
+    D) per attention layer, or MLA's latent ckv (NB, Smax, kvlr) and k_rope
+    (NB, Smax, dr), in ``dtype``; an SSM layer's conv window (NB, K-1, C)
+    and state (NB, H, P, N), in f32 whatever ``dtype`` (a rounded state
+    would drift at every step). A stacked block's leaves lead with the
+    block axis."""
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
     a = cfg.attention
-    init = init_mla_cache if a.is_mla else init_gqa_cache
+    meta = torch.device("meta")
 
-    def one(*lead):  # the leaves' shapes from a cache on the meta device
-        like = init(nb, smax, a, dtype, torch.device("meta"))
-        return {"attn": {k: torch.zeros((*lead, *t.shape), dtype=dtype, device=device)
-                         for k, t in like.items()}}
+    def one(spec, *lead):  # the leaves' shapes from a cache on the meta device
+        if spec.mixer == "ssm":
+            grp, like = "ssm", init_ssm_cache(nb, cfg.d_model, cfg.ssm, torch.float32, meta)
+        else:
+            init = init_mla_cache if a.is_mla else init_gqa_cache
+            grp, like = "attn", init(nb, smax, a, dtype, meta)
+        return {grp: {k: torch.zeros((*lead, *t.shape), dtype=t.dtype, device=device)
+                      for k, t in like.items()}}
 
     return {
-        "blocks": {f"l{i}": one(n_blocks) for i in range(p)} if n_blocks else None,
-        "rest": {f"l{i}": one() for i in range(n_rest)},
+        "blocks": {f"l{i}": one(specs[i], n_blocks) for i in range(p)} if n_blocks else None,
+        "rest": {f"l{i}": one(specs[i]) for i in range(n_rest)},
     }

@@ -221,24 +221,29 @@ CE_CHUNK = 512
 # at the defaults, 1 GB per adapter, no logits workspace and no per-job term.
 # ``CostModel(cfg, hw, **REFERENCE_MEMORY)`` plans as the reference does.
 REFERENCE_MEMORY = dict(lora_state_bytes=8.0, logits_copies=0.0, job_overhead_bytes=0.0,
-                        adapter_overhead_bytes=1.0e9, price_dense_leaves=False)
+                        ssm_scan_copies=0.0, adapter_overhead_bytes=1.0e9,
+                        price_dense_leaves=False)
 
 
-def _dense_only(cfg: ModelConfig) -> None:
+def _ported_only(cfg: ModelConfig) -> None:
+    """The layer kinds the port counts: dense decoders (``attn`` mixers,
+    ``dense`` FFNs) and SSM ones (``ssm`` mixers, no FFN)."""
     kinds = set(cfg.layer_kinds()) | set(cfg.ffn_kinds())
-    if kinds != {"attn", "dense"} or cfg.is_encdec:
-        raise ValueError(f"{cfg.name}: the port counts dense GQA or MLA decoders only, got {kinds}")
+    if kinds not in ({"attn", "dense"}, {"ssm", "none"}) or cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: the port counts dense GQA or MLA decoders and SSM "
+                         f"decoders only, got {kinds}")
     if cfg.mlp_kind not in MLP_PROJECTIONS or cfg.norm_kind not in ("rmsnorm", "layernorm"):
         raise ValueError(f"{cfg.name}: unknown mlp_kind {cfg.mlp_kind!r} or norm_kind "
                          f"{cfg.norm_kind!r}")
 
 
 def model_param_count(cfg: ModelConfig) -> float:
-    """Total parameters (embeddings + stack) of a dense decoder: the
-    reference's accounting for ``attn`` mixers, GQA or MLA, and ``dense``
-    FFNs (2 MLP matrices for "gelu2", 3 otherwise; one vocabulary matrix
-    when tied). Norms and biases are not counted, as in the reference."""
-    _dense_only(cfg)
+    """Total parameters (embeddings + stack): the reference's accounting
+    for ``attn`` mixers, GQA or MLA, with ``dense`` FFNs (2 MLP matrices
+    for "gelu2", 3 otherwise), and for ``ssm`` mixers (zx, bc, dt and out)
+    with none; one vocabulary matrix when tied. Norms, biases, the conv and
+    the SSD's per-head vectors are not counted, as in the reference."""
+    _ported_only(cfg)
     total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     per_layer = sum(din * dout for din, dout in layer_projections(cfg).values())
     for _ in cfg.layer_kinds():
@@ -249,8 +254,8 @@ def model_param_count(cfg: ModelConfig) -> float:
 def quantized_param_count(cfg: ModelConfig, mode: str) -> float:
     """Parameters that ``quantize_base_params(tree, mode)`` turns into codes:
     the projections of ``kernels.quant.ELIGIBLE_NAMES`` (nf4: of even d_in).
-    The embedding, the LM head, the norms and MLA's ``kv_b_k``/``kv_b_v``
-    stay dense."""
+    The embedding, the LM head, the norms, MLA's ``kv_b_k``/``kv_b_v`` and
+    SSD's ``bc``/``dt`` stay dense."""
     per_layer = sum(din * dout for nm, (din, dout) in layer_projections(cfg).items()
                     if nm in ELIGIBLE_NAMES and (mode == "int8" or din % 2 == 0))
     return float(per_layer * cfg.n_layers)
@@ -269,8 +274,9 @@ def lora_param_count(cfg: ModelConfig, rank: int) -> float:
     never builds: n_layers x r x (d + d_ff) more than the port; and it bills
     MLA's ``o`` at ``n_heads * head_dim`` inputs, where the projection reads
     ``n_heads * v_head_dim``: n_layers x r x n_heads x (head_dim -
-    v_head_dim) more (ROADMAP C, "Found in the reference")."""
-    _dense_only(cfg)
+    v_head_dim) more (ROADMAP C, "Found in the reference"). SSD's "ssm_in"
+    and "ssm_out" adapt ``zx`` and ``out``, billed as in the reference."""
+    _ported_only(cfg)
     shapes = layer_projections(cfg)
     per_layer = 0.0
     for leaf in lora_leaves(cfg).values():
@@ -330,8 +336,17 @@ class CostModel(CostEstimator):
     # drops the term. Fitted with job_overhead_bytes on an H100
     # (chip_smoke.py's ``c3_fit``)
     logits_copies: float = 5.5
-    # fixed bytes per job and device
+    # fixed bytes per job and device (attention decoders)
     job_overhead_bytes: float = 1.0e9
+    # An SSM decoder's per-job term in place of job_overhead_bytes: the
+    # scan's working set in one block's backward, this many f32 (rows, H,
+    # Q, Q) tensors a chunk. The constant above was fitted on attention
+    # decoders' jobs of 8-68 GB, where it is slack; mamba2-370m's captured
+    # sweep job peaks at 2.86 GB, 0.92 GB under a price with the constant
+    # (1.32x, outside C3's band). 6 prices its two measured jobs (the sweep
+    # job, the launcher's f32 pack) at or above their own peaks on an H100.
+    # 0 drops the term.
+    ssm_scan_copies: float = 6.0
     # Padding-aware costing (beyond the paper): the packed executor
     # zero-pads every adapter to the pack's bucket rank (max rank rounded up
     # to 8), so a rank-8 adapter packed with a rank-128 one COMPUTES at rank
@@ -443,7 +458,18 @@ class CostModel(CostEstimator):
             )
         else:
             loras = sum(self.lora_bytes(c, seq) for c in configs)
-        return (base + loras) / d + self.job_overhead_bytes
+        return (base + loras) / d + self.job_fixed_bytes(padded, seq)
+
+    def job_fixed_bytes(self, rows: int, seq: int) -> float:
+        """The per-job term of ``job_mem_bytes``: ``job_overhead_bytes``,
+        or for an SSM decoder the scan's working set of ``rows`` padded rows
+        (``ssm_scan_copies`` f32 (rows, H, Q, Q) tensors per chunk of Q)."""
+        if self.cfg.family != "ssm":
+            return self.job_overhead_bytes
+        s = self.cfg.ssm
+        q = s.chunk_size
+        per_chunk = rows * s.n_heads(self.cfg.d_model) * q * q * 4.0
+        return self.ssm_scan_copies * per_chunk * -(-seq // q)
 
     def fits(self, configs: Sequence[LoraConfig], d: int, seq: int) -> bool:
         return self.job_mem_bytes(configs, d, seq) <= (

@@ -53,13 +53,17 @@ def pad_caches(caches, target_len: int):
     """Grow prefill caches along the sequence axis to ``target_len`` with
     zeros: every leaf of SEQ_LEAVES, whose sequence axis is 1, or 2 under a
     stacked ``"blocks"`` subtree (a leading layer axis). Keeps the dtype.
-    Raises on a tensor leaf of another name: the port's caches hold no
-    fixed-size leaf, so an unknown one would pass through unpadded."""
+    An ``"ssm"`` subtree (an SSM layer's conv window and state, of a fixed
+    size) passes through unchanged, as in the reference. Raises on a tensor
+    leaf of another name: an unknown one would pass through unpadded."""
 
     def walk(t, in_blocks=False):
         if isinstance(t, dict):
             out = {}
             for k, v in t.items():
+                if k == "ssm":
+                    out[k] = v
+                    continue
                 if not isinstance(v, torch.Tensor):
                     out[k] = walk(v, in_blocks or k == "blocks")
                     continue

@@ -263,7 +263,8 @@ class ServeExecutor:
 def write_row_caches(caches, row_caches, row: int):
     """Write a width-1 tree into row ``row`` of a width-R tree (decode caches
     or packed lora params — both share the layout), in place, casting to the
-    width-R tree's dtype. Under a stacked ``"blocks"`` subtree the row axis
+    width-R tree's dtype (an SSM layer's conv window and state stay f32:
+    ``init_caches`` makes them so). Under a stacked ``"blocks"`` subtree the row axis
     is 1, else 0; a shorter sequence axis fills its leading part."""
 
     def walk(t, s, in_blocks):
@@ -301,7 +302,8 @@ class ServeEngine:
 
     The base parameters must lie on ``device`` (CUDA unless given); their
     embedding's dtype is the compute dtype, and the row pack of adapters is
-    kept in it. Decode caches are bf16, as in the reference.
+    kept in it. Decode caches are bf16, as in the reference, but for an SSM
+    layer's conv window and state, which are f32.
 
     ``impl``, ``remat`` and ``base_dtype`` form the kernel policy of
     prefill and every decode step, as in the reference. ``base_dtype``

@@ -1046,6 +1046,9 @@ FAMILY_PROJ = {
     # minicpm3-4b's adapted projections: q_a, kv_a (the 256-wide latent and
     # the 32-wide rope part), o, gate/up, down
     "minicpm3-4b": [(2560, 768), (2560, 288), (2560, 2560), (2560, 6400), (6400, 2560)],
+    # mamba2-370m's adapted projections: zx (d 1,024 -> z and x, 2 x 2,048)
+    # and out (d_inner 2,048 -> 1,024)
+    "mamba2-370m": [(1024, 4096), (2048, 1024)],
 }
 
 
@@ -1083,6 +1086,70 @@ def test_family_training_shapes_match_plain_on_their_paths(cuda, d_in, d_out):
     n0 = _count(fused_matmul, "bwd", "wgmma")
     _close(fused_matmul(g, w.t(), bt, at, s, backward=True), fused_matmul_ref(g, w.t(), bt, at, s))
     assert _count(fused_matmul, "bwd", "wgmma") == n0 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_in,d_out", FAMILY_PROJ["mamba2-370m"])
+def test_mamba2_decode_rows_match_plain_on_the_decode_path(cuda, d_in, d_out):
+    """bf16 decode rows at mamba2-370m's widths (8 rows, r = 16; zx 1,024
+    -> 4,096, out 2,048 -> 1,024): #2 and both passes of #1 on "decode",
+    each launched once there, the pair ``torch.equal`` to its two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(52)
+    n, m, r, dt = 8, 1, 16, torch.bfloat16
+    s = torch.linspace(0.5, 2.0, n, device=cuda)
+    x, w = _rnd(gen, (n, m, d_in), dt), _rnd(gen, (d_in, d_out), dt, d_in ** -0.5)
+    a, b = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), _rnd(gen, (n, r, d_out), dt)
+    assert fused_matmul_path(x, w, r, a, b) == "decode"
+    n0 = _count(fused_matmul, "fwd", "decode")
+    _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+    assert _count(fused_matmul, "fwd", "decode") == n0 + 1
+    assert packed_matmul_path(x, a) == "decode"
+    n0 = _count(packed_matmul, "fwd", "decode")
+    xa = packed_matmul(x, a)
+    _close(xa, packed_matmul_ref(x, a))
+    assert packed_matmul_path(xa, b) == "decode"
+    _close(packed_matmul(xa, b, s), packed_matmul_ref(xa, b, s))
+    assert _count(packed_matmul, "fwd", "decode") == n0 + 2
+    y, xa2 = packed_matmul_pair(x, a, b, s)
+    assert torch.equal(xa2, xa) and torch.equal(y, packed_matmul(xa, b, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [256, 600])
+def test_ssd_scan_on_the_card_matches_the_cpu_scan_and_captures(cuda, s):
+    """mamba2-370m's SSD scan (32 heads of 64, d_state 128, chunks of 256)
+    in f32 on the card against the same scan on the CPU (600 tokens: two
+    chunks and a padded third), y and the final state within 5e-5 of their
+    largest value; then captured in a CUDA graph (no host sync in the
+    scan), whose replay on new inputs equals an eager call bit for bit."""
+    from repro_torch.models.layers.ssm import _ssd_scan
+
+    gen = torch.Generator().manual_seed(53)
+    nb, h, p, n = 2, 32, 64, 128
+    xs = torch.randn((nb, s, h, p), generator=gen)
+    b = 0.5 * torch.randn((nb, s, n), generator=gen)
+    c = 0.5 * torch.randn((nb, s, n), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((nb, s, h), generator=gen) - 2.0)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h))
+    state0 = 0.1 * torch.randn((nb, h, p, n), generator=gen)
+    want_y, want_s = _ssd_scan(xs, b, c, dt, a_log, 256, state0=state0)
+    dev = [t.to(cuda) for t in (xs, b, c, dt, a_log, state0)]
+    got_y, got_s = _ssd_scan(*dev[:5], 256, state0=dev[5])
+    torch.cuda.synchronize()
+    _close(got_y.cpu(), want_y)
+    _close(got_s.cpu(), want_s)
+    static = [t.clone() for t in dev]
+    _ssd_scan(*static[:5], 256, state0=static[5])  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap_y, cap_s = _ssd_scan(*static[:5], 256, state0=static[5])
+    for dst, src in zip(static, dev):
+        dst.copy_(src * 0.5 if dst is static[0] else src)
+    graph.replay()
+    eager_y, eager_s = _ssd_scan(dev[0] * 0.5, *dev[1:5], 256, state0=dev[5])
+    torch.cuda.synchronize()
+    assert torch.equal(cap_y, eager_y) and torch.equal(cap_s, eager_s)
 
 
 @pytest.mark.gpu
