@@ -26,13 +26,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    up to 4,096), and in f32 at the launcher's shapes (phase 10's pack:
    N = 1 x M = 1,024 at r = 8 and at r = 16; the fused forward and dx,
    and ``packed_matmul``'s xA, xAB and cases 2 and 4), and in bf16 at the
-   training shapes of starcoder2-7b, gemma3-1b, minicpm3-4b and
-   mamba2-370m (N = 2 x M = 1,024, r = 16: ``packed_matmul``'s xA, xAB and
-   cases 2 and 4, the fused forward and dx; cases ``train_starcoder2``,
-   ``train_gemma3``, ``train_minicpm3``, ``train_mamba2``: zx 1,024 ->
-   4,096 and out 2,048 -> 1,024) and at the decode rows of gemma3-1b,
-   minicpm3-4b and mamba2-370m (``decode_gemma3``: d = 1,152, k/v 256
-   wide; ``decode_minicpm3``; ``decode_mamba2``),
+   training shapes of starcoder2-7b, gemma3-1b, minicpm3-4b,
+   mamba2-370m and qwen3-moe-30b-a3b (N = 2 x M = 1,024, r = 16:
+   ``packed_matmul``'s xA, xAB and cases 2 and 4, the fused forward and
+   dx; cases ``train_starcoder2``, ``train_gemma3``, ``train_minicpm3``,
+   ``train_mamba2``: zx 1,024 -> 4,096 and out 2,048 -> 1,024,
+   ``train_qwen3_moe``: q 2,048 -> 4,096, k/v 2,048 -> 512, o 4,096 ->
+   2,048) and at the decode rows of gemma3-1b, minicpm3-4b, mamba2-370m
+   and qwen3-moe-30b-a3b (``decode_gemma3``: d = 1,152, k/v 256 wide;
+   ``decode_minicpm3``; ``decode_mamba2``; ``decode_qwen3_moe``),
    and at command-r-35b's widths (d 8,192, k/v 1,024, d_ff 22,528):
    ``fused_matmul_q`` on int8 codes at the training shapes with the dx its
    backward runs (``train_command_r``), on int8 and nf4 codes at 8 decode
@@ -89,6 +91,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``fused_matmul_q`` and dx call on "ffma", finite losses, its own peak
    within [1, C3_SLACK] of its own ``CostModel``'s price: the nf4 codes,
    the f32 embedding, f32 activations).
+4b. moe   -- qwen3-moe-30b-a3b (48 layers, d 2,048, GQA 32/4, 128 experts
+   of d_ff 768, top-8 on every layer, capacity factor 1.25, vocab
+   151,936) at full width and depth on a bf16 base (61.06 GB, the router
+   f32) built by ``init_model`` on the card right after command_r, with
+   nothing else resident: the "ep" dispatch against the dense oracle on
+   one full-width layer (384 tokens, nothing dropped; f32 and bf16); the
+   train phase's pack at 256 tokens through ``make_packed_step`` under
+   impl="auto" and "fused" with the aux loss (step 1 against the plain
+   path: the bf16 loss at 48 layers, the f32 gradients on the first 2
+   layers, MOE_F32_LAYERS:
+   an f32 copy of the base would be 122 GB; then 3 steps whose counts must
+   move); the pack's routing (pairs dropped at capacity 1.25 by layer and
+   by row, the share of top-8 choices the kernel and plain paths share by
+   layer); a ``make_train_step`` call with no host wait; 8 requests
+   through ``ServeEngine.serve`` under auto and fused (prompts of 64-600
+   tokens) with prefill and 4 teacher-forced decode steps held against
+   the plain path at LOGIT_TOL; and one captured ``run_local`` job of
+   FAMILY_SWEEP_IDS, as the families' (48 layers).
 5. autotune -- ``kernels/autotune.py`` at the launcher's pack (full
    qwen25-7b, ranks 8 and 16, batch 2, seq 512: N = 2 x M = 1,024 at d x d
    and d x d_ff, r = 16): ``tune_for_model(fast=False)`` in f32 (the fused
@@ -124,7 +144,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that builds its per-device vectors).
 
 8. sweep   -- the planner-driven sweep on the same base, cut to its first
-   SWEEP_LAYERS = 14 layers (a view; planned on that model): the 9
+   SWEEP_LAYERS = 8 layers (a view; planned on that model: 2 jobs, as at
+   28 layers; at 7 it plans 3): the 9
    configurations of ``default_search_space(300, seq_len=512)[::37]``
    planned on one card with the ``H100`` cost-model preset, then every job
    run by ``ExecutionEngine.run_local`` through a ``ClusterRunner`` and a
@@ -205,11 +226,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    calibrated prior's s/step beside the measured, and the split it ran),
    and the control's reads above LAUNCH_CONTROL_FACTOR times that limit.
 11. families -- starcoder2-7b (LayerNorm, the two-matrix GELU MLP, biased
-   GQA; cut to its first 16 of 32 layers, FAMILY_LAYERS), gemma3-1b
+   GQA; cut to its first 8 of 32 layers, FAMILY_LAYERS), gemma3-1b
    (512-token sliding windows, every 6th layer global with its own rope
-   theta, the gated GELU, tied embeddings; cut to 13 of 26), minicpm3-4b (multi-head
+   theta, the gated GELU, tied embeddings; cut to 7 of 26), minicpm3-4b (multi-head
    latent attention: kv_a's 288-wide output, the absorbed decode; cut to
-   31 of its 62 layers) and mamba2-370m (attention-free: 48 SSD layers,
+   16 of its 62 layers) and mamba2-370m (attention-free: SSD layers,
+   cut to 24 of its 48,
    a chunked scan with a fixed-size f32 decode cache, no FFN; LoRA on zx
    and out), each at full width on a bf16 base of random weights from a
    seed (the launcher's f32 base freed first, each family's base freed
@@ -226,7 +248,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``run_local`` job of three configurations of
    ``default_search_space(300, seq_len=512)`` (FAMILY_SWEEP_IDS), equal to
    an eager run, its launches equal to the eager steps', its own peak held
-   to C3. mamba2 also: ``launch/train.py --arch mamba2-370m --seq 1024
+   to C3, extract -> inject bit-exact. mamba2 also: ``launch/train.py --arch mamba2-370m --seq 1024
    --ranks 8,16 --steps 6`` on its own f32 base (s/step, peak against its
    price). ``scripts/ssd_share.py`` profiles the SSD's device share.
 
@@ -289,7 +311,7 @@ TRAIN_RUNS = (("auto", None), ("fused", None), ("fused", "nf4"), ("fused", "int8
 # fewer layers its plan preempts an adapter before its first step.
 SERVE_LAYERS = 7
 TRAIN_LAYERS = 7
-SWEEP_LAYERS = 14
+SWEEP_LAYERS = 8
 # Step 1 of the kernel path against the plain path on the same weights and
 # batch. bf16 end to end: a 1-ulp difference in one projection's bf16
 # output (the f32 sums run in another order) propagates through 28 layers.
@@ -1137,7 +1159,7 @@ NEEDED = {("auto", None): ("packed_matmul", "packed_matmul_bwd"),
           ("auto", "int8"): ("packed_matmul", "packed_matmul_bwd")}
 
 
-def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales):
+def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales, f32_layers=None):
     """Step 1's per-adapter loss and LoRA gradients, kernel path against the
     plain path on the same weights and batch: in bf16, and with the base's
     floating-point leaves cast to f32 (the same kernels and autograd
@@ -1145,7 +1167,11 @@ def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales):
     runs come first, with the f32 copy of the base freed after them; the
     gradients that later runs are held against wait on the host, so the
     card holds one set of gradients at a time (command-r-35b's pack: 3.1 GB
-    a set)."""
+    a set). ``f32_layers``: the f32 runs take a view of the first that many
+    layers (``depth_cut``, the LoRA cut alike), for a base whose f32 copy
+    does not fit (qwen3-moe-30b-a3b: 122 GB); the bf16 gradients are then
+    not held against the f32 ones (other depths), and those two numbers
+    are None."""
     from repro_torch.kernels.ops import KernelConfig
     from repro_torch.train.trainer import packed_value_and_grad
     from repro_torch.tree import tree_leaves, tree_map
@@ -1160,27 +1186,33 @@ def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales):
         return out
 
     loss, kept, errs = {}, {}, {}
-    base32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, base)
+    cfg32, base32, lora32 = cfg, base, lora
+    if f32_layers is not None:
+        cfg32, base32 = depth_cut(cfg, base, f32_layers)
+        lora32 = depth_cut_lora(lora, f32_layers)
+    base32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, base32)
     for prec, path in (("f32", plain), ("f32", impl), ("bf16", plain), ("bf16", impl)):
         if prec == "bf16" and base32 is not None:
             base32 = None
             torch.cuda.empty_cache()
+        f32 = prec == "f32"
         _, per, grads = packed_value_and_grad(
-            lora, base32 if prec == "f32" else base, batch, cfg, meta.n, scales,
-            kcfg=KernelConfig(impl=path, ranks=meta.ranks))
+            lora32 if f32 else lora, base32 if f32 else base, batch, cfg32 if f32 else cfg,
+            meta.n, scales, kcfg=KernelConfig(impl=path, ranks=meta.ranks))
         grads = tree_leaves(grads)
         if not (torch.isfinite(per).all() and all(bool(torch.isfinite(g).all()) for g in grads)):
             fail(f"impl={impl}: non-finite step-1 loss or gradient on the {path} path ({prec})")
         loss[prec, path] = per
+        cross = f32_layers is None  # bf16 against f32 at the same depth
         if path == plain:
             if prec == "bf16":
-                errs["plain_bf16_vs_f32"] = max(grad_rel(grads, kept["f32"]))
+                errs["plain_bf16_vs_f32"] = max(grad_rel(grads, kept["f32"])) if cross else None
             kept[prec] = [g.cpu() for g in grads]
         elif prec == "f32":
             errs["f32"] = max(grad_rel(grads, kept["f32"]))
         else:
             errs["bf16"] = max(grad_rel(grads, kept["bf16"]))
-            errs["kernel_bf16_vs_f32"] = max(grad_rel(grads, kept["f32"]))
+            errs["kernel_bf16_vs_f32"] = max(grad_rel(grads, kept["f32"])) if cross else None
         del grads
 
     def loss_rel(a, b):
@@ -1196,6 +1228,7 @@ def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales):
         # the bf16 gradients' distance from the f32 plain gradient: kernel path, plain path
         "step1_grad_err_vs_f32_kernel_bf16": errs["kernel_bf16_vs_f32"],
         "step1_grad_err_vs_f32_plain_bf16": errs["plain_bf16_vs_f32"],
+        "step1_f32_layers": f32_layers or cfg.n_layers,
     }
 
 
@@ -1223,12 +1256,14 @@ def train_setup(torch, dev, cfg=None, seq: int = TRAIN_SEQ, steps: int = TRAIN_S
     return cfg, meta, train_lora(torch, cfg, meta, dev), [next(batches) for _ in range(steps)]
 
 
-def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None, phase="train"):
-    """Step 1 of ``impl`` against the plain path (``compare_step1``), then
-    one ``make_packed_step`` step per batch with the launch counts zeroed
-    just before and read just after; fails on a non-finite loss or leaf, a
-    step 1 outside the limits, or a count of NEEDED that stayed at 0.
-    Returns (the record, the counts, the step, the last LoRA and state)."""
+def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None, phase="train",
+              f32_layers=None):
+    """Step 1 of ``impl`` against the plain path (``compare_step1``, its f32
+    runs on ``f32_layers`` layers when given), then one
+    ``make_packed_step`` step per batch with the launch counts zeroed just
+    before and read just after; fails on a non-finite loss or leaf, a step
+    1 outside the limits, or a count of NEEDED that stayed at 0. Returns
+    (the record, the counts, the step, the last LoRA and state)."""
     from repro_torch.kernels.quant import quantize_base_params
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.trainer import make_packed_step
@@ -1242,7 +1277,7 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cmp = compare_step1(torch, cfg, qbase, lora0, batches[0], meta, impl, scales)
+    cmp = compare_step1(torch, cfg, qbase, lora0, batches[0], meta, impl, scales, f32_layers)
     compare_s = time.perf_counter() - t0
     step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks, base_dtype=quant)
     lora, opt = lora0, init_opt_state(lora0)
@@ -1280,8 +1315,8 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
     if not cmp["step1_grad_rel_err_f32"] <= GRAD_TOL_F32:
         fail(f"{what}: step-1 LoRA gradient (f32) differs from the plain path by "
              f"{cmp['step1_grad_rel_err_f32']} > {GRAD_TOL_F32}")
-    noise = BF16_GRAD_FACTOR * cmp["step1_grad_err_vs_f32_plain_bf16"]
-    if not cmp["step1_grad_err_vs_f32_kernel_bf16"] <= noise:
+    noise = BF16_GRAD_FACTOR * (cmp["step1_grad_err_vs_f32_plain_bf16"] or 0.0)
+    if f32_layers is None and not cmp["step1_grad_err_vs_f32_kernel_bf16"] <= noise:
         fail(f"{what}: step-1 bf16 LoRA gradient is {cmp['step1_grad_err_vs_f32_kernel_bf16']} "
              f"from the f32 gradient, more than {BF16_GRAD_FACTOR} x the plain path's")
     for need in NEEDED[(impl, quant)]:
@@ -1311,6 +1346,15 @@ def depth_cut(cfg, base, n_layers: int):
     return cfg.replace(n_layers=n_layers), {
         **base, "decoder": {"blocks": tree_map(lambda t: t[:n_blocks], dec["blocks"]),
                             "rest": rest}}
+
+
+def depth_cut_lora(lora, n_layers: int):
+    """A pack's LoRA tree cut as ``depth_cut`` cuts a base of one-layer
+    period: the first ``n_layers`` stacked blocks, views."""
+    from repro_torch.tree import tree_map
+
+    return {"decoder": {"blocks": tree_map(lambda t: t[:n_layers], lora["decoder"]["blocks"]),
+                        "rest": {}}}
 
 
 def train_phase(torch, dev, base, out_dir: Path):
@@ -2496,9 +2540,12 @@ def launcher_phase(torch, dev, out_dir: Path):
 # cache (conv window and state, f32).
 FAMILIES = ("starcoder2-7b", "gemma3-1b", "minicpm3-4b", "mamba2-370m")
 MAMBA2 = "mamba2-370m"
+# the moe phase's model (moe_phase), whose kernel rows and serve runs share
+# the families' tables
+MOE = "qwen3-moe-30b-a3b"
 # depth cuts (a view of the family's base, ``depth_cut``) that keep the
 # smoke inside its time
-FAMILY_LAYERS = {"starcoder2-7b": 16, "gemma3-1b": 13, "minicpm3-4b": 31}
+FAMILY_LAYERS = {"starcoder2-7b": 8, "gemma3-1b": 7, "minicpm3-4b": 16, MAMBA2: 24}
 # mamba2's 1,024 tokens: the scan carries its state across 4 chunks
 FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024, "minicpm3-4b": 512,
                     MAMBA2: 1024}
@@ -2511,15 +2558,19 @@ FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 16, 4),
                 "minicpm3-4b": (("auto", "fused"), (64, 257), 16, 4),
                 # prompts of 200-600 tokens: below, across and past the scan's
                 # 256- and 512-token chunk boundaries
-                MAMBA2: (("auto", "fused"), (200, 601), 16, 8)}
+                MAMBA2: (("auto", "fused"), (200, 601), 16, 8),
+                # a prefill of T tokens drops pairs past 1.25 T k / E slots an
+                # expert; 8 decode rows drop none (8 slots at least)
+                MOE: (("auto", "fused"), (64, 601), 16, 4)}
 # the sweep phase's first three configurations (ranks 8, 8, 16): one job
 FAMILY_SWEEP_IDS = (0, 37, 74)
 FAMILY_SWEEPS = ("starcoder2-7b", "minicpm3-4b", MAMBA2)
 # the kernel phase's rows at each family's shapes
 FAMILY_TRAIN_CASE = {"starcoder2-7b": "train_starcoder2", "gemma3-1b": "train_gemma3",
-                     "minicpm3-4b": "train_minicpm3", MAMBA2: "train_mamba2"}
+                     "minicpm3-4b": "train_minicpm3", MAMBA2: "train_mamba2",
+                     MOE: "train_qwen3_moe"}
 FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3", "minicpm3-4b": "decode_minicpm3",
-                      MAMBA2: "decode_mamba2"}
+                      MAMBA2: "decode_mamba2", MOE: "decode_qwen3_moe"}
 # mamba2 through the launcher on its own f32 base (the command a user
 # runs, at full width and depth): 6 captured steps of 2 x 1,024 tokens
 MAMBA2_LAUNCH_ARGS = ["--arch", MAMBA2, "--seq", "1024", "--ranks", "8,16", "--steps", "6",
@@ -2548,7 +2599,7 @@ def case_proj(case: str):
 
     if case in (CR_TRAIN_CASE, CR_DECODE_CASE, CR_LAUNCH_CASE):
         return family_proj(get_config(COMMAND_R))
-    for arch in FAMILIES:
+    for arch in (*FAMILIES, MOE):
         if case in (FAMILY_TRAIN_CASE.get(arch), FAMILY_DECODE_CASE.get(arch)):
             return family_proj(get_config(arch))
     return PROJ
@@ -2622,17 +2673,21 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
     ``default_search_space(300, seq_len=512)``: one job on the H100 preset,
     captured (impl="auto"), held against an eager run of the same pack from
     the same initial weights (bit for bit, else losses within LOSS_RTOL),
-    its launches against the eager steps', its own peak to C3. Returns its
-    launch counts."""
+    its launches against the eager steps', its own peak to C3, and
+    extract -> inject -> extract of its last adapter bit-exact on the card.
+    Returns its launch counts."""
     import shutil
 
     from repro_torch.cluster import ClusterRunner, DevicePool, SliceExecutor
     from repro_torch.cluster.executor import WARMUP_STEPS
     from repro_torch.configs import default_search_space
     from repro_torch.core.adapter import pack_meta
+    from repro_torch.core.packed_lora import extract_adapter, inject_adapter
+    from repro_torch.models.model import lora_zeros
     from repro_torch.obs import MetricsTracer
     from repro_torch.sched import H100, CostModel, ExecutionEngine, plan
     from repro_torch.train.checkpoint import CheckpointPool
+    from repro_torch.tree import tree_leaves, tree_map
 
     space = default_search_space(300, seq_len=SWEEP_SEQ)
     configs = [space[i] for i in FAMILY_SWEEP_IDS]
@@ -2668,6 +2723,14 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
                "job_mem_bytes": cm.job_mem_bytes(jc, 1, SWEEP_SEQ),
                "capture_s": cap.get("seconds"), "captured": rec.captured}
         cap_ads = [pool.load_adapter(f"adapter_{i:04d}") for i in sched.jobs[0].config_ids]
+        # extract -> inject of the job's last adapter, on the card: into a
+        # one-adapter pack of zeros, back to the card, and out again
+        one = pack_meta([jc[-1]])
+        packed = inject_adapter(lora_zeros(cfg, one, torch.float32, "cpu"), cap_ads[-1], 0)
+        again = extract_adapter(tree_map(lambda a: torch.from_numpy(a).to(dev), packed), 0,
+                                one.ranks)
+        roundtrip = all(np.array_equal(a, b) for a, b in zip(tree_leaves(again),
+                                                              tree_leaves(cap_ads[-1])))
         ex.clear()
         torch.cuda.empty_cache()
         slice_ = DevicePool([dev]).acquire(1)
@@ -2685,9 +2748,11 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
         emit({"phase": "family_sweep", "model": cfg.name, "job": row, "makespan_s": makespan,
               "captured_vs_eager": cmp, "eager_step_s": win.seconds, "launches": launches,
               "launches_expected_from_eager": expect, "held_bytes": held,
-              "metrics": tracer.metrics.to_json()})
+              "extract_inject_bit_exact": roundtrip, "metrics": tracer.metrics.to_json()})
         if not rec.captured:
             fail(f"{cfg.name}: the sweep's job was not captured")
+        if not roundtrip:
+            fail(f"{cfg.name}: extract -> inject -> extract of an adapter is not bit-exact")
         if launches != expect:
             fail(f"{cfg.name}: the sweep counted {launches} launches; its eager steps make "
                  f"{expect}")
@@ -3081,6 +3146,191 @@ def command_r_phase(torch, dev, out_dir: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# moe phase: qwen3-moe-30b-a3b at full width and depth on a bf16 base
+# ---------------------------------------------------------------------------
+
+# qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B as the reference models it: 48
+# layers, d 2,048, GQA 32/4 of 128, 128 experts of d_ff 768, top-8 on every
+# layer, capacity factor 1.25, vocab 151,936, untied): 30.53 B parameters,
+# 61.06 GB of bf16 (the experts 29.0 B), built by ``init_model`` on the card
+# from SEED right after the command_r phase, with nothing else resident.
+MOE_TRAIN_STEPS = 3
+# the train phase's pack (8 padded rows) at 256 tokens: the CE's backward
+# takes ~0.87 GB a row at 256 (1.75 at 512), which with the 61 GB base and
+# step 1's f32 copy of MOE_F32_LAYERS layers (2.4 GB each, with the f32
+# embedding and head 7.4 GB) keeps the comparison near 77 GB of the 80
+MOE_TRAIN_SEQ = 256
+# step 1's f32 comparison runs on a view of the first MOE_F32_LAYERS layers:
+# the whole base in f32 would be 122 GB
+MOE_F32_LAYERS = 2
+# the "ep" path against the dense oracle on one full-width layer: this many
+# tokens, at a capacity factor of E / top_k (nothing dropped); f32 within
+# KERNEL_TOL's f32 limit of max |y|, bf16 within MOE_ORACLE_BF16
+MOE_ORACLE_TOKENS = 384
+MOE_ORACLE_BF16 = 2e-2
+
+
+def moe_oracle(torch, dev, cfg, base) -> None:
+    """The "ep" path equals ``_moe_dense`` on layer 0's experts at full
+    width (MOE_ORACLE_TOKENS tokens of N(0, 1), capacity factor E / top_k:
+    every pair kept), in f32 and in bf16; the same routing on both."""
+    import dataclasses
+
+    from repro_torch.models.layers import moe as tmoe
+    from repro_torch.tree import tree_index, tree_map
+
+    mcfg = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    t = MOE_ORACLE_TOKENS
+    cap = tmoe.moe_capacity(t, mcfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn((t, cfg.d_model), generator=gen, device=dev)
+    layer = tree_index(base["decoder"]["blocks"]["l0"]["moe"], 0)
+    out = {"phase": "moe_oracle", "model": cfg.name, "tokens": t, "capacity": cap,
+           "capacity_factor": mcfg.capacity_factor}
+    with torch.no_grad():
+        for name, dtype, tol in (("f32", torch.float32, KERNEL_TOL["float32"]),
+                                 ("bf16", torch.bfloat16, MOE_ORACLE_BF16)):
+            p = tree_map(lambda w: w.to(dtype) if w.dim() == 3 else w, layer)
+            xd = x.to(dtype)
+            y_ep, a_ep = tmoe._moe_ep_local(p, xd, mcfg, 0, mcfg.n_experts, cap)
+            y_dn, a_dn = tmoe._moe_dense(p, xd, mcfg)
+            err = (y_ep.float() - y_dn.float()).abs().max().item()
+            scale = y_dn.float().abs().max().item()
+            out[name] = {"max_abs_err": err, "max_abs_y": scale, "rel_err": err / scale,
+                         "tol": tol, "aux_ep": a_ep.item(), "aux_dense": a_dn.item()}
+            if not (math.isfinite(err) and err <= tol * scale and a_ep.item() == a_dn.item()):
+                emit(out)
+                fail(f"{cfg.name}: the ep path differs from the dense oracle in {name}: "
+                     f"{err} > {tol} x {scale}, aux {a_ep.item()} / {a_dn.item()}")
+            del p, y_ep, y_dn
+    emit(out)
+
+
+def moe_routes(torch, cfg, base, lora, batch, meta):
+    """One no-grad forward of the pack under impl="auto" and one on the
+    plain path, the routing recorded: each MoE layer's top-k ``idx`` and
+    its dispatch (``dispatch_plan``). Returns the share of (token, expert)
+    pairs dropped per layer and per pack row (the config's capacity
+    factor, "auto"), and per layer the share of the kernel path's top-k
+    choices that the plain path also made."""
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.layers import moe as tmoe
+
+    impls = ("auto", "plain")
+    router, plan_fn = tmoe._router, tmoe.dispatch_plan
+    routes, kept = {}, []
+
+    def rec_router(x, params, mcfg):
+        out = router(x, params, mcfg)
+        routes[cur].append(out[1])
+        return out
+
+    def rec_plan(idx, n_experts, capacity, *a):
+        out = plan_fn(idx, n_experts, capacity, *a)
+        if cur == impls[0]:
+            kept.append((out[0] < n_experts * capacity).view(idx.shape))
+        return out
+
+    tmoe._router, tmoe.dispatch_plan = rec_router, rec_plan
+    try:
+        with torch.no_grad():
+            for cur in impls:
+                routes[cur] = []
+                tmodel.forward(base, lora, meta.scales(batch["tokens"].device), batch, cfg,
+                               n_pack=meta.n, kcfg=KernelConfig(impl=cur, ranks=meta.ranks))
+    finally:
+        tmoe._router, tmoe.dispatch_plan = router, plan_fn
+    nb, s = batch["tokens"].shape
+    k = cfg.moe.top_k
+    dropped = [1.0 - kp.float().mean().item() for kp in kept]
+    by_row = torch.stack([1.0 - kp.float().view(nb, s * k).mean(1) for kp in kept]).mean(0)
+
+    def agree(a, b):  # the share of a's top-k choices that b also made
+        return (a[:, :, None] == b[:, None, :]).any(-1).float().mean().item()
+
+    same = {other: [agree(a, b) for a, b in zip(routes[impls[0]], routes[other])]
+            for other in impls[1:]}
+    return {"dropped_share_by_layer": dropped, "dropped_share": sum(dropped) / len(dropped),
+            "dropped_share_by_row": by_row.tolist(), "topk_agreement_by_layer": same,
+            "topk_agreement_min": {o: min(v) for o, v in same.items()}}
+
+
+def moe_phase(torch, dev, out_dir: Path) -> dict:
+    """qwen3-moe-30b-a3b at full width and depth on a bf16 base (61.06 GB)
+    built by ``init_model`` on the card: the oracle check (``moe_oracle``);
+    ``make_packed_step`` under impl="auto" and "fused" on the train phase's
+    pack at MOE_TRAIN_SEQ (step 1 against the plain path: loss LOSS_RTOL in bf16 at 48
+    layers, f32 gradients GRAD_TOL_F32 on the first MOE_F32_LAYERS; then
+    MOE_TRAIN_STEPS steps whose counts must move); the routing of the pack
+    (``moe_routes``: the pairs dropped at capacity factor 1.25, by layer and
+    by row; the top-k agreement of the kernel and plain paths, by layer); a
+    ``make_train_step`` call with no host wait (on MOE_F32_LAYERS layers);
+    8 requests through ``ServeEngine.serve`` under auto and fused with the
+    logits of prefill and teacher-forced decode steps held against the
+    plain path at LOGIT_TOL; one captured sweep job of FAMILY_SWEEP_IDS
+    (``family_sweep``: equal to eager, launches, its own peak held to C3)
+    at 48 layers. Returns the launch counts by run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = get_config(MOE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    base, _ = init_model(SEED, cfg, None, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize(dev)
+    emit({"phase": "moe_setup", "model": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+          "d_expert": cfg.moe.d_expert, "capacity_factor": cfg.moe.capacity_factor,
+          "vocab": cfg.vocab_size, "dtype": "bfloat16", "init_s": time.perf_counter() - t0,
+          "resident_bytes": resident_bytes(base), "held_bytes": held,
+          "build_peak_bytes": torch.cuda.max_memory_allocated(dev) - held})
+    counts, stages, lap = {}, {}, time.perf_counter()
+
+    def stage(name):  # the seconds since the last stage ended
+        nonlocal lap
+        stages[name], lap = time.perf_counter() - lap, time.perf_counter()
+
+    moe_oracle(torch, dev, cfg, base)
+    stage("oracle")
+    _, meta, lora0, batches = train_setup(torch, dev, cfg, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS)
+    routes = moe_routes(torch, cfg, base, lora0, batches[0], meta)
+    emit({"phase": "moe_routes", "model": cfg.name, "rows": meta.n * meta.max_batch,
+          "seq": MOE_TRAIN_SEQ, "capacity_factor": cfg.moe.capacity_factor, **routes})
+    stage("routes")
+    for impl in FAMILY_TRAIN_IMPLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        row, counts[f"train:{impl}"], state = train_run(
+            torch, dev, cfg, meta, lora0, batches, base, impl, phase="moe_train",
+            f32_layers=MOE_F32_LAYERS)
+        del state
+    cut, cut_base = depth_cut(cfg, base, MOE_F32_LAYERS)
+    cut_lora = depth_cut_lora(lora0, MOE_F32_LAYERS)
+    sync_free_train_step(torch, cut, meta, cut_base, cut_lora, init_opt_state(cut_lora),
+                         batches[0], "auto")
+    del lora0, batches, cut_base, cut_lora
+    torch.cuda.empty_cache()
+    stage("train")
+    for impl, c in family_serve(torch, dev, MOE, cfg, base).items():
+        counts[f"serve:{impl}"] = c
+    stage("serve")
+    counts["sweep:auto"] = family_sweep(torch, dev, cfg, base, out_dir)
+    stage("sweep")
+    emit({"phase": "moe_done", "model": MOE, "stages_s": stages})
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3222,6 +3472,8 @@ EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decod
               ("packed_matmul:minicpm3_decode_pair", "packed_matmul", ("pair",),
                "decode_minicpm3"),
               ("packed_matmul:mamba2_decode_pair", "packed_matmul", ("pair",), "decode_mamba2"),
+              ("packed_matmul:qwen3_decode_pair", "packed_matmul", ("pair",),
+               "decode_qwen3_moe"),
               # fused_matmul_q on an f32 x (the launcher's --quant ... --impl fused)
               ("fused_matmul_q:int8_f32", "fused_matmul_q", ("int8",), "train", "float32"),
               ("fused_matmul_q:nf4_f32", "fused_matmul_q", ("nf4",), "train", "float32"),
@@ -3346,6 +3598,9 @@ def main() -> None:
     command_r_launches = command_r_phase(torch, dev, out_dir)
     emit({"phase": "command_r_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    moe_launches = moe_phase(torch, dev, out_dir)
+    emit({"phase": "moe_phase_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     autotune_phase(torch, dev, out_dir)
     emit({"phase": "autotune_done", "seconds": time.perf_counter() - t0})
     sync_phase(torch, dev)
@@ -3376,7 +3631,7 @@ def main() -> None:
                                "sweep": {"auto": sweep_launches},
                                "online": {"auto": online_launches},
                                "launcher": launcher_launches, **family_launches,
-                               COMMAND_R: command_r_launches})
+                               COMMAND_R: command_r_launches, MOE: moe_launches})
     (out_dir / "chip_smoke.json").write_text(json.dumps({"records": RECORDS, **summary}, indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

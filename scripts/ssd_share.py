@@ -33,30 +33,50 @@ SSD_PARTS = ("_ssd_scan", "_causal_conv", "_ssd_step", "apply_norm")
 
 
 def ssd_profile(torch, cs, cfg, what: str, fn, out_dir: Path) -> dict:
-    """``fn()`` under ``torch.profiler`` with each of the SSD's plain parts
-    (SSD_PARTS) run inside a ``ssd:<name>`` range: their device time, and
-    share of all device time, in the forward (the kernels launched inside
-    the ranges, a checkpointed block's recompute included) and in the
-    backward (the autograd nodes of the ops launched there, matched by
-    thread and sequence number). Read from the profile's events, without
+    """The SSD's parts (SSD_PARTS of ``models/layers/ssm.py``) in ``fn()``:
+    ``parts_profile`` under the tag "ssd", the kernel table in
+    ``smoke_out/profile_mamba2_<what>.txt``."""
+    from repro_torch.models.layers import ssm
+
+    return parts_profile(torch, cs, cfg, what, fn, out_dir, ssm, SSD_PARTS, "ssd", "mamba2")
+
+
+def parts_profile(torch, cs, cfg, what: str, fn, out_dir: Path, module, parts, tag: str,
+                  model_tag: str) -> dict:
+    """``fn()`` under ``torch.profiler`` with each of ``module``'s ``parts``
+    run inside a ``<tag>:<name>`` range (a function, or an autograd
+    Function's ``apply``): their device time, and share of all device
+    time, in the forward (the kernels launched inside the ranges, a
+    checkpointed block's recompute included) and in the backward (the
+    autograd nodes of the ops launched there, matched by thread and
+    sequence number, less the recompute of a checkpointed block that a
+    node's first read of its saved tensors runs: each decoder layer runs
+    inside a ``layer`` range, and the ranges under a node are its
+    recompute). Read from the profile's events, without
     ``key_averages`` (minutes of host time at this many events); the
-    device time by kernel name goes to ``smoke_out/profile_mamba2_<what>.txt``."""
+    device time by kernel name goes to
+    ``smoke_out/profile_<model_tag>_<what>.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.models.layers import ssm
+    from repro_torch.models import transformer
 
-    saved = {nm: getattr(ssm, nm) for nm in SSD_PARTS}
+    saved = {nm: getattr(module, nm) for nm in parts}
+    apply_layer = transformer.apply_layer
 
     def ranged(nm, f):
+        if isinstance(f, type):  # an autograd Function: range its apply
+            return type(f.__name__, (), {"apply": staticmethod(ranged(nm, f.apply))})
+
         def call(*a, **kw):
-            with record_function(f"ssd:{nm}"):
+            with record_function(f"{tag}:{nm}"):
                 return f(*a, **kw)
         return call
 
     torch.cuda.synchronize()
     for nm, f in saved.items():
-        setattr(ssm, nm, ranged(nm, f))
+        setattr(module, nm, ranged(nm, f))
+    transformer.apply_layer = ranged("layer", apply_layer)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -65,7 +85,8 @@ def ssd_profile(torch, cs, cfg, what: str, fn, out_dir: Path) -> dict:
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
         for nm, f in saved.items():
-            setattr(ssm, nm, f)
+            setattr(module, nm, f)
+        transformer.apply_layer = apply_layer
     by_kernel = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
@@ -73,42 +94,60 @@ def ssd_profile(torch, cs, cfg, what: str, fn, out_dir: Path) -> dict:
             by_kernel[e.name] = (ms + e.self_device_time_total / 1e3, n + 1)
     device_ms = sum(ms for ms, _ in by_kernel.values())
     if device_ms <= 0:
-        cs.fail(f"the profiler saw no device time in mamba2's {what}")
+        cs.fail(f"the profiler saw no device time in {cfg.name}'s {what}")
     top = sorted(by_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
-    (out_dir / f"profile_mamba2_{what}.txt").write_text(
+    (out_dir / f"profile_{model_tag}_{what}.txt").write_text(
         "".join(f"{ms:12.3f} ms {n:8d}  {name}\n" for name, (ms, n) in top))
     res = {"wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
            "top_device_ms": [[name[:60], ms, n] for name, (ms, n) in top[:12]]}
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
 
+    pre = f"{tag}:"
+
     def part_of(e):
         while e is not None:
-            if e.name.startswith("ssd:"):
-                return e.name[4:]
+            if e.name.startswith(pre) and e.name != f"{tag}:layer":
+                return e.name[len(pre):]
             e = e.cpu_parent
         return None
 
-    fwd, bwd, nodes = dict.fromkeys(SSD_PARTS, 0.0), dict.fromkeys(SSD_PARTS, 0.0), 0
-    seqs = {}
+    fwd, bwd, nodes = dict.fromkeys(parts, 0.0), dict.fromkeys(parts, 0.0), 0
+    seqs, node_part, recompute_ms = {}, {}, 0.0
     for e in events:
-        if e.name.startswith("ssd:"):
-            fwd[e.name[4:]] += e.device_time_total / 1e3
+        if e.name == f"{tag}:layer":
+            continue
+        if e.name.startswith(pre):
+            fwd[e.name[len(pre):]] += e.device_time_total / 1e3
         elif e.sequence_nr >= 0 and "Backward" not in e.name:
             part = part_of(e.cpu_parent)
             if part is not None:
                 seqs[e.thread, e.sequence_nr] = part
-    for e in events:  # an autograd node: "<Op>Backward<k>", its forward's sequence number
-        if (e.name.endswith(tuple(f"Backward{k}" for k in range(4)))
+    # an autograd node: "<Op>Backward<k>" (an autograd Function's:
+    # "<Name>Backward"), with its forward's sequence number
+    for e in events:
+        if (e.name.endswith(("Backward", *(f"Backward{k}" for k in range(4))))
                 and not e.name.startswith("autograd::")):
             part = seqs.get((e.fwd_thread, e.sequence_nr))
+            if part is None and e.name[:-len("Backward")] in parts:  # an autograd Function's
+                part = e.name[:-len("Backward")]
             if part is not None:
                 bwd[part] += e.device_time_total / 1e3
+                node_part[e.id] = part
                 nodes += 1
-    ssd_ms = sum(fwd.values()) + sum(bwd.values())
-    row = {"phase": "ssd_profile", "model": cfg.name, "what": what, **res,
-           "ssd_forward_device_ms": fwd, "ssd_backward_device_ms": bwd,
-           "ssd_backward_nodes_matched": nodes, "ssd_device_ms": ssd_ms,
-           "ssd_device_share": ssd_ms / res["device_ms"]}
+    for e in events:  # a layer's recompute inside a node: not the node's own time
+        if e.name == f"{tag}:layer":
+            up = e.cpu_parent
+            while up is not None and up.id not in node_part:
+                up = up.cpu_parent
+            if up is not None:
+                bwd[node_part[up.id]] -= e.device_time_total / 1e3
+                recompute_ms += e.device_time_total / 1e3
+    part_ms = sum(fwd.values()) + sum(bwd.values())
+    row = {"phase": f"{tag}_profile", "model": cfg.name, "what": what, **res,
+           f"{tag}_forward_device_ms": fwd, f"{tag}_backward_device_ms": bwd,
+           f"{tag}_backward_nodes_matched": nodes,
+           f"{tag}_recompute_in_nodes_device_ms": recompute_ms, f"{tag}_device_ms": part_ms,
+           f"{tag}_device_share": part_ms / res["device_ms"]}
     cs.emit(row)
     return row
 

@@ -5,7 +5,9 @@ Both packages lay parameters out alike: nested dicts with weights
 ``final_norm``, ``lm_head`` (none when the embeddings are tied) and
 ``decoder.blocks.l0.*`` stacked on axis 0 (the layer); a LoRA pack tree
 has the pack on axis 1 under ``"blocks"`` and on axis 0 elsewhere. So the
-bridge changes no layout: it converts leaves.
+bridge changes no layout: it converts leaves. An MoE layer's ``"moe"``
+subtree crosses under ``"blocks"`` like any other, its leaves with the
+block on axis 0.
 JAX → numpy → :func:`to_torch` → :func:`to_numpy` is bit-exact.
 """
 from __future__ import annotations
@@ -14,6 +16,10 @@ import numpy as np
 import torch
 
 from repro_torch.tree import tree_map
+
+# subtrees that stay f32 whatever dtype the rest of a tree is cast to: an
+# MoE router, whose top-k choice reads it (the reference keeps it f32)
+F32_SUBTREES = frozenset({"router"})
 
 
 def _leaf_to_torch(a, device, dtype):
@@ -38,8 +44,11 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def to_torch(tree, device, dtype=None):
     """A numpy (or JAX) parameter tree as torch tensors on ``device``, its
-    floating-point leaves optionally cast to ``dtype``; same structure and
-    layout."""
+    floating-point leaves optionally cast to ``dtype`` (those under an
+    F32_SUBTREES key to f32); same structure and layout."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device, torch.float32 if k in F32_SUBTREES and dtype is not None
+                            else dtype) for k, v in tree.items()}
     return tree_map(lambda a: _leaf_to_torch(a, device, dtype), tree)
 
 

@@ -2,6 +2,7 @@ from repro_torch.configs.base import (
     AttentionConfig,
     LoraConfig,
     ModelConfig,
+    MoEConfig,
     SSMConfig,
     default_search_space,
     get_config,
@@ -13,6 +14,7 @@ __all__ = [
     "AttentionConfig",
     "LoraConfig",
     "ModelConfig",
+    "MoEConfig",
     "SSMConfig",
     "default_search_space",
     "get_config",

@@ -3,7 +3,8 @@
 The port keeps its own copy of the reference's configuration dataclasses
 (``repro.configs.base``), cut to what the ported families need (GQA:
 qwen25-7b, starcoder2-7b, gemma3-1b, command-r-35b; MLA: minicpm3-4b;
-SSD: mamba2-370m): the port imports nothing of the JAX package.
+SSD: mamba2-370m; MoE: qwen3-moe-30b-a3b, grok-1-314b): the port imports
+nothing of the JAX package.
 Field names and defaults match the reference, so a test can build the same
 configuration on both sides.
 """
@@ -57,6 +58,15 @@ class AttentionConfig:
         return self.kv_lora_rank > 0
 
 
+def _fields_equal(a, b) -> bool:
+    """Field for field, against the reference's config of the same class
+    name too: a port config and the JAX package's compare equal when their
+    values do."""
+    if type(b).__name__ != type(a).__name__:
+        return NotImplemented
+    return all(getattr(a, f.name) == getattr(b, f.name, None) for f in dataclasses.fields(a))
+
+
 @dataclass(frozen=True)
 class SSMConfig:
     """Mamba-2 (SSD) block configuration [arXiv:2405.21060]; single-group
@@ -80,19 +90,41 @@ class SSMConfig:
         return self.d_inner(d_model) // self.head_dim
 
     def __eq__(self, other) -> bool:
-        # field for field, against the reference's SSMConfig too: a port
-        # config and the JAX package's compare equal when their values do
-        if type(other).__name__ != "SSMConfig":
-            return NotImplemented
-        return all(getattr(self, f.name) == getattr(other, f.name, None)
-                   for f in dataclasses.fields(self))
+        return _fields_equal(self, other)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN (the reference's fields and defaults):
+    ``n_experts`` SwiGLU experts of hidden size ``d_expert``, ``top_k``
+    routed per token, on every ``moe_every``-th layer. ``impl``: "dense"
+    (every expert on every token, gate-weighted: the exact oracle) or "ep"
+    (a capacity-bounded sort-based dispatch; ``capacity_factor`` sets the
+    slots per expert)."""
+
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    moe_every: int = 1
+    impl: str = "dense"
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+
+    @property
+    def enabled(self) -> bool:
+        return self.n_experts > 0
+
+    def __eq__(self, other) -> bool:
+        return _fields_equal(self, other)
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     """One decoder: pre-norm layers of a mixer and an FFN. ``family``
     "dense": GQA with rope (or MLA) + an MLP in every layer; "ssm": an SSD
-    mixer (``ssm``) and no FFN (mamba2). ``mlp_kind``: "swiglu"
+    mixer (``ssm``) and no FFN (mamba2); "moe": GQA + a mixture of experts
+    (``moe``) on every ``moe.moe_every``-th layer, an MLP on the others.
+    ``mlp_kind``: "swiglu"
     (gate/up/down, silu), "gelu" (the gated GELU: gate/up/down) or "gelu2"
     (the classic up -> GELU -> down, no gate); ``norm_kind``: "rmsnorm" or
     "layernorm"."""
@@ -114,6 +146,7 @@ class ModelConfig:
     encoder_layers: int = 0
     family: str = "dense"
     ssm: SSMConfig = field(default_factory=SSMConfig)
+    moe: MoEConfig = field(default_factory=MoEConfig)
 
     @property
     def is_encdec(self) -> bool:
@@ -126,8 +159,15 @@ class ModelConfig:
 
     def ffn_kinds(self) -> Tuple[str, ...]:
         """FFN kind per decoder layer: "none" in an SSM family (mamba2
-        blocks have no separate FFN), else a "dense" MLP."""
-        return ("none" if self.family == "ssm" else "dense",) * self.n_layers
+        blocks have no separate FFN); with ``moe`` enabled, "moe" on every
+        ``moe_every``-th layer (layers moe_every - 1, 2 moe_every - 1, ...,
+        as the reference) and a "dense" MLP between; else "dense"."""
+        m = self.moe
+        return tuple(
+            "none" if self.family == "ssm"
+            else "moe" if m.enabled and i % m.moe_every == m.moe_every - 1
+            else "dense"
+            for i in range(self.n_layers))
 
     @property
     def padded_vocab(self) -> int:
@@ -180,27 +220,38 @@ def ssm_projections(scfg: SSMConfig, d_model: int) -> Dict[str, Tuple[int, int]]
             "dt": (d_model, scfg.n_heads(d_model)), "out": (di, d_model)}
 
 
+def mlp_projections(cfg: "ModelConfig") -> Dict[str, Tuple[int, int]]:
+    """(d_in, d_out) of a dense FFN's projections, in the order the init
+    draws them (``MLP_PROJECTIONS[cfg.mlp_kind]``)."""
+    d = cfg.d_model
+    mlp = {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
+    return {nm: mlp[nm] for nm in MLP_PROJECTIONS[cfg.mlp_kind]}
+
+
 def layer_projections(cfg: "ModelConfig") -> Dict[str, Tuple[int, int]]:
     """(d_in, d_out) of every projection of one decoder layer: the
-    mixer's (attention or SSD), then the MLP's (none in an SSM family)."""
+    mixer's (attention or SSD), then the MLP's (none in an SSM family, nor
+    in an MoE family whose every FFN is a mixture of experts: the experts
+    are batched weights, not projections, and carry no adapter)."""
     d = cfg.d_model
     if cfg.family == "ssm":
         return ssm_projections(cfg.ssm, d)
-    mlp = {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
-    return {**attn_projections(cfg.attention, d),
-            **{nm: mlp[nm] for nm in MLP_PROJECTIONS[cfg.mlp_kind]}}
+    mlp = mlp_projections(cfg) if "dense" in cfg.ffn_kinds() else {}
+    return {**attn_projections(cfg.attention, d), **mlp}
 
 
 def lora_leaves(cfg: "ModelConfig") -> Dict[str, str]:
     """Each LoRA target of ``cfg.lora_targets`` that the model has -> the
     projection it adapts (MLA's "q" and "kv": ``q_a`` and ``kv_a``; a
     "gelu2" MLP has no gate; SSD's "ssm_in" and "ssm_out": ``zx`` and
-    ``out``)."""
+    ``out``; an MLP target only where every layer has an MLP: the port's
+    LoRA trees have one layout for every layer)."""
     if cfg.family == "ssm":
         names = SSM_TARGETS
     else:
         attn = MLA_TARGETS if cfg.attention.is_mla else {t: t for t in ("q", "k", "v", "o")}
-        names = {**attn, **{nm: nm for nm in MLP_PROJECTIONS[cfg.mlp_kind]}}
+        dense = set(cfg.ffn_kinds()) == {"dense"}
+        names = {**attn, **{nm: nm for nm in MLP_PROJECTIONS[cfg.mlp_kind] if dense}}
     return {t: names[t] for t in cfg.lora_targets if t in names}
 
 
@@ -226,7 +277,8 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
     512, a window of at most 64; MLA ranks 48 (q) and 32 (kv), q/k heads of
     16 nope + 16 rope, v heads of 32; SSD d_state 16, heads of 32, chunks of
     32 (every config carries an enabled ``ssm``, so every one shrinks, as
-    in the reference)."""
+    in the reference); 4 experts of d_expert 64, top-k min(2, top_k), a
+    capacity factor of 4 / top-k (nothing dropped)."""
     attn = cfg.attention
     n_heads = max(2, min(4, attn.n_heads))
     n_kv = max(1, min(n_heads, attn.n_kv_heads))
@@ -242,6 +294,11 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
     ssm = cfg.ssm
     if ssm.enabled:
         ssm = dataclasses.replace(ssm, d_state=16, head_dim=32, chunk_size=32)
+    moe = cfg.moe
+    if moe.enabled:
+        # capacity_factor = E / top_k: capacity >= T, no token dropped
+        k = min(2, moe.top_k)
+        moe = dataclasses.replace(moe, n_experts=4, top_k=k, d_expert=64, capacity_factor=4 / k)
     if attn.global_every:
         n_layers = min(max(n_layers, attn.global_every), 6)
     return cfg.replace(
@@ -252,6 +309,7 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
         vocab_size=512,
         attention=new_attn,
         ssm=ssm,
+        moe=moe,
     )
 
 
@@ -281,7 +339,9 @@ def _ensure_loaded() -> None:
         command_r_35b,
         gemma3_1b,
         mamba2_370m,
+        grok_1_314b,
         minicpm3_4b,
+        qwen3_moe_30b_a3b,
         qwen25_7b,
         starcoder2_7b,
     )

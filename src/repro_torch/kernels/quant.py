@@ -99,15 +99,17 @@ def base_storage(params, dense: bool = False):
     quantized, else its dense dtype, "f32" or "bf16". With ``dense``:
     (that name, the dtype of its dense floating-point leaves -- for a
     quantized tree its embedding, norms and whatever else stays dense, as
-    ``CostModel``'s ``dense_dtype`` names it)."""
+    ``CostModel``'s ``dense_dtype`` names it). An MoE router is f32 in any
+    tree and does not count."""
     modes, dtypes = set(), set()
 
     def walk(node):
         if is_quantized(node):
             modes.add(quant_mode(node))
         elif isinstance(node, dict):
-            for v in node.values():
-                walk(v)
+            for k, v in node.items():
+                if k != "router":
+                    walk(v)
         elif isinstance(node, torch.Tensor) and node.is_floating_point():
             dtypes.add(node.dtype)
 

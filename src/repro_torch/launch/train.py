@@ -13,7 +13,10 @@ and no CUDA it raises). The model is initialized
 from a seed in f32, as the reference's launcher does; with ``--quant
 int8|nf4`` its projections are quantized layer by layer as they are drawn
 (``init_model(..., quant=)``), so a model whose dense base does not fit the
-card (``--arch command-r-35b``) still builds.
+card (``--arch command-r-35b``) still builds. ``--arch qwen3-moe-30b-a3b``
+does not fit one card this way: its f32 base is 122 GB, and ``--quant``
+leaves the experts (29.0 B of its 30.53 B parameters) dense, as the
+reference's quantizer does; it runs here at ``--reduced`` size.
 
 Ported flags besides the pack's: ``--impl``/``--quant``/``--remat`` (the
 kernel policy), ``--pool`` (save each adapter), ``--save-state`` /

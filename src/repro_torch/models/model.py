@@ -7,7 +7,7 @@ unchanged):
 
   init_model(seed, cfg, meta, dtype, device, quant) -> (base_params, lora_params)
   init_lora(seed, cfg, meta, dtype, device)  -> init_model's lora_params alone
-  forward(base, lora, scales, batch, cfg, .) -> (hidden (NB,S,d), caches|None)
+  forward(base, lora, scales, batch, cfg, .) -> (hidden (NB,S,d), caches|None, aux)
   logits(base, hidden, cfg)                  -> (NB,S,V)
   init_caches(cfg, nb, smax)                 -> cache tree
   prefill(...)                               -> (last logits (NB,1,V), caches)
@@ -120,11 +120,21 @@ def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=Non
     }}
 
 
+# the families whose residual stream is f32 whatever the base's dtype
+# (``transformer.apply_layer``): at depth in bf16, the roundings of two
+# valid computations -- the kernels and their plain versions -- move an
+# SSM's scan state, and an MoE router's choice at near-ties, far enough
+# apart to part their logits by more than 5 % of max |logit| (ROADMAP C,
+# differences by design)
+F32_STREAM_FAMILIES = ("ssm", "moe")
+
+
 def _embed(base, tokens, cfg: ModelConfig):
-    """The residual stream's start: the embedding's rows, in f32 for an SSM
-    family (its stream stays f32 through the stack: ``layers/ssm.py``)."""
+    """The residual stream's start: the embedding's rows, in f32 for a
+    family of F32_STREAM_FAMILIES (its stream stays f32 through the
+    stack)."""
     x = base["embed"]["w"][tokens]
-    return x.float() if cfg.family == "ssm" else x
+    return x.float() if cfg.family in F32_STREAM_FAMILIES else x
 
 
 def _final_norm(base, x, cfg: ModelConfig):
@@ -135,17 +145,19 @@ def _final_norm(base, x, cfg: ModelConfig):
 def forward(base, lora, scales, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             n_pack: int = 1, chunk_q: int = 512, make_cache: bool = False, kcfg=None,
             remat: bool = True):
-    """batch: {"tokens": (NB, S)}. Returns (hidden (NB, S, d), caches|None).
+    """batch: {"tokens": (NB, S)}. Returns (hidden (NB, S, d), caches|None,
+    aux): aux the MoE layers' summed load-balance loss (an f32 zero
+    without one), as the reference's (``repro/models/model.py:103-125``).
     ``remat``: checkpoint each block when grad mode is on (training)."""
     tokens = batch["tokens"]
     x = _embed(base, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, caches = apply_stack(
+    x, caches, aux = apply_stack(
         base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
         layer_specs(cfg), n_pack=n_pack, rope_cache=make_rope_cache(cfg, positions),
         make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg, remat=remat,
     )
-    return _final_norm(base, x, cfg), caches
+    return _final_norm(base, x, cfg), caches, aux
 
 
 def unembed_w(base, cfg: ModelConfig):
@@ -176,7 +188,7 @@ def decode_step(base, lora, scales, token: torch.Tensor, caches, pos, cfg: Model
     x = _embed(base, token, cfg)
     # scalar pos -> shared (1, D/2) tables; vector pos -> per-row (NB, 1, D/2)
     rc = make_rope_cache(cfg, pos[None] if pos.dim() == 0 else pos[:, None])
-    x, caches = apply_stack(
+    x, caches, _ = apply_stack(
         base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
         layer_specs(cfg), n_pack=n_pack, rope_cache=rc, caches=caches, pos=pos, kcfg=kcfg,
     )
@@ -187,7 +199,7 @@ def prefill(base, lora, scales, batch, cfg: ModelConfig, *,
             n_pack: int = 1, chunk_q: int = 512, kcfg=None):
     """Full-sequence forward that also returns the k/v caches (in the
     compute dtype, capacity S). Returns (last-position logits (NB,1,V),
-    caches)."""
-    hidden, caches = forward(base, lora, scales, batch, cfg, n_pack=n_pack,
+    caches); the aux loss is dropped."""
+    hidden, caches, _ = forward(base, lora, scales, batch, cfg, n_pack=n_pack,
                              chunk_q=chunk_q, make_cache=True, kcfg=kcfg)
     return logits(base, hidden[:, -1:, :], cfg), caches

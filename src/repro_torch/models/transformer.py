@@ -1,6 +1,7 @@
 """Decoder stack: pre-norm layers of a mixer -- attention (GQA, or MLA when
 the config has a ``kv_lora_rank``) or an SSD block (an "ssm" family) --
-and a dense MLP (none in an "ssm" family).
+and an FFN: a dense MLP, a mixture of experts (a "moe" layer, whose
+load-balance aux loss the stack sums) or none (an "ssm" family).
 
 Layers are grouped as in the reference: the per-layer spec sequence has a
 minimal period p, the L//p repeats are stacked under ``"blocks"`` (every
@@ -28,6 +29,7 @@ from repro_torch.models.layers.attention import (
     init_mla_cache,
 )
 from repro_torch.models.layers.common import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.layers.moe import apply_moe, init_moe
 from repro_torch.models.layers.rope import rope_tables
 from repro_torch.models.layers.ssm import apply_ssm, apply_ssm_decode, init_ssm, init_ssm_cache
 from repro_torch.tree import tree_index, tree_map, tree_stack
@@ -36,7 +38,7 @@ from repro_torch.tree import tree_index, tree_map, tree_stack
 @dataclass(frozen=True)
 class LayerSpec:
     """What may differ between the layers of a stack: the mixer ("attn":
-    attention of the config's kind, or "ssm"), the FFN ("dense" or
+    attention of the config's kind, or "ssm"), the FFN ("dense", "moe" or
     "none"), the sliding window (0: full attention) and the rope theta."""
 
     mixer: str = "attn"
@@ -72,7 +74,8 @@ def find_period(specs: List[LayerSpec]) -> int:
 
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None):
     """norm1 and the mixer ("attn" or "ssm"), then, for a "dense" FFN, the
-    MLP and norm2 ("none": neither)."""
+    MLP and norm2, for a "moe" FFN the experts (``init_moe``: no LoRA) and
+    norm2 ("none": neither)."""
     a = cfg.attention
     params: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm_kind, dtype, device)}
     lora: Dict[str, Any] = {}
@@ -93,6 +96,9 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None)
         params["norm2"] = init_norm(cfg.d_model, cfg.norm_kind, dtype, device)
         if lo:
             lora["mlp"] = lo
+    elif spec.ffn == "moe":
+        params["moe"] = init_moe(gen, cfg.d_model, cfg.moe, dtype, device)
+        params["norm2"] = init_norm(cfg.d_model, cfg.norm_kind, dtype, device)
     return params, lora
 
 
@@ -101,19 +107,22 @@ def apply_layer(
     n_pack: int, rope_cache, cache=None, pos=None, make_cache: bool = False,
     chunk_q: int = 512, kcfg=None,
 ):
-    """Pre-norm residual layer. Returns (x, new_cache or None).
+    """Pre-norm residual layer. Returns (x, new_cache or None, aux): aux
+    is a "moe" FFN's load-balance loss, None for any other layer.
 
-    An SSM family's residual stream ``x`` is f32 (``model.forward``): the
-    norm's output is cast to the base's dtype, and the residual add stays
-    f32 (see ``layers/ssm.py``). An SSM layer with a cache takes one token
-    per row (``apply_ssm_decode``, the cache updated in place); the
-    reference's chunk-resumable prefill (``apply_ssm_chunk``) is not
-    ported, so a cached call with S > 1 raises, as MLA's does."""
+    An SSM or MoE family's residual stream ``x`` is f32
+    (``model.F32_STREAM_FAMILIES``): each norm's output is cast to the
+    base's dtype, and the residual adds stay f32 (see ``layers/ssm.py``);
+    an MoE router reads its norm's f32 output, its experts the cast, and
+    its combine sums in f32 (``layers/moe.py``). In a family whose stream
+    is the base's dtype the casts do nothing. An SSM layer with a cache
+    takes one token per row (``apply_ssm_decode``, the cache updated in
+    place); the reference's chunk-resumable prefill (``apply_ssm_chunk``)
+    is not ported, so a cached call with S > 1 raises, as MLA's does."""
     lo = lora or {}
-    h = apply_norm(params["norm1"], x, cfg.norm_kind)
+    h = apply_norm(params["norm1"], x, cfg.norm_kind).to(params["norm1"]["scale"].dtype)
     if spec.mixer == "ssm":
         grp = "ssm"
-        h = h.to(params["norm1"]["scale"].dtype)
         kw = dict(scfg=cfg.ssm, n_pack=n_pack, kcfg=kcfg)
         if cache:
             if h.shape[1] != 1:
@@ -133,11 +142,15 @@ def apply_layer(
         else:
             y, c = apply_gqa(params["attn"], lo.get("attn"), scales, h, window=spec.window, **kw)
     x = x + y
+    aux = None
     if spec.ffn == "dense":
-        h = apply_norm(params["norm2"], x, cfg.norm_kind)
+        h = apply_norm(params["norm2"], x, cfg.norm_kind).to(params["norm2"]["scale"].dtype)
         x = x + apply_mlp(params["mlp"], lo.get("mlp"), scales, h, n_pack, kcfg=kcfg,
                           kind=cfg.mlp_kind)
-    return x, ({grp: c} if c is not None else None)
+    elif spec.ffn == "moe":
+        y, aux = apply_moe(params["moe"], apply_norm(params["norm2"], x, cfg.norm_kind), cfg.moe)
+        x = x + y
+    return x, ({grp: c} if c is not None else None), aux
 
 
 def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, device=None,
@@ -184,30 +197,36 @@ def apply_stack(
     n_pack: int, rope_cache, caches=None, pos=None, make_cache: bool = False,
     chunk_q: int = 512, kcfg=None, remat: bool = True,
 ):
-    """Run the whole stack. Returns (x, new_caches): with ``caches`` given
-    (decode) they are updated in place and returned; with ``make_cache``
-    (prefill) the per-layer k/v come back in the cache tree layout. With
-    ``remat`` and grad mode on, each block keeps only its input for the
-    backward and recomputes the rest (``transformer.py:403`` of the
-    reference); the kernels are deterministic, so the recompute equals the
-    forward."""
+    """Run the whole stack. Returns (x, new_caches, aux): with ``caches``
+    given (decode) they are updated in place and returned; with
+    ``make_cache`` (prefill) the per-layer k/v come back in the cache tree
+    layout; aux is the sum of the layers' MoE aux losses (an f32 zero
+    without an MoE layer). With ``remat`` and grad mode on, each block
+    keeps only its input for the backward and recomputes the rest
+    (``transformer.py:403`` of the reference) and returns its aux beside
+    its output; the kernels and the MoE dispatch are deterministic, so the
+    recompute equals the forward."""
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
     kw = dict(cfg=cfg, n_pack=n_pack, rope_cache=rope_cache, pos=pos,
               make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg)
     lora = lora or {}
 
+    def add(total, a):
+        return a if total is None else total if a is None else total + a
+
     def run(x, bp, bl, bc, n_layers):
-        new_c = {}
+        new_c, aux = {}, None
         for i in range(n_layers):
-            x, c = apply_layer(bp[f"l{i}"], (bl or {}).get(f"l{i}"), scales, x, specs[i],
-                               cache=(bc or {}).get(f"l{i}"), **kw)
+            x, c, a = apply_layer(bp[f"l{i}"], (bl or {}).get(f"l{i}"), scales, x, specs[i],
+                                  cache=(bc or {}).get(f"l{i}"), **kw)
             if c is not None:
                 new_c[f"l{i}"] = c
-        return x, new_c
+            aux = add(aux, a)
+        return x, new_c, aux
 
     checkpointed = remat and torch.is_grad_enabled() and caches is None and not make_cache
-    block_caches = []
+    block_caches, aux = [], None
     for bi in range(n_blocks):
         bp = tree_index(params["blocks"], bi)
         bl = tree_index(lora["blocks"], bi) if lora.get("blocks") else None
@@ -215,17 +234,23 @@ def apply_stack(
         if checkpointed:
             # no RNG state to stash: the stack draws no random numbers, and
             # reading the CUDA RNG state cannot be captured in a CUDA graph
-            x = checkpoint(lambda h, bp=bp, bl=bl: run(h, bp, bl, None, p)[0], x,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(lambda h, bp=bp, bl=bl: run(h, bp, bl, None, p)[::2], x,
+                              use_reentrant=False, preserve_rng_state=False)
+            aux = add(aux, a)
             continue
-        x, c = run(x, bp, bl, bc, p)
+        x, c, a = run(x, bp, bl, bc, p)
         block_caches.append(c)
-    x, rest_c = run(x, params["rest"], lora.get("rest"), caches["rest"] if caches else None, n_rest)
+        aux = add(aux, a)
+    x, rest_c, a = run(x, params["rest"], lora.get("rest"), caches["rest"] if caches else None,
+                       n_rest)
+    aux = add(aux, a)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if caches is not None:
-        return x, caches
+        return x, caches, aux
     if make_cache:
-        return x, {"blocks": tree_stack(block_caches) if n_blocks else None, "rest": rest_c}
-    return x, None
+        return x, {"blocks": tree_stack(block_caches) if n_blocks else None, "rest": rest_c}, aux
+    return x, None, aux
 
 
 def make_rope_cache(cfg: ModelConfig, positions: torch.Tensor):

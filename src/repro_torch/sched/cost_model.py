@@ -19,8 +19,9 @@ against :class:`CostEstimator`; the analytic :class:`CostModel` is the
 prior, and :class:`repro_torch.sched.profile.ProfiledCostModel` layers
 measured step times on top of it. The port's copy differs from the
 reference in three places: an ``H100`` preset, parameter counts for the
-dense GQA and MLA decoders, the only families the port has (a config of
-another kind raises), and the memory accounting above. Every other number is the
+families the port has (dense GQA and MLA decoders, SSM decoders, and
+decoders with mixture-of-experts FFNs; a config of another kind raises),
+and the memory accounting above. Every other number is the
 reference's, so with ``REFERENCE_MEMORY`` the two plan alike.
 """
 from __future__ import annotations
@@ -32,8 +33,11 @@ from repro_torch.configs.base import (
     MLP_PROJECTIONS,
     LoraConfig,
     ModelConfig,
+    attn_projections,
     layer_projections,
     lora_leaves,
+    mlp_projections,
+    ssm_projections,
 )
 from repro_torch.kernels.quant import ELIGIBLE_NAMES, MODES
 
@@ -225,45 +229,76 @@ REFERENCE_MEMORY = dict(lora_state_bytes=8.0, logits_copies=0.0, job_overhead_by
                         price_dense_leaves=False)
 
 
+# the layer kinds the port counts: dense decoders (``attn`` mixers,
+# ``dense`` FFNs), SSM ones (``ssm`` mixers, no FFN) and MoE ones (``attn``
+# mixers, ``moe`` FFNs on every layer, or every ``moe_every``-th with
+# ``dense`` ones between)
+PORTED_KINDS = ({"attn", "dense"}, {"ssm", "none"}, {"attn", "moe"}, {"attn", "dense", "moe"})
+
+
 def _ported_only(cfg: ModelConfig) -> None:
-    """The layer kinds the port counts: dense decoders (``attn`` mixers,
-    ``dense`` FFNs) and SSM ones (``ssm`` mixers, no FFN)."""
     kinds = set(cfg.layer_kinds()) | set(cfg.ffn_kinds())
-    if kinds not in ({"attn", "dense"}, {"ssm", "none"}) or cfg.is_encdec:
-        raise ValueError(f"{cfg.name}: the port counts dense GQA or MLA decoders and SSM "
-                         f"decoders only, got {kinds}")
+    if kinds not in PORTED_KINDS or cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: the port counts dense GQA or MLA decoders, SSM "
+                         f"decoders and MoE decoders only, got {kinds}")
     if cfg.mlp_kind not in MLP_PROJECTIONS or cfg.norm_kind not in ("rmsnorm", "layernorm"):
         raise ValueError(f"{cfg.name}: unknown mlp_kind {cfg.mlp_kind!r} or norm_kind "
                          f"{cfg.norm_kind!r}")
 
 
+def _layer_projections(cfg: ModelConfig, ffn: str):
+    """(d_in, d_out) of one layer's projections with FFN ``ffn``: the
+    mixer's, then a dense MLP's (a "moe" or "none" FFN has none)."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return ssm_projections(cfg.ssm, d)
+    return {**attn_projections(cfg.attention, d),
+            **(mlp_projections(cfg) if ffn == "dense" else {})}
+
+
+def moe_param_count(cfg: ModelConfig) -> float:
+    """One MoE layer's experts (3 matrices of d x d_expert each) and router
+    (d x E), as the reference counts them."""
+    m = cfg.moe
+    return float(m.n_experts * 3 * cfg.d_model * m.d_expert + cfg.d_model * m.n_experts)
+
+
 def model_param_count(cfg: ModelConfig) -> float:
     """Total parameters (embeddings + stack): the reference's accounting
     for ``attn`` mixers, GQA or MLA, with ``dense`` FFNs (2 MLP matrices
-    for "gelu2", 3 otherwise), and for ``ssm`` mixers (zx, bc, dt and out)
-    with none; one vocabulary matrix when tied. Norms, biases, the conv and
-    the SSD's per-head vectors are not counted, as in the reference."""
+    for "gelu2", 3 otherwise) or ``moe`` ones (``moe_param_count``), and
+    for ``ssm`` mixers (zx, bc, dt and out) with none; one vocabulary
+    matrix when tied. Norms, biases, the conv and the SSD's per-head
+    vectors are not counted, as in the reference."""
     _ported_only(cfg)
     total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    per_layer = sum(din * dout for din, dout in layer_projections(cfg).values())
-    for _ in cfg.layer_kinds():
-        total += per_layer
+    for ffn in cfg.ffn_kinds():
+        total += sum(din * dout for din, dout in _layer_projections(cfg, ffn).values())
+        if ffn == "moe":
+            total += moe_param_count(cfg)
     return float(total)
 
 
 def quantized_param_count(cfg: ModelConfig, mode: str) -> float:
     """Parameters that ``quantize_base_params(tree, mode)`` turns into codes:
     the projections of ``kernels.quant.ELIGIBLE_NAMES`` (nf4: of even d_in).
-    The embedding, the LM head, the norms, MLA's ``kv_b_k``/``kv_b_v`` and
-    SSD's ``bc``/``dt`` stay dense."""
-    per_layer = sum(din * dout for nm, (din, dout) in layer_projections(cfg).items()
-                    if nm in ELIGIBLE_NAMES and (mode == "int8" or din % 2 == 0))
-    return float(per_layer * cfg.n_layers)
+    The embedding, the LM head, the norms, MLA's ``kv_b_k``/``kv_b_v``,
+    SSD's ``bc``/``dt`` and an MoE layer's experts and router stay dense."""
+    return float(sum(
+        din * dout for ffn in cfg.ffn_kinds()
+        for nm, (din, dout) in _layer_projections(cfg, ffn).items()
+        if nm in ELIGIBLE_NAMES and (mode == "int8" or din % 2 == 0)))
 
 
 def active_param_count(cfg: ModelConfig) -> float:
-    """Parameters touched per token: all of them in a dense decoder."""
-    return model_param_count(cfg)
+    """Parameters touched per token: all of them, less the experts a token
+    is not routed to (E - top_k of each MoE layer's), as the reference."""
+    total = model_param_count(cfg)
+    if cfg.moe.enabled:
+        m = cfg.moe
+        moe_layers = sum(1 for f in cfg.ffn_kinds() if f == "moe")
+        total -= moe_layers * 3 * cfg.d_model * m.d_expert * (m.n_experts - m.top_k)
+    return float(total)
 
 
 def lora_param_count(cfg: ModelConfig, rank: int) -> float:

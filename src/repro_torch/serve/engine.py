@@ -26,7 +26,11 @@ emits the same greedy tokens as ``serve_sequential``. Unlike the reference,
 the logits are equal only within rounding, not bitwise: the base GEMMs run
 at another batch width (PyTorch picks its GEMM by shape), and the
 sequential path decodes from compute-dtype caches where the engine's row
-caches are bf16 — as in the reference.
+caches are bf16 — as in the reference. MoE capacity couples rows (the
+experts' slots are shared by every token of a step), so for an MoE model
+the two agree only while no expert overflows, as the reference notes
+(``repro/serve/engine.py:48``); at 8 decode rows or fewer the capacity
+floor of 8 slots drops nothing.
 """
 from __future__ import annotations
 

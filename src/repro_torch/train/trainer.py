@@ -3,8 +3,10 @@
 A step runs the forward with packed-LoRA deltas, the chunked CE with
 per-adapter reduction, the gradients with respect to the LoRA leaves only
 (``requires_grad`` on them, never on the base: no base grads, no base
-moments), and AdamW with the per-adapter learning-rate vector. The dense
-decoders of the port have no auxiliary loss, so the loss is the CE total.
+moments), and AdamW with the per-adapter learning-rate vector. The loss
+is the CE total plus ``aux_weight`` times the MoE layers' load-balance aux
+loss (zero without an MoE layer), as in the reference; the per-adapter
+losses are the CE alone.
 """
 from __future__ import annotations
 
@@ -23,31 +25,38 @@ from repro_torch.tree import tree_leaves, tree_map
 
 def packed_loss_fn(
     lora, base, batch, cfg: ModelConfig, n_pack: int, scales, *,
-    chunk_q: int = 512, vocab_chunk: int = 512, kcfg: Optional[KernelConfig] = None,
+    chunk_q: int = 512, vocab_chunk: int = 512, aux_weight: float = 0.01,
+    kcfg: Optional[KernelConfig] = None,
 ):
     """(total, per-adapter (N,)) loss of a pack, ``scales`` (alpha/r) a
-    runtime tensor; ``kcfg`` the kernel policy."""
-    h, _ = forward(base, lora, scales, batch, cfg, n_pack=n_pack, chunk_q=chunk_q, kcfg=kcfg)
+    runtime tensor; ``kcfg`` the kernel policy. total = the CE total +
+    ``aux_weight`` x the MoE aux loss (one scalar over the whole pack, as
+    in the reference: it couples the pack's adapters); per-adapter: the CE
+    alone."""
+    h, _, aux = forward(base, lora, scales, batch, cfg, n_pack=n_pack, chunk_q=chunk_q,
+                        kcfg=kcfg)
     per_adapter, total = chunked_cross_entropy(
         h, unembed_w(base, cfg), batch["labels"], n_pack, chunk=vocab_chunk, vocab=cfg.vocab_size,
     )
-    return total, per_adapter
+    return total + aux_weight * aux, per_adapter
 
 
 def loss_fn(
     lora, base, batch, cfg: ModelConfig, meta: PackMeta, *,
-    chunk_q: int = 512, vocab_chunk: int = 512, kcfg: Optional[KernelConfig] = None,
+    chunk_q: int = 512, vocab_chunk: int = 512, aux_weight: float = 0.01,
+    kcfg: Optional[KernelConfig] = None,
 ):
     return packed_loss_fn(
         lora, base, batch, cfg, meta.n, meta.scales(batch["tokens"].device),
-        chunk_q=chunk_q, vocab_chunk=vocab_chunk,
+        chunk_q=chunk_q, vocab_chunk=vocab_chunk, aux_weight=aux_weight,
         kcfg=kcfg if kcfg is not None else meta.kernel_config(),
     )
 
 
 def packed_value_and_grad(
     lora, base, batch, cfg: ModelConfig, n_pack: int, scales, *,
-    chunk_q: int = 512, vocab_chunk: int = 512, kcfg: Optional[KernelConfig] = None,
+    chunk_q: int = 512, vocab_chunk: int = 512, aux_weight: float = 0.01,
+    kcfg: Optional[KernelConfig] = None,
 ):
     """(total, per-adapter loss, grads): the gradient of the total with
     respect to every LoRA leaf, in the LoRA tree's layout. Raises if a leaf
@@ -55,7 +64,7 @@ def packed_value_and_grad(
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), lora)
     total, per_adapter = packed_loss_fn(
         leaves, base, batch, cfg, n_pack, scales,
-        chunk_q=chunk_q, vocab_chunk=vocab_chunk, kcfg=kcfg,
+        chunk_q=chunk_q, vocab_chunk=vocab_chunk, aux_weight=aux_weight, kcfg=kcfg,
     )
     total.backward()
     if any(t.grad is None for t in tree_leaves(leaves)):
@@ -70,6 +79,7 @@ def make_packed_step(
     chunk_q: int = 512,
     vocab_chunk: int = 512,
     weight_decay: float = 0.0,
+    aux_weight: float = 0.01,
     impl: Optional[str] = None,
     remat: Optional[str] = None,
     ranks: Optional[tuple] = None,
@@ -81,7 +91,8 @@ def make_packed_step(
     (alpha/r), ``lr_vec`` and ``budgets`` (per-adapter step caps, or None)
     -- are runtime tensors, so one step serves every pack of the same shape.
 
-    ``impl``/``remat`` select the kernel backend and backward xA policy
+    ``aux_weight`` weighs the MoE aux loss in the total (the reference's
+    0.01); ``impl``/``remat`` select the kernel backend and backward xA policy
     (kernels/ops.py); ``ranks`` is the pack's per-adapter rank tuple, which
     runs a mixed-rank pack as ragged same-rank segments (a homogeneous tuple
     normalizes to None: it computes the same); ``base_dtype`` names a
@@ -100,7 +111,7 @@ def make_packed_step(
     def train_step(base, lora, opt_state, batch, scales, lr_vec, budgets):
         total, per_adapter, grads = packed_value_and_grad(
             lora, base, batch, cfg, n_pack, scales,
-            chunk_q=chunk_q, vocab_chunk=vocab_chunk, kcfg=kcfg,
+            chunk_q=chunk_q, vocab_chunk=vocab_chunk, aux_weight=aux_weight, kcfg=kcfg,
         )
         lora_new, opt_state = adamw_update(
             grads, opt_state, lora, lr_vec, weight_decay=weight_decay, step_budget=budgets,

@@ -223,7 +223,7 @@ def test_forward_logits_on_quantized_base(world, mode, dtype):
         jh, _, _ = jm.forward(jbase, jlora, world["jmeta"].scales(), {"tokens": jnp.asarray(toks)},
                               jc, n_pack=2, kcfg=JKernelConfig(impl=jimpl, base_dtype=mode))
         want = jm.logits(jbase, jh, jc)
-        th, _ = tm.forward(tbase, tlora, world["meta"].scales(), {"tokens": torch.from_numpy(toks)},
+        th, _, _ = tm.forward(tbase, tlora, world["meta"].scales(), {"tokens": torch.from_numpy(toks)},
                            tc, n_pack=2, kcfg=KernelConfig(impl=impl, base_dtype=mode))
         got = tm.logits(tbase, th, tc)
         assert got.shape == (NB, S, tc.padded_vocab) and got.dtype == tbase["embed"]["w"].dtype

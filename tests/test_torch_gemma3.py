@@ -200,7 +200,7 @@ def test_forward_logits(world, impl):
     jc, tc = world["jcfg"], world["cfg"]
     toks = _tokens(jc)
     want = _reference_forward(world, toks)[0]
-    th, _ = tm.forward(world["tbase"], world["tlora"], world["meta"].scales(),
+    th, _, _ = tm.forward(world["tbase"], world["tlora"], world["meta"].scales(),
                        {"tokens": torch.from_numpy(toks)}, tc, n_pack=2, chunk_q=CHUNK_Q,
                        kcfg=KernelConfig(impl=impl))
     got = tm.logits(world["tbase"], th, tc)

@@ -261,7 +261,7 @@ def test_decode_continues_the_full_sequence(world):
     tc = world["cfg"]
     toks = torch.from_numpy(_tokens(tc, seed=9, s=40))
     sc = world["meta"].scales()
-    h, _ = tm.forward(world["tbase"], world["tlora"], sc, {"tokens": toks}, tc, n_pack=2)
+    h, _, _ = tm.forward(world["tbase"], world["tlora"], sc, {"tokens": toks}, tc, n_pack=2)
     want = tm.logits(world["tbase"], h, tc)
     _, caches = tm.prefill(world["tbase"], world["tlora"], sc, {"tokens": toks[:, :36]}, tc,
                            n_pack=2)
@@ -293,7 +293,7 @@ def test_forward_logits_match_reference(world, impl, dtype):
         world["forward", dtype] = jm.logits(jb, jh, jc)
     tb, tl = ((_port(world["base"], torch.bfloat16), _port(world["lora"], torch.bfloat16))
               if bf16 else (world["tbase"], world["tlora"]))
-    th, _ = tm.forward(tb, tl, world["meta"].scales(), {"tokens": torch.from_numpy(toks)}, tc,
+    th, _, _ = tm.forward(tb, tl, world["meta"].scales(), {"tokens": torch.from_numpy(toks)}, tc,
                        n_pack=2, kcfg=KernelConfig(impl=impl))
     got = tm.logits(tb, th, tc)
     assert got.shape == (NB, S, tc.padded_vocab) and got.dtype == tb["embed"]["w"].dtype
@@ -383,11 +383,11 @@ def test_packed_adapter_equals_the_adapter_alone(world):
     tc, meta = world["cfg"], world["meta"]
     toks = torch.from_numpy(_tokens(tc, seed=2, s=40))
     kw = dict(kcfg=KernelConfig(impl="auto"))
-    h, _ = tm.forward(world["tbase"], world["tlora"], meta.scales(), {"tokens": toks}, tc,
+    h, _, _ = tm.forward(world["tbase"], world["tlora"], meta.scales(), {"tokens": toks}, tc,
                       n_pack=2, **kw)
     alone = jax.tree.map(lambda t: t[:, 1:2], world["lora"])  # the pack axis of the stacked leaves
     meta1 = pack_meta([LoraConfig(**PACK[1])])
-    h1, _ = tm.forward(world["tbase"], _port(alone), meta1.scales(), {"tokens": toks[2:]}, tc,
+    h1, _, _ = tm.forward(world["tbase"], _port(alone), meta1.scales(), {"tokens": toks[2:]}, tc,
                        n_pack=1, **kw)
     _close(tm.logits(world["tbase"], h1, tc), tm.logits(world["tbase"], h, tc)[2:], 1e-5)
 

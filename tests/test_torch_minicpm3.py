@@ -252,7 +252,7 @@ def test_forward_logits_match_reference(world, impl):
         jh, _, _ = jm.forward(world["base"], world["lora"], world["jmeta"].scales(),
                               {"tokens": jnp.asarray(toks)}, jc, n_pack=2, chunk_q=CHUNK_Q)
         world["forward"] = jm.logits(world["base"], jh, jc)
-    th, _ = tm.forward(world["tbase"], world["tlora"], world["meta"].scales(),
+    th, _, _ = tm.forward(world["tbase"], world["tlora"], world["meta"].scales(),
                        {"tokens": torch.from_numpy(toks)}, tc, n_pack=2, chunk_q=CHUNK_Q,
                        kcfg=KernelConfig(impl=impl))
     got = tm.logits(world["tbase"], th, tc)
@@ -399,7 +399,7 @@ def test_int8_tree_matches_reference_quantizer_and_forward(world, impl):
         world["int8", impl] = jm.logits(jq, jh, jc)
     tq = bridge.to_torch(jq, "cpu")
     assert tcm.CostModel(tc, tcm.H100, base_dtype="int8").base_dtype == "int8"
-    th, _ = tm.forward(tq, world["tlora"], meta.scales(), {"tokens": torch.from_numpy(toks)}, tc,
+    th, _, _ = tm.forward(tq, world["tlora"], meta.scales(), {"tokens": torch.from_numpy(toks)}, tc,
                        n_pack=2, chunk_q=CHUNK_Q, kcfg=KernelConfig(impl=impl, base_dtype="int8"))
     _close(tm.logits(tq, th, tc), world["int8", impl], LOGITS)
     assert _same(quantize_base_params(dense, "int8"), qbase)

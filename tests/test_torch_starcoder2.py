@@ -191,7 +191,7 @@ def test_forward_logits(world, impl):
                               {"tokens": jnp.asarray(toks)}, jc, n_pack=2)
         world["logits"] = jm.logits(world["base"], jh, jc)
     want = world["logits"]
-    th, _ = tm.forward(world["tbase"], world["tlora"], world["meta"].scales(),
+    th, _, _ = tm.forward(world["tbase"], world["tlora"], world["meta"].scales(),
                        {"tokens": torch.from_numpy(toks)}, tc, n_pack=2,
                        kcfg=KernelConfig(impl=impl))
     got = tm.logits(world["tbase"], th, tc)
