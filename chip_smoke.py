@@ -27,14 +27,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    N = 1 x M = 1,024 at r = 8 and at r = 16; the fused forward and dx,
    and ``packed_matmul``'s xA, xAB and cases 2 and 4), and in bf16 at the
    training shapes of starcoder2-7b, gemma3-1b, minicpm3-4b,
-   mamba2-370m and qwen3-moe-30b-a3b (N = 2 x M = 1,024, r = 16:
+   mamba2-370m, qwen3-moe-30b-a3b and jamba-v0.1-52b (N = 2 x M = 1,024, r = 16:
    ``packed_matmul``'s xA, xAB and cases 2 and 4, the fused forward and
    dx; cases ``train_starcoder2``, ``train_gemma3``, ``train_minicpm3``,
    ``train_mamba2``: zx 1,024 -> 4,096 and out 2,048 -> 1,024,
    ``train_qwen3_moe``: q 2,048 -> 4,096, k/v 2,048 -> 512, o 4,096 ->
-   2,048) and at the decode rows of gemma3-1b, minicpm3-4b, mamba2-370m
-   and qwen3-moe-30b-a3b (``decode_gemma3``: d = 1,152, k/v 256 wide;
-   ``decode_minicpm3``; ``decode_mamba2``; ``decode_qwen3_moe``),
+   2,048; jamba's two kinds of layer, ``train_jamba_ssd``: zx 4,096 ->
+   16,384 and out 8,192 -> 4,096, ``train_jamba_attn``: q/o 4,096 ->
+   4,096, k/v 4,096 -> 1,024) and at the decode rows of gemma3-1b,
+   minicpm3-4b, mamba2-370m, qwen3-moe-30b-a3b and jamba-v0.1-52b
+   (``decode_gemma3``: d = 1,152, k/v 256 wide; ``decode_minicpm3``;
+   ``decode_mamba2``; ``decode_qwen3_moe``; ``decode_jamba_ssd``,
+   ``decode_jamba_attn``),
    and at command-r-35b's widths (d 8,192, k/v 1,024, d_ff 22,528):
    ``fused_matmul_q`` on int8 codes at the training shapes with the dx its
    backward runs (``train_command_r``), on int8 and nf4 codes at 8 decode
@@ -101,7 +105,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    impl="auto" and "fused" with the aux loss (step 1 against the plain
    path: the bf16 loss at 48 layers, the f32 gradients on the first 2
    layers, MOE_F32_LAYERS:
-   an f32 copy of the base would be 122 GB; then 3 steps whose counts must
+   an f32 copy of the base would be 122 GB; then 2 steps whose counts must
    move); the pack's routing (pairs dropped at capacity 1.25 by layer and
    by row, the share of top-8 choices the kernel and plain paths share by
    layer); a ``make_train_step`` call with no host wait; 8 requests
@@ -109,6 +113,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens) with prefill and 4 teacher-forced decode steps held against
    the plain path at LOGIT_TOL; and one captured ``run_local`` job of
    FAMILY_SWEEP_IDS, as the families' (48 layers).
+4c. jamba -- jamba-v0.1-52b, the hybrid (32 layers, d 4,096; GQA 32/8 of
+   128 on layers 3, 11, 19, 27, SSD with d_state 16 and 128 heads of 64 on
+   the others; 16 experts of d_ff 14,336, top-2, on the odd layers, a dense
+   SwiGLU of 14,336 on the even ones; vocab 65,536; 102.9 GB of bf16), at
+   full width on its first 8 layers, one whole period of its layer pattern
+   (1 attention and 7 SSD mixers, 4 MoE and 4 dense FFNs: 26.53 GB of
+   bf16), built by ``init_model`` on the card right after the moe phase:
+   the train phase's pack at 512 tokens through ``make_packed_step`` under
+   impl="auto" and "fused" with the aux loss (step 1 against the plain
+   path: the bf16 loss on the 8 layers, the f32 gradients on the first 4
+   -- SSD + dense, SSD + MoE, SSD + dense, attention + MoE, a view cut by
+   ``cut_decoder`` -- then 2 steps whose counts must move); the pack's
+   routing (pairs dropped at capacity 1.25 by MoE layer and by row, the
+   top-2 agreement of the kernel and plain paths); a ``make_train_step``
+   call with no host wait; 8 requests through ``ServeEngine.serve`` under
+   auto and fused (prompts of 200-600 tokens) with prefill and 4
+   teacher-forced decode steps held against the plain path at LOGIT_TOL;
+   one captured ``run_local`` job of FAMILY_SWEEP_IDS, as the families'.
 5. autotune -- ``kernels/autotune.py`` at the launcher's pack (full
    qwen25-7b, ranks 8 and 16, batch 2, seq 512: N = 2 x M = 1,024 at d x d
    and d x d_ff, r = 16): ``tune_for_model(fast=False)`` in f32 (the fused
@@ -239,7 +261,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``make_packed_step`` under impl="auto" and impl="fused" on the train
    phase's pack (seq 512; gemma3 1,024, so the window masks and attention
    reads a band per query chunk; mamba2 1,024, 4 chunks of the scan), step
-   1 held against the plain path to the train phase's limits, then 3 steps
+   1 held against the plain path to the train phase's limits, then 2 steps
    whose counts must move; 8 requests through ``ServeEngine.serve``
    (starcoder2 under auto, the others under auto and fused, gemma3's and
    mamba2's prompts of 200-600 tokens), prefill logits and teacher-forced
@@ -406,7 +428,7 @@ def device_ms(torch, fn, arg_sets, iters: int = 20, reps: int = 3) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
-def host_us(torch, fn, arg_sets, iters: int = 50, rounds: int = 3) -> float:
+def host_us(torch, fn, arg_sets, iters: int = 20, rounds: int = 2) -> float:
     """Host µs per call: ``time.perf_counter`` over ``iters`` calls that do
     not synchronise, after a warm-up (the device catches up after each
     round); the least of ``rounds`` rounds, so a stall of the shared host
@@ -686,17 +708,17 @@ def kernel_phase(torch, dev):
     from repro_torch.configs import get_config
 
     n, m = TRAIN_CASE
-    for arch, case in FAMILY_TRAIN_CASE.items():
+    for arch, mixer, case in family_cases("train"):
         scale = torch.linspace(0.5, 2.0, n, device=dev)
-        for (d_in, d_out), _ in family_proj(get_config(arch)):
+        for (d_in, d_out), _ in family_proj(get_config(arch), mixer):
             packed_rows(case, n, m, d_in, d_out, torch.bfloat16, scale, backward_cases=True,
                         only=SWEEP_CALLS)
             fused_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
             dx_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
     n, m = CASES["decode"]
-    for arch, case in FAMILY_DECODE_CASE.items():
+    for arch, mixer, case in family_cases("decode"):
         scale = torch.linspace(0.5, 2.0, n, device=dev)
-        for (d_in, d_out), _ in family_proj(get_config(arch)):
+        for (d_in, d_out), _ in family_proj(get_config(arch), mixer):
             packed_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
             fused_rows(case, n, m, d_in, d_out, torch.bfloat16, scale)
     # command-r-35b on its quantized base: #3 int8 at the training shapes
@@ -718,8 +740,8 @@ def kernel_phase(torch, dev):
         for (d_in, d_out), _ in family_proj(cr):
             fused_q_rows(CR_LAUNCH_CASE, n, m, d_in, d_out, torch.float32, scale, modes=("nf4",),
                          rank=r, extra={"n": n, "m": m, "rank": r})
-    train_cases = {"train", CR_TRAIN_CASE, *FAMILY_TRAIN_CASE.values()}
-    decode_cases = {"decode", CR_DECODE_CASE, *FAMILY_DECODE_CASE.values()}
+    train_cases = {"train", CR_TRAIN_CASE, *(c for _, _, c in family_cases("train"))}
+    decode_cases = {"decode", CR_DECODE_CASE, *(c for _, _, c in family_cases("decode"))}
     off = [(r["case"], r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] in train_cases and r["dtype"] == "bfloat16"
            and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"]
@@ -751,7 +773,7 @@ def kernel_phase(torch, dev):
            and r["kernel"] != "packed_matmul" and r["path"] != "decode"]
     if off:
         fail(f"bf16 decode rows of fused_matmul or fused_matmul_q off the decode path: {off}")
-    mma_rows = MMA_ROWS | {(case, call) for case in FAMILY_TRAIN_CASE.values()
+    mma_rows = MMA_ROWS | {(case, call) for _, _, case in family_cases("train")
                            for call in SWEEP_CALLS}
     off = [(r["case"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16"
@@ -932,17 +954,27 @@ def row_adapters(torch, cfg, adapters, dev):
 
 
 def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, counter, steps=4,
-                   lora1s=None):
+                   lora1s=None, routes=None):
     """Prefill 8 rows (one adapter each) and decode ``steps`` tokens at
     width 8, once through the kernel path and once through the plain path,
     feeding both the kernel path's greedy tokens. Returns the max abs logit
     difference per step (prefill first), the max abs plain logit, and the
     kernel's launches per decode step (``counter`` names its count in
     ``kernels/launches.py``). ``lora1s``: ``row_adapters`` of ``adapters``,
-    when the caller has them."""
+    when the caller has them.
+
+    ``routes`` (a dict, for a model with MoE layers): the plain path is also
+    fed the kernel path's expert choices, as it is fed its tokens -- each
+    MoE layer's router takes the kernel path's top-k in place of its own,
+    its gates its own probabilities there, renormalized -- and the returned
+    differences are that run's. ``routes`` receives the differences of the
+    plain path on its own routing (``own_routes_per_step``) and, per MoE
+    layer, the share of the kernel path's top-k choices that the plain
+    path's own router made too (``topk_agreement_by_layer``)."""
     from repro_torch.configs import LoraConfig
     from repro_torch.core.adapter import pack_meta
     from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models.layers import moe as tmoe
     from repro_torch.models.model import decode_step, init_caches, lora_zeros, prefill
     from repro_torch.serve.decode import pad_caches
     from repro_torch.serve.engine import write_row_caches
@@ -956,36 +988,64 @@ def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, coun
     scales = torch.ones((rows,), dtype=torch.float32, device=dev)  # alpha / r = 1
     teacher = []
     logs = {}
-    for path in (kimpl, pimpl):
+    router, kern_idx, own_idx = tmoe._router, [], []
+
+    def replaying(x, params, mcfg):  # the plain path on the kernel path's experts
+        _, idx, aux = router(x, params, mcfg)
+        own_idx.append(idx)
+        idx = kern_idx[len(own_idx) - 1]
+        gates = torch.softmax(x.float() @ params["router"]["w"].float(), dim=-1).gather(-1, idx)
+        return gates / (gates.sum(-1, keepdim=True) + 1e-9), idx, aux
+
+    def recording(x, params, mcfg):  # the kernel path's choices
+        out = router(x, params, mcfg)
+        kern_idx.append(out[1])
+        return out
+
+    runs = ([(kimpl, None), (pimpl, None)] if routes is None
+            else [(kimpl, recording), (pimpl, None), (pimpl, replaying)])
+    for path, hook in runs:
         kc1 = KernelConfig(impl=path, ranks=meta1.ranks)
         kc = KernelConfig(impl=path, ranks=meta.ranks)
         caches = init_caches(cfg, rows, smax, device=dev)
         lora = lora_zeros(cfg, meta, torch.bfloat16, dev)
-        lg_all = []
-        for i, (lora1, p) in enumerate(zip(lora1s, prompts)):
-            write_row_caches(lora, lora1, i)
-            lg, c1 = prefill(base, lora1, scales[:1], {"tokens": torch.from_numpy(p[None]).to(dev)},
-                             cfg, kcfg=kc1)
-            write_row_caches(caches, pad_caches(c1, smax), i)
-            lg_all.append(lg[0, -1, : cfg.vocab_size].float())
-        step_lg = [torch.stack(lg_all)]
-        pos = torch.tensor([len(p) for p in prompts], device=dev)
-        n0 = train_counts()[counter]
-        for s in range(steps):
-            if path == kimpl:
-                teacher.append(torch.argmax(step_lg[-1], dim=-1).to(torch.int32))
-            lg, caches = decode_step(base, lora, scales, teacher[s][:, None], caches, pos, cfg,
-                                     n_pack=rows, kcfg=kc)
-            step_lg.append(lg[:, -1, : cfg.vocab_size].float())
-            pos = pos + 1
+        tmoe._router = hook or router
+        try:
+            lg_all = []
+            for i, (lora1, p) in enumerate(zip(lora1s, prompts)):
+                write_row_caches(lora, lora1, i)
+                lg, c1 = prefill(base, lora1, scales[:1],
+                                 {"tokens": torch.from_numpy(p[None]).to(dev)}, cfg, kcfg=kc1)
+                write_row_caches(caches, pad_caches(c1, smax), i)
+                lg_all.append(lg[0, -1, : cfg.vocab_size].float())
+            step_lg = [torch.stack(lg_all)]
+            pos = torch.tensor([len(p) for p in prompts], device=dev)
+            n0 = train_counts()[counter]
+            for s in range(steps):
+                if path == kimpl:
+                    teacher.append(torch.argmax(step_lg[-1], dim=-1).to(torch.int32))
+                lg, caches = decode_step(base, lora, scales, teacher[s][:, None], caches, pos,
+                                         cfg, n_pack=rows, kcfg=kc)
+                step_lg.append(lg[:, -1, : cfg.vocab_size].float())
+                pos = pos + 1
+        finally:
+            tmoe._router = router
         if path == kimpl:
             per_step_launches = (train_counts()[counter] - n0) / steps
-        logs[path] = torch.stack(step_lg)  # (1 + steps, rows, V)
+        logs[path, hook is replaying] = torch.stack(step_lg)  # (1 + steps, rows, V)
         del caches, lora
-    got, want = logs[kimpl], logs[pimpl]
-    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+    got, want = logs[kimpl, False], logs[pimpl, routes is not None]
+    if not all(bool(torch.isfinite(t).all()) for t in logs.values()):
         fail(f"non-finite logits on the {kimpl} or {pimpl} path")
     per_step = (got - want).abs().amax(dim=(1, 2)).tolist()
+    if routes is not None:
+        n_moe = cfg.ffn_kinds().count("moe")
+        if len(own_idx) != len(kern_idx) or len(kern_idx) % n_moe:
+            fail(f"{len(kern_idx)} / {len(own_idx)} router calls on the {kimpl} / {pimpl} paths")
+        routes["own_routes_per_step"] = (got - logs[pimpl, False]).abs().amax(dim=(1, 2)).tolist()
+        routes["topk_agreement_by_layer"] = [
+            (torch.cat(kern_idx[j::n_moe])[:, :, None] == torch.cat(own_idx[j::n_moe])[:, None, :])
+            .any(-1).float().mean().item() for j in range(n_moe)]
     return per_step, want.abs().max().item(), per_step_launches
 
 
@@ -1189,7 +1249,7 @@ def compare_step1(torch, cfg, base, lora, batch, meta, impl, scales, f32_layers=
     cfg32, base32, lora32 = cfg, base, lora
     if f32_layers is not None:
         cfg32, base32 = depth_cut(cfg, base, f32_layers)
-        lora32 = depth_cut_lora(lora, f32_layers)
+        lora32 = depth_cut_lora(cfg, lora, f32_layers)
     base32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, base32)
     for prec, path in (("f32", plain), ("f32", impl), ("bf16", plain), ("bf16", impl)):
         if prec == "bf16" and base32 is not None:
@@ -1277,8 +1337,10 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
     cmp = compare_step1(torch, cfg, qbase, lora0, batches[0], meta, impl, scales, f32_layers)
     compare_s = time.perf_counter() - t0
+    compare_peak = torch.cuda.max_memory_allocated(dev)
     step = make_packed_step(cfg, meta.n, impl=impl, ranks=meta.ranks, base_dtype=quant)
     lora, opt = lora0, init_opt_state(lora0)
     torch.cuda.synchronize()
@@ -1303,6 +1365,7 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
            "per_adapter_loss": losses, **cmp, "loss_rtol": LOSS_RTOL,
            "grad_tol_f32": GRAD_TOL_F32, "bf16_grad_factor": BF16_GRAD_FACTOR,
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "compare_max_memory_allocated": compare_peak,
            "base_resident_bytes": resident_bytes(qbase), "quantize_s": quant_s,
            "compare_s": compare_s, "launches": counts}
     emit(row)
@@ -1325,36 +1388,49 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
     return row, counts, (qbase, step, lora, opt)
 
 
-def depth_cut(cfg, base, n_layers: int):
-    """A decoder cut to ``n_layers`` layers: its config and a view of
-    ``base``. With a layer period p (gemma3's 6), the cut keeps the first
-    n_layers // p stacked blocks and, as its ``rest``, layers of the
-    pattern's first n_layers % p specs: the base's own ``rest`` where it
-    has them (random weights: any layer of the right spec will do), else
-    the next block's."""
+def cut_decoder(cfg, dec, n_layers: int):
+    """The ``"decoder"`` subtree ``dec`` of a tree laid out as ``cfg``'s (a
+    base, or a LoRA pack, whose layers without an adapter have no entry),
+    cut to its first ``n_layers`` layers and laid out as a model of that
+    depth, of views. With the cut's own layer period q equal to the
+    model's p (gemma3's 6), it keeps the first n_layers // p stacked
+    blocks and, as its ``rest``, layers of the pattern's first n_layers % p
+    specs: the tree's own ``rest`` where it has them (random weights: any
+    layer of the right spec will do), else the next block's. A cut within
+    one period (jamba's first 4 of 8: SSD + dense, SSD + MoE, SSD + dense,
+    attention + MoE, a period of its own) takes its block's layers from the
+    first block, ``t[:1]``, and its ``rest`` from the first block's next
+    layers."""
     from repro_torch.models.transformer import find_period, layer_specs
     from repro_torch.tree import tree_index, tree_map
 
     p = find_period(layer_specs(cfg))
-    n_blocks, n_rest = divmod(n_layers, p)
-    if n_layers > cfg.n_layers or find_period(layer_specs(cfg.replace(n_layers=n_layers))) != p:
+    q = find_period(layer_specs(cfg.replace(n_layers=n_layers)))
+    n_blocks, n_rest = divmod(n_layers, q)
+    if n_layers > cfg.n_layers or (q != p and n_blocks > 1):
         fail(f"{cfg.name}: cannot cut {cfg.n_layers} layers to {n_layers}")
-    dec = base["decoder"]
-    have = len(dec["rest"])
-    rest = {f"l{i}": dec["rest"][f"l{i}"] if n_rest <= have
-            else tree_index(dec["blocks"][f"l{i}"], n_blocks) for i in range(n_rest)}
+    blocks, rest = dec["blocks"] or {}, dec["rest"]
+    if q == p:
+        src = ({k: rest[k] for k in rest} if n_rest <= len(rest)
+               else {k: tree_index(t, n_blocks) for k, t in blocks.items()})
+        return {"blocks": tree_map(lambda t: t[:n_blocks], blocks),
+                "rest": {f"l{i}": src[f"l{i}"] for i in range(n_rest) if f"l{i}" in src}}
+    head = {k: t for k, t in blocks.items() if int(k[1:]) < n_blocks * q}
+    return {"blocks": tree_map(lambda t: t[:1], head),
+            "rest": {f"l{i}": tree_index(blocks[f"l{n_blocks * q + i}"], 0)
+                     for i in range(n_rest) if f"l{n_blocks * q + i}" in blocks}}
+
+
+def depth_cut(cfg, base, n_layers: int):
+    """A decoder cut to ``n_layers`` layers: its config and a view of
+    ``base`` (``cut_decoder``)."""
     return cfg.replace(n_layers=n_layers), {
-        **base, "decoder": {"blocks": tree_map(lambda t: t[:n_blocks], dec["blocks"]),
-                            "rest": rest}}
+        **base, "decoder": cut_decoder(cfg, base["decoder"], n_layers)}
 
 
-def depth_cut_lora(lora, n_layers: int):
-    """A pack's LoRA tree cut as ``depth_cut`` cuts a base of one-layer
-    period: the first ``n_layers`` stacked blocks, views."""
-    from repro_torch.tree import tree_map
-
-    return {"decoder": {"blocks": tree_map(lambda t: t[:n_layers], lora["decoder"]["blocks"]),
-                        "rest": {}}}
+def depth_cut_lora(cfg, lora, n_layers: int):
+    """A pack's LoRA tree cut as ``depth_cut`` cuts the base of ``cfg``."""
+    return {"decoder": cut_decoder(cfg, lora["decoder"], n_layers)}
 
 
 def train_phase(torch, dev, base, out_dir: Path):
@@ -2543,25 +2619,44 @@ MAMBA2 = "mamba2-370m"
 # the moe phase's model (moe_phase), whose kernel rows and serve runs share
 # the families' tables
 MOE = "qwen3-moe-30b-a3b"
+# the jamba phase's model (jamba_phase), likewise
+JAMBA = "jamba-v0.1-52b"
 # depth cuts (a view of the family's base, ``depth_cut``) that keep the
 # smoke inside its time
 FAMILY_LAYERS = {"starcoder2-7b": 8, "gemma3-1b": 7, "minicpm3-4b": 16, MAMBA2: 24}
 # mamba2's 1,024 tokens: the scan carries its state across 4 chunks
 FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024, "minicpm3-4b": 512,
                     MAMBA2: 1024}
-FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_STEPS = 2
 FAMILY_TRAIN_IMPLS = ("auto", "fused")
 # (impls, prompt lengths [lo, hi), new tokens per request, teacher-forced
 # decode steps)
-FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 16, 4),
-                "gemma3-1b": (("auto", "fused"), (520, 601), 16, 8),
-                "minicpm3-4b": (("auto", "fused"), (64, 257), 16, 4),
+FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 8, 4),
+                "gemma3-1b": (("auto", "fused"), (520, 601), 8, 8),
+                "minicpm3-4b": (("auto", "fused"), (64, 257), 8, 4),
                 # prompts of 200-600 tokens: below, across and past the scan's
                 # 256- and 512-token chunk boundaries
-                MAMBA2: (("auto", "fused"), (200, 601), 16, 8),
+                MAMBA2: (("auto", "fused"), (200, 601), 8, 8),
                 # a prefill of T tokens drops pairs past 1.25 T k / E slots an
                 # expert; 8 decode rows drop none (8 slots at least)
-                MOE: (("auto", "fused"), (64, 601), 16, 4)}
+                MOE: (("auto", "fused"), (64, 601), 8, 4),
+                # the SSD layers' chunks of 256, and the MoE layers' drops, as
+                # mamba2's and qwen3-moe's
+                JAMBA: (("auto", "fused"), (200, 601), 8, 4)}
+# the families whose serve check feeds the plain path the kernel path's
+# expert choices, as it feeds it the kernel path's tokens
+# (``teacher_forced(routes=)``). At a near-tie between a token's k-th and
+# (k+1)-th expert, a 1-ulp difference of the two paths' bf16 projections
+# takes another expert, and jamba's SSD layers carry that token's changed
+# output into the state every later position of its prompt reads: with the
+# plain path on its own routing the fused prefill logits sat 15.8 % of max
+# |logit| from the kernel path's, and 1.2 % with the routing replayed
+# (H100, ``scripts/moe_routing.py jamba``; PERF.md). The check then holds the
+# replayed logits to LOGIT_TOL and the routing itself to ROUTE_AGREEMENT: at
+# least that share of the kernel path's top-k choices, per MoE layer, are
+# the plain path's own too.
+ROUTE_REPLAY = (JAMBA,)
+ROUTE_AGREEMENT = 0.95
 # the sweep phase's first three configurations (ranks 8, 8, 16): one job
 FAMILY_SWEEP_IDS = (0, 37, 74)
 FAMILY_SWEEPS = ("starcoder2-7b", "minicpm3-4b", MAMBA2)
@@ -2571,6 +2666,11 @@ FAMILY_TRAIN_CASE = {"starcoder2-7b": "train_starcoder2", "gemma3-1b": "train_ge
                      MOE: "train_qwen3_moe"}
 FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3", "minicpm3-4b": "decode_minicpm3",
                       MAMBA2: "decode_mamba2", MOE: "decode_qwen3_moe"}
+# jamba's two kinds of layer, each with rows of its own: an SSD layer (zx
+# 4,096 -> 16,384, out 8,192 -> 4,096) and the attention layer (q/o 4,096 ->
+# 4,096, k/v 4,096 -> 1,024)
+JAMBA_CASES = {"ssm": {"train": "train_jamba_ssd", "decode": "decode_jamba_ssd"},
+               "attn": {"train": "train_jamba_attn", "decode": "decode_jamba_attn"}}
 # mamba2 through the launcher on its own f32 base (the command a user
 # runs, at full width and depth): 6 captured steps of 2 x 1,024 tokens
 MAMBA2_LAUNCH_ARGS = ["--arch", MAMBA2, "--seq", "1024", "--ranks", "8,16", "--steps", "6",
@@ -2580,17 +2680,30 @@ MAMBA2_LAUNCH_ARGS = ["--arch", MAMBA2, "--seq", "1024", "--ranks", "8,16", "--s
 KV_A = (2560, 288)
 
 
-def family_proj(cfg):
-    """(d_in, d_out) of one layer's projections that carry an adapter (the
-    kernels' calls; MLA's q_b, kv_b_k and kv_b_v are plain products) with
-    their count per layer, as PROJ (equal shapes merged)."""
-    from repro_torch.configs.base import layer_projections, lora_leaves
+def family_proj(cfg, mixer=None):
+    """(d_in, d_out) of the projections that carry an adapter (the
+    kernels' calls; MLA's q_b, kv_b_k and kv_b_v are plain products) on one
+    layer -- the first of mixer ``mixer`` ("attn" or "ssm"; the config's
+    first layer when None) -- with their count per layer, as PROJ (equal
+    shapes merged)."""
+    from repro_torch.configs.base import lora_layout
+    from repro_torch.models.transformer import layer_specs
 
-    shapes = layer_projections(cfg)
+    spec = next(s for s in layer_specs(cfg) if mixer in (None, s.mixer))
     out = {}
-    for leaf in lora_leaves(cfg).values():
-        out[shapes[leaf]] = out.get(shapes[leaf], 0) + 1
+    for projs in lora_layout(cfg, spec.mixer, spec.ffn).values():
+        for sh in projs.values():
+            out[sh] = out.get(sh, 0) + 1
     return list(out.items())
+
+
+def family_cases(kind: str):
+    """(arch, mixer, case) of the kernel phase's rows at the families'
+    shapes, ``kind`` "train" or "decode": one case a family, and one for
+    each of jamba's layer kinds (its "layer" is no longer one shape)."""
+    one = FAMILY_TRAIN_CASE if kind == "train" else FAMILY_DECODE_CASE
+    return ([(arch, None, case) for arch, case in one.items()]
+            + [(JAMBA, mixer, cases[kind]) for mixer, cases in JAMBA_CASES.items()])
 
 
 def case_proj(case: str):
@@ -2599,9 +2712,9 @@ def case_proj(case: str):
 
     if case in (CR_TRAIN_CASE, CR_DECODE_CASE, CR_LAUNCH_CASE):
         return family_proj(get_config(COMMAND_R))
-    for arch in (*FAMILIES, MOE):
-        if case in (FAMILY_TRAIN_CASE.get(arch), FAMILY_DECODE_CASE.get(arch)):
-            return family_proj(get_config(arch))
+    for arch, mixer, c in (*family_cases("train"), *family_cases("decode")):
+        if case == c:
+            return family_proj(get_config(arch), mixer)
     return PROJ
 
 
@@ -2649,11 +2762,19 @@ def family_serve(torch, dev, arch: str, cfg, base):
             fail(f"{cfg.name} serve impl={impl}: token ids outside the vocabulary")
         del eng
         t0 = time.perf_counter()
+        routes = {} if arch in ROUTE_REPLAY else None
         with torch.no_grad():
             pimpl = {"auto": "plain", "fused": "fused_plain"}[impl]
             per_step, ref_max, per_dec = teacher_forced(
-                torch, cfg, base, adapters, prompts, smax, impl, pimpl, counters[impl], steps)
+                torch, cfg, base, adapters, prompts, smax, impl, pimpl, counters[impl], steps,
+                routes=routes)
         rel = max(per_step) / ref_max
+        extra = {} if routes is None else {
+            "plain_replays_kernel_routes": True,
+            "max_abs_err_own_routes": routes["own_routes_per_step"],
+            "rel_err_own_routes": max(routes["own_routes_per_step"]) / ref_max,
+            "topk_agreement_by_layer": routes["topk_agreement_by_layer"],
+            "topk_agreement_tol": ROUTE_AGREEMENT}
         emit({"phase": "family_serve_logits", "model": cfg.name, "impl": impl, "plain": pimpl,
               "seconds": time.perf_counter() - t0,
               "prompt_tokens": [len(p) for p in prompts], "decode_steps": steps,
@@ -2661,9 +2782,13 @@ def family_serve(torch, dev, arch: str, cfg, base):
               "window": cfg.attention.sliding_window,
               "launches_per_decode_step": per_dec, "max_abs_err_prefill": per_step[0],
               "max_abs_err_decode": per_step[1:], "max_abs_logit": ref_max, "rel_err": rel,
-              "tol": LOGIT_TOL})
+              "tol": LOGIT_TOL, **extra})
         if not rel <= LOGIT_TOL:
             fail(f"{cfg.name} impl={impl}: logits differ from {pimpl} by {rel} > {LOGIT_TOL}")
+        if routes is not None and not min(routes["topk_agreement_by_layer"]) >= ROUTE_AGREEMENT:
+            fail(f"{cfg.name} impl={impl}: the plain path's router makes "
+                 f"{routes['topk_agreement_by_layer']} of the kernel path's top-k choices per "
+                 f"MoE layer, below {ROUTE_AGREEMENT}")
         torch.cuda.empty_cache()
     return launches
 
@@ -3154,7 +3279,7 @@ def command_r_phase(torch, dev, out_dir: Path) -> dict:
 # layer, capacity factor 1.25, vocab 151,936, untied): 30.53 B parameters,
 # 61.06 GB of bf16 (the experts 29.0 B), built by ``init_model`` on the card
 # from SEED right after the command_r phase, with nothing else resident.
-MOE_TRAIN_STEPS = 3
+MOE_TRAIN_STEPS = 2
 # the train phase's pack (8 padded rows) at 256 tokens: the CE's backward
 # takes ~0.87 GB a row at 256 (1.75 at 512), which with the 61 GB base and
 # step 1's f32 copy of MOE_F32_LAYERS layers (2.4 GB each, with the f32
@@ -3312,7 +3437,7 @@ def moe_phase(torch, dev, out_dir: Path) -> dict:
             f32_layers=MOE_F32_LAYERS)
         del state
     cut, cut_base = depth_cut(cfg, base, MOE_F32_LAYERS)
-    cut_lora = depth_cut_lora(lora0, MOE_F32_LAYERS)
+    cut_lora = depth_cut_lora(cfg, lora0, MOE_F32_LAYERS)
     sync_free_train_step(torch, cut, meta, cut_base, cut_lora, init_opt_state(cut_lora),
                          batches[0], "auto")
     del lora0, batches, cut_base, cut_lora
@@ -3324,6 +3449,110 @@ def moe_phase(torch, dev, out_dir: Path) -> dict:
     counts["sweep:auto"] = family_sweep(torch, dev, cfg, base, out_dir)
     stage("sweep")
     emit({"phase": "moe_done", "model": MOE, "stages_s": stages})
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# jamba phase: jamba-v0.1-52b, the hybrid, at full width on one whole period
+# ---------------------------------------------------------------------------
+
+# jamba-v0.1-52b (arXiv:2403.19887 as the reference models it: 32 layers, d
+# 4,096, GQA 32/8 of 128 on layers 3, 11, 19 and 27, SSD (expand 2, heads of
+# 64, d_state 16, chunks of 256) on the other 28, 16 experts of d_ff 14,336
+# with top-2 on the odd layers, a dense SwiGLU of 14,336 on the even ones,
+# vocab 65,536): 51.46 B parameters, 102.9 GB of bf16, ~97 GB as int8 (the
+# quantizer leaves the experts dense), so one card holds neither. Its layer
+# pattern repeats every 8 layers, and layers 0-7 hold every kind of layer it
+# has (1 attention and 7 SSD mixers, 4 MoE and 4 dense FFNs): the phase runs
+# that one whole period, JAMBA_LAYERS, at full width (13.27 B parameters,
+# 26.53 GB of bf16), built by ``init_model`` on the card from SEED right
+# after the moe phase, with nothing else resident. (Alone, those 8 layers
+# have a least period of 6, so their stack is a checkpointed block of 6 and
+# an unchecked remainder of 2, as the reference would group them.)
+JAMBA_LAYERS = 8
+JAMBA_TRAIN_STEPS = 2
+# the train phase's pack (8 padded rows) at 512 tokens: the CE's backward
+# takes ~0.72 GB a row at vocab 65,536
+JAMBA_TRAIN_SEQ = 512
+# step 1's f32 comparison on a view of the first JAMBA_F32_LAYERS layers (SSD
+# + dense, SSD + MoE, SSD + dense, attention + MoE: 6.87 B parameters, 27.5
+# GB of f32 beside the bf16 base)
+JAMBA_F32_LAYERS = 4
+
+
+def jamba_phase(torch, dev, out_dir: Path) -> dict:
+    """jamba-v0.1-52b at full width on its first JAMBA_LAYERS layers (one
+    whole period) on a bf16 base built by ``init_model`` on the card:
+    ``make_packed_step`` under impl="auto" and "fused" on the train phase's
+    pack at JAMBA_TRAIN_SEQ with the aux loss (step 1 against the plain
+    path: the bf16 loss at LOSS_RTOL on all 8 layers, the f32 gradients at
+    GRAD_TOL_F32 on the first JAMBA_F32_LAYERS; then JAMBA_TRAIN_STEPS
+    steps whose counts must move); the pack's routing (``moe_routes``: the
+    pairs dropped at capacity factor 1.25 by MoE layer and by row, the
+    top-2 agreement of the kernel and plain paths); a ``make_train_step``
+    call with no host wait; 8 requests through ``ServeEngine.serve`` under
+    auto and fused (prompts of 200-600 tokens) with prefill and
+    teacher-forced decode logits held against the plain path at
+    LOGIT_TOL; one captured sweep job of FAMILY_SWEEP_IDS
+    (``family_sweep``: equal to eager, launches, extract -> inject, its own
+    peak held to C3). Returns the launch counts by run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
+    from repro_torch.sched.cost_model import model_param_count
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = get_config(JAMBA).replace(n_layers=JAMBA_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    base, _ = init_model(SEED, cfg, None, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize(dev)
+    emit({"phase": "jamba_setup", "model": cfg.name, "n_layers": cfg.n_layers,
+          "of_layers": get_config(JAMBA).n_layers, "layer_kinds": list(cfg.layer_kinds()),
+          "ffn_kinds": list(cfg.ffn_kinds()), "d_model": cfg.d_model,
+          "n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+          "capacity_factor": cfg.moe.capacity_factor, "vocab": cfg.vocab_size,
+          "params": model_param_count(cfg), "dtype": "bfloat16",
+          "init_s": time.perf_counter() - t0, "resident_bytes": resident_bytes(base),
+          "held_bytes": held, "build_peak_bytes": torch.cuda.max_memory_allocated(dev) - held})
+    counts, stages, lap = {}, {}, time.perf_counter()
+
+    def stage(name):  # the seconds since the last stage ended
+        nonlocal lap
+        stages[name], lap = time.perf_counter() - lap, time.perf_counter()
+
+    _, meta, lora0, batches = train_setup(torch, dev, cfg, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS)
+    routes = moe_routes(torch, cfg, base, lora0, batches[0], meta)
+    emit({"phase": "jamba_routes", "model": cfg.name, "rows": meta.n * meta.max_batch,
+          "seq": JAMBA_TRAIN_SEQ, "capacity_factor": cfg.moe.capacity_factor,
+          "moe_layers": [i for i, f in enumerate(cfg.ffn_kinds()) if f == "moe"], **routes})
+    stage("routes")
+    for impl in FAMILY_TRAIN_IMPLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        _, counts[f"train:{impl}"], state = train_run(
+            torch, dev, cfg, meta, lora0, batches, base, impl, phase="jamba_train",
+            f32_layers=JAMBA_F32_LAYERS)
+        del state
+    torch.cuda.empty_cache()
+    sync_free_train_step(torch, cfg, meta, base, lora0, init_opt_state(lora0), batches[0],
+                         "auto")
+    del lora0, batches
+    torch.cuda.empty_cache()
+    stage("train")
+    for impl, c in family_serve(torch, dev, JAMBA, cfg, base).items():
+        counts[f"serve:{impl}"] = c
+    stage("serve")
+    counts["sweep:auto"] = family_sweep(torch, dev, cfg, base, out_dir)
+    stage("sweep")
+    emit({"phase": "jamba_done", "model": JAMBA, "stages_s": stages})
     del base
     gc.collect()
     torch.cuda.empty_cache()
@@ -3415,8 +3644,8 @@ USES = [
 # "train:<impl>" / "serve:<impl>"), at each family's shapes in the kernel
 # phase: the train step's calls of #1 and #2 (N = 2 x M = 1,024, r = 16),
 # and gemma3's decode rows (serve)
-for _arch, _case in FAMILY_TRAIN_CASE.items():
-    _tag = _arch.split("-")[0]
+for _arch, _mixer, _case in family_cases("train"):
+    _tag = _arch.split("-")[0] + {None: "", "ssm": "_ssd", "attn": "_attn"}[_mixer]
     USES += [
         (f"packed_matmul:{_tag}_train_forward", "packed_matmul", ("xA", "xAB"), _case,
          "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
@@ -3430,8 +3659,8 @@ for _arch, _case in FAMILY_TRAIN_CASE.items():
          "fused.cu", "src/repro/kernels/fused.py:275 (fused.py:389-401)",
          (_arch, "train:fused", "fused_matmul_dx")),
     ]
-for _arch, _case in FAMILY_DECODE_CASE.items():
-    _tag = _arch.split("-")[0]
+for _arch, _mixer, _case in family_cases("decode"):
+    _tag = _arch.split("-")[0] + {None: "", "ssm": "_ssd", "attn": "_attn"}[_mixer]
     USES += [
         (f"packed_matmul:{_tag}_decode", "packed_matmul", ("xA", "xAB"), _case,
          "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
@@ -3474,6 +3703,10 @@ EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decod
               ("packed_matmul:mamba2_decode_pair", "packed_matmul", ("pair",), "decode_mamba2"),
               ("packed_matmul:qwen3_decode_pair", "packed_matmul", ("pair",),
                "decode_qwen3_moe"),
+              ("packed_matmul:jamba_ssd_decode_pair", "packed_matmul", ("pair",),
+               "decode_jamba_ssd"),
+              ("packed_matmul:jamba_attn_decode_pair", "packed_matmul", ("pair",),
+               "decode_jamba_attn"),
               # fused_matmul_q on an f32 x (the launcher's --quant ... --impl fused)
               ("fused_matmul_q:int8_f32", "fused_matmul_q", ("int8",), "train", "float32"),
               ("fused_matmul_q:nf4_f32", "fused_matmul_q", ("nf4",), "train", "float32"),
@@ -3601,6 +3834,9 @@ def main() -> None:
     moe_launches = moe_phase(torch, dev, out_dir)
     emit({"phase": "moe_phase_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    jamba_launches = jamba_phase(torch, dev, out_dir)
+    emit({"phase": "jamba_phase_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     autotune_phase(torch, dev, out_dir)
     emit({"phase": "autotune_done", "seconds": time.perf_counter() - t0})
     sync_phase(torch, dev)
@@ -3631,7 +3867,8 @@ def main() -> None:
                                "sweep": {"auto": sweep_launches},
                                "online": {"auto": online_launches},
                                "launcher": launcher_launches, **family_launches,
-                               COMMAND_R: command_r_launches, MOE: moe_launches})
+                               COMMAND_R: command_r_launches, MOE: moe_launches,
+                               JAMBA: jamba_launches})
     (out_dir / "chip_smoke.json").write_text(json.dumps({"records": RECORDS, **summary}, indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where qwen3-moe-30b-a3b's serve logits part between the kernel and plain
-paths, on one CUDA card.
+"""Where qwen3-moe-30b-a3b's or jamba-v0.1-52b's serve logits part between
+the kernel and plain paths, on one CUDA card.
 
-    python3 scripts/moe_routing.py
+    python3 scripts/moe_routing.py          # qwen3-moe-30b-a3b
+    python3 scripts/moe_routing.py jamba    # jamba-v0.1-52b, the smoke's cut
 
-Builds the kernels and draws full qwen3-moe-30b-a3b (48 layers, bf16) from
-``chip_smoke.py``'s seed, then runs the smoke's serve check
-(``chip_smoke.teacher_forced``: 8 rows, each prompt prefilled alone, then 4
+Builds the kernels and draws the model in bf16 from ``chip_smoke.py``'s
+seed -- full qwen3-moe-30b-a3b (48 layers), or jamba at full width on the
+jamba phase's first 8 layers (4 of them MoE) -- then runs the smoke's
+serve check (``chip_smoke.teacher_forced``: 8 rows, each prompt prefilled alone, then 4
 teacher-forced decode steps at width 8) under impl="auto" against the
 plain path, twice for each impl in IMPLS:
 
@@ -23,7 +25,6 @@ max abs logit difference per step (prefill first) over max |logit|.
 """
 from __future__ import annotations
 
-import subprocess
 import sys
 from pathlib import Path
 
@@ -34,28 +35,17 @@ IMPLS = (("auto", "plain"), ("fused", "fused_plain"))
 
 
 def main() -> None:
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    import torch
-
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "scripts")]
     import chip_smoke as cs
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
     from repro_torch.models.layers import moe
-    from repro_torch.models.model import init_model
+    from ssd_share import setup_card, share_model
 
-    if not torch.cuda.is_available():
-        cs.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else smi.stderr, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
-    torch.zeros(1, device=dev)
-    _build.build_all()
-    cfg = get_config(cs.MOE)
-    base, _ = init_model(cs.SEED, cfg, None, dtype=torch.bfloat16, device=dev)
-    _, (lo, hi), new_tokens, steps = cs.FAMILY_SERVE[cs.MOE]
+    which = sys.argv[1] if len(sys.argv) > 1 else cs.MOE
+    if which not in (cs.MOE, "jamba"):
+        cs.fail(f"the model is {cs.MOE} or jamba, got {which}")
+    torch, dev, _ = setup_card(cs)
+    cfg, base, _ = share_model(torch, cs, dev, which)
+    _, (lo, hi), new_tokens, steps = cs.FAMILY_SERVE[cfg.name]
     adapters = cs.make_adapters(torch, cfg, 8)
     rng = np.random.RandomState(cs.SEED)
     prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(lo, hi)).astype(np.int32)
@@ -63,8 +53,9 @@ def main() -> None:
     smax = (hi + max(new_tokens, steps) + 63) // 64 * 64
     router = moe._router
     # the router calls of one path: 8 prefills and ``steps`` decode steps,
-    # each through every layer
-    per_path = (len(prompts) + steps) * cfg.n_layers
+    # each through every MoE layer
+    n_moe = cfg.ffn_kinds().count("moe")
+    per_path = (len(prompts) + steps) * n_moe
     for kimpl, pimpl in IMPLS:
         for replay in (False, True):
             seen = []
@@ -95,11 +86,11 @@ def main() -> None:
                 return (a[:, :, None] == b[:, None, :]).any(-1).float().mean().item()
 
             kern, plain = seen[:per_path], seen[per_path:]
-            n_pre = len(prompts) * cfg.n_layers
+            n_pre = len(prompts) * n_moe
             by_layer = {
                 what: [float(np.mean([agree(kern[j], plain[j]) for j in range(a, b)
-                                      if j % cfg.n_layers == layer]))
-                       for layer in range(cfg.n_layers)]
+                                      if j % n_moe == layer]))
+                       for layer in range(n_moe)]
                 for what, (a, b) in (("prefill", (0, n_pre)), ("decode", (n_pre, per_path)))}
             cs.emit({"phase": "moe_routing", "model": cfg.name, "impl": kimpl, "plain": pimpl,
                      "plain_replays_kernel_routes": replay,

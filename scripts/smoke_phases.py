@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s phases alone on one CUDA card.
 
-    python3 scripts/smoke_phases.py              # kernels, command_r, moe, families
+    python3 scripts/smoke_phases.py              # kernels, command_r, moe, jamba, families
     python3 scripts/smoke_phases.py kernels      # the kernel phase alone
     python3 scripts/smoke_phases.py command_r    # the command_r phase alone
     python3 scripts/smoke_phases.py kernels moe  # the kernel rows and qwen3-moe-30b-a3b
+    python3 scripts/smoke_phases.py kernels jamba  # the kernel rows and jamba-v0.1-52b
     python3 scripts/smoke_phases.py kernels families
 
 Builds the kernels, then runs ``chip_smoke.kernel_phase``,
-``chip_smoke.command_r_phase``, ``chip_smoke.moe_phase`` and/or
-``chip_smoke.families_phase`` (in the smoke's order) with the smoke's own checks (a failed check exits
+``chip_smoke.command_r_phase``, ``chip_smoke.moe_phase``,
+``chip_smoke.jamba_phase`` and/or ``chip_smoke.families_phase`` (in the
+smoke's order) with the smoke's own checks (a failed check exits
 non-zero), printing the smoke's JSON lines. With the kernel phase and
 another, one ``phase_use`` line per ``kernels`` entry of that phase's
 models: its layer sums, bound and launches, as the smoke's ``kernels`` line
@@ -24,7 +26,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("kernels", "command_r", "moe", "families")
+PHASES = ("kernels", "command_r", "moe", "jamba", "families")
 
 
 def main() -> None:
@@ -61,6 +63,10 @@ def main() -> None:
         t0 = time.perf_counter()
         counts[cs.MOE] = cs.moe_phase(torch, dev, out)
         cs.emit({"phase": "moe_phase_done", "seconds": time.perf_counter() - t0})
+    if "jamba" in which:
+        t0 = time.perf_counter()
+        counts[cs.JAMBA] = cs.jamba_phase(torch, dev, out)
+        cs.emit({"phase": "jamba_phase_done", "seconds": time.perf_counter() - t0})
     if "families" in which:
         t0 = time.perf_counter()
         counts.update(cs.families_phase(torch, dev, out))

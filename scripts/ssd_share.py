@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""The SSD's share of mamba2-370m's device time on one CUDA card.
+"""The SSD's share of mamba2-370m's or jamba-v0.1-52b's device time on one
+CUDA card.
 
-    python3 scripts/ssd_share.py
+    python3 scripts/ssd_share.py          # mamba2-370m
+    python3 scripts/ssd_share.py jamba    # jamba-v0.1-52b, the smoke's cut
 
-Builds the kernels and draws full mamba2-370m (48 layers, bf16) from
-``chip_smoke.py``'s seed, then profiles with ``torch.profiler``: one
-``make_packed_step`` step (impl="auto") of the smoke's train pack at its
-sequence length (8 rows of 1,024 tokens), and a ``ServeEngine`` drain of 4
-of the smoke's mamba2 requests (prompts of 200-600 tokens, 8 new tokens
-each), each after a warm-up. The SSD's plain-PyTorch parts
+Builds the kernels and draws the model in bf16 from ``chip_smoke.py``'s
+seed -- full mamba2-370m (48 layers), or jamba at full width on the jamba
+phase's first 8 layers (one whole period: 7 SSD layers and 1 attention
+layer, 4 MoE FFNs and 4 dense ones) -- then profiles with
+``torch.profiler``: one ``make_packed_step`` step (impl="auto") of the
+smoke's train pack at the model's sequence length there (8 rows of 1,024
+tokens; jamba's 512), and a ``ServeEngine`` drain of 4 of the smoke's
+requests for the model (prompts of 200-600 tokens, 8 new tokens each),
+each after a warm-up. The SSD's plain-PyTorch parts
 (``models/layers/ssm.py``: the chunked scan, the causal conv, the decode
 step's conv and recurrence, the gated RMSNorm) run inside ``ssd:<name>``
 ranges; their forward and backward device time and their share of all
 device time are printed as one JSON line per profile, after the card's
 name and power limit. The device time by kernel name goes to
-``smoke_out/profile_mamba2_{train,serve}.txt``.
+``smoke_out/profile_{mamba2,jamba_ssd}_{train,serve}.txt``.
 """
 from __future__ import annotations
 
@@ -32,13 +37,74 @@ ROOT = Path(__file__).resolve().parents[1]
 SSD_PARTS = ("_ssd_scan", "_causal_conv", "_ssd_step", "apply_norm")
 
 
-def ssd_profile(torch, cs, cfg, what: str, fn, out_dir: Path) -> dict:
-    """The SSD's parts (SSD_PARTS of ``models/layers/ssm.py``) in ``fn()``:
-    ``parts_profile`` under the tag "ssd", the kernel table in
-    ``smoke_out/profile_mamba2_<what>.txt``."""
-    from repro_torch.models.layers import ssm
+def share_model(torch, cs, dev, which: str):
+    """The model a share script profiles and its train pack's sequence
+    length: ``which`` "jamba" -> jamba-v0.1-52b cut to the jamba phase's
+    JAMBA_LAYERS, a bf16 base drawn to that depth; ``arch`` -> the full
+    model. Returns (cfg, base, seq)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
 
-    return parts_profile(torch, cs, cfg, what, fn, out_dir, ssm, SSD_PARTS, "ssd", "mamba2")
+    if which == "jamba":
+        cfg, seq = get_config(cs.JAMBA).replace(n_layers=cs.JAMBA_LAYERS), cs.JAMBA_TRAIN_SEQ
+    else:
+        cfg = get_config(which)
+        seq = cs.FAMILY_TRAIN_SEQ.get(which, cs.TRAIN_SEQ)
+    base, _ = init_model(cs.SEED, cfg, None, dtype=torch.bfloat16, device=dev)
+    return cfg, base, seq
+
+
+def profile_train_and_serve(torch, cs, dev, cfg, base, seq: int, profile) -> None:
+    """``profile(what, fn)`` of one ``make_packed_step`` step (impl="auto")
+    of the smoke's train pack at ``seq`` tokens, then of a ``ServeEngine``
+    drain of 4 of the smoke's requests for the model (8 new tokens each),
+    each after a warm-up."""
+    from repro_torch.serve.engine import ServeEngine, poisson_requests
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import make_packed_step
+
+    _, meta, lora, batches = cs.train_setup(torch, dev, cfg, seq, 2)
+    step = make_packed_step(cfg, meta.n, impl="auto", ranks=meta.ranks)
+    opt = init_opt_state(lora)
+    scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
+    step(base, lora, opt, batches[0], scales, lr_vec, None)  # warm-up
+    profile("train", lambda: step(base, lora, opt, batches[1], scales, lr_vec, None))
+    del step, lora, opt, batches
+    torch.cuda.empty_cache()
+    _, (lo, hi), _, _ = cs.FAMILY_SERVE[cfg.name]
+    rng = np.random.RandomState(cs.SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(lo, hi)).astype(np.int32)
+               for _ in range(4)]
+    reqs = [dataclasses.replace(r, max_new_tokens=8, arrival=0.0) for r in poisson_requests(
+        [f"ad{i}" for i in range(4)], prompts, 2.0, max_new_tokens=8, seed=cs.SEED)]
+    eng = ServeEngine(cfg, base, rows=8, smax=(hi + 8 + 63) // 64 * 64, r_bucket=16,
+                      impl="auto", device=dev)
+    for i, (tree, r) in enumerate(cs.make_adapters(torch, cfg, 4)):
+        eng.publish(f"ad{i}", tree, {"rank": r, "alpha": float(r)})
+    eng.serve(reqs[:1])  # warm-up
+    profile("serve", lambda: eng.serve(reqs))
+
+
+def setup_card(cs):
+    """torch on cuda:0 with TF32 off and the kernels built; prints the
+    card's name and power limit. Returns (torch, dev, smoke_out)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else smi.stderr, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.zeros(1, device=dev)
+    _build.build_all()
+    out = ROOT / "smoke_out"
+    out.mkdir(exist_ok=True)
+    return torch, dev, out
 
 
 def parts_profile(torch, cs, cfg, what: str, fn, out_dir: Path, module, parts, tag: str,
@@ -154,51 +220,17 @@ def parts_profile(torch, cs, cfg, what: str, fn, out_dir: Path, module, parts, t
 
 def main() -> None:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    import torch
-
     import chip_smoke as cs
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.models.model import init_model
-    from repro_torch.serve.engine import ServeEngine, poisson_requests
-    from repro_torch.train.optimizer import init_opt_state
-    from repro_torch.train.trainer import make_packed_step
+    from repro_torch.models.layers import ssm
 
-    if not torch.cuda.is_available():
-        cs.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else smi.stderr, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
-    torch.zeros(1, device=dev)
-    _build.build_all()
-    out = ROOT / "smoke_out"
-    out.mkdir(exist_ok=True)
-    cfg = get_config(cs.MAMBA2)
-    base, _ = init_model(cs.SEED, cfg, None, dtype=torch.bfloat16, device=dev)
-    _, meta, lora, batches = cs.train_setup(torch, dev, cfg, cs.FAMILY_TRAIN_SEQ[cs.MAMBA2], 2)
-    step = make_packed_step(cfg, meta.n, impl="auto", ranks=meta.ranks)
-    opt = init_opt_state(lora)
-    scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
-    step(base, lora, opt, batches[0], scales, lr_vec, None)  # warm-up
-    ssd_profile(torch, cs, cfg, "train",
-                lambda: step(base, lora, opt, batches[1], scales, lr_vec, None), out)
-    del step, lora, opt, batches
-    torch.cuda.empty_cache()
-    _, (lo, hi), _, _ = cs.FAMILY_SERVE[cs.MAMBA2]
-    rng = np.random.RandomState(cs.SEED)
-    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(lo, hi)).astype(np.int32)
-               for _ in range(4)]
-    reqs = [dataclasses.replace(r, max_new_tokens=8, arrival=0.0) for r in poisson_requests(
-        [f"ad{i}" for i in range(4)], prompts, 2.0, max_new_tokens=8, seed=cs.SEED)]
-    eng = ServeEngine(cfg, base, rows=8, smax=(hi + 8 + 63) // 64 * 64, r_bucket=16,
-                      impl="auto", device=dev)
-    for i, (tree, r) in enumerate(cs.make_adapters(torch, cfg, 4)):
-        eng.publish(f"ad{i}", tree, {"rank": r, "alpha": float(r)})
-    eng.serve(reqs[:1])  # warm-up
-    ssd_profile(torch, cs, cfg, "serve", lambda: eng.serve(reqs), out)
+    which = sys.argv[1] if len(sys.argv) > 1 else cs.MAMBA2
+    if which not in (cs.MAMBA2, "jamba"):
+        cs.fail(f"the model is {cs.MAMBA2} or jamba, got {which}")
+    torch, dev, out = setup_card(cs)
+    cfg, base, seq = share_model(torch, cs, dev, which)
+    tag = "jamba_ssd" if which == "jamba" else "mamba2"
+    profile_train_and_serve(torch, cs, dev, cfg, base, seq, lambda what, fn: parts_profile(
+        torch, cs, cfg, what, fn, out, ssm, SSD_PARTS, "ssd", tag))
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 The port keeps its own copy of the reference's configuration dataclasses
 (``repro.configs.base``), cut to what the ported families need (GQA:
 qwen25-7b, starcoder2-7b, gemma3-1b, command-r-35b; MLA: minicpm3-4b;
-SSD: mamba2-370m; MoE: qwen3-moe-30b-a3b, grok-1-314b): the port imports
-nothing of the JAX package.
+SSD: mamba2-370m; MoE: qwen3-moe-30b-a3b, grok-1-314b; the attention/SSD
+hybrid with MoE: jamba-v0.1-52b): the port imports nothing of the JAX
+package.
 Field names and defaults match the reference, so a test can build the same
 configuration on both sides.
 """
@@ -123,7 +124,9 @@ class ModelConfig:
     """One decoder: pre-norm layers of a mixer and an FFN. ``family``
     "dense": GQA with rope (or MLA) + an MLP in every layer; "ssm": an SSD
     mixer (``ssm``) and no FFN (mamba2); "moe": GQA + a mixture of experts
-    (``moe``) on every ``moe.moe_every``-th layer, an MLP on the others.
+    (``moe``) on every ``moe.moe_every``-th layer, an MLP on the others;
+    "hybrid": an attention layer where ``i % attn_every == attn_offset``, an
+    SSD mixer on every other layer, and the FFNs as "moe" (jamba).
     ``mlp_kind``: "swiglu"
     (gate/up/down, silu), "gelu" (the gated GELU: gate/up/down) or "gelu2"
     (the classic up -> GELU -> down, no gate); ``norm_kind``: "rmsnorm" or
@@ -147,15 +150,25 @@ class ModelConfig:
     family: str = "dense"
     ssm: SSMConfig = field(default_factory=SSMConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
+    # a "hybrid" family's attention layers: every ``attn_every``-th, at
+    # ``attn_offset`` in each period (jamba: 8 and 3, layers 3, 11, 19, 27)
+    attn_every: int = 0
+    attn_offset: int = 3
 
     @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Mixer kind per decoder layer: "ssm" in an SSM family, else
-        "attn"."""
-        return ("ssm" if self.family == "ssm" else "attn",) * self.n_layers
+        """Mixer kind per decoder layer: "ssm" in an SSM family; in a
+        hybrid, "attn" where ``i % attn_every == attn_offset`` and "ssm"
+        elsewhere; else "attn"."""
+        return tuple(
+            "ssm" if self.family == "ssm"
+            else ("attn" if i % self.attn_every == self.attn_offset else "ssm")
+            if self.family == "hybrid"
+            else "attn"
+            for i in range(self.n_layers))
 
     def ffn_kinds(self) -> Tuple[str, ...]:
         """FFN kind per decoder layer: "none" in an SSM family (mamba2
@@ -228,31 +241,43 @@ def mlp_projections(cfg: "ModelConfig") -> Dict[str, Tuple[int, int]]:
     return {nm: mlp[nm] for nm in MLP_PROJECTIONS[cfg.mlp_kind]}
 
 
-def layer_projections(cfg: "ModelConfig") -> Dict[str, Tuple[int, int]]:
-    """(d_in, d_out) of every projection of one decoder layer: the
-    mixer's (attention or SSD), then the MLP's (none in an SSM family, nor
-    in an MoE family whose every FFN is a mixture of experts: the experts
-    are batched weights, not projections, and carry no adapter)."""
+def layer_projections(cfg: "ModelConfig", mixer: str, ffn: str) -> Dict[str, Tuple[int, int]]:
+    """(d_in, d_out) of every projection of one decoder layer of mixer
+    ``mixer`` ("attn" or "ssm") and FFN ``ffn``: the mixer's, then a
+    "dense" FFN's MLP (a "moe" or "none" FFN has none: the experts are
+    batched weights, not projections, and carry no adapter)."""
     d = cfg.d_model
-    if cfg.family == "ssm":
-        return ssm_projections(cfg.ssm, d)
-    mlp = mlp_projections(cfg) if "dense" in cfg.ffn_kinds() else {}
-    return {**attn_projections(cfg.attention, d), **mlp}
+    mix = ssm_projections(cfg.ssm, d) if mixer == "ssm" else attn_projections(cfg.attention, d)
+    return {**mix, **(mlp_projections(cfg) if ffn == "dense" else {})}
 
 
-def lora_leaves(cfg: "ModelConfig") -> Dict[str, str]:
-    """Each LoRA target of ``cfg.lora_targets`` that the model has -> the
-    projection it adapts (MLA's "q" and "kv": ``q_a`` and ``kv_a``; a
-    "gelu2" MLP has no gate; SSD's "ssm_in" and "ssm_out": ``zx`` and
-    ``out``; an MLP target only where every layer has an MLP: the port's
-    LoRA trees have one layout for every layer)."""
-    if cfg.family == "ssm":
-        names = SSM_TARGETS
+def lora_leaves(cfg: "ModelConfig", mixer: str, ffn: str) -> Dict[str, str]:
+    """Each LoRA target of ``cfg.lora_targets`` that one layer of mixer
+    ``mixer`` and FFN ``ffn`` has -> the projection it adapts: the mixer's
+    targets (GQA's q/k/v/o; MLA's "q", "kv" and "o": ``q_a``, ``kv_a`` and
+    ``o``; SSD's "ssm_in" and "ssm_out": ``zx`` and ``out``), then, on a
+    "dense" FFN, the MLP's (a "gelu2" MLP has no gate). Each layer holds
+    its own adapters, as the reference's ``init_layer`` builds them."""
+    if mixer == "ssm":
+        names = dict(SSM_TARGETS)
     else:
-        attn = MLA_TARGETS if cfg.attention.is_mla else {t: t for t in ("q", "k", "v", "o")}
-        dense = set(cfg.ffn_kinds()) == {"dense"}
-        names = {**attn, **{nm: nm for nm in MLP_PROJECTIONS[cfg.mlp_kind] if dense}}
+        names = dict(MLA_TARGETS) if cfg.attention.is_mla else {t: t for t in ("q", "k", "v", "o")}
+    if ffn == "dense":
+        names.update({nm: nm for nm in MLP_PROJECTIONS[cfg.mlp_kind]})
     return {t: names[t] for t in cfg.lora_targets if t in names}
+
+
+def lora_layout(cfg: "ModelConfig", mixer: str, ffn: str) -> Dict[str, Dict[str, Tuple[int, int]]]:
+    """One layer's LoRA tree layout, as ``init_layer`` builds it: group
+    ("attn" or "ssm" for the mixer, "mlp") -> adapted projection -> (d_in,
+    d_out); a group without an adapter is left out."""
+    shapes = layer_projections(cfg, mixer, ffn)
+    mlp = MLP_PROJECTIONS[cfg.mlp_kind] if ffn == "dense" else ()
+    out: Dict[str, Dict[str, Tuple[int, int]]] = {}
+    for leaf in lora_leaves(cfg, mixer, ffn).values():
+        grp = "mlp" if leaf in mlp else ("ssm" if mixer == "ssm" else "attn")
+        out.setdefault(grp, {})[leaf] = shapes[leaf]
+    return out
 
 
 def default_search_space(n: int = 120, seq_len: int = 1024) -> list:
@@ -278,7 +303,9 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
     16 nope + 16 rope, v heads of 32; SSD d_state 16, heads of 32, chunks of
     32 (every config carries an enabled ``ssm``, so every one shrinks, as
     in the reference); 4 experts of d_expert 64, top-k min(2, top_k), a
-    capacity factor of 4 / top-k (nothing dropped)."""
+    capacity factor of 4 / top-k (nothing dropped); a hybrid keeps 4
+    layers with ``attn_every=4``, ``attn_offset=1`` (SSD + dense, attention
+    + MoE, SSD + dense, SSD + MoE)."""
     attn = cfg.attention
     n_heads = max(2, min(4, attn.n_heads))
     n_kv = max(1, min(n_heads, attn.n_kv_heads))
@@ -299,6 +326,9 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
         # capacity_factor = E / top_k: capacity >= T, no token dropped
         k = min(2, moe.top_k)
         moe = dataclasses.replace(moe, n_experts=4, top_k=k, d_expert=64, capacity_factor=4 / k)
+    if cfg.family == "hybrid":
+        n_layers = 4
+        cfg = cfg.replace(attn_every=4, attn_offset=1)
     if attn.global_every:
         n_layers = min(max(n_layers, attn.global_every), 6)
     return cfg.replace(
@@ -338,6 +368,7 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (registers)
         command_r_35b,
         gemma3_1b,
+        jamba_v01_52b,
         mamba2_370m,
         grok_1_314b,
         minicpm3_4b,

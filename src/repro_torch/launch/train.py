@@ -16,7 +16,9 @@ int8|nf4`` its projections are quantized layer by layer as they are drawn
 card (``--arch command-r-35b``) still builds. ``--arch qwen3-moe-30b-a3b``
 does not fit one card this way: its f32 base is 122 GB, and ``--quant``
 leaves the experts (29.0 B of its 30.53 B parameters) dense, as the
-reference's quantizer does; it runs here at ``--reduced`` size.
+reference's quantizer does; it runs here at ``--reduced`` size, and so
+does ``--arch jamba-v0.1-52b`` (an f32 base of 206 GB, ~97 GB as int8
+with its experts dense).
 
 Ported flags besides the pack's: ``--impl``/``--quant``/``--remat`` (the
 kernel policy), ``--pool`` (save each adapter), ``--save-state`` /

@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import MLP_PROJECTIONS, ModelConfig, layer_projections, lora_leaves
+from repro_torch.configs.base import ModelConfig, lora_layout
 from repro_torch.core.adapter import PackMeta
 from repro_torch.models.layers.common import apply_norm, init_linear, init_norm
 from repro_torch.models.transformer import (
@@ -86,38 +86,34 @@ def init_lora(seed: int, cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, 
 
 def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=None):
     """A LoRA pack tree of zeros in ``init_model``'s layout, without
-    building a base model (the serve engine's row pack and template): the
-    targets among the projections the config has ("gelu2" has no gate; MLA's
-    "q" and "kv" adapt ``q_a`` and ``kv_a``; SSD's "ssm_in" and "ssm_out",
-    under ``"ssm"``, adapt ``zx`` and ``out``)."""
+    building a base model (the serve engine's row pack and template): each
+    layer position of the period from its own spec (``lora_layout``: its
+    mixer's targets, and on a "dense" FFN the MLP's; "gelu2" has no gate;
+    MLA's "q" and "kv" adapt ``q_a`` and ``kv_a``; SSD's "ssm_in" and
+    "ssm_out", under ``"ssm"``, adapt ``zx`` and ``out``). A layer with no
+    adapter has no entry, as in ``init_stack``."""
     device = resolve_device(device)
     n, r = meta.n, meta.r_bucket
-    shapes, leaves = layer_projections(cfg), set(lora_leaves(cfg).values())
-    mlp = MLP_PROJECTIONS[cfg.mlp_kind]
-
-    dims = {}
-    for nm, sh in shapes.items():
-        if nm in leaves:
-            grp = "ssm" if cfg.family == "ssm" else "mlp" if nm in mlp else "attn"
-            dims.setdefault(grp, {})[nm] = sh
     specs = layer_specs(cfg)
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
 
-    def layer(*lead):
+    def layer(spec, *lead):
         return {
             grp: {
                 nm: {"a": torch.zeros((*lead, n, di, r), dtype=dtype, device=device),
                      "b": torch.zeros((*lead, n, r, do), dtype=dtype, device=device)}
                 for nm, (di, do) in projs.items()
             }
-            for grp, projs in dims.items()
+            for grp, projs in lora_layout(cfg, spec.mixer, spec.ffn).items()
         }
 
-    return {"decoder": {
-        "blocks": {f"l{i}": layer(n_blocks) for i in range(p)} if n_blocks else {},
-        "rest": {f"l{i}": layer() for i in range(n_rest)},
-    }}
+    def group(n_layers, *lead):
+        out = {f"l{i}": layer(specs[i], *lead) for i in range(n_layers)}
+        return {k: v for k, v in out.items() if v}
+
+    return {"decoder": {"blocks": group(p, n_blocks) if n_blocks else {},
+                        "rest": group(n_rest)}}
 
 
 # the families whose residual stream is f32 whatever the base's dtype
@@ -125,8 +121,8 @@ def lora_zeros(cfg: ModelConfig, meta: PackMeta, dtype=torch.float32, device=Non
 # valid computations -- the kernels and their plain versions -- move an
 # SSM's scan state, and an MoE router's choice at near-ties, far enough
 # apart to part their logits by more than 5 % of max |logit| (ROADMAP C,
-# differences by design)
-F32_STREAM_FAMILIES = ("ssm", "moe")
+# differences by design); a hybrid has both
+F32_STREAM_FAMILIES = ("ssm", "moe", "hybrid")
 
 
 def _embed(base, tokens, cfg: ModelConfig):

@@ -1,14 +1,20 @@
 """Decoder stack: pre-norm layers of a mixer -- attention (GQA, or MLA when
-the config has a ``kv_lora_rank``) or an SSD block (an "ssm" family) --
+the config has a ``kv_lora_rank``) or an SSD block (every layer of an
+"ssm" family; a "hybrid" family's layers off its attention pattern) --
 and an FFN: a dense MLP, a mixture of experts (a "moe" layer, whose
-load-balance aux loss the stack sums) or none (an "ssm" family).
+load-balance aux loss the stack sums) or none (an "ssm" family). Each
+layer's parameters and LoRA follow its own spec, so one stack may mix
+attention and SSD layers, dense and MoE FFNs (jamba-v0.1-52b).
 
 Layers are grouped as in the reference: the per-layer spec sequence has a
 minimal period p, the L//p repeats are stacked under ``"blocks"`` (every
 leaf gains a leading block axis) and the remainder sits under ``"rest"``.
 The stack runs as a Python loop over blocks where the reference scans; in
-training each block is checkpointed (``torch.utils.checkpoint``) where the
-reference wraps the scanned block in ``jax.checkpoint``.
+training each block -- a whole period, 8 layers of full jamba's -- is
+checkpointed (``torch.utils.checkpoint``) where the reference wraps the
+scanned block in ``jax.checkpoint``; the remainder runs unchecked, as in
+the reference. (Jamba's first 8 layers alone have a least period of 6: a
+block of 6 and a remainder of 2.)
 """
 from __future__ import annotations
 
@@ -110,7 +116,7 @@ def apply_layer(
     """Pre-norm residual layer. Returns (x, new_cache or None, aux): aux
     is a "moe" FFN's load-balance loss, None for any other layer.
 
-    An SSM or MoE family's residual stream ``x`` is f32
+    An SSM, MoE or hybrid family's residual stream ``x`` is f32
     (``model.F32_STREAM_FAMILIES``): each norm's output is cast to the
     base's dtype, and the residual adds stay f32 (see ``layers/ssm.py``);
     an MoE router reads its norm's f32 output, its experts the cast, and
@@ -158,7 +164,8 @@ def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, devic
     """Returns ({"blocks": stacked, "rest": dict}, same for lora, period).
 
     Block leaves are allocated stacked once and filled block by block, so a
-    full-size model never holds two copies of its weights. ``keep_base=False``
+    full-size model never holds two copies of its weights (a model of one
+    block keeps that block's leaves, each given the block axis as a view). ``keep_base=False``
     draws each layer's base weights (so ``gen`` moves as it does for the
     whole model) and drops them at once: the base trees come back empty.
     ``quant`` ("int8" | "nf4") quantizes each layer's eligible projections
@@ -183,6 +190,9 @@ def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, devic
     blocks_l: Any = {}
     for bi in range(n_blocks):
         bp, bl = one(specs[:p])
+        if n_blocks == 1:  # the one block, given its axis as a view: no second copy
+            blocks_p, blocks_l = tree_map(lambda t: t[None], bp), tree_map(lambda t: t[None], bl)
+            break
         if bi == 0:
             alloc = lambda t: torch.empty((n_blocks, *t.shape), dtype=t.dtype, device=t.device)  # noqa: E731
             blocks_p, blocks_l = tree_map(alloc, bp), tree_map(alloc, bl)

@@ -19,8 +19,9 @@ against :class:`CostEstimator`; the analytic :class:`CostModel` is the
 prior, and :class:`repro_torch.sched.profile.ProfiledCostModel` layers
 measured step times on top of it. The port's copy differs from the
 reference in three places: an ``H100`` preset, parameter counts for the
-families the port has (dense GQA and MLA decoders, SSM decoders, and
-decoders with mixture-of-experts FFNs; a config of another kind raises),
+families the port has (dense GQA and MLA decoders, SSM decoders,
+decoders with mixture-of-experts FFNs, and attention/SSD hybrids with
+dense and MoE FFNs; a config of another kind raises),
 and the memory accounting above. Every other number is the
 reference's, so with ``REFERENCE_MEMORY`` the two plan alike.
 """
@@ -33,13 +34,11 @@ from repro_torch.configs.base import (
     MLP_PROJECTIONS,
     LoraConfig,
     ModelConfig,
-    attn_projections,
     layer_projections,
-    lora_leaves,
-    mlp_projections,
-    ssm_projections,
+    lora_layout,
 )
 from repro_torch.kernels.quant import ELIGIBLE_NAMES, MODES
+from repro_torch.models.transformer import find_period, layer_specs
 
 
 class CostEstimator:
@@ -230,30 +229,36 @@ REFERENCE_MEMORY = dict(lora_state_bytes=8.0, logits_copies=0.0, job_overhead_by
 
 
 # the layer kinds the port counts: dense decoders (``attn`` mixers,
-# ``dense`` FFNs), SSM ones (``ssm`` mixers, no FFN) and MoE ones (``attn``
+# ``dense`` FFNs), SSM ones (``ssm`` mixers, no FFN), MoE ones (``attn``
 # mixers, ``moe`` FFNs on every layer, or every ``moe_every``-th with
-# ``dense`` ones between)
-PORTED_KINDS = ({"attn", "dense"}, {"ssm", "none"}, {"attn", "moe"}, {"attn", "dense", "moe"})
+# ``dense`` ones between) and hybrids (``attn`` and ``ssm`` mixers,
+# ``dense`` and ``moe`` FFNs: jamba)
+PORTED_KINDS = ({"attn", "dense"}, {"ssm", "none"}, {"attn", "moe"}, {"attn", "dense", "moe"},
+                {"attn", "ssm", "dense", "moe"})
 
 
 def _ported_only(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds()) | set(cfg.ffn_kinds())
     if kinds not in PORTED_KINDS or cfg.is_encdec:
         raise ValueError(f"{cfg.name}: the port counts dense GQA or MLA decoders, SSM "
-                         f"decoders and MoE decoders only, got {kinds}")
+                         f"decoders, MoE decoders and attention/SSD hybrids only, got {kinds}")
     if cfg.mlp_kind not in MLP_PROJECTIONS or cfg.norm_kind not in ("rmsnorm", "layernorm"):
         raise ValueError(f"{cfg.name}: unknown mlp_kind {cfg.mlp_kind!r} or norm_kind "
                          f"{cfg.norm_kind!r}")
 
 
-def _layer_projections(cfg: ModelConfig, ffn: str):
-    """(d_in, d_out) of one layer's projections with FFN ``ffn``: the
-    mixer's, then a dense MLP's (a "moe" or "none" FFN has none)."""
-    d = cfg.d_model
-    if cfg.family == "ssm":
-        return ssm_projections(cfg.ssm, d)
-    return {**attn_projections(cfg.attention, d),
-            **(mlp_projections(cfg) if ffn == "dense" else {})}
+def _layers(cfg: ModelConfig):
+    """(mixer, ffn) of each decoder layer."""
+    return zip(cfg.layer_kinds(), cfg.ffn_kinds())
+
+
+def _live_mixers(cfg: ModelConfig):
+    """The mixers whose activations a training step's backward holds at
+    once: one checkpointed block's, recomputed whole, and the remainder's,
+    which are not checkpointed (``models.transformer``'s grouping)."""
+    specs = layer_specs(cfg)
+    p = find_period(specs)
+    return [s.mixer for s in specs[:p] + specs[len(specs) - len(specs) % p:]]
 
 
 def moe_param_count(cfg: ModelConfig) -> float:
@@ -272,8 +277,8 @@ def model_param_count(cfg: ModelConfig) -> float:
     vectors are not counted, as in the reference."""
     _ported_only(cfg)
     total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    for ffn in cfg.ffn_kinds():
-        total += sum(din * dout for din, dout in _layer_projections(cfg, ffn).values())
+    for mixer, ffn in _layers(cfg):
+        total += sum(din * dout for din, dout in layer_projections(cfg, mixer, ffn).values())
         if ffn == "moe":
             total += moe_param_count(cfg)
     return float(total)
@@ -285,8 +290,8 @@ def quantized_param_count(cfg: ModelConfig, mode: str) -> float:
     The embedding, the LM head, the norms, MLA's ``kv_b_k``/``kv_b_v``,
     SSD's ``bc``/``dt`` and an MoE layer's experts and router stay dense."""
     return float(sum(
-        din * dout for ffn in cfg.ffn_kinds()
-        for nm, (din, dout) in _layer_projections(cfg, ffn).items()
+        din * dout for mixer, ffn in _layers(cfg)
+        for nm, (din, dout) in layer_projections(cfg, mixer, ffn).items()
         if nm in ELIGIBLE_NAMES and (mode == "int8" or din % 2 == 0)))
 
 
@@ -302,23 +307,22 @@ def active_param_count(cfg: ModelConfig) -> float:
 
 
 def lora_param_count(cfg: ModelConfig, rank: int) -> float:
-    """Packed-LoRA params for one adapter over the ``cfg.lora_targets``
-    that the model has, at the widths of the projection each adapts. The
-    reference counts every target named (``repro/sched/cost_model.py:237-260``),
-    so for a "gelu2" MLP it bills a ``gate`` adapter that its ``init_mlp``
-    never builds: n_layers x r x (d + d_ff) more than the port; and it bills
+    """Packed-LoRA params for one adapter: each layer's own adapters
+    (``lora_layout``: the ``cfg.lora_targets`` its mixer and FFN have), at
+    the widths of the projection each adapts. The reference bills every
+    target named on every layer (``repro/sched/cost_model.py:237-260``), so
+    for a "gelu2" MLP it bills a ``gate`` adapter that its ``init_mlp``
+    never builds: n_layers x r x (d + d_ff) more than the port; it bills
     MLA's ``o`` at ``n_heads * head_dim`` inputs, where the projection reads
     ``n_heads * v_head_dim``: n_layers x r x n_heads x (head_dim -
-    v_head_dim) more (ROADMAP C, "Found in the reference"). SSD's "ssm_in"
-    and "ssm_out" adapt ``zx`` and ``out``, billed as in the reference."""
+    v_head_dim) more; and on a hybrid it bills q/k/v/o on the SSD layers
+    and ssm_in/ssm_out on the attention ones (ROADMAP C, "Found in the
+    reference"). SSD's "ssm_in" and "ssm_out" adapt ``zx`` and ``out``,
+    billed as in the reference."""
     _ported_only(cfg)
-    shapes = layer_projections(cfg)
-    per_layer = 0.0
-    for leaf in lora_leaves(cfg).values():
-        din, dout = shapes[leaf]
-        per_layer += rank * (din + dout)
-    n_layers = cfg.n_layers + cfg.encoder_layers
-    return float(per_layer * n_layers)
+    return float(sum(rank * (din + dout) for mixer, ffn in _layers(cfg)
+                     for projs in lora_layout(cfg, mixer, ffn).values()
+                     for din, dout in projs.values()))
 
 
 def base_param_bytes(base_dtype: Optional[str], prec_bytes: float = 2.0) -> float:
@@ -373,14 +377,17 @@ class CostModel(CostEstimator):
     logits_copies: float = 5.5
     # fixed bytes per job and device (attention decoders)
     job_overhead_bytes: float = 1.0e9
-    # An SSM decoder's per-job term in place of job_overhead_bytes: the
-    # scan's working set in one block's backward, this many f32 (rows, H,
-    # Q, Q) tensors a chunk. The constant above was fitted on attention
-    # decoders' jobs of 8-68 GB, where it is slack; mamba2-370m's captured
-    # sweep job peaks at 2.86 GB, 0.92 GB under a price with the constant
-    # (1.32x, outside C3's band). 6 prices its two measured jobs (the sweep
-    # job, the launcher's f32 pack) at or above their own peaks on an H100.
-    # 0 drops the term.
+    # A decoder with SSD layers' per-job term in place of
+    # job_overhead_bytes: the scan's working set in one block's backward,
+    # this many f32 (rows, H, Q, Q) tensors a chunk for each SSD layer the
+    # backward holds. The constant above was fitted on attention decoders'
+    # jobs of 8-68 GB, where it is slack; mamba2-370m's captured sweep job
+    # peaks at 2.86 GB, 0.92 GB under a price with the constant (1.32x,
+    # outside C3's band). 6 prices its two measured jobs (the sweep job, the
+    # launcher's f32 pack) at or above their own peaks on an H100; jamba's
+    # first 8 layers' sweep job (7 SSD layers held at once) peaks at 34.49
+    # GB, 0.87x a price with the constant and 1.09x one with this term. 0
+    # drops the term.
     ssm_scan_copies: float = 6.0
     # Padding-aware costing (beyond the paper): the packed executor
     # zero-pads every adapter to the pack's bucket rank (max rank rounded up
@@ -497,14 +504,18 @@ class CostModel(CostEstimator):
 
     def job_fixed_bytes(self, rows: int, seq: int) -> float:
         """The per-job term of ``job_mem_bytes``: ``job_overhead_bytes``,
-        or for an SSM decoder the scan's working set of ``rows`` padded rows
-        (``ssm_scan_copies`` f32 (rows, H, Q, Q) tensors per chunk of Q)."""
-        if self.cfg.family != "ssm":
+        or for a decoder with SSD layers the scan's working set of ``rows``
+        padded rows (``ssm_scan_copies`` f32 (rows, H, Q, Q) tensors per
+        chunk of Q) for each SSD layer the backward holds at once
+        (``_live_mixers``: mamba2's block is one layer; jamba's first 8
+        layers stack as a block of 6 and a remainder of 2, 7 SSD layers)."""
+        n_ssd = _live_mixers(self.cfg).count("ssm")
+        if not n_ssd:
             return self.job_overhead_bytes
         s = self.cfg.ssm
         q = s.chunk_size
         per_chunk = rows * s.n_heads(self.cfg.d_model) * q * q * 4.0
-        return self.ssm_scan_copies * per_chunk * -(-seq // q)
+        return self.ssm_scan_copies * per_chunk * -(-seq // q) * n_ssd
 
     def fits(self, configs: Sequence[LoraConfig], d: int, seq: int) -> bool:
         return self.job_mem_bytes(configs, d, seq) <= (

@@ -1049,6 +1049,10 @@ FAMILY_PROJ = {
     # mamba2-370m's adapted projections: zx (d 1,024 -> z and x, 2 x 2,048)
     # and out (d_inner 2,048 -> 1,024)
     "mamba2-370m": [(1024, 4096), (2048, 1024)],
+    # jamba-v0.1-52b's: the attention layer's q/o (4,096 -> 4,096) and k/v
+    # (4,096 -> 1,024), an SSD layer's zx (4,096 -> 16,384) and out (8,192
+    # -> 4,096)
+    "jamba-v0.1-52b": [(4096, 4096), (4096, 1024), (4096, 16384), (8192, 4096)],
 }
 
 

@@ -39,6 +39,7 @@ from repro.train.data import packed_batch_iterator as j_batches
 from repro.train.trainer import packed_loss_fn as j_packed_loss_fn
 from repro_torch import bridge
 from repro_torch.configs import LoraConfig, MoEConfig, default_search_space, get_config, reduced
+from repro_torch.configs.base import lora_leaves
 from repro_torch.core.adapter import pack_meta
 from repro_torch.kernels.ops import KernelConfig
 from repro_torch.kernels.quant import base_storage
@@ -166,7 +167,7 @@ def test_config_matches_reference_field_for_field(arch, reduce):
     assert tc.moe.enabled and tc.ffn_kinds() == jc.ffn_kinds() == ("moe",) * tc.n_layers
     assert hash(tc) == hash(tc.replace())
     assert {(s.mixer, s.ffn) for s in ttr.layer_specs(tc)} == {("attn", "moe")}
-    assert set(tm.lora_leaves(tc).values()) == {"q", "k", "v", "o"}
+    assert set(lora_leaves(tc, "attn", "moe").values()) == {"q", "k", "v", "o"}
     if reduce:
         assert (tc.moe.n_experts, tc.moe.top_k, tc.moe.d_expert, tc.moe.capacity_factor) == (
             4, 2, 64, 2.0)
