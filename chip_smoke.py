@@ -142,7 +142,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tier's ms, the speedup, FLOP/s and the share of the bound. A second tune
    on each cache must measure nothing.
 6. serve   -- full-width qwen25-7b (28 layers, bf16, random weights from a
-   seed) cut to its first SERVE_LAYERS = 7 layers (a view; the train,
+   seed) cut to its first SERVE_LAYERS = 5 layers (a view; the train,
    sweep and online phases reuse the whole base), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
    and impl="fused" (fused kernel). Launch counts are zeroed just before
@@ -150,14 +150,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode steps are held against the plain-version path on the same
    weights. Then a short drain of each impl runs under ``torch.profiler``
    (device busy share, device time by kernel).
-7. train   -- full-width qwen25-7b cut to its first TRAIN_LAYERS = 7
+7. train   -- full-width qwen25-7b cut to its first TRAIN_LAYERS = 5
    layers (a view of the serve phase's bf16 base), a pack of 4 adapters
    of ranks (8, 16, 16, 32) (ragged
    segments of one and of two adapters), seq 512, 4096 tokens per step,
    through ``make_packed_step`` under impl="auto", impl="fused", and
    impl="fused" on an nf4 and on an int8 base. Step 1's per-adapter loss and
    every LoRA gradient are held against the plain path on the same weights
-   and batch; then 4 steps run with the launch counts zeroed just before and
+   and batch; then TRAIN_STEPS = 3 steps run with the launch counts zeroed just before and
    read just after (forward and backward counts must both move). One auto,
    one fused and one nf4 step then run under ``torch.profiler``; the auto
    step's record carries ``packed_matmul``'s share of its device time. On
@@ -223,7 +223,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. launcher -- ``repro_torch.launch.train.main``, the port's training
    entry point, on full qwen25-7b with its f32 base (``init_model``'s
    default; the smoke's bf16 base is freed first): ``--seq 512 --ranks
-   8,16 --batch-sizes 2,2 --steps 4`` (two adapters of 1,024 tokens, ranks
+   8,16 --batch-sizes 2,2 --steps 3`` (two adapters of 1,024 tokens, ranks
    8 and 16: two same-rank segments, N = 1 x M = 1,024 each), once with
    ``--impl fused`` and once with ``--impl auto``, each on a captured
    step, then tuned and traced (``--impl fused --autotune-cache
@@ -273,6 +273,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    to C3, extract -> inject bit-exact. mamba2 also: ``launch/train.py --arch mamba2-370m --seq 1024
    --ranks 8,16 --steps 6`` on its own f32 base (s/step, peak against its
    price). ``scripts/ssd_share.py`` profiles the SSD's device share.
+   Then whisper-tiny (the encoder-decoder: a non-causal encoder over 1,500
+   frames a row, a cross-attention in each decoder layer) and
+   internvl2-1b (256 patch positions before the text), at full width and
+   depth: train at 448 tokens over 1,500 frames / 256 patches + 256
+   tokens, serve with each request's own frames or patches (prompts of
+   16-200 / 64-257 tokens), one captured sweep job each at its train
+   length; whisper also through the launcher on its f32 base under
+   ``--impl fused`` and ``--impl auto`` (losses and updates against each
+   other, each own peak against its price).
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
@@ -285,6 +294,7 @@ Prints one JSON line per measurement, then a ``kernels`` line, then
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -324,15 +334,15 @@ TRAIN_RANKS = (8, 16, 16, 32)
 TRAIN_LRS = (1e-4, 2e-4, 3e-4, 4e-4)
 TRAIN_BATCH = (1, 2, 1, 2)
 TRAIN_SEQ = 512
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3
 TRAIN_RUNS = (("auto", None), ("fused", None), ("fused", "nf4"), ("fused", "int8"))
 # The serve, train and sweep phases run the first SERVE_LAYERS,
 # TRAIN_LAYERS and SWEEP_LAYERS of the 28 (the full width; views of the
 # serve phase's base, no copy), so that the families and command_r phases
 # fit in the smoke's time (PERF.md §4). The online phase keeps all 28: at
 # fewer layers its plan preempts an adapter before its first step.
-SERVE_LAYERS = 7
-TRAIN_LAYERS = 7
+SERVE_LAYERS = 5
+TRAIN_LAYERS = 5
 SWEEP_LAYERS = 8
 # Step 1 of the kernel path against the plain path on the same weights and
 # batch. bf16 end to end: a 1-ulp difference in one projection's bf16
@@ -444,6 +454,14 @@ def host_us(torch, fn, arg_sets, iters: int = 20, rounds: int = 2) -> float:
         best = min(best, time.perf_counter() - t0)
         torch.cuda.synchronize()
     return 1e6 * best / iters
+
+
+# the kernel rows' repeats (cut for the smoke's time, PERF.md §4): a
+# plain version is timed over PLAIN_ITERS calls (its "plain_ms" is
+# reported, not checked), and a row's graph of 20 calls is replayed
+# ROW_DEVICE_REPS times for its device time
+PLAIN_ITERS = 5
+ROW_DEVICE_REPS = 1
 
 
 def copies_for(nbytes: int) -> int:
@@ -565,7 +583,7 @@ def kernel_phase(torch, dev):
         in_bytes = nbytes(*[a for a in args if a is not None]) + nbytes(got)
         sets = [args] + [args_fn() for _ in range(copies_for(in_bytes) - 1)]
         ms = time_ms(torch, kfn, sets)
-        plain_ms = time_ms(torch, pfn, sets)
+        plain_ms = time_ms(torch, pfn, sets, iters=PLAIN_ITERS)
         library_ms = time_ms(torch, lfn, sets)
         dname = str(dtype).split(".")[-1]
         b_ms, b_by, _, _ = bound(in_bytes, flops, dname)
@@ -577,8 +595,8 @@ def kernel_phase(torch, dev):
         if path is not None:
             row["path"] = path
         # device time with the host out of the loop, and host time
-        row.update(device_ms=device_ms(torch, kfn, sets),
-                   library_device_ms=device_ms(torch, lfn, sets),
+        row.update(device_ms=device_ms(torch, kfn, sets, reps=ROW_DEVICE_REPS),
+                   library_device_ms=device_ms(torch, lfn, sets, reps=ROW_DEVICE_REPS),
                    host_us=host_us(torch, kfn, sets), library_host_us=host_us(torch, lfn, sets))
         emit(row)
         rows.append(row)
@@ -707,8 +725,8 @@ def kernel_phase(torch, dev):
     # gemma3's decode rows (d = 1,152, k/v 256 wide)
     from repro_torch.configs import get_config
 
-    n, m = TRAIN_CASE
     for arch, mixer, case in family_cases("train"):
+        n, m = CASE_ROWS.get(case, TRAIN_CASE)
         scale = torch.linspace(0.5, 2.0, n, device=dev)
         for (d_in, d_out), _ in family_proj(get_config(arch), mixer):
             packed_rows(case, n, m, d_in, d_out, torch.bfloat16, scale, backward_cases=True,
@@ -744,9 +762,14 @@ def kernel_phase(torch, dev):
     decode_cases = {"decode", CR_DECODE_CASE, *(c for _, _, c in family_cases("decode"))}
     off = [(r["case"], r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] in train_cases and r["dtype"] == "bfloat16"
-           and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"]
+           and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"
+           and r["case"] not in RAGGED_CASES]
     if off:
         fail(f"training-shape fused rows off the wgmma path: {off}")
+    emit({"phase": "encoder_paths", "cases": list(RAGGED_CASES), "rows": [
+        {k: r.get(k) for k in ("case", "kernel", "call", "d_in", "d_out", "path", "device_ms",
+                               "library_device_ms")}
+        for r in rows if r["case"] in RAGGED_CASES]})
     # the launcher's own shapes on its f32 base: each same-rank segment of
     # its pack, at the segment's rank (ops._ragged_call), forward and dx,
     # and packed_matmul's calls of --impl auto
@@ -774,7 +797,7 @@ def kernel_phase(torch, dev):
     if off:
         fail(f"bf16 decode rows of fused_matmul or fused_matmul_q off the decode path: {off}")
     mma_rows = MMA_ROWS | {(case, call) for _, _, case in family_cases("train")
-                           for call in SWEEP_CALLS}
+                           for call in SWEEP_CALLS if case not in RAGGED_CASES}
     off = [(r["case"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16"
            and (r["case"], r["call"]) in mma_rows and r["path"] != "mma"]
@@ -954,14 +977,16 @@ def row_adapters(torch, cfg, adapters, dev):
 
 
 def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, counter, steps=4,
-                   lora1s=None, routes=None):
+                   lora1s=None, routes=None, extras=None):
     """Prefill 8 rows (one adapter each) and decode ``steps`` tokens at
     width 8, once through the kernel path and once through the plain path,
     feeding both the kernel path's greedy tokens. Returns the max abs logit
     difference per step (prefill first), the max abs plain logit, and the
     kernel's launches per decode step (``counter`` names its count in
     ``kernels/launches.py``). ``lora1s``: ``row_adapters`` of ``adapters``,
-    when the caller has them.
+    when the caller has them. ``extras``: each row's other prefill fields
+    (``request_extras``: frames or patches); a row's decode positions start
+    after its ``n_patch_tokens`` patches.
 
     ``routes`` (a dict, for a model with MoE layers): the plain path is also
     fed the kernel path's expert choices, as it is fed its tokens -- each
@@ -1014,12 +1039,14 @@ def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, coun
             lg_all = []
             for i, (lora1, p) in enumerate(zip(lora1s, prompts)):
                 write_row_caches(lora, lora1, i)
+                extra = {k: v.to(dev) for k, v in (extras[i] if extras else {}).items()}
                 lg, c1 = prefill(base, lora1, scales[:1],
-                                 {"tokens": torch.from_numpy(p[None]).to(dev)}, cfg, kcfg=kc1)
+                                 {"tokens": torch.from_numpy(p[None]).to(dev), **extra}, cfg,
+                                 kcfg=kc1)
                 write_row_caches(caches, pad_caches(c1, smax), i)
                 lg_all.append(lg[0, -1, : cfg.vocab_size].float())
             step_lg = [torch.stack(lg_all)]
-            pos = torch.tensor([len(p) for p in prompts], device=dev)
+            pos = torch.tensor([len(p) + cfg.n_patch_tokens for p in prompts], device=dev)
             n0 = train_counts()[counter]
             for s in range(steps):
                 if path == kimpl:
@@ -1054,8 +1081,6 @@ def profile_serve(torch, cfg, base, adapters, reqs, impl: str, out_dir: Path):
     prefills, 7 decode steps) and report the device time by operator and
     the device's busy share of the wall time. The table goes to
     ``smoke_out/profile_<impl>.txt``."""
-    import dataclasses
-
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ServeEngine
@@ -1324,6 +1349,7 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
     before and read just after; fails on a non-finite loss or leaf, a step
     1 outside the limits, or a count of NEEDED that stayed at 0. Returns
     (the record, the counts, the step, the last LoRA and state)."""
+    from repro_torch.kernels import launches
     from repro_torch.kernels.quant import quantize_base_params
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.trainer import make_packed_step
@@ -1367,7 +1393,8 @@ def train_run(torch, dev, cfg, meta, lora0, batches, base, impl: str, quant=None
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "compare_max_memory_allocated": compare_peak,
            "base_resident_bytes": resident_bytes(qbase), "quantize_s": quant_s,
-           "compare_s": compare_s, "launches": counts}
+           "compare_s": compare_s, "launches": counts,
+           "launches_by_path": launches.read_paths()}
     emit(row)
     what = f"{cfg.name} impl={key}"
     if not finite:
@@ -1434,9 +1461,9 @@ def depth_cut_lora(cfg, lora, n_layers: int):
 
 
 def train_phase(torch, dev, base, out_dir: Path):
-    """4 steps of ``make_packed_step`` per run of TRAIN_RUNS on the first
-    TRAIN_LAYERS layers of the dense bf16 base ``base`` (quantized per
-    run); returns the launch counts of each run's 4 steps."""
+    """TRAIN_STEPS steps of ``make_packed_step`` per run of TRAIN_RUNS on
+    the first TRAIN_LAYERS layers of the dense bf16 base ``base``
+    (quantized per run); returns the launch counts of each run's steps."""
     from repro_torch.configs import get_config
 
     cfg, base = depth_cut(get_config("qwen25-7b"), base, TRAIN_LAYERS)
@@ -2013,8 +2040,6 @@ def online_phase(torch, dev, base, out_dir: Path):
 
 
 def _online(torch, dev, base, on, pool_dir):
-    import dataclasses
-
     from repro_torch.cluster import ClusterRunner, DevicePool, SliceExecutor
     from repro_torch.cluster.executor import WARMUP_STEPS
     from repro_torch.core.adapter import pack_meta
@@ -2371,7 +2396,7 @@ def nbytes_of_shape(n, m, k, l, r, dtype) -> int:
 # repro_torch.launch.train's arguments: full qwen25-7b on its f32 base, two
 # adapters of batch 2 at seq 512 (N = 2 x M = 1,024 tokens: the kernel
 # phase's training shapes), 4 steps of a captured step
-LAUNCH_STEPS = 4
+LAUNCH_STEPS = 3
 LAUNCH_ARGS = ["--arch", "qwen25-7b", "--seq", "512", "--ranks", "8,16", "--batch-sizes", "2,2",
                "--steps", str(LAUNCH_STEPS), "--log-every", "0"]
 LAUNCH_IMPLS = ("fused", "auto")
@@ -2614,7 +2639,20 @@ def launcher_phase(torch, dev, out_dir: Path):
 # heads of 64, d_state 128, chunks of 256), no FFN, tied embeddings; LoRA
 # on zx (1,024 -> 4,096) and out (2,048 -> 1,024); a fixed-size decode
 # cache (conv window and state, f32).
-FAMILIES = ("starcoder2-7b", "gemma3-1b", "minicpm3-4b", "mamba2-370m")
+# whisper-tiny: the encoder-decoder (arXiv:2212.04356; d 384, 6 heads of
+# 64, biased q/k/v, LayerNorm, the gated GELU of 1,536, vocab 51,865): a
+# 4-layer non-causal encoder over 1,500 precomputed frames a row (the front
+# end's stub) and a 4-layer decoder whose every layer adds a
+# cross-attention over the encoder's output; LoRA on q, v, gate, up and
+# down of both stacks and on the decoder's cross q (its cross v adapter is
+# read by no loss: a zero gradient, as the reference's). internvl2-1b: the
+# LM of a VLM (Qwen2-0.5B: 24 layers, d 896, GQA 14/2 of 64, biased, rope
+# theta 1e6, d_ff 4,864, vocab 151,655) behind 256 precomputed patch
+# embeddings a row, each through a biased patch_proj. Both at full width
+# and depth.
+WHISPER = "whisper-tiny"
+INTERNVL = "internvl2-1b"
+FAMILIES = ("starcoder2-7b", "gemma3-1b", "minicpm3-4b", "mamba2-370m", WHISPER, INTERNVL)
 MAMBA2 = "mamba2-370m"
 # the moe phase's model (moe_phase), whose kernel rows and serve runs share
 # the families' tables
@@ -2625,8 +2663,10 @@ JAMBA = "jamba-v0.1-52b"
 # smoke inside its time
 FAMILY_LAYERS = {"starcoder2-7b": 8, "gemma3-1b": 7, "minicpm3-4b": 16, MAMBA2: 24}
 # mamba2's 1,024 tokens: the scan carries its state across 4 chunks
+# whisper's decoder at its 448 tokens (``max_seq_len``) over 1,500 frames a
+# row; internvl2's 512 positions: 256 patches + 256 text tokens
 FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024, "minicpm3-4b": 512,
-                    MAMBA2: 1024}
+                    MAMBA2: 1024, WHISPER: 448, INTERNVL: 512}
 FAMILY_TRAIN_STEPS = 2
 FAMILY_TRAIN_IMPLS = ("auto", "fused")
 # (impls, prompt lengths [lo, hi), new tokens per request, teacher-forced
@@ -2642,7 +2682,11 @@ FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 8, 4),
                 MOE: (("auto", "fused"), (64, 601), 8, 4),
                 # the SSD layers' chunks of 256, and the MoE layers' drops, as
                 # mamba2's and qwen3-moe's
-                JAMBA: (("auto", "fused"), (200, 601), 8, 4)}
+                JAMBA: (("auto", "fused"), (200, 601), 8, 4),
+                # each request with its own frames / patches (``request_extras``);
+                # internvl2's positions start after its 256 patches
+                WHISPER: (("auto", "fused"), (16, 201), 8, 4),
+                INTERNVL: (("auto", "fused"), (64, 258), 8, 4)}
 # the families whose serve check feeds the plain path the kernel path's
 # expert choices, as it feeds it the kernel path's tokens
 # (``teacher_forced(routes=)``). At a near-tie between a token's k-th and
@@ -2659,13 +2703,29 @@ ROUTE_REPLAY = (JAMBA,)
 ROUTE_AGREEMENT = 0.95
 # the sweep phase's first three configurations (ranks 8, 8, 16): one job
 FAMILY_SWEEP_IDS = (0, 37, 74)
-FAMILY_SWEEPS = ("starcoder2-7b", "minicpm3-4b", MAMBA2)
+FAMILY_SWEEPS = ("starcoder2-7b", "minicpm3-4b", MAMBA2, WHISPER, INTERNVL)
+# a sweep job's sequence: the model's train length for the two, else SWEEP_SEQ
+FAMILY_SWEEP_SEQ = {WHISPER: 448, INTERNVL: 512}
 # the kernel phase's rows at each family's shapes
 FAMILY_TRAIN_CASE = {"starcoder2-7b": "train_starcoder2", "gemma3-1b": "train_gemma3",
                      "minicpm3-4b": "train_minicpm3", MAMBA2: "train_mamba2",
-                     MOE: "train_qwen3_moe"}
+                     MOE: "train_qwen3_moe", WHISPER: "train_whisper",
+                     INTERNVL: "train_internvl2"}
 FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3", "minicpm3-4b": "decode_minicpm3",
-                      MAMBA2: "decode_mamba2", MOE: "decode_qwen3_moe"}
+                      MAMBA2: "decode_mamba2", MOE: "decode_qwen3_moe",
+                      WHISPER: "decode_whisper", INTERNVL: "decode_internvl2"}
+# whisper's encoder layer (q/v 384 -> 384, gate/up 384 -> 1,536, down), rows
+# of its own; ``family_proj``'s "encoder"
+WHISPER_ENC_CASE = "train_whisper_enc"
+# (N, M) of a family train case's rows where it is not TRAIN_CASE: an
+# adapter's rows in the main path's calls. Whisper's encoder at 1,500 frames
+# a row -- no multiple of 64, so #2's pack of 2 plans "split3", not
+# "wgmma" (``fused.cuh``: n == 1 or m % 64 == 0) -- and its decoder at 448
+# tokens (its cross q included)
+CASE_ROWS = {WHISPER_ENC_CASE: (2, 1500), "train_whisper": (2, 448)}
+# the cases whose fused rows may plan off "wgmma": the path each takes is
+# recorded (``encoder_paths``), not required
+RAGGED_CASES = (WHISPER_ENC_CASE,)
 # jamba's two kinds of layer, each with rows of its own: an SSD layer (zx
 # 4,096 -> 16,384, out 8,192 -> 4,096) and the attention layer (q/o 4,096 ->
 # 4,096, k/v 4,096 -> 1,024)
@@ -2675,6 +2735,11 @@ JAMBA_CASES = {"ssm": {"train": "train_jamba_ssd", "decode": "decode_jamba_ssd"}
 # runs, at full width and depth): 6 captured steps of 2 x 1,024 tokens
 MAMBA2_LAUNCH_ARGS = ["--arch", MAMBA2, "--seq", "1024", "--ranks", "8,16", "--steps", "6",
                       "--log-every", "0"]
+# whisper through the launcher on its own f32 base: 4 captured steps of 2 x
+# 448 tokens over 1,500 frames a row, --impl fused against --impl auto
+# (final losses within LAUNCH_LOSS_RTOL, updates within LAUNCH_UPDATE_RTOL)
+WHISPER_LAUNCH_ARGS = ["--arch", WHISPER, "--seq", "448", "--ranks", "8,16", "--steps", "4",
+                       "--log-every", "0"]
 # minicpm3-4b's kv_a (K = 2,560 -> L = 288; its dx at K = 288): the first
 # main-path width that is not a multiple of 64, listed on a line of its own
 KV_A = (2560, 288)
@@ -2684,26 +2749,35 @@ def family_proj(cfg, mixer=None):
     """(d_in, d_out) of the projections that carry an adapter (the
     kernels' calls; MLA's q_b, kv_b_k and kv_b_v are plain products) on one
     layer -- the first of mixer ``mixer`` ("attn" or "ssm"; the config's
-    first layer when None) -- with their count per layer, as PROJ (equal
-    shapes merged)."""
-    from repro_torch.configs.base import lora_layout
+    first layer when None; "encoder": an encoder-decoder's encoder layer) --
+    with their count per layer, as PROJ (equal shapes merged). A decoder
+    layer's cross-attention counts its q, not the k/v adapters no loss
+    reads (CROSS_UNREAD: their K/V are plain products)."""
+    from repro_torch.configs.base import CROSS_UNREAD, ENCODER_LAYER, lora_layout
     from repro_torch.models.transformer import layer_specs
 
-    spec = next(s for s in layer_specs(cfg) if mixer in (None, s.mixer))
+    if mixer == "encoder":
+        layout = lora_layout(cfg, *ENCODER_LAYER)
+    else:
+        spec = next(s for s in layer_specs(cfg) if mixer in (None, s.mixer))
+        layout = lora_layout(cfg, spec.mixer, spec.ffn, spec.cross)
     out = {}
-    for projs in lora_layout(cfg, spec.mixer, spec.ffn).values():
-        for sh in projs.values():
-            out[sh] = out.get(sh, 0) + 1
+    for grp, projs in layout.items():
+        for nm, sh in projs.items():
+            if not (grp == "cross" and nm in CROSS_UNREAD):
+                out[sh] = out.get(sh, 0) + 1
     return list(out.items())
 
 
 def family_cases(kind: str):
     """(arch, mixer, case) of the kernel phase's rows at the families'
-    shapes, ``kind`` "train" or "decode": one case a family, and one for
-    each of jamba's layer kinds (its "layer" is no longer one shape)."""
+    shapes, ``kind`` "train" or "decode": one case a family, one for each
+    of jamba's layer kinds (its "layer" is no longer one shape), and, in
+    training, whisper's encoder layer beside its decoder layer."""
     one = FAMILY_TRAIN_CASE if kind == "train" else FAMILY_DECODE_CASE
     return ([(arch, None, case) for arch, case in one.items()]
-            + [(JAMBA, mixer, cases[kind]) for mixer, cases in JAMBA_CASES.items()])
+            + [(JAMBA, mixer, cases[kind]) for mixer, cases in JAMBA_CASES.items()]
+            + ([(WHISPER, "encoder", WHISPER_ENC_CASE)] if kind == "train" else []))
 
 
 def case_proj(case: str):
@@ -2718,11 +2792,23 @@ def case_proj(case: str):
     return PROJ
 
 
+def request_extras(torch, cfg, n: int):
+    """``n`` requests' front-end stubs, 0.1 x N(0, 1) in f32 from a seed:
+    an encoder-decoder's frames (1, S_enc, d), a VLM's patches (1, P, d)
+    (each request its own); empty dicts for a decoder alone."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    shapes = {"frames": cfg.encoder_seq_len if cfg.is_encdec else 0,
+              "patches": cfg.n_patch_tokens}
+    return [{k: 0.1 * torch.randn((1, s, cfg.d_model), generator=gen)
+             for k, s in shapes.items() if s} for _ in range(n)]
+
+
 def family_serve(torch, dev, arch: str, cfg, base):
     """8 requests through ``ServeEngine.serve`` under each impl of
     FAMILY_SERVE (launch counts zeroed just before each drain and read
-    just after), then prefill logits and teacher-forced decode steps held
-    against the plain path. Returns each impl's launch counts."""
+    just after), each with its own frames or patches where the model takes
+    them, then prefill logits and teacher-forced decode steps held against
+    the plain path. Returns each impl's launch counts."""
     from repro_torch.serve.engine import ServeEngine, poisson_requests
 
     impls, (lo, hi), new_tokens, steps = FAMILY_SERVE[arch]
@@ -2730,9 +2816,11 @@ def family_serve(torch, dev, arch: str, cfg, base):
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(lo, hi)).astype(np.int32)
                for _ in range(8)]
-    reqs = poisson_requests([f"ad{i}" for i in range(8)], prompts, 2.0,
-                            max_new_tokens=new_tokens, seed=SEED)
-    smax = (hi + max(new_tokens, steps) + 63) // 64 * 64
+    extras = request_extras(torch, cfg, 8)
+    reqs = [dataclasses.replace(r, extra=e) for r, e in zip(
+        poisson_requests([f"ad{i}" for i in range(8)], prompts, 2.0, max_new_tokens=new_tokens,
+                         seed=SEED), extras)]
+    smax = (hi + cfg.n_patch_tokens + max(new_tokens, steps) + 63) // 64 * 64
     counters = {"auto": "packed_matmul", "fused": "fused_matmul"}
     launches = {}
     for impl in impls:
@@ -2767,7 +2855,7 @@ def family_serve(torch, dev, arch: str, cfg, base):
             pimpl = {"auto": "plain", "fused": "fused_plain"}[impl]
             per_step, ref_max, per_dec = teacher_forced(
                 torch, cfg, base, adapters, prompts, smax, impl, pimpl, counters[impl], steps,
-                routes=routes)
+                routes=routes, extras=extras)
         rel = max(per_step) / ref_max
         extra = {} if routes is None else {
             "plain_replays_kernel_routes": True,
@@ -2793,9 +2881,9 @@ def family_serve(torch, dev, arch: str, cfg, base):
     return launches
 
 
-def family_sweep(torch, dev, cfg, base, out_dir: Path):
+def family_sweep(torch, dev, cfg, base, out_dir: Path, seq: int = SWEEP_SEQ):
     """``ExecutionEngine.run_local`` on FAMILY_SWEEP_IDS of
-    ``default_search_space(300, seq_len=512)``: one job on the H100 preset,
+    ``default_search_space(300, seq_len=seq)``: one job on the H100 preset,
     captured (impl="auto"), held against an eager run of the same pack from
     the same initial weights (bit for bit, else losses within LOSS_RTOL),
     its launches against the eager steps', its own peak to C3, and
@@ -2814,10 +2902,10 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
     from repro_torch.train.checkpoint import CheckpointPool
     from repro_torch.tree import tree_leaves, tree_map
 
-    space = default_search_space(300, seq_len=SWEEP_SEQ)
+    space = default_search_space(300, seq_len=seq)
     configs = [space[i] for i in FAMILY_SWEEP_IDS]
     cm = CostModel(cfg, H100)
-    sched = plan(cm, configs, 1, SWEEP_SEQ, SWEEP_STEPS)
+    sched = plan(cm, configs, 1, seq, SWEEP_STEPS)
     if len(sched.jobs) != 1:
         fail(f"{cfg.name}: the planner made {len(sched.jobs)} jobs of the 3 configurations")
     pool_dir = ROOT / "smoke_pool"
@@ -2831,7 +2919,7 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
         held = held_bytes(torch, dev, base)
         zero_counts()
         records, makespan = ExecutionEngine(cm, 1, tracer=tracer).run_local(
-            sched, configs, cfg, base, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, pool=pool,
+            sched, configs, cfg, base, n_steps=SWEEP_STEPS, seq=seq, pool=pool,
             runner=runner, impl="auto")
         torch.cuda.synchronize(dev)
         launches = train_counts()
@@ -2845,7 +2933,7 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
                "measured_s_per_iter": t.measured_iter, "drift": t.drift,
                "final_losses": [float(x) for x in rec.final_losses],
                "peak_allocated_bytes": rec.peak_bytes, "job_peak_bytes": rec.peak_bytes - held,
-               "job_mem_bytes": cm.job_mem_bytes(jc, 1, SWEEP_SEQ),
+               "job_mem_bytes": cm.job_mem_bytes(jc, 1, seq),
                "capture_s": cap.get("seconds"), "captured": rec.captured}
         cap_ads = [pool.load_adapter(f"adapter_{i:04d}") for i in sched.jobs[0].config_ids]
         # extract -> inject of the job's last adapter, on the card: into a
@@ -2862,7 +2950,7 @@ def family_sweep(torch, dev, cfg, base, out_dir: Path):
         win = StepWindow(torch, dev)
         zero_counts()
         res = SliceExecutor(capture=False).train_pack(
-            cfg, jc, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, base=base,
+            cfg, jc, n_steps=SWEEP_STEPS, seq=seq, base=base,
             lora=ex.pack_template(cfg, jc, 0, dev)[0], slice_=slice_,
             budgets=np.full((m.n,), SWEEP_STEPS, np.int32), step_callback=win)
         eager = train_counts()
@@ -2904,20 +2992,57 @@ def mamba2_launcher(torch, dev) -> dict:
     return rec["launches"]
 
 
-def families_phase(torch, dev, out_dir: Path):
-    """starcoder2-7b, gemma3-1b, minicpm3-4b, then mamba2-370m, at full
-    width on a bf16 base (at full depth but for FAMILY_LAYERS' cuts): train
-    (auto and fused: step 1 against the plain path, then FAMILY_TRAIN_STEPS
-    steps with launch counts), serve (FAMILY_SERVE) and, for FAMILY_SWEEPS,
-    one captured sweep job; for mamba2 also the launcher on its own f32
-    base (``mamba2_launcher``). Returns the launch counts by family and
-    run."""
+def whisper_launcher(torch, dev) -> dict:
+    """``launch/train.py`` with WHISPER_LAUNCH_ARGS under --impl fused and
+    --impl auto: full whisper-tiny on its own f32 base, captured steps
+    (``launcher_run``); fails on a non-finite loss, a count of
+    LAUNCH_NEEDED that stayed at 0, final losses or adapter updates of the
+    two impls farther apart than LAUNCH_LOSS_RTOL / LAUNCH_UPDATE_RTOL, or
+    an own peak outside [1, C3_SLACK] of the launcher's price. Returns each
+    impl's counts."""
+    recs, kept = {}, {}
+    for impl in LAUNCH_IMPLS:
+        ex = launcher_executor()
+        recs[impl] = launcher_run(torch, dev, WHISPER_LAUNCH_ARGS + ["--impl", impl], ex=ex)
+        kept[impl] = np.asarray(recs[impl]["per_adapter_loss"]), ex.w0, ex.w
+        emit({"phase": "whisper_launcher", "impl": impl, **recs[impl]})
+    (la, w0, wa), (lf, _, wf) = kept["auto"], kept["fused"]
+    loss_err = float(np.max(np.abs(lf - la) / np.abs(la)))
+    upd_err = max(update_err(wf[i], wa[i], w0[i]) for i in range(len(w0)))
+    emit({"phase": "whisper_launcher_agreement", "loss_rel_err": loss_err,
+          "update_rel_err": upd_err, "loss_rtol": LAUNCH_LOSS_RTOL,
+          "update_rtol": LAUNCH_UPDATE_RTOL})
+    for impl, rec in recs.items():
+        if not np.isfinite(rec["per_adapter_loss"]).all():
+            fail(f"{WHISPER} launcher {impl}: non-finite final loss {rec['per_adapter_loss']}")
+        for need in LAUNCH_NEEDED[impl]:
+            if rec["launches"][need] == 0:
+                fail(f"{WHISPER} launcher {impl}: the {need} launch count stayed at 0")
+        if not rec["job_peak_bytes"] <= rec["job_mem_bytes"] <= C3_SLACK * rec["job_peak_bytes"]:
+            fail(f"C5: {WHISPER} launcher {impl}: job_mem_bytes {rec['job_mem_bytes']} is not "
+                 f"within [1, {C3_SLACK}] x its own peak {rec['job_peak_bytes']}")
+    if not (loss_err <= LAUNCH_LOSS_RTOL and upd_err <= LAUNCH_UPDATE_RTOL):
+        fail(f"{WHISPER} launcher: --impl fused is {loss_err} / {upd_err} off --impl auto "
+             f"(limits {LAUNCH_LOSS_RTOL} / {LAUNCH_UPDATE_RTOL})")
+    return {impl: rec["launches"] for impl, rec in recs.items()}
+
+
+def families_phase(torch, dev, out_dir: Path, archs=FAMILIES):
+    """starcoder2-7b, gemma3-1b, minicpm3-4b, mamba2-370m, whisper-tiny,
+    then internvl2-1b, at full width on a bf16 base (at full depth but for
+    FAMILY_LAYERS' cuts): train (auto and fused: step 1 against the plain
+    path, then FAMILY_TRAIN_STEPS steps with launch counts), serve
+    (FAMILY_SERVE) and, for FAMILY_SWEEPS, one captured sweep job; for
+    mamba2 and whisper also the launcher on its own f32 base
+    (``mamba2_launcher``, ``whisper_launcher``). Returns the launch counts
+    by family and run. ``archs``: the families to run, in FAMILIES'
+    order."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_model
     from repro_torch.tree import tree_leaves
 
     out = {}
-    for arch in FAMILIES:
+    for arch in [a for a in FAMILIES if a in archs]:
         cfg = get_config(arch)
         t0 = time.perf_counter()
         torch.cuda.synchronize()
@@ -2950,10 +3075,15 @@ def families_phase(torch, dev, out_dir: Path):
             counts[f"serve:{impl}"] = c
         stage("serve")
         if arch in FAMILY_SWEEPS:
-            counts["sweep:auto"] = family_sweep(torch, dev, cfg, base, out_dir)
+            counts["sweep:auto"] = family_sweep(torch, dev, cfg, base, out_dir,
+                                                FAMILY_SWEEP_SEQ.get(arch, SWEEP_SEQ))
             stage("sweep")
         if arch == MAMBA2:
             counts["launcher"] = mamba2_launcher(torch, dev)
+            stage("launcher")
+        if arch == WHISPER:
+            for impl, c in whisper_launcher(torch, dev).items():
+                counts[f"launcher:{impl}"] = c
             stage("launcher")
         out[arch] = counts
         emit({"phase": "family_done", "model": arch, "seconds": time.perf_counter() - t0,
@@ -3158,9 +3288,10 @@ def cr_serve(torch, dev, cfg, base, mode: str, impls, adapters, lora1s, prompts)
     return out
 
 
-def launcher_run(torch, dev, argv) -> dict:
+def launcher_run(torch, dev, argv, ex=None) -> dict:
     """``launch/train.py``'s ``main`` on ``argv`` with a ``launcher_executor``
-    and a ``StepWindow``, the launcher's own ``CostModel`` kept: its losses,
+    (``ex`` when given: its adapters ``w0`` / ``w`` stay the caller's) and
+    a ``StepWindow``, the launcher's own ``CostModel`` kept: its losses,
     s/step, capture s, peaks (the device's, and its own: less what was
     allocated before it) beside that model's price, and its counts and
     paths, as one record."""
@@ -3173,7 +3304,7 @@ def launcher_run(torch, dev, argv) -> dict:
         priced.append(cost_model(*args, **kw))
         return priced[-1]
 
-    ex = launcher_executor()
+    ex = ex if ex is not None else launcher_executor()
     win = StepWindow(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3299,8 +3430,6 @@ def moe_oracle(torch, dev, cfg, base) -> None:
     """The "ep" path equals ``_moe_dense`` on layer 0's experts at full
     width (MOE_ORACLE_TOKENS tokens of N(0, 1), capacity factor E / top_k:
     every pair kept), in f32 and in bf16; the same routing on both."""
-    import dataclasses
-
     from repro_torch.models.layers import moe as tmoe
     from repro_torch.tree import tree_index, tree_map
 
@@ -3644,8 +3773,9 @@ USES = [
 # "train:<impl>" / "serve:<impl>"), at each family's shapes in the kernel
 # phase: the train step's calls of #1 and #2 (N = 2 x M = 1,024, r = 16),
 # and gemma3's decode rows (serve)
+_TAGS = {None: "", "ssm": "_ssd", "attn": "_attn", "encoder": "_enc"}
 for _arch, _mixer, _case in family_cases("train"):
-    _tag = _arch.split("-")[0] + {None: "", "ssm": "_ssd", "attn": "_attn"}[_mixer]
+    _tag = _arch.split("-")[0] + _TAGS[_mixer]
     USES += [
         (f"packed_matmul:{_tag}_train_forward", "packed_matmul", ("xA", "xAB"), _case,
          "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
@@ -3660,7 +3790,7 @@ for _arch, _mixer, _case in family_cases("train"):
          (_arch, "train:fused", "fused_matmul_dx")),
     ]
 for _arch, _mixer, _case in family_cases("decode"):
-    _tag = _arch.split("-")[0] + {None: "", "ssm": "_ssd", "attn": "_attn"}[_mixer]
+    _tag = _arch.split("-")[0] + _TAGS[_mixer]
     USES += [
         (f"packed_matmul:{_tag}_decode", "packed_matmul", ("xA", "xAB"), _case,
          "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
@@ -3707,6 +3837,10 @@ EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decod
                "decode_jamba_ssd"),
               ("packed_matmul:jamba_attn_decode_pair", "packed_matmul", ("pair",),
                "decode_jamba_attn"),
+              ("packed_matmul:whisper_decode_pair", "packed_matmul", ("pair",),
+               "decode_whisper"),
+              ("packed_matmul:internvl2_decode_pair", "packed_matmul", ("pair",),
+               "decode_internvl2"),
               # fused_matmul_q on an f32 x (the launcher's --quant ... --impl fused)
               ("fused_matmul_q:int8_f32", "fused_matmul_q", ("int8",), "train", "float32"),
               ("fused_matmul_q:nf4_f32", "fused_matmul_q", ("nf4",), "train", "float32"),

@@ -7,11 +7,12 @@
     python3 scripts/smoke_phases.py kernels moe  # the kernel rows and qwen3-moe-30b-a3b
     python3 scripts/smoke_phases.py kernels jamba  # the kernel rows and jamba-v0.1-52b
     python3 scripts/smoke_phases.py kernels families
+    python3 scripts/smoke_phases.py families:whisper-tiny,internvl2-1b  # some families
 
 Builds the kernels, then runs ``chip_smoke.kernel_phase``,
 ``chip_smoke.command_r_phase``, ``chip_smoke.moe_phase``,
 ``chip_smoke.jamba_phase`` and/or ``chip_smoke.families_phase`` (in the
-smoke's order) with the smoke's own checks (a failed check exits
+smoke's order; ``families:<arch>,...`` runs those families alone) with the smoke's own checks (a failed check exits
 non-zero), printing the smoke's JSON lines. With the kernel phase and
 another, one ``phase_use`` line per ``kernels`` entry of that phase's
 models: its layer sums, bound and launches, as the smoke's ``kernels`` line
@@ -31,6 +32,10 @@ PHASES = ("kernels", "command_r", "moe", "jamba", "families")
 
 def main() -> None:
     which = sys.argv[1:] or list(PHASES)
+    archs = None
+    for i, p in enumerate(which):
+        if p.startswith("families:"):
+            which[i], archs = "families", p.split(":", 1)[1].split(",")
     if any(p not in PHASES for p in which):
         sys.exit(f"phases must be among {PHASES}, got {which}")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
@@ -69,7 +74,9 @@ def main() -> None:
         cs.emit({"phase": "jamba_phase_done", "seconds": time.perf_counter() - t0})
     if "families" in which:
         t0 = time.perf_counter()
-        counts.update(cs.families_phase(torch, dev, out))
+        if archs is not None and any(a not in cs.FAMILIES for a in archs):
+            sys.exit(f"families must be among {cs.FAMILIES}, got {archs}")
+        counts.update(cs.families_phase(torch, dev, out, archs or cs.FAMILIES))
         cs.emit({"phase": "families_done", "seconds": time.perf_counter() - t0})
     if rows:
         for entry, kernel, calls, case, _src, _rep, (path, run, count), *dtype in cs.USES:

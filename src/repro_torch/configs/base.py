@@ -4,7 +4,8 @@ The port keeps its own copy of the reference's configuration dataclasses
 (``repro.configs.base``), cut to what the ported families need (GQA:
 qwen25-7b, starcoder2-7b, gemma3-1b, command-r-35b; MLA: minicpm3-4b;
 SSD: mamba2-370m; MoE: qwen3-moe-30b-a3b, grok-1-314b; the attention/SSD
-hybrid with MoE: jamba-v0.1-52b): the port imports nothing of the JAX
+hybrid with MoE: jamba-v0.1-52b; the encoder-decoder: whisper-tiny; the
+patch-prefix VLM: internvl2-1b): the port imports nothing of the JAX
 package.
 Field names and defaults match the reference, so a test can build the same
 configuration on both sides.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 
 # the MLP's projections per ``mlp_kind``, in the order they are drawn:
@@ -26,6 +27,13 @@ MLA_TARGETS = {"q": "q_a", "kv": "kv_a", "o": "o"}
 # the LoRA target name -> the SSD projection it adapts (bc and dt carry no
 # adapter)
 SSM_TARGETS = {"ssm_in": "zx", "ssm_out": "out"}
+# an encoder-decoder's encoder layer: (mixer, ffn) of non-causal GQA over
+# the frames and a dense MLP, with no cross-attention group
+ENCODER_LAYER = ("attn", "dense")
+# the cross-attention group's adapters that no loss reads: its K and V are
+# plain products of the encoder's output (the reference's
+# ``transformer.py:258-269``), so an adapter there gets a zero gradient
+CROSS_UNREAD = ("k", "v")
 
 
 @dataclass(frozen=True)
@@ -126,7 +134,12 @@ class ModelConfig:
     mixer (``ssm``) and no FFN (mamba2); "moe": GQA + a mixture of experts
     (``moe``) on every ``moe.moe_every``-th layer, an MLP on the others;
     "hybrid": an attention layer where ``i % attn_every == attn_offset``, an
-    SSD mixer on every other layer, and the FFNs as "moe" (jamba).
+    SSD mixer on every other layer, and the FFNs as "moe" (jamba); "audio":
+    as "dense", behind an encoder of ``encoder_layers`` non-causal layers
+    over ``encoder_seq_len`` precomputed frame embeddings, with a
+    cross-attention sublayer in every decoder layer (whisper); "vlm": as
+    "dense", with ``n_patch_tokens`` precomputed patch embeddings, each put
+    through ``patch_proj``, before the text (internvl2).
     ``mlp_kind``: "swiglu"
     (gate/up/down, silu), "gelu" (the gated GELU: gate/up/down) or "gelu2"
     (the classic up -> GELU -> down, no gate); ``norm_kind``: "rmsnorm" or
@@ -144,9 +157,13 @@ class ModelConfig:
     norm_kind: str = "rmsnorm"
     # the LM head is the embedding's transpose (no ``lm_head`` leaf)
     tie_embeddings: bool = False
-    # the reference's field that the cost model reads, at the only value the
-    # port's decoders have
+    # an encoder-decoder: the encoder's layers and its frames a row (0: a
+    # decoder alone)
     encoder_layers: int = 0
+    encoder_seq_len: int = 0
+    # a VLM: the patch-embedding positions before the text
+    n_patch_tokens: int = 0
+    max_seq_len: int = 131_072
     family: str = "dense"
     ssm: SSMConfig = field(default_factory=SSMConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
@@ -267,16 +284,35 @@ def lora_leaves(cfg: "ModelConfig", mixer: str, ffn: str) -> Dict[str, str]:
     return {t: names[t] for t in cfg.lora_targets if t in names}
 
 
-def lora_layout(cfg: "ModelConfig", mixer: str, ffn: str) -> Dict[str, Dict[str, Tuple[int, int]]]:
+def lora_layout(cfg: "ModelConfig", mixer: str, ffn: str,
+                cross: bool = False) -> Dict[str, Dict[str, Tuple[int, int]]]:
     """One layer's LoRA tree layout, as ``init_layer`` builds it: group
-    ("attn" or "ssm" for the mixer, "mlp") -> adapted projection -> (d_in,
-    d_out); a group without an adapter is left out."""
+    ("attn" or "ssm" for the mixer, "cross" for an encoder-decoder's
+    cross-attention, "mlp") -> adapted projection -> (d_in, d_out); a group
+    without an adapter is left out. ``cross``: the layer is an
+    encoder-decoder's decoder layer, whose "cross" group holds the GQA
+    targets of ``lora_targets`` (whisper: q and v) at the GQA widths."""
     shapes = layer_projections(cfg, mixer, ffn)
     mlp = MLP_PROJECTIONS[cfg.mlp_kind] if ffn == "dense" else ()
-    out: Dict[str, Dict[str, Tuple[int, int]]] = {}
+    gqa = attn_projections(cfg.attention, cfg.d_model) if cross else {}
+    groups: Dict[str, Dict[str, Tuple[int, int]]] = {
+        "ssm" if mixer == "ssm" else "attn": {},
+        "cross": {t: gqa[t] for t in cfg.lora_targets if t in gqa}, "mlp": {}}
     for leaf in lora_leaves(cfg, mixer, ffn).values():
-        grp = "mlp" if leaf in mlp else ("ssm" if mixer == "ssm" else "attn")
-        out.setdefault(grp, {})[leaf] = shapes[leaf]
+        groups["mlp" if leaf in mlp else ("ssm" if mixer == "ssm" else "attn")][leaf] = shapes[leaf]
+    # init_layer's order: the mixer, the cross-attention, the MLP
+    return {grp: projs for grp, projs in groups.items() if projs}
+
+
+def stack_layers(cfg: "ModelConfig") -> Dict[str, List[Tuple[str, str, bool]]]:
+    """(mixer, ffn, cross) of every layer, by stack: "decoder" (each with
+    the cross-attention group in an encoder-decoder) and, in an
+    encoder-decoder, "encoder" (``ENCODER_LAYER``, no cross group): what
+    ``lora_layout`` reads for each layer."""
+    out = {"decoder": [(m, f, cfg.is_encdec) for m, f in zip(cfg.layer_kinds(),
+                                                             cfg.ffn_kinds())]}
+    if cfg.is_encdec:
+        out["encoder"] = [(*ENCODER_LAYER, False)] * cfg.encoder_layers
     return out
 
 
@@ -305,7 +341,8 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
     in the reference); 4 experts of d_expert 64, top-k min(2, top_k), a
     capacity factor of 4 / top-k (nothing dropped); a hybrid keeps 4
     layers with ``attn_every=4``, ``attn_offset=1`` (SSD + dense, attention
-    + MoE, SSD + dense, SSD + MoE)."""
+    + MoE, SSD + dense, SSD + MoE); an encoder-decoder keeps 2 encoder
+    layers over 32 frames, a VLM 8 patches; ``max_seq_len`` 512."""
     attn = cfg.attention
     n_heads = max(2, min(4, attn.n_heads))
     n_kv = max(1, min(n_heads, attn.n_kv_heads))
@@ -340,6 +377,10 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256) -> ModelCon
         attention=new_attn,
         ssm=ssm,
         moe=moe,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        encoder_seq_len=32 if cfg.encoder_seq_len else 0,
+        n_patch_tokens=8 if cfg.n_patch_tokens else 0,
+        max_seq_len=512,
     )
 
 
@@ -371,8 +412,10 @@ def _ensure_loaded() -> None:
         jamba_v01_52b,
         mamba2_370m,
         grok_1_314b,
+        internvl2_1b,
         minicpm3_4b,
         qwen3_moe_30b_a3b,
         qwen25_7b,
         starcoder2_7b,
+        whisper_tiny,
     )

@@ -1,5 +1,6 @@
-"""Causal attention, GQA (with sliding window) and MLA: prefill over query
-chunks, cached decode.
+"""Attention, GQA (with sliding window; non-causal for an encoder; cross
+attention over an encoder's output) and MLA: prefill over query chunks,
+cached decode.
 
 Attention is not a kernel of the reference (it is plain jnp there), so it
 is plain PyTorch here: scores in f32, masked with -1e30, softmax in f32,
@@ -20,27 +21,32 @@ from repro_torch.models.layers.rope import apply_rope
 NEG_INF = -1e30
 
 
-def _attend_chunk(q, k, v, qpos, kpos, scale, window: int = 0):
-    """Causal attention of a query chunk, within ``window`` positions when
-    it is set. q: (B, cq, H, D); k/v: (B, Sk, KV, D / Dv); returns (B, cq,
-    H, Dv)."""
+def _attend_chunk(q, k, v, qpos, kpos, scale, window: int = 0, causal: bool = True):
+    """Attention of a query chunk: causal (``causal=False``: every key),
+    within ``window`` positions when it is set. q: (B, cq, H, D); k/v: (B,
+    Sk, KV, D / Dv); returns (B, cq, H, Dv)."""
     b, cq, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, cq, kv, h // kv, d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
-    mask = kpos[None, :] <= qpos[:, None]
+    mask = (kpos[None, :] <= qpos[:, None]) if causal else None
     if window:
-        mask &= (qpos[:, None] - kpos[None, :]) < window
-    scores = torch.where(mask[None, None, None], scores, NEG_INF)
+        band = (qpos[:, None] - kpos[None, :]) < window
+        mask = band if mask is None else mask & band
+    if mask is not None:
+        scores = torch.where(mask[None, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return out.reshape(b, cq, h, v.shape[-1])
 
 
-def flash_attention(q, k, v, *, window: int = 0, chunk_q: int = 512,
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, chunk_q: int = 512,
                     scale: Optional[float] = None):
-    """Causal attention over query chunks of ``chunk_q`` (scores never
-    exceed chunk_q x Sk). q: (B, Sq, H, D); k/v: (B, Sk, KV, D / Dv), the
+    """Attention over query chunks of ``chunk_q`` (scores never exceed
+    chunk_q x Sk), causal unless ``causal=False`` (an encoder's, or a
+    cross-attention's queries over another sequence's keys: nothing is
+    masked, and the last chunk may be ragged: 1,500 frames are two chunks
+    of 512 and one of 476). q: (B, Sq, H, D); k/v: (B, Sk, KV, D / Dv), the
     output's head width V's (MLA's v heads are narrower than its q/k). With a
     ``window`` and more than one chunk, each chunk reads only the K/V band
     its queries reach, [c0 - window + 1, c0 + chunk_q) (the reference's
@@ -48,15 +54,17 @@ def flash_attention(q, k, v, *, window: int = 0, chunk_q: int = 512,
     O(Sq x (window + chunk_q)), not O(Sq^2)."""
     sq, d = q.shape[1], q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
-    kpos = torch.arange(k.shape[1], device=q.device)
+    kpos = torch.arange(max(sq, k.shape[1]), device=q.device)
     if sq <= chunk_q:
-        return _attend_chunk(q, k, v, kpos[:sq], kpos, scale, window)
+        return _attend_chunk(q, k, v, kpos[:sq], kpos[:k.shape[1]], scale, window, causal)
     outs = []
     for c0 in range(0, sq, chunk_q):
         qc = q[:, c0 : c0 + chunk_q]
         qpos = kpos[c0 : c0 + qc.shape[1]]
-        lo, hi = (max(0, c0 - window + 1), c0 + qc.shape[1]) if window else (0, k.shape[1])
-        outs.append(_attend_chunk(qc, k[:, lo:hi], v[:, lo:hi], qpos, kpos[lo:hi], scale, window))
+        band = window and causal
+        lo, hi = (max(0, c0 - window + 1), c0 + qc.shape[1]) if band else (0, k.shape[1])
+        outs.append(_attend_chunk(qc, k[:, lo:hi], v[:, lo:hi], qpos, kpos[lo:hi], scale, window,
+                                  causal))
     return torch.cat(outs, dim=1)
 
 
@@ -104,22 +112,33 @@ def apply_gqa(
     n_pack: int,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
     window: int = 0,
+    causal: bool = True,
     cache: Optional[dict] = None,
     pos=None,
+    cross_kv: Optional[dict] = None,
     make_cache: bool = False,
     chunk_q: int = 512,
     kcfg=None,
 ):
     """x: (NB, S, d). Returns (out, cache or None). ``window``: the layer's
-    sliding window (0: full causal attention).
+    sliding window (0: full attention); ``causal=False``: an encoder's
+    attention, masking nothing.
 
     With a cache (single-token decode) this step's k/v are written into it
     in place at ``pos`` — a (NB,) vector writes each row at its own slot —
-    and the updated cache is returned."""
+    and the updated cache is returned. With ``cross_kv`` ({"k", "v"}: (NB,
+    S_enc, KV, D), an encoder's output through the cross sublayer's plain
+    k/v products) the queries, without rope, attend those keys and values
+    unmasked, and no cache is written: the reference's cross-attention path
+    (``attention.py:193-198``)."""
     lo = lora or {}
     nb, s, _ = x.shape
     h, kvh, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
     q = lora_linear(x, params["q"], lo.get("q"), scales, n_pack, kcfg=kcfg).reshape(nb, s, h, hd)
+    if cross_kv is not None:
+        out = flash_attention(q, cross_kv["k"], cross_kv["v"], causal=False, chunk_q=chunk_q)
+        out = out.reshape(nb, s, h * hd)
+        return lora_linear(out, params["o"], lo.get("o"), scales, n_pack, kcfg=kcfg), None
     k = lora_linear(x, params["k"], lo.get("k"), scales, n_pack, kcfg=kcfg).reshape(nb, s, kvh, hd)
     v = lora_linear(x, params["v"], lo.get("v"), scales, n_pack, kcfg=kcfg).reshape(nb, s, kvh, hd)
     if rope is not None:
@@ -136,7 +155,7 @@ def apply_gqa(
         out = decode_attention(q, ck, cv, pos, window=window)
         new_cache = cache
     else:
-        out = flash_attention(q, k, v, window=window, chunk_q=chunk_q)
+        out = flash_attention(q, k, v, causal=causal, window=window, chunk_q=chunk_q)
         new_cache = {"k": k, "v": v} if make_cache else None
     out = out.reshape(nb, s, h * hd)
     out = lora_linear(out, params["o"], lo.get("o"), scales, n_pack, kcfg=kcfg)

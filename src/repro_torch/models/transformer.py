@@ -4,7 +4,11 @@ the config has a ``kv_lora_rank``) or an SSD block (every layer of an
 and an FFN: a dense MLP, a mixture of experts (a "moe" layer, whose
 load-balance aux loss the stack sums) or none (an "ssm" family). Each
 layer's parameters and LoRA follow its own spec, so one stack may mix
-attention and SSD layers, dense and MoE FFNs (jamba-v0.1-52b).
+attention and SSD layers, dense and MoE FFNs (jamba-v0.1-52b). An
+encoder-decoder's decoder layers (``LayerSpec.cross``) add a
+cross-attention sublayer over the encoder's output between the mixer and
+the FFN (whisper-tiny); its encoder is a stack of the same kind run
+non-causally (``causal=False``).
 
 Layers are grouped as in the reference: the per-layer spec sequence has a
 minimal period p, the L//p repeats are stacked under ``"blocks"`` (every
@@ -45,12 +49,14 @@ from repro_torch.tree import tree_index, tree_map, tree_stack
 class LayerSpec:
     """What may differ between the layers of a stack: the mixer ("attn":
     attention of the config's kind, or "ssm"), the FFN ("dense", "moe" or
-    "none"), the sliding window (0: full attention) and the rope theta."""
+    "none"), the sliding window (0: full attention), the rope theta, and
+    whether the layer has an encoder-decoder's cross-attention sublayer."""
 
     mixer: str = "attn"
     ffn: str = "dense"
     window: int = 0
     theta: float = 10_000.0
+    cross: bool = False
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -59,14 +65,16 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     for an attention layer with ``global_every``, every
     ``global_every``-th layer is global (no window, ``global_rope_theta``)
     and the others local (the window, the base theta); without it every
-    attention layer takes ``sliding_window``. An SSM layer has no window."""
+    attention layer takes ``sliding_window``. An SSM layer has no window.
+    Every layer of an encoder-decoder's decoder has ``cross``."""
     a = cfg.attention
     specs = []
     for i, (mixer, ffn) in enumerate(zip(cfg.layer_kinds(), cfg.ffn_kinds())):
         window, theta = (a.sliding_window if mixer == "attn" else 0), a.rope_theta
         if mixer == "attn" and a.global_every and i % a.global_every == a.global_every - 1:
             window, theta = 0, a.global_rope_theta or a.rope_theta
-        specs.append(LayerSpec(mixer=mixer, ffn=ffn, window=window, theta=theta))
+        specs.append(LayerSpec(mixer=mixer, ffn=ffn, window=window, theta=theta,
+                               cross=cfg.is_encdec))
     return specs
 
 
@@ -79,9 +87,11 @@ def find_period(specs: List[LayerSpec]) -> int:
 
 
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None):
-    """norm1 and the mixer ("attn" or "ssm"), then, for a "dense" FFN, the
-    MLP and norm2, for a "moe" FFN the experts (``init_moe``: no LoRA) and
-    norm2 ("none": neither)."""
+    """norm1 and the mixer ("attn" or "ssm"), with ``spec.cross`` the
+    cross-attention's GQA projections ("cross", its adapters on the GQA
+    targets of ``lora_targets``) and norm_cross, then, for a "dense" FFN,
+    the MLP and norm2, for a "moe" FFN the experts (``init_moe``: no LoRA)
+    and norm2 ("none": neither)."""
     a = cfg.attention
     params: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm_kind, dtype, device)}
     lora: Dict[str, Any] = {}
@@ -95,6 +105,12 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None)
     params[grp] = p
     if lo:
         lora[grp] = lo
+    if spec.cross:
+        p, lo = init_gqa(gen, a, cfg.d_model, meta, cfg.lora_targets, dtype, device)
+        params["cross"] = p
+        params["norm_cross"] = init_norm(cfg.d_model, cfg.norm_kind, dtype, device)
+        if lo:
+            lora["cross"] = lo
     if spec.ffn == "dense":
         p, lo = init_mlp(gen, cfg.d_model, cfg.d_ff, a.use_bias, meta, cfg.lora_targets, dtype,
                          device, kind=cfg.mlp_kind)
@@ -111,10 +127,20 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, meta, dtype, device=None)
 def apply_layer(
     params, lora, scales, x, spec: LayerSpec, cfg: ModelConfig, *,
     n_pack: int, rope_cache, cache=None, pos=None, make_cache: bool = False,
-    chunk_q: int = 512, kcfg=None,
+    chunk_q: int = 512, kcfg=None, enc_out=None, causal: bool = True,
 ):
     """Pre-norm residual layer. Returns (x, new_cache or None, aux): aux
     is a "moe" FFN's load-balance loss, None for any other layer.
+    ``causal=False``: an encoder's layer, whose attention masks nothing.
+
+    A layer with ``spec.cross`` adds, after the mixer, a pre-norm
+    cross-attention sublayer over the encoder's output ``enc_out`` (NB,
+    S_enc, d): its K and V are plain biased products of ``enc_out`` (no
+    adapter reaches them: the reference's quirk), or, when ``enc_out`` is
+    None, the cache's ``"cross_kv"`` (decode); a prefill's or decode's cache
+    carries them as ``"cross_kv"`` (the reference's
+    ``transformer.py:253-277``). Without either the sublayer is skipped, as
+    in the reference.
 
     An SSM, MoE or hybrid family's residual stream ``x`` is f32
     (``model.F32_STREAM_FAMILIES``): each norm's output is cast to the
@@ -146,8 +172,28 @@ def apply_layer(
         if cfg.attention.is_mla:
             y, c = apply_mla(params["attn"], lo.get("attn"), scales, h, **kw)
         else:
-            y, c = apply_gqa(params["attn"], lo.get("attn"), scales, h, window=spec.window, **kw)
+            y, c = apply_gqa(params["attn"], lo.get("attn"), scales, h, window=spec.window,
+                             causal=causal, **kw)
     x = x + y
+    new_cache = {grp: c} if c is not None else None
+    if spec.cross and (enc_out is not None or (cache and "cross_kv" in cache)):
+        h = apply_norm(params["norm_cross"], x, cfg.norm_kind).to(
+            params["norm_cross"]["scale"].dtype)
+        if enc_out is None:
+            ckv = cache["cross_kv"]
+        else:
+            a, pc = cfg.attention, params["cross"]
+            ckv = {}
+            for nm in ("k", "v"):
+                t = enc_out @ pc[nm]["w"].to(enc_out.dtype)
+                if "b" in pc[nm]:
+                    t = t + pc[nm]["b"].to(t.dtype)
+                ckv[nm] = t.reshape(enc_out.shape[0], -1, a.n_kv_heads, a.head_dim)
+        y, _ = apply_gqa(params["cross"], lo.get("cross"), scales, h, acfg=cfg.attention,
+                         n_pack=n_pack, rope=None, cross_kv=ckv, chunk_q=chunk_q, kcfg=kcfg)
+        if make_cache or cache:
+            new_cache = {**(new_cache or {}), "cross_kv": ckv}
+        x = x + y
     aux = None
     if spec.ffn == "dense":
         h = apply_norm(params["norm2"], x, cfg.norm_kind).to(params["norm2"]["scale"].dtype)
@@ -156,7 +202,7 @@ def apply_layer(
     elif spec.ffn == "moe":
         y, aux = apply_moe(params["moe"], apply_norm(params["norm2"], x, cfg.norm_kind), cfg.moe)
         x = x + y
-    return x, ({grp: c} if c is not None else None), aux
+    return x, new_cache, aux
 
 
 def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, device=None,
@@ -205,7 +251,7 @@ def init_stack(gen, cfg: ModelConfig, specs: List[LayerSpec], meta, dtype, devic
 def apply_stack(
     params, lora, scales, x, cfg: ModelConfig, specs: List[LayerSpec], *,
     n_pack: int, rope_cache, caches=None, pos=None, make_cache: bool = False,
-    chunk_q: int = 512, kcfg=None, remat: bool = True,
+    chunk_q: int = 512, kcfg=None, remat: bool = True, enc_out=None, causal: bool = True,
 ):
     """Run the whole stack. Returns (x, new_caches, aux): with ``caches``
     given (decode) they are updated in place and returned; with
@@ -215,21 +261,24 @@ def apply_stack(
     keeps only its input for the backward and recomputes the rest
     (``transformer.py:403`` of the reference) and returns its aux beside
     its output; the kernels and the MoE dispatch are deterministic, so the
-    recompute equals the forward."""
+    recompute equals the forward. ``enc_out``: an encoder's output, which
+    each cross-attention sublayer reads (an argument of each checkpointed
+    block, so its gradient flows back through the recompute);
+    ``causal=False``: an encoder's stack."""
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
     kw = dict(cfg=cfg, n_pack=n_pack, rope_cache=rope_cache, pos=pos,
-              make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg)
+              make_cache=make_cache, chunk_q=chunk_q, kcfg=kcfg, causal=causal)
     lora = lora or {}
 
     def add(total, a):
         return a if total is None else total if a is None else total + a
 
-    def run(x, bp, bl, bc, n_layers):
+    def run(x, bp, bl, bc, n_layers, enc_out=enc_out):
         new_c, aux = {}, None
         for i in range(n_layers):
             x, c, a = apply_layer(bp[f"l{i}"], (bl or {}).get(f"l{i}"), scales, x, specs[i],
-                                  cache=(bc or {}).get(f"l{i}"), **kw)
+                                  cache=(bc or {}).get(f"l{i}"), enc_out=enc_out, **kw)
             if c is not None:
                 new_c[f"l{i}"] = c
             aux = add(aux, a)
@@ -244,8 +293,8 @@ def apply_stack(
         if checkpointed:
             # no RNG state to stash: the stack draws no random numbers, and
             # reading the CUDA RNG state cannot be captured in a CUDA graph
-            x, a = checkpoint(lambda h, bp=bp, bl=bl: run(h, bp, bl, None, p)[::2], x,
-                              use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(lambda h, e, bp=bp, bl=bl: run(h, bp, bl, None, p, e)[::2], x,
+                              enc_out, use_reentrant=False, preserve_rng_state=False)
             aux = add(aux, a)
             continue
         x, c, a = run(x, bp, bl, bc, p)
@@ -278,8 +327,9 @@ def init_stack_cache(cfg, specs, nb: int, smax: int, dtype=torch.bfloat16, devic
     D) per attention layer, or MLA's latent ckv (NB, Smax, kvlr) and k_rope
     (NB, Smax, dr), in ``dtype``; an SSM layer's conv window (NB, K-1, C)
     and state (NB, H, P, N), in f32 whatever ``dtype`` (a rounded state
-    would drift at every step). A stacked block's leaves lead with the
-    block axis."""
+    would drift at every step); a cross-attention layer's ``"cross_kv"``
+    k/v (NB, S_enc, KV, D) over the encoder's ``encoder_seq_len`` frames,
+    in ``dtype``. A stacked block's leaves lead with the block axis."""
     p = find_period(specs)
     n_blocks, n_rest = divmod(len(specs), p)
     a = cfg.attention
@@ -291,8 +341,11 @@ def init_stack_cache(cfg, specs, nb: int, smax: int, dtype=torch.bfloat16, devic
         else:
             init = init_mla_cache if a.is_mla else init_gqa_cache
             grp, like = "attn", init(nb, smax, a, dtype, meta)
-        return {grp: {k: torch.zeros((*lead, *t.shape), dtype=t.dtype, device=device)
-                      for k, t in like.items()}}
+        out = {grp: like}
+        if spec.cross:
+            out["cross_kv"] = init_gqa_cache(nb, cfg.encoder_seq_len, a, dtype, meta)
+        return {g: {k: torch.zeros((*lead, *t.shape), dtype=t.dtype, device=device)
+                    for k, t in c.items()} for g, c in out.items()}
 
     return {
         "blocks": {f"l{i}": one(specs[i], n_blocks) for i in range(p)} if n_blocks else None,

@@ -20,8 +20,9 @@ prior, and :class:`repro_torch.sched.profile.ProfiledCostModel` layers
 measured step times on top of it. The port's copy differs from the
 reference in three places: an ``H100`` preset, parameter counts for the
 families the port has (dense GQA and MLA decoders, SSM decoders,
-decoders with mixture-of-experts FFNs, and attention/SSD hybrids with
-dense and MoE FFNs; a config of another kind raises),
+decoders with mixture-of-experts FFNs, attention/SSD hybrids with dense
+and MoE FFNs, the encoder-decoder and the patch-prefix VLM; a config of
+another kind raises),
 and the memory accounting above. Every other number is the
 reference's, so with ``REFERENCE_MEMORY`` the two plan alike.
 """
@@ -34,8 +35,10 @@ from repro_torch.configs.base import (
     MLP_PROJECTIONS,
     LoraConfig,
     ModelConfig,
+    attn_projections,
     layer_projections,
     lora_layout,
+    stack_layers,
 )
 from repro_torch.kernels.quant import ELIGIBLE_NAMES, MODES
 from repro_torch.models.transformer import find_period, layer_specs
@@ -218,13 +221,16 @@ PRESETS = {hw.name: hw for hw in (A100_40G, A10_24G, TPU_V5E, H100)}
 # sequence positions per chunk of the cross-entropy's logits
 # (``make_packed_step``'s ``vocab_chunk``, ``train/losses.py``)
 CE_CHUNK = 512
+# query positions per chunk of the attention (``make_packed_step``'s
+# ``chunk_q``, ``models/layers/attention.py``)
+ATTN_CHUNK = 512
 
 # The reference's memory accounting (``repro/sched/cost_model.py``): bf16
 # LoRA state billed at prec_bytes * (1 + opt_factor) = 8 bytes a parameter
 # at the defaults, 1 GB per adapter, no logits workspace and no per-job term.
 # ``CostModel(cfg, hw, **REFERENCE_MEMORY)`` plans as the reference does.
 REFERENCE_MEMORY = dict(lora_state_bytes=8.0, logits_copies=0.0, job_overhead_bytes=0.0,
-                        ssm_scan_copies=0.0, adapter_overhead_bytes=1.0e9,
+                        ssm_scan_copies=0.0, enc_attn_copies=0.0, adapter_overhead_bytes=1.0e9,
                         price_dense_leaves=False)
 
 
@@ -239,17 +245,14 @@ PORTED_KINDS = ({"attn", "dense"}, {"ssm", "none"}, {"attn", "moe"}, {"attn", "d
 
 def _ported_only(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds()) | set(cfg.ffn_kinds())
-    if kinds not in PORTED_KINDS or cfg.is_encdec:
+    if kinds not in PORTED_KINDS or (cfg.is_encdec and (kinds != {"attn", "dense"}
+                                                        or cfg.attention.is_mla)):
         raise ValueError(f"{cfg.name}: the port counts dense GQA or MLA decoders, SSM "
-                         f"decoders, MoE decoders and attention/SSD hybrids only, got {kinds}")
+                         f"decoders, MoE decoders, attention/SSD hybrids and GQA "
+                         f"encoder-decoders only, got {kinds}")
     if cfg.mlp_kind not in MLP_PROJECTIONS or cfg.norm_kind not in ("rmsnorm", "layernorm"):
         raise ValueError(f"{cfg.name}: unknown mlp_kind {cfg.mlp_kind!r} or norm_kind "
                          f"{cfg.norm_kind!r}")
-
-
-def _layers(cfg: ModelConfig):
-    """(mixer, ffn) of each decoder layer."""
-    return zip(cfg.layer_kinds(), cfg.ffn_kinds())
 
 
 def _live_mixers(cfg: ModelConfig):
@@ -273,14 +276,20 @@ def model_param_count(cfg: ModelConfig) -> float:
     for ``attn`` mixers, GQA or MLA, with ``dense`` FFNs (2 MLP matrices
     for "gelu2", 3 otherwise) or ``moe`` ones (``moe_param_count``), and
     for ``ssm`` mixers (zx, bc, dt and out) with none; one vocabulary
-    matrix when tied. Norms, biases, the conv and the SSD's per-head
-    vectors are not counted, as in the reference."""
+    matrix when tied. An encoder-decoder adds its encoder's layers and each
+    decoder layer's cross-attention q/k/v/o. Norms, biases, the conv, the
+    SSD's per-head vectors and a VLM's ``patch_proj`` are not counted, as
+    in the reference."""
     _ported_only(cfg)
     total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    for mixer, ffn in _layers(cfg):
-        total += sum(din * dout for din, dout in layer_projections(cfg, mixer, ffn).values())
-        if ffn == "moe":
-            total += moe_param_count(cfg)
+    for layers in stack_layers(cfg).values():
+        for mixer, ffn, cross in layers:
+            total += sum(din * dout for din, dout in layer_projections(cfg, mixer, ffn).values())
+            if cross:
+                total += sum(din * dout for din, dout in
+                             attn_projections(cfg.attention, cfg.d_model).values())
+            if ffn == "moe":
+                total += moe_param_count(cfg)
     return float(total)
 
 
@@ -288,9 +297,11 @@ def quantized_param_count(cfg: ModelConfig, mode: str) -> float:
     """Parameters that ``quantize_base_params(tree, mode)`` turns into codes:
     the projections of ``kernels.quant.ELIGIBLE_NAMES`` (nf4: of even d_in).
     The embedding, the LM head, the norms, MLA's ``kv_b_k``/``kv_b_v``,
-    SSD's ``bc``/``dt`` and an MoE layer's experts and router stay dense."""
+    SSD's ``bc``/``dt``, an MoE layer's experts and router, the
+    cross-attention and ``patch_proj`` stay dense; an encoder's layers are
+    quantized as the decoder's."""
     return float(sum(
-        din * dout for mixer, ffn in _layers(cfg)
+        din * dout for layers in stack_layers(cfg).values() for mixer, ffn, _ in layers
         for nm, (din, dout) in layer_projections(cfg, mixer, ffn).items()
         if nm in ELIGIBLE_NAMES and (mode == "int8" or din % 2 == 0)))
 
@@ -318,10 +329,14 @@ def lora_param_count(cfg: ModelConfig, rank: int) -> float:
     v_head_dim) more; and on a hybrid it bills q/k/v/o on the SSD layers
     and ssm_in/ssm_out on the attention ones (ROADMAP C, "Found in the
     reference"). SSD's "ssm_in" and "ssm_out" adapt ``zx`` and ``out``,
-    billed as in the reference."""
+    billed as in the reference. An encoder-decoder's encoder layers hold
+    their own adapters, and its decoder layers the "cross" group's too,
+    which the reference leaves out of its bill (whisper-tiny at r = 16: the
+    tree holds 1,032,192, the reference bills 933,888)."""
     _ported_only(cfg)
-    return float(sum(rank * (din + dout) for mixer, ffn in _layers(cfg)
-                     for projs in lora_layout(cfg, mixer, ffn).values()
+    return float(sum(rank * (din + dout) for layers in stack_layers(cfg).values()
+                     for mixer, ffn, cross in layers
+                     for projs in lora_layout(cfg, mixer, ffn, cross).values()
                      for din, dout in projs.values()))
 
 
@@ -389,6 +404,14 @@ class CostModel(CostEstimator):
     # GB, 0.87x a price with the constant and 1.09x one with this term. 0
     # drops the term.
     ssm_scan_copies: float = 6.0
+    # An encoder-decoder's per-job term in place of job_overhead_bytes: the
+    # attention's working set over the encoder's frames in one layer's
+    # backward, this many f32 (rows, heads, query chunk, S_enc) tensors
+    # (scores, probabilities and their gradients). With the constant,
+    # whisper-tiny's captured sweep job (3 rows of 448 tokens over 1,500
+    # frames; own peak 1.64 GB, the CE's backward) priced at 1.66x, outside
+    # C3's band; with this term at 1.18x (H100). 0 drops the term.
+    enc_attn_copies: float = 4.0
     # Padding-aware costing (beyond the paper): the packed executor
     # zero-pads every adapter to the pack's bucket rank (max rank rounded up
     # to 8), so a rank-8 adapter packed with a rank-128 one COMPUTES at rank
@@ -508,7 +531,13 @@ class CostModel(CostEstimator):
         padded rows (``ssm_scan_copies`` f32 (rows, H, Q, Q) tensors per
         chunk of Q) for each SSD layer the backward holds at once
         (``_live_mixers``: mamba2's block is one layer; jamba's first 8
-        layers stack as a block of 6 and a remainder of 2, 7 SSD layers)."""
+        layers stack as a block of 6 and a remainder of 2, 7 SSD layers),
+        or for an encoder-decoder the attention's working set over the
+        encoder's frames (``enc_attn_copies`` f32 (rows, H, min(S_enc,
+        ATTN_CHUNK), S_enc) tensors: one query chunk's scores at a time)."""
+        if self.cfg.is_encdec:
+            s_enc, a = self.cfg.encoder_seq_len, self.cfg.attention
+            return self.enc_attn_copies * rows * a.n_heads * min(s_enc, ATTN_CHUNK) * s_enc * 4.0
         n_ssd = _live_mixers(self.cfg).count("ssm")
         if not n_ssd:
             return self.job_overhead_bytes

@@ -47,21 +47,25 @@ def make_prefill(cfg: ModelConfig, meta: Optional[PackMeta], *, chunk_q: int = 5
 # the sequence-indexed leaves of a cache: attention k/v (NB, S, KV, D) and
 # MLA's ckv (NB, S, kvlr) / k_rope (NB, S, dr)
 SEQ_LEAVES = ("k", "v", "ckv", "k_rope")
+# the cache subtrees of a fixed size, whatever the sequence's length
+FIXED_SUBTREES = ("ssm", "cross_kv")
 
 
 def pad_caches(caches, target_len: int):
     """Grow prefill caches along the sequence axis to ``target_len`` with
     zeros: every leaf of SEQ_LEAVES, whose sequence axis is 1, or 2 under a
     stacked ``"blocks"`` subtree (a leading layer axis). Keeps the dtype.
-    An ``"ssm"`` subtree (an SSM layer's conv window and state, of a fixed
-    size) passes through unchanged, as in the reference. Raises on a tensor
-    leaf of another name: an unknown one would pass through unpadded."""
+    An ``"ssm"`` subtree (an SSM layer's conv window and state) and a
+    ``"cross_kv"`` one (a cross-attention layer's k/v over the encoder's
+    frames), both of a fixed size, pass through unchanged, as in the
+    reference. Raises on a tensor leaf of another name: an unknown one
+    would pass through unpadded."""
 
     def walk(t, in_blocks=False):
         if isinstance(t, dict):
             out = {}
             for k, v in t.items():
-                if k == "ssm":
+                if k in FIXED_SUBTREES:
                     out[k] = v
                     continue
                 if not isinstance(v, torch.Tensor):
@@ -86,10 +90,14 @@ def pad_caches(caches, target_len: int):
 
 def generate(base, lora, cfg: ModelConfig, meta: Optional[PackMeta],
              prompt_tokens: torch.Tensor, n_new: int, *, kcfg=None, executor=None,
-             device=None):
+             device=None, batch_extra=None):
     """Greedy generation: prefill the prompt (NB, S), then decode ``n_new``
     tokens at a shared position. Returns (NB, n_new) int32. Runs on CUDA
-    unless ``device`` says otherwise; ``prompt_tokens`` must be there."""
+    unless ``device`` says otherwise; ``prompt_tokens`` must be there.
+    ``batch_extra``: the prefill batch's other fields (an encoder-decoder's
+    "frames", a VLM's "patches"). A VLM's positions start after its
+    ``n_patch_tokens`` patch positions, as in the reference, whether or not
+    the batch carries patches."""
     from repro_torch.serve.engine import ServeExecutor
 
     device = resolve_device(device)
@@ -98,17 +106,17 @@ def generate(base, lora, cfg: ModelConfig, meta: Optional[PackMeta],
     ex = executor if executor is not None else ServeExecutor()
     scales = _scales(meta, device)
     n_pack = meta.n if meta else 1
-    s_prompt = prompt_tokens.shape[1]
+    s_total = prompt_tokens.shape[1] + cfg.n_patch_tokens
     with torch.no_grad():
         lg, caches = ex.prefill_fn(cfg, n_pack, kcfg=kcfg)(
-            base, lora, scales, {"tokens": prompt_tokens}
+            base, lora, scales, {"tokens": prompt_tokens, **(batch_extra or {})}
         )
-        caches = pad_caches(caches, s_prompt + n_new)
+        caches = pad_caches(caches, s_total + n_new)
         step_fn = ex.step_fn(cfg, n_pack, kcfg=kcfg)
         tok = torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32)
         out = [tok]
         for i in range(n_new - 1):
-            pos = torch.tensor(s_prompt + i, dtype=torch.int64, device=device)
+            pos = torch.tensor(s_total + i, dtype=torch.int64, device=device)
             tok, lg, caches = step_fn(base, lora, scales, caches, tok[:, None], pos)
             out.append(tok)
     return torch.stack(out, dim=1)

@@ -62,6 +62,10 @@ class ServeRequest:
     """One greedy decode request against one adapter.
 
     ``arrival`` is in virtual time (decode steps since trace start).
+    ``extra`` adds fields to the request's prefill batch (its frames or
+    patches, on any device); a VLM request's positions start after the
+    config's ``n_patch_tokens``, whether or not it carries patches, as in
+    the reference.
     ``rank``/``alpha`` override the adapter's own metadata when that lacks
     them. ``deadline_ms`` is a wall-clock SLO from the moment the request
     entered the queue: a queued request past it is rejected before any
@@ -76,6 +80,9 @@ class ServeRequest:
     rank: Optional[int] = None
     alpha: Optional[float] = None
     deadline_ms: Optional[float] = None
+    # the prefill batch's other fields: an encoder-decoder's "frames" (1,
+    # S_enc, d), a VLM's "patches" (1, P, d)
+    extra: Optional[dict] = None
 
 
 @dataclass
@@ -409,7 +416,7 @@ class ServeEngine:
         reject it (oversized prompt, unknown adapter, no rank/alpha) as an
         errored result — validated before any pin or latency sample."""
         prompt = np.asarray(req.prompt, np.int32)
-        s_total = prompt.shape[0]
+        s_total = prompt.shape[0] + self.cfg.n_patch_tokens
         if s_total + req.max_new_tokens > self.smax:
             return self._rejected(req, step, wall, (
                 f"request {req.request_id}: prompt {s_total} + {req.max_new_tokens} "
@@ -427,11 +434,11 @@ class ServeEngine:
             lora1 = self._device_tree(inject_adapter(self._lora1_host, adapter, 0))
             write_row_caches(self._lora, lora1, row)
             with self.tracer.span("serve.prefill", cat="serve", track=f"row{row}",
-                                  request_id=req.request_id, n_prompt=int(s_total)):
+                                  request_id=req.request_id, n_prompt=int(prompt.shape[0])):
                 pf = self.serve_executor.prefill_fn(self.cfg, 1, kcfg=self.kcfg1)
                 lg, c1 = pf(self.base, lora1,
                             torch.full((1,), scale, dtype=torch.float32, device=self.device),
-                            {"tokens": torch.from_numpy(prompt[None, :]).to(self.device)})
+                            self._prefill_batch(req, prompt))
                 write_row_caches(self._caches, pad_caches(c1, self.smax), row)
                 first = int(torch.argmax(lg[0, -1, :]))
         now = time.perf_counter()
@@ -442,9 +449,15 @@ class ServeEngine:
         self._pos[row] = s_total
         self._rows[row] = _ActiveRow(
             request=req, emitted=[first], admitted_step=step, admitted_wall=wall,
-            n_prompt=s_total, last_emit_wall=now - self._serve_t0,
+            n_prompt=int(prompt.shape[0]), last_emit_wall=now - self._serve_t0,
         )
         return None
+
+    def _prefill_batch(self, req: ServeRequest, prompt: np.ndarray) -> dict:
+        """A request's width-1 prefill batch: its tokens and its ``extra``
+        fields, on the engine's device."""
+        extra = {k: torch.as_tensor(v).to(self.device) for k, v in (req.extra or {}).items()}
+        return {"tokens": torch.from_numpy(prompt[None, :]).to(self.device), **extra}
 
     def _retire(self, row: int, step: int, wall: float, error: Optional[str] = None) -> ServeResult:
         active = self._rows[row]
@@ -579,11 +592,10 @@ class ServeEngine:
                 scale = self._scale_for(req, ameta)
                 lora1 = self._device_tree(inject_adapter(self._lora1_host, adapter, 0))
                 prompt = np.asarray(req.prompt, np.int32)
-                s_total = prompt.shape[0]
+                s_total = prompt.shape[0] + self.cfg.n_patch_tokens
                 scales = torch.full((1,), scale, dtype=torch.float32, device=self.device)
                 pf = self.serve_executor.prefill_fn(self.cfg, 1, kcfg=self.kcfg1)
-                lg, caches = pf(self.base, lora1, scales,
-                                {"tokens": torch.from_numpy(prompt[None, :]).to(self.device)})
+                lg, caches = pf(self.base, lora1, scales, self._prefill_batch(req, prompt))
                 caches = pad_caches(caches, s_total + req.max_new_tokens)
                 admitted = time.perf_counter() - t0
                 stats.ttft.record(admitted)
@@ -604,7 +616,8 @@ class ServeEngine:
                 stats.tokens_emitted += len(out)
                 stats.results.append(ServeResult(
                     request_id=req.request_id, adapter_id=req.adapter_id,
-                    tokens=np.asarray(out, np.int32), n_prompt=s_total, arrival=req.arrival,
+                    tokens=np.asarray(out, np.int32), n_prompt=int(prompt.shape[0]),
+                    arrival=req.arrival,
                     admitted_step=stats.steps, finished_step=stats.steps,
                     admitted_wall=admitted, finished_wall=wall,
                 ))

@@ -14,13 +14,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import CROSS_UNREAD, ModelConfig
 from repro_torch.core.adapter import PackMeta
 from repro_torch.kernels.ops import KernelConfig
 from repro_torch.models.model import forward, unembed_w
 from repro_torch.train.losses import chunked_cross_entropy
 from repro_torch.train.optimizer import adamw_update, init_opt_state
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_map
 
 
 def packed_loss_fn(
@@ -59,17 +59,41 @@ def packed_value_and_grad(
     kcfg: Optional[KernelConfig] = None,
 ):
     """(total, per-adapter loss, grads): the gradient of the total with
-    respect to every LoRA leaf, in the LoRA tree's layout. Raises if a leaf
-    received none: the graph from that leaf to the loss was cut."""
+    respect to every LoRA leaf, in the LoRA tree's layout. A leaf that no
+    loss reads (``unread_lora``: an encoder-decoder's cross-attention k/v
+    adapters) gets a zero gradient, as ``jax.grad`` gives it in the
+    reference; any other leaf without a gradient raises: the graph from
+    that leaf to the loss was cut."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), lora)
     total, per_adapter = packed_loss_fn(
         leaves, base, batch, cfg, n_pack, scales,
         chunk_q=chunk_q, vocab_chunk=vocab_chunk, aux_weight=aux_weight, kcfg=kcfg,
     )
     total.backward()
-    if any(t.grad is None for t in tree_leaves(leaves)):
-        raise RuntimeError("a LoRA leaf received no gradient: its path to the loss is cut")
-    return total.detach(), per_adapter.detach(), tree_map(lambda t: t.grad, leaves)
+
+    def grad(path, t):
+        if t.grad is not None:
+            return t.grad
+        if unread_lora(path):
+            return torch.zeros_like(t)
+        raise RuntimeError(f"the LoRA leaf {'/'.join(path)} received no gradient: its path "
+                           "to the loss is cut")
+
+    return total.detach(), per_adapter.detach(), _map_with_path(grad, leaves)
+
+
+def unread_lora(path) -> bool:
+    """Whether the LoRA leaf at ``path`` (the tree's keys) is one that no
+    loss reads: an adapter of the cross-attention group on a projection of
+    CROSS_UNREAD (whisper's cross "v"; the reference builds it and never
+    reads it, ROADMAP C)."""
+    return any(k == "cross" and nm in CROSS_UNREAD for k, nm in zip(path, path[1:]))
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, (*path, k)) for k, v in tree.items()}
+    return fn(path, tree)
 
 
 def make_packed_step(

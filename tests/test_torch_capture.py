@@ -83,6 +83,30 @@ def test_captured_pack_equals_eager_and_a_hit_takes_new_vectors(cuda, model):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch,stub", [("whisper-tiny", "frames"), ("internvl2-1b", "patches")])
+def test_front_end_stubs_ride_in_the_captured_batch(cuda, arch, stub):
+    """An encoder-decoder's frames and a VLM's patches are buffers of the
+    captured step's static batch: the captured pack equals its eager run
+    bit for bit, and a second pack of the graph's key (other alphas and
+    learning rates) hits the cache, refills the same buffer and equals its
+    own eager run."""
+    cfg = reduced(get_config(arch))
+    base, _ = init_model(0, cfg, None, dtype=torch.bfloat16, device=cuda)
+    ex, eager = SliceExecutor(), SliceExecutor(capture=False)
+    _same(_train(ex, cfg, base, PACK, cuda), _train(eager, cfg, base, PACK, cuda))
+    (graph,) = ex._graphs.values()
+    buf = graph.batch[stub]
+    assert buf.shape[0] == len(PACK) * 2 and buf.dtype == torch.float32
+    other = [LoraConfig(rank=c.rank, alpha=3.0 * c.alpha, learning_rate=0.25 * c.learning_rate,
+                        batch_size=c.batch_size, seq_len=SEQ) for c in PACK]
+    hit = _train(ex, cfg, base, other, cuda)
+    assert (ex.n_builds, ex.n_hits, len(ex.captures)) == (1, 1, 1)
+    (again,) = ex._graphs.values()
+    assert again is graph and again.batch[stub].data_ptr() == buf.data_ptr()
+    _same(hit, _train(eager, cfg, base, other, cuda))
+
+
+@pytest.mark.gpu
 def test_eviction_recaptures_and_replays_count_their_launches(cuda, model, monkeypatch):
     """With one graph per device, shapes A, B, A capture three times, and
     the third capture equals the eager run again. The kernels' counts take

@@ -1053,6 +1053,11 @@ FAMILY_PROJ = {
     # (4,096 -> 1,024), an SSD layer's zx (4,096 -> 16,384) and out (8,192
     # -> 4,096)
     "jamba-v0.1-52b": [(4096, 4096), (4096, 1024), (4096, 16384), (8192, 4096)],
+    # whisper-tiny's: q/v (and the cross q) 384 -> 384, gate/up 384 ->
+    # 1,536, down; internvl2-1b's: q/o 896 -> 896, k/v 896 -> 128, gate/up
+    # 896 -> 4,864, down
+    "whisper-tiny": [(384, 384), (384, 1536), (1536, 384)],
+    "internvl2-1b": [(896, 896), (896, 128), (896, 4864), (4864, 896)],
 }
 
 
@@ -1090,6 +1095,41 @@ def test_family_training_shapes_match_plain_on_their_paths(cuda, d_in, d_out):
     n0 = _count(fused_matmul, "bwd", "wgmma")
     _close(fused_matmul(g, w.t(), bt, at, s, backward=True), fused_matmul_ref(g, w.t(), bt, at, s))
     assert _count(fused_matmul, "bwd", "wgmma") == n0 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_in,d_out", FAMILY_PROJ["whisper-tiny"])
+def test_whisper_encoder_rows_match_plain_on_their_planned_paths(cuda, d_in, d_out):
+    """bf16 at whisper-tiny's encoder rows (1,500 frames an adapter, r =
+    16): a pack of 2 (1,500 % 64 != 0) plans #2's forward and dx on
+    "split3", one adapter on "wgmma"; #1's xA, xAB and cases 2 and 4 on
+    "mma" either way; each launched once on its path and within the
+    tolerance of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    m, r, dt = 1500, 16, torch.bfloat16
+    w = _rnd(gen, (d_in, d_out), dt, d_in ** -0.5)
+    for n, fused_path in ((2, "split3"), (1, "wgmma")):
+        s = torch.linspace(0.5, 2.0, n, device=cuda)
+        x, g = _rnd(gen, (n, m, d_in), dt), _rnd(gen, (n, m, d_out), dt)
+        a, b = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), _rnd(gen, (n, r, d_out), dt)
+        xa = _rnd(gen, (n, m, r), dt)
+        for args, bwd in (((x, a), False), ((xa, b, s), False),
+                          ((g, b.transpose(1, 2)), True), ((xa, a.transpose(1, 2)), True)):
+            assert packed_matmul_path(args[0], args[1]) == "mma"
+            n0 = _count(packed_matmul, "bwd" if bwd else "fwd", "mma")
+            got = packed_matmul(*args, backward=True) if bwd else packed_matmul(*args)
+            assert _count(packed_matmul, "bwd" if bwd else "fwd", "mma") == n0 + 1
+            _close(got, packed_matmul_ref(*args))
+        assert fused_matmul_path(x, w, r, a, b) == fused_path
+        n0 = _count(fused_matmul, "fwd", fused_path)
+        _close(fused_matmul(x, w, a, b, s), fused_matmul_ref(x, w, a, b, s))
+        assert _count(fused_matmul, "fwd", fused_path) == n0 + 1
+        bt, at = b.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous()
+        assert fused_matmul_path(g, w.t(), r, bt, at) == fused_path
+        n0 = _count(fused_matmul, "bwd", fused_path)
+        _close(fused_matmul(g, w.t(), bt, at, s, backward=True),
+               fused_matmul_ref(g, w.t(), bt, at, s))
+        assert _count(fused_matmul, "bwd", fused_path) == n0 + 1
 
 
 @pytest.mark.gpu
