@@ -277,11 +277,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    frames a row, a cross-attention in each decoder layer) and
    internvl2-1b (256 patch positions before the text), at full width and
    depth: train at 448 tokens over 1,500 frames / 256 patches + 256
-   tokens, serve with each request's own frames or patches (prompts of
-   16-200 / 64-257 tokens), one captured sweep job each at its train
-   length; whisper also through the launcher on its f32 base under
-   ``--impl fused`` and ``--impl auto`` (losses and updates against each
-   other, each own peak against its price).
+   tokens (whisper's fused step fails on any ``split3`` launch: its
+   encoder packs of 1,500 frames a row take "wgmma"), serve with each
+   request's own frames or patches (prompts of 16-200 / 64-257 tokens),
+   one captured sweep job each at its train length; whisper also through
+   the launcher on its f32 base under ``--impl fused`` and ``--impl auto``
+   (losses and updates against each other, each own peak against its
+   price).
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
@@ -762,14 +764,9 @@ def kernel_phase(torch, dev):
     decode_cases = {"decode", CR_DECODE_CASE, *(c for _, _, c in family_cases("decode"))}
     off = [(r["case"], r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] in train_cases and r["dtype"] == "bfloat16"
-           and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"
-           and r["case"] not in RAGGED_CASES]
+           and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"]
     if off:
         fail(f"training-shape fused rows off the wgmma path: {off}")
-    emit({"phase": "encoder_paths", "cases": list(RAGGED_CASES), "rows": [
-        {k: r.get(k) for k in ("case", "kernel", "call", "d_in", "d_out", "path", "device_ms",
-                               "library_device_ms")}
-        for r in rows if r["case"] in RAGGED_CASES]})
     # the launcher's own shapes on its f32 base: each same-rank segment of
     # its pack, at the segment's rank (ops._ragged_call), forward and dx,
     # and packed_matmul's calls of --impl auto
@@ -797,7 +794,7 @@ def kernel_phase(torch, dev):
     if off:
         fail(f"bf16 decode rows of fused_matmul or fused_matmul_q off the decode path: {off}")
     mma_rows = MMA_ROWS | {(case, call) for _, _, case in family_cases("train")
-                           for call in SWEEP_CALLS if case not in RAGGED_CASES}
+                           for call in SWEEP_CALLS}
     off = [(r["case"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["kernel"] == "packed_matmul" and r["dtype"] == "bfloat16"
            and (r["case"], r["call"]) in mma_rows and r["path"] != "mma"]
@@ -1100,8 +1097,9 @@ def profile_serve(torch, cfg, base, adapters, reqs, impl: str, out_dir: Path):
 
 
 def read_profile(prof, wall_ms: float, table_path: Path) -> dict:
-    """Device time and busy share of a profiled window, and its top device
-    operations; the full table goes to ``table_path``."""
+    """Device time and busy share of a profiled window, its top device
+    operations and the port's own kernels (``port_kernels``); the full
+    table goes to ``table_path``."""
     from torch.autograd import DeviceType
 
     ka = prof.key_averages()
@@ -1114,7 +1112,20 @@ def read_profile(prof, wall_ms: float, table_path: Path) -> dict:
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     table_path.write_text(ka.table(sort_by="self_cuda_time_total", row_limit=40))
     return {"wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
-            "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
+            "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top],
+            "port_device_ms": port_kernels(kernels)}
+
+
+def port_kernels(kernels) -> dict:
+    """The port's own device kernels among profiler events (namespace
+    ``plora``), by name without the argument list: [device ms, launches]."""
+    out = {}
+    for e in kernels:
+        if "plora::" in e.key:
+            name = e.key.split("(")[0]
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    return out
 
 
 def serve_phase(torch, dev):
@@ -2719,13 +2730,10 @@ FAMILY_DECODE_CASE = {"gemma3-1b": "decode_gemma3", "minicpm3-4b": "decode_minic
 WHISPER_ENC_CASE = "train_whisper_enc"
 # (N, M) of a family train case's rows where it is not TRAIN_CASE: an
 # adapter's rows in the main path's calls. Whisper's encoder at 1,500 frames
-# a row -- no multiple of 64, so #2's pack of 2 plans "split3", not
-# "wgmma" (``fused.cuh``: n == 1 or m % 64 == 0) -- and its decoder at 448
+# a row -- no multiple of 64, so #2's pack of 2 takes "wgmma" with its row
+# tiles per adapter (``fused.cuh``, ``wg_tpa``) -- and its decoder at 448
 # tokens (its cross q included)
 CASE_ROWS = {WHISPER_ENC_CASE: (2, 1500), "train_whisper": (2, 448)}
-# the cases whose fused rows may plan off "wgmma": the path each takes is
-# recorded (``encoder_paths``), not required
-RAGGED_CASES = (WHISPER_ENC_CASE,)
 # jamba's two kinds of layer, each with rows of its own: an SSD layer (zx
 # 4,096 -> 16,384, out 8,192 -> 4,096) and the attention layer (q/o 4,096 ->
 # 4,096, k/v 4,096 -> 1,024)
@@ -3065,9 +3073,13 @@ def families_phase(torch, dev, out_dir: Path, archs=FAMILIES):
         seq = FAMILY_TRAIN_SEQ[arch]
         _, meta, lora0, batches = train_setup(torch, dev, cfg, seq, FAMILY_TRAIN_STEPS)
         for impl in FAMILY_TRAIN_IMPLS:
-            _, counts[f"train:{impl}"], state = train_run(
+            row, counts[f"train:{impl}"], state = train_run(
                 torch, dev, cfg, meta, lora0, batches, base, impl, phase="family_train")
             del state
+            split3 = row["launches_by_path"]["fused_matmul"]["split3"]
+            if arch == WHISPER and split3:
+                fail(f"{arch} train impl={impl}: {split3} fused_matmul calls on \"split3\" "
+                     "(its ragged encoder packs belong on \"wgmma\")")
             torch.cuda.empty_cache()
         del lora0, batches
         stage("train")

@@ -9,11 +9,15 @@ qwen25-7b shapes, and optionally profiled train steps, on one CUDA card.
     python3 scripts/fused_call_times.py --src OLD/src --no-library  # kernels only
     python3 scripts/fused_call_times.py --cases decode --host  # + a host-time breakdown
     python3 scripts/fused_call_times.py --cases train --dtype float32  # the f32 rows
+    python3 scripts/fused_call_times.py --cases whisper_enc,whisper_dec \
+        --train fused --arch whisper-tiny   # whisper-tiny's rows and its fused step
 
 bf16 (or ``--dtype float32``), r=16, for each projection (d_in, d_out) of a layer: decode (N=8
 adapters x M=1 token) ``fused_matmul`` and ``fused_matmul_q`` on int8 and
 nf4 codes; prefill (N=1, M=256) ``fused_matmul``; train (N=2, M=1024) the
-forward, dx (W^T read in place), int8 and nf4. Each row holds the kernel
+forward, dx (W^T read in place), int8 and nf4; at whisper-tiny's widths
+(its encoder layer, N=2 x M=1,500 frames, and its decoder layer, N=2 x
+M=448 tokens) the forward and dx. Each row holds the kernel
 against its plain version (``rel_err``), ``fused_matmul_q`` bit-equal to
 ``fused_matmul`` on the dequantized W, and names the plan's ``path``; for
 the kernel and for the library composition ``baddbmm(x@W, bmm(x,A)*s, B)``
@@ -30,10 +34,12 @@ broken down into the C call (its launches), the allocation and the rest,
 beside one ``torch.bmm``.
 
 ``--train RUNS``: chip_smoke.py's train pack on full-width, full-depth
-qwen25-7b with random weights, for each of the runs named (impl="auto",
-impl="fused", and "nf4": impl="fused" on an nf4 base): 3 steps (the last
-two timed), then one under ``torch.profiler`` (device time and busy share;
-tables under ``<out>/<label>/``). ``--no-library`` leaves out the library
+qwen25-7b (or ``--arch``, at its family train length) with random weights,
+for each of the runs named (impl="auto", impl="fused", and "nf4":
+impl="fused" on an nf4 base): 3 steps (the last two timed), then one under
+``torch.profiler`` (device time and busy share, the device ms and launches
+of each of the port's kernels, the wrappers' launches by path; tables
+under ``<out>/<label>/``). ``--no-library`` leaves out the library
 yardstick's times.
 
 The measuring code is this checkout's ``chip_smoke.py`` whatever ``--src``
@@ -49,9 +55,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-CASES = {"decode": (8, 1), "prefill": (1, 256), "train": (2, 1024)}
+CASES = {"decode": (8, 1), "prefill": (1, 256), "train": (2, 1024), "whisper_enc": (2, 1500),
+         "whisper_dec": (2, 448)}
 CALLS = {"decode": ("fused", "int8", "nf4"), "prefill": ("fused",),
-         "train": ("fused", "dx", "int8", "nf4")}
+         "train": ("fused", "dx", "int8", "nf4"), "whisper_enc": ("fused", "dx"),
+         "whisper_dec": ("fused", "dx")}
+# chip_smoke.py's case whose projections a case's layer sums (else qwen25-7b's)
+SMOKE_CASE = {"whisper_enc": "train_whisper_enc", "whisper_dec": "train_whisper"}
 KEYS = ("ms", "device_ms", "host_us", "library_ms", "library_device_ms", "library_host_us",
         "bound_ms")
 
@@ -71,6 +81,7 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "smoke_out"), help="where the profile tables go")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
                     help="x, W, A and B's type (the bound's peak follows it)")
+    ap.add_argument("--arch", default="qwen25-7b", help="the model --train steps")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     sys.path.insert(1, str(ROOT))
@@ -128,7 +139,7 @@ def main() -> int:
     for case in args.cases.split(","):
         n, m = CASES[case]
         s = torch.linspace(0.5, 2.0, n, device=dev)
-        for (d_in, d_out), _ in cs.PROJ:
+        for (d_in, d_out), _ in case_proj(cs, case):
             for call in CALLS[case]:
                 args_fn, kfn, pfn, lfn, flops, path_fn = call_spec(call, n, m, d_in, d_out, s)
                 first = args_fn()
@@ -158,17 +169,23 @@ def main() -> int:
     if args.host:
         host_breakdown(torch, cs, F, rnd, args.label)
     if args.train:
-        train_profiles(torch, cs, dev, Path(args.out) / args.label, args.label, args.train.split(","))
+        train_profiles(torch, cs, dev, Path(args.out) / args.label, args.label,
+                       args.train.split(","), args.arch)
     return 0
 
 
+def case_proj(cs, case: str):
+    """((d_in, d_out), count per layer) of the projections a case times."""
+    return cs.case_proj(SMOKE_CASE[case]) if case in SMOKE_CASE else cs.PROJ
+
+
 def summary(cs, rows, label: str) -> dict:
-    """Per use (case and call): the times summed over one decoder layer's
+    """Per use (case and call): the times summed over one layer's
     projections, weighted by their count per layer, and the mean host µs
     per call over the use's rows."""
-    mult = dict(cs.PROJ)
     out = {"label": label, "phase": "layer_sums"}
     for case, calls in CALLS.items():
+        mult = dict(case_proj(cs, case))
         for call in calls:
             sel = [x for x in rows if x["case"] == case and x["call"] == call]
             if sel:
@@ -209,13 +226,16 @@ def host_breakdown(torch, cs, F, rnd, label: str) -> None:
     print(cs.json.dumps(row), flush=True)
 
 
-def train_profiles(torch, cs, dev, out_dir: Path, label: str, runs) -> None:
+def train_profiles(torch, cs, dev, out_dir: Path, label: str, runs, arch: str) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
     from repro_torch.kernels.quant import quantize_base_params
     from repro_torch.models.model import init_model
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.trainer import make_packed_step
 
-    cfg, meta, lora0, batches = cs.train_setup(torch, dev)
+    cfg, meta, lora0, batches = cs.train_setup(torch, dev, get_config(arch),
+                                               cs.FAMILY_TRAIN_SEQ.get(arch, cs.TRAIN_SEQ), 4)
     base, _ = init_model(cs.SEED, cfg, None, dtype=torch.bfloat16, device=dev)
     scales, lr_vec = meta.scales(dev), meta.lr_vector(dev)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -230,12 +250,16 @@ def train_profiles(torch, cs, dev, out_dir: Path, label: str, runs) -> None:
             lora, opt, _ = step(qbase, lora, opt, batch, scales, lr_vec, None)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        row = cs.profile_train(torch, step, qbase, lora, opt, batches[3], meta, out_dir, impl, quant)
-        print(cs.json.dumps({"label": label, "phase": "train_step", "impl": impl, "quant": quant,
-                             "step_s": times,
+        launches.zero()
+        row = cs.profile_train(torch, step, qbase, lora, opt, batches[3], meta, out_dir, impl,
+                               quant)
+        print(cs.json.dumps({"label": label, "phase": "train_step", "arch": arch, "impl": impl,
+                             "quant": quant, "step_s": times,
                              "step_s_after_first": sum(times[1:]) / 2,
                              "profiled_wall_ms": row["wall_ms"], "device_ms": row["device_ms"],
-                             "device_busy_share": row["device_busy_share"]}), flush=True)
+                             "device_busy_share": row["device_busy_share"],
+                             "port_kernels": row["port_device_ms"],
+                             "launches_by_path": launches.read_paths()}), flush=True)
         del step, lora, opt, qbase
         torch.cuda.empty_cache()
 

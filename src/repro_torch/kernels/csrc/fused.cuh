@@ -16,9 +16,13 @@
 // once per adapter. Here the rows of all adapters are flattened (row g
 // belongs to adapter g / M) and tiled together, so a staged W tile serves
 // every adapter whose rows fall in the block.
-//  * bf16, > 16 rows, each 64-row slab inside one adapter, K and L
-//    multiples of 8, operands 16-byte aligned (8 for int8/nf4 codes):
-//    fused_wgmma_kernel, one warp-specialised pass for Hopper. A 128 x BN
+//  * bf16, > 16 rows, K and L multiples of 8, operands 16-byte aligned (8
+//    for int8/nf4 codes): fused_wgmma_kernel, one warp-specialised pass for
+//    Hopper. Its 128-row tiles run over the flattened rows when each 64-row
+//    slab lies inside one adapter (N == 1 or M % 64 == 0); otherwise (a
+//    ragged pack) over each adapter's rows, as the Pallas grid does, ceil(M
+//    / 128) tiles an adapter, the last one's rows past the adapter's end
+//    computed and not stored. A 128 x BN
 //    output tile per block, 64 deep per K step, through a ring of shared-
 //    memory stages guarded by full/empty mbarriers. One producer warpgroup
 //    fills the ring: TMA for the x tile, a dense W tile and the A tiles
@@ -339,6 +343,14 @@ using WgKernelCfg = WgCfg<RP, WgSource<WS>::TMA ? 0 : QStage<WS, wg_bn(RP)>::RAW
 // [z * steps, (z + 1) * steps); with part_y it writes f32 partials
 // (part_y [z][rows][L], and part_xa [z][rows][R] from column tile 0) for
 // fused_epilogue, else y.
+//
+// Row tiles: with tpa == 0 (flat), tile x holds rows [128 x, 128 x + 128)
+// of all adapters, each 64-row slab inside one adapter. With tpa > 0 (a
+// ragged pack: N > 1, M % 64 != 0), tile x holds rows [128 i, 128 i + 128)
+// of adapter x / tpa, i = x % tpa: one adapter, one A tile. Its x rows past
+// the adapter's end are loaded through the same map as the flat tiles --
+// the next adapter's rows, or TMA's zeros past the last row -- so every
+// load stays a whole 128 x 64 box; they are multiplied and never stored.
 // ---------------------------------------------------------------------------
 
 template <class WS, int RP>
@@ -349,7 +361,7 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                    const bf16* __restrict__ b,
                    const float* __restrict__ scale, bf16* __restrict__ y,
                    float* __restrict__ part_y, float* __restrict__ part_xa, int N, int M, int K,
-                   int L, int R, int rows, int steps, int a_by_tma, int q_by_tma) {
+                   int L, int R, int rows, int steps, int tpa, int a_by_tma, int q_by_tma) {
   using S = WgSource<WS>;
   using Q = QStage<WS, wg_bn(RP)>;
   using C = WgKernelCfg<WS, RP>;
@@ -365,10 +377,14 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   unsigned char* ring = smem + C::HEADER;
   unsigned char* raw_ring = ring + C::STAGES * C::STAGE;
 
-  const int m0 = blockIdx.x * WG_BM, l0 = blockIdx.y * BN, z = blockIdx.z;
+  const int l0 = blockIdx.y * BN, z = blockIdx.z;
   const int kb = z * steps * WG_BK, ke = min(K, kb + steps * WG_BK);
   const int nsteps = (ke - kb + WG_BK - 1) / WG_BK;
-  const int ad0 = m0 / M, ad1 = min((m0 + 64) / M, N - 1);  // the two slabs' adapters
+  const int ad_t = tpa ? blockIdx.x / tpa : 0;  // a ragged tile's adapter
+  const int m0 = tpa ? ad_t * M + (blockIdx.x % tpa) * WG_BM : blockIdx.x * WG_BM;
+  // the two slabs' adapters, and the end of the rows the block stores
+  const int ad0 = tpa ? ad_t : m0 / M, ad1 = tpa ? ad_t : min((m0 + 64) / M, N - 1);
+  const int g_end = tpa ? (ad_t + 1) * M : rows;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
 
   for (int st = 0; st < C::STAGES; ++st)  // A columns q >= R are read as zeros
@@ -509,14 +525,14 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     if (blockIdx.y == 0)
       for (int p = t; p < 64 * R; p += 128) {
         const int r = p / R, qq = p % R, g = g0 + r;
-        if (g < rows) part_xa[((size_t)z * rows + g) * R + qq] = xa_s[r * C::XA_LD + qq];
+        if (g < g_end) part_xa[((size_t)z * rows + g) * R + qq] = xa_s[r * C::XA_LD + qq];
       }
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int g = g0 + r0 + 8 * h, gl = l0 + 8 * j + ct;
-        if (g < rows && gl < L)
+        if (g < g_end && gl < L)
           *reinterpret_cast<float2*>(part_y + ((size_t)z * rows + g) * L + gl) =
               make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
@@ -575,7 +591,7 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   named_barrier(3 + cw, 128);
   for (int p = t; p < 64 * (BN / 8); p += 128) {
     const int r = p / (BN / 8), c = (p % (BN / 8)) * 8, g = g0 + r;
-    if (g < rows && l0 + c < L)
+    if (g < g_end && l0 + c < L)
       *reinterpret_cast<uint4*>(y + (size_t)g * L + l0 + c) =
           *reinterpret_cast<const uint4*>(ys + r * C::YS_LD + c);
   }
@@ -591,8 +607,17 @@ enum { PATH_SPLIT3 = 0, PATH_WGMMA = 1, PATH_DECODE = 2, PATH_FFMA = 3 };
 // `aligned`: x and every W array can be read with the kernel's TMA and
 // vector loads.
 inline bool use_wgmma(bool aligned, int dtype, int n, int m, int k, int l) {
-  return dtype == 1 && n * m > ThinTile::BM && (n == 1 || m % 64 == 0) && k % 8 == 0 &&
-         l % 8 == 0 && aligned;
+  return dtype == 1 && n * m > ThinTile::BM && k % 8 == 0 && l % 8 == 0 && aligned;
+}
+
+// The wgmma kernel's row tiles per adapter (its `tpa`): 0 where the flat
+// tiles keep each 64-row slab inside one adapter, else ceil(M / 128).
+inline int wg_tpa(int n, int m) { return n > 1 && m % 64 != 0 ? (m + WG_BM - 1) / WG_BM : 0; }
+
+// The wgmma kernel's row tiles in all (grid.x).
+inline int wg_row_tiles(int n, int m) {
+  const int tpa = wg_tpa(n, m);
+  return tpa ? n * tpa : (n * m + WG_BM - 1) / WG_BM;
 }
 
 // Whether a call takes the decode path (decode.cuh): bf16, at most 16 rows
@@ -613,10 +638,10 @@ inline int rank_pad(int r) { return r <= 16 ? 16 : r <= 32 ? 32 : r <= 64 ? 64 :
 // One block per SM: split K only when the output tiles leave SMs idle,
 // keeping at least 4 K steps per range. `splits` > 0 asks for that many
 // ranges instead (the autotuner's candidate), clamped by the same rule.
-inline SplitK plan_wgmma(int rows, int k, int l, int bn, int splits) {
+inline SplitK plan_wgmma(int row_tiles, int k, int l, int bn, int splits) {
   const int ksteps = (k + WG_BK - 1) / WG_BK;
   if (splits > 0) return k_ranges(ksteps, splits, MAX_SPLITS);
-  const int tiles = ((rows + WG_BM - 1) / WG_BM) * ((l + bn - 1) / bn);
+  const int tiles = row_tiles * ((l + bn - 1) / bn);
   return k_ranges(ksteps, tiles >= NUM_SMS ? 1 : NUM_SMS / tiles, MAX_SPLITS);
 }
 
@@ -652,7 +677,7 @@ inline Plan make_plan(bool aligned, bool ab_aligned, bool trans_w, int dtype, in
   }
   if (use_wgmma(aligned, dtype, n, m, k, l)) {
     const int rp = rank_pad(r), bn = wg_bn(rp);
-    const SplitK sk = plan_wgmma(rows, k, l, bn, splits);
+    const SplitK sk = plan_wgmma(wg_row_tiles(n, m), k, l, bn, splits);
     return {PATH_WGMMA, rp, bn, sk.splits, sk.splits, sk.steps,
             sk.splits > 1 ? (long long)sk.splits * rows * (l + r) : 0, 0, 0, 0};
   }
@@ -787,11 +812,11 @@ inline int launch_wgmma(const Plan& pl, const CUtensorMap& tx, const CUtensorMap
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int rows = n * m;
-  const dim3 grid((rows + WG_BM - 1) / WG_BM, (l + C::BN - 1) / C::BN, pl.splits_y);
+  const dim3 grid(wg_row_tiles(n, m), (l + C::BN - 1) / C::BN, pl.splits_y);
   kernel<<<grid, WG_THREADS, C::SMEM, stream>>>(
       tx, tw, w, ta, static_cast<const bf16*>(a), static_cast<const bf16*>(b), scale,
-      static_cast<bf16*>(y), part_y, part_xa, n, m, k, l, r, rows, pl.steps, a_tma(a, r),
+      static_cast<bf16*>(y), part_y, part_xa, n, m, k, l, r, n * m, pl.steps, wg_tpa(n, m),
+      a_tma(a, r),
       WgSource<WS>::TMA ? 0 : (int)q_tma(w_codes(w), l));
   return (int)cudaGetLastError();
 }

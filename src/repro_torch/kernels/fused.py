@@ -18,10 +18,11 @@ A call takes one of four paths of ``csrc/fused.cuh``'s plan, which reads
 only shapes, dtype, W's layout and alignment (``fused_matmul_path`` names
 it): "decode" (bf16, at most 16 rows in all: the weight-streaming kernel of
 ``csrc/decode.cuh``), "wgmma" (bf16, more rows: the warp-specialised
-tensor-core kernel), "ffma" (f32, more than 16 rows, K and L multiples of 4,
-operands on 16 bytes, W row-major or W^T: the tiled FFMA kernel of
-``csrc/ffma.cuh``) or "split3" (f32 and the backward's bf16 W^T at decode
-rows, odd shapes). The plan is asked once per shape and cached, and a
+tensor-core kernel, its row tiles per adapter in a pack whose rows per
+adapter are no multiple of 64), "ffma" (f32, more than 16 rows, K and L
+multiples of 4, operands on 16 bytes, W row-major or W^T: the tiled FFMA
+kernel of ``csrc/ffma.cuh``) or "split3" (f32 and the backward's bf16 W^T
+at decode rows, odd shapes). The plan is asked once per shape and cached, and a
 launch is one ctypes call whose arguments go as one packed block. The
 decode path's one workspace, xA (rows x r f32), lies behind y in y's own
 allocation. Each wrapper counts its launches by direction and path.

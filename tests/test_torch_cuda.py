@@ -10,6 +10,8 @@ order of f32 sums) and 2^-7 for bf16 (one bf16 rounding of the output).
 The quantized fused kernel is held bit-equal to the dense one on the
 dequantized weight (``torch.equal``): the two stage identical tile values.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -168,12 +170,22 @@ def test_fused_q_bit_equal_to_dense_on_dequantized(cuda, mode, dtype, n, m, k, l
         (2, 128, 256, 256, 12, True),   # rank not a multiple of 8: A staged by threads
         (1, 300, 136, 520, 128, True),  # rows off the tile; the widest rank, 128-wide tile
         (2, 128, 4096, 256, 16, True),  # few output tiles: K split in 16 ranges
+        # ragged packs (M % 64 != 0): row tiles per adapter, the last one's
+        # rows past the adapter's end not stored
+        (3, 100, 200, 136, 16, True),
+        (2, 200, 256, 200, 12, True),    # M % 128 > 64; A staged by threads
+        (4, 40, 128, 264, 128, False),   # M < 64: one tile an adapter, its second slab idle
+        (2, 1500, 384, 384, 12, True),   # whisper-tiny's encoder rows
+        (2, 1500, 384, 1536, 16, True),
+        (2, 1500, 1536, 384, 128, True),
+        (3, 100, 4096, 256, 16, True),   # 3 row tiles: K split in 16 ranges
     ],
 )
 def test_wgmma_path_matches_plain(cuda, n, m, k, l, r, scaled):
-    """bf16 training-like shapes take the warp-specialised wgmma kernel: the
-    forward and dx (W^T read in place) against the plain versions, and
-    int8/nf4 bit-equal to the dense kernel on the dequantized W."""
+    """bf16 training-like shapes take the warp-specialised wgmma kernel,
+    ragged packs too: the forward and dx (W^T read in place) against the
+    plain versions, and int8/nf4 bit-equal to the dense kernel on the
+    dequantized W."""
     gen = torch.Generator(device=cuda).manual_seed(8)
     dt = torch.bfloat16
     x, w = _rnd(gen, (n, m, k), dt), _rnd(gen, (k, l), dt, k ** -0.5)
@@ -195,10 +207,13 @@ def test_wgmma_path_matches_plain(cuda, n, m, k, l, r, scaled):
 
 @pytest.mark.gpu
 def test_wgmma_split_k_is_deterministic_and_paths_follow_shapes(cuda):
-    """A split-K call gives the same bits twice (fixed-order partial sums);
-    bf16 decode rows take the weight-streaming kernel, f32 and the
-    backward's W^T at decode rows the three-launch path, bf16 training rows
-    the wgmma kernel, f32 training rows the tiled FFMA kernel."""
+    """A split-K call gives the same bits twice (fixed-order partial sums),
+    a ragged pack's too; bf16 decode rows take the weight-streaming kernel,
+    f32 and the backward's W^T at decode rows the three-launch path, bf16
+    training rows the wgmma kernel (a pack of 2 x 1,000 rows, no multiple
+    of 64, included), f32 training rows the tiled FFMA kernel."""
+    from repro_torch.kernels.fused import fused_matmul_splits
+
     gen = torch.Generator(device=cuda).manual_seed(9)
     dt = torch.bfloat16
     x, w = _rnd(gen, (2, 1024, 3584), dt), _rnd(gen, (3584, 512), dt, 3584 ** -0.5)
@@ -206,10 +221,107 @@ def test_wgmma_split_k_is_deterministic_and_paths_follow_shapes(cuda):
     s = torch.tensor([0.5, 2.0], device=cuda)
     assert fused_matmul_path(x, w, 16) == "wgmma"
     assert torch.equal(fused_matmul(x, w, a, b, s), fused_matmul(x, w, a, b, s))
+    xr = x[:, :1000].contiguous()
+    assert fused_matmul_path(xr, w, 16) == "wgmma"
+    assert fused_matmul_splits(xr, w, 16) > 1
+    assert torch.equal(fused_matmul(xr, w, a, b, s), fused_matmul(xr, w, a, b, s))
     assert fused_matmul_path(x[:, :1], w, 16) == "decode"  # 2 rows, bf16
     assert fused_matmul_path(x[:, :1].float(), w.float(), 16) == "split3"  # 2 rows, f32
     assert fused_matmul_path(x[:, :1], w.t().contiguous().t(), 16) == "split3"  # dx's W^T
     assert fused_matmul_path(x.float(), w.float(), 16) == "ffma"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,d_in,d_out,r", [(3, 100, 384, 392, 16), (2, 1500, 384, 384, 12)])
+def test_ragged_pack_rows_equal_each_adapter_alone(cuda, n, m, d_in, d_out, r):
+    """In a ragged pack (M % 64 != 0, row tiles per adapter) each adapter's
+    rows are, bit for bit, its own call alone (flat tiles, zeros past its
+    end): forward, dx and int8, where both plans take one K range (K <=
+    448: fewer than 8 K steps)."""
+    from repro_torch.kernels.fused import fused_matmul_splits
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    dt = torch.bfloat16
+    (fwd, _), (dx, _) = _train_operands(gen, dt, n, m, d_in, d_out, r, cuda)
+    q = quantize_weight(_rnd(gen, (d_in, d_out), torch.float32, d_in ** -0.5), "int8")
+
+    def int8(x, w, a, b, s):
+        return fused_matmul_q(x, q["codes"], q["scales"], a, b, s)
+
+    def path(name, x, w):
+        if name == "int8":
+            return fused_matmul_q_path(x, q["codes"], q["scales"], r)
+        return fused_matmul_path(x, w, r)
+
+    calls = {"fwd": (fused_matmul, fwd), "dx": (functools.partial(fused_matmul, backward=True), dx),
+             "int8": (int8, fwd)}
+    for name, (fn, (x, w, a, b, s)) in calls.items():
+        packed = fn(x, w, a, b, s)
+        for i in range(n):
+            xi, ai, bi, si = (t[i:i + 1].clone() for t in (x, a, b, s))
+            for xs in (x, xi):
+                assert path(name, xs, w) == "wgmma", name
+                assert fused_matmul_splits(xs, w, r) == 1, name
+            assert torch.equal(packed[i:i + 1], fn(xi, w, ai, bi, si)), (name, i)
+
+
+# sha256 of #2/#3's bf16 "wgmma" outputs on flat row tiles (N == 1 or M %
+# 64 == 0), from the kernel before ragged packs took the wgmma path: their
+# grid, tiles and K ranges, and so their bits, must not move
+WGMMA_FLAT_BITS = {
+    '1x300x1024x520x16:fwd': '6aad144a5a3087ee0cbde812a581442bb534976d771fdb09c5777c3c050ac8f2',
+    '1x300x1024x520x16:dx': '2b2decc0291ccd83ba45d423a7230cfc6d09579ccaa456866b3339b86a02879d',
+    '1x300x1024x520x16:int8': '9590af7480b259c68da2b8ef79f6276ae3ad6132e057822c848291e5aaff6d26',
+    '1x300x1024x520x16:nf4': '67bef351d4bed0bb86cc93a791302e3f894c4b077dda84d1c33bb745b9df2c42',
+    '3x64x200x136x8:fwd': '47cb2ebabd1013280547ca45154d1df55df96a72ed8e48b7a710848411e08ce5',
+    '3x64x200x136x8:dx': '1aa4984b00d8d4b12f7fdde673e0f12097985d6f57e148eff080eb8f43043866',
+    '3x64x200x136x8:int8': '90f822640b07efc72d4cfad5733af9bed2a4bc470a6ffe064d5cc68388147f80',
+    '3x64x200x136x8:nf4': '7d49887b6db5ff235618274ea9d061533190b3011c61c2868b75717dcba8206e',
+    '2x128x4096x256x16:fwd': '7c4387104b970384874e214e0055c23bfa0c9e35af39693998a741e8a6615b4f',
+    '2x128x4096x256x16:dx': 'fd6e3a162bce92a0078be9202c2cda44be15328343760ba2345598eed8b937e3',
+    '2x128x4096x256x16:int8': 'd9134caec10c539fd4bce13cdb10d363e7c15a7d4ad735624c81918a3452b778',
+    '2x128x4096x256x16:nf4': '7bc66a95a1b83564f4b0fc4444c0e7d1dfa002f387e271c89b0a1af09cdf85f0',
+    '2x1024x3584x512x16:fwd': 'ee704debb61e994b44ef18076671a6dbeef2211802d7f1bd58de36cfd8a932b8',
+    '2x1024x3584x512x16:dx': '62f625631466e993046e92847b43504ba34c94fb70c0100ea4669712754abf58',
+    '2x1024x3584x512x16:int8': '27c50ecca5af401ccf81dc2c3cfb6538ce012183ec6fd1bb6775568605d96065',
+    '2x1024x3584x512x16:nf4': '746426a4e4ec26e87e1874217e27b4b94cdea96f900db2c445ce7d4f8a87d723',
+}
+# (n, m, k, l, r): one adapter with a ragged edge, slabs of two adapters
+# in one tile, a K split in 16 ranges, the training shape's k/v
+WGMMA_FLAT_CASES = [(1, 300, 1024, 520, 16), (3, 64, 200, 136, 8), (2, 128, 4096, 256, 16),
+                    (2, 1024, 3584, 512, 16)]
+
+
+@pytest.mark.gpu
+def test_wgmma_flat_rows_keep_their_bits(cuda):
+    """#2's forward and dx and #3's int8/nf4 on the wgmma kernel's flat row
+    tiles, on inputs drawn on the CPU from a seed: the same bits as before
+    ragged packs took that kernel."""
+    import hashlib
+
+    gen = torch.Generator().manual_seed(81)
+
+    def rnd(shape, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(cuda, torch.bfloat16)
+
+    bits = {}
+    for n, m, k, l, r in WGMMA_FLAT_CASES:
+        x, w = rnd((n, m, k)), rnd((k, l), k ** -0.5)
+        a, b, g = rnd((n, k, r), k ** -0.5), rnd((n, r, l)), rnd((n, m, l))
+        s = torch.linspace(0.5, 2.0, n, device=cuda)
+        wt = rnd((k, l), k ** -0.5)  # dx reads W^T of a (k, l) W: a (m, l) g into k columns
+        ys = {"fwd": fused_matmul(x, w, a, b, s),
+              "dx": fused_matmul(g, wt.t(), b.transpose(1, 2).contiguous(),
+                                 a.transpose(1, 2).contiguous(), s, backward=True)}
+        for mode in ("int8", "nf4"):
+            q = quantize_weight(w.float(), mode)
+            ys[mode] = fused_matmul_q(x, q["codes"], q["scales"], a, b, s)
+        assert fused_matmul_path(x, w, r) == fused_matmul_path(g, wt.t(), r) == "wgmma"
+        for name, y in ys.items():
+            bits[f"{n}x{m}x{k}x{l}x{r}:{name}"] = hashlib.sha256(
+                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    print(bits)
+    assert bits == WGMMA_FLAT_BITS
 
 
 # qwen25-7b's projections (d_in, d_out): q and o, k and v, gate and up, down
@@ -1101,14 +1213,14 @@ def test_family_training_shapes_match_plain_on_their_paths(cuda, d_in, d_out):
 @pytest.mark.parametrize("d_in,d_out", FAMILY_PROJ["whisper-tiny"])
 def test_whisper_encoder_rows_match_plain_on_their_planned_paths(cuda, d_in, d_out):
     """bf16 at whisper-tiny's encoder rows (1,500 frames an adapter, r =
-    16): a pack of 2 (1,500 % 64 != 0) plans #2's forward and dx on
-    "split3", one adapter on "wgmma"; #1's xA, xAB and cases 2 and 4 on
-    "mma" either way; each launched once on its path and within the
-    tolerance of its plain version."""
+    16): a pack of 2 (1,500 % 64 != 0: row tiles per adapter) and one
+    adapter alone plan #2's forward and dx on "wgmma"; #1's xA, xAB and
+    cases 2 and 4 on "mma" either way; each launched once on its path and
+    within the tolerance of its plain version."""
     gen = torch.Generator(device=cuda).manual_seed(53)
     m, r, dt = 1500, 16, torch.bfloat16
     w = _rnd(gen, (d_in, d_out), dt, d_in ** -0.5)
-    for n, fused_path in ((2, "split3"), (1, "wgmma")):
+    for n, fused_path in ((2, "wgmma"), (1, "wgmma")):
         s = torch.linspace(0.5, 2.0, n, device=cuda)
         x, g = _rnd(gen, (n, m, d_in), dt), _rnd(gen, (n, m, d_out), dt)
         a, b = _rnd(gen, (n, d_in, r), dt, d_in ** -0.5), _rnd(gen, (n, r, d_out), dt)

@@ -91,7 +91,18 @@ def test_packed_matmul_f32_launcher_calls_match_pallas(call, r):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,m,k,l,r", [(8, 1, 64, 40, 16), (1, 33, 48, 24, 8), (2, 5, 40, 130, 24)])
+@pytest.mark.parametrize(
+    "n,m,k,l,r",
+    [
+        (8, 1, 64, 40, 16),
+        (1, 33, 48, 24, 8),
+        (2, 5, 40, 130, 24),
+        # ragged packs: rows per adapter no multiple of 64, so the card's
+        # "wgmma" path tiles each adapter's rows on their own
+        (2, 150, 64, 72, 16),
+        (3, 100, 128, 136, 12),
+    ],
+)
 def test_fused_plain_matches_pallas(dtype, n, m, k, l, r):
     (jx, tx), (jw, tw), (ja, ta), (jb, tb) = _inputs(
         n + m + r, [(n, m, k), (k, l), (n, k, r), (n, r, l)], dtype,
