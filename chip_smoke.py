@@ -13,8 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``decode_kernel``, ``fused_ffma_kernel``, ``f32_narrow_kernel`` and
    ``f32_short_k_kernel``.
 3. kernels -- calls each kernel at the qwen25-7b serving shapes (decode:
-   N=8 rows, M=1; prefill: N=1, M=256; r=16; plus a ragged pack of ranks
-   (8, 16)) and at its training shapes (N=2 adapters, M=1024 tokens each,
+   N=8 rows, M=1; prefill: N=1, M=256; a prefill chunk, ``chunk``: N=1,
+   M=CHUNK=64, bf16; r=16; plus a ragged pack of ranks (8, 16)) and at its
+   training shapes (N=2 adapters, M=1024 tokens each,
    r=16: the forward calls, the four backward cases of ``packed_matmul``,
    the fused dx reading W^T in place, and ``fused_matmul_q`` on int8 and nf4
    codes, which must also be bit-equal to the dense kernel on the
@@ -63,8 +64,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    an f32 launcher-shape fused row off ``ffma`` (``csrc/ffma.cuh``'s tiled
    FFMA kernel), a bf16 decode
    row of either or of ``packed_matmul`` is off ``decode``, a bf16
-   training row of xA, xAB, case 2 or case 4, or a bf16 prefill row, of
-   ``packed_matmul`` is off ``mma``, or such an f32 row, or an f32
+   training row of xA, xAB, case 2 or case 4, or a bf16 prefill or chunk
+   row, of ``packed_matmul`` is off ``mma`` (a chunk row of ``fused_matmul``
+   off ``wgmma``), or such an f32 row, or an f32
    launcher-shape one, off ``f32skinny`` (``csrc/fskinny.cuh``'s streaming
    FFMA kernels). Then the sync check: ragged
    ``packed_lora_delta`` and ``fused_lora_linear`` (ranks out of order, and
@@ -82,15 +84,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dense-then-quantize at full width cut to 2 layers, and each build's own
    peak held under CR_BUILD_PEAK. On int8, ``make_packed_step`` under
    impl="auto" and "fused" on the train phase's pack (step 1 against the
-   plain path to the train phase's limits, then 3 steps whose counts must
-   move; every ``fused_matmul_q`` call on "wgmma", every ``packed_matmul``
+   plain path to the train phase's limits, then CR_TRAIN_STEPS = 2 steps
+   whose counts must move; every ``fused_matmul_q`` call on "wgmma", every ``packed_matmul``
    call on "mma"; the steps' own peak within [1, C3_SLACK] of
    ``job_mem_bytes`` priced at the tree's storage and dense dtype: ROADMAP
    C6);
    8 requests through ``ServeEngine(base_dtype=...)`` on int8 under fused
    and auto and on nf4 under fused (``fused_matmul_q`` must launch on
-   "decode"), prefill logits and 4 teacher-forced decode steps held against
-   the plain path at LOGIT_TOL; then ``launch/train.py --arch command-r-35b
+   "decode"), prefill logits and CR_SERVE_STEPS = 2 teacher-forced decode
+   steps held against the plain path at LOGIT_TOL; then ``launch/train.py --arch command-r-35b
    --quant nf4 --impl fused`` (an f32 x on nf4 codes: every
    ``fused_matmul_q`` and dx call on "ffma", finite losses, its own peak
    within [1, C3_SLACK] of its own ``CostModel``'s price: the nf4 codes,
@@ -146,10 +148,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sweep and online phases reuse the whole base), 8 published adapters of rank 8 or 16 with non-zero B, 16 requests
    through ``ServeEngine.serve`` under impl="auto" (packed_matmul kernel)
    and impl="fused" (fused kernel). Launch counts are zeroed just before
-   each drain and read just after. Prefill logits and 4 teacher-forced
-   decode steps are held against the plain-version path on the same
-   weights. Then a short drain of each impl runs under ``torch.profiler``
-   (device busy share, device time by kernel).
+   each drain and read just after. Then the same 16 requests under each
+   impl with ``prefill_chunk=CHUNK`` (64): each prompt streamed in chunks
+   between decode steps; every request must return its 32 tokens, the
+   chunks' calls must launch on "mma" (auto) / "wgmma" (fused), and the
+   record carries TTFT and ITL (p50, p95), launches by path and the share
+   of greedy tokens equal to the one-shot drain's. Two prompts' chunked
+   prefill logits are held against the one-shot prefill's and against the
+   plain path's on the same chunks at LOGIT_TOL (``chunk_gates``).
+   Prefill logits and 4 teacher-forced decode steps are held against the
+   plain-version path on the same weights. Then a short fused drain runs
+   under ``torch.profiler`` (device busy share, device time by kernel).
 7. train   -- full-width qwen25-7b cut to its first TRAIN_LAYERS = 5
    layers (a view of the serve phase's bf16 base), a pack of 4 adapters
    of ranks (8, 16, 16, 32) (ragged
@@ -265,8 +274,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whose counts must move; 8 requests through ``ServeEngine.serve``
    (starcoder2 under auto, the others under auto and fused, gemma3's and
    mamba2's prompts of 200-600 tokens), prefill logits and teacher-forced
-   decode steps (gemma3 and mamba2: 8) held against the plain path at
-   LOGIT_TOL; and, for starcoder2, minicpm3 and mamba2, one captured
+   decode steps held against the plain path at LOGIT_TOL, and for gemma3
+   (its prompt across the window), minicpm3 (MLA's chunk branch) and
+   mamba2 (chunks of 256, its scan's) the first prompt's chunked prefill
+   as the serve phase's (``chunk_gates``, FAMILY_CHUNK); and, for
+   starcoder2, minicpm3 and mamba2, one captured
    ``run_local`` job of three configurations of
    ``default_search_space(300, seq_len=512)`` (FAMILY_SWEEP_IDS), equal to
    an eager run, its launches equal to the eager steps', its own peak held
@@ -327,6 +339,11 @@ LOGIT_TOL = 0.05
 PROJ = [((3584, 3584), 2), ((3584, 512), 2), ((3584, 18944), 2), ((18944, 3584), 1)]
 RANK = 16
 CASES = {"decode": (8, 1), "prefill": (1, 256)}
+# chunked prefill (``ServeEngine(prefill_chunk=)``): the serve phase's
+# chunked drains stream each prompt in chunks of CHUNK tokens; the kernel
+# phase's "chunk" rows are one chunk's calls (one adapter, CHUNK rows)
+CHUNK = 64
+CHUNK_CASE = (1, CHUNK)
 TRAIN_CASE = (2, 1024)  # training shapes: N adapters, M = B*S tokens each
 
 # The train phase's pack (alpha = 2r; learning rates inside the paper's
@@ -486,7 +503,7 @@ def nbytes(*ts) -> int:
 # (case, call) of the packed_matmul rows that must take the tensor-core
 # ("mma") path in bf16: the training calls of the N-D delta and prefill.
 MMA_ROWS = {("train", c) for c in ("xA", "xAB", "bwd2_dxA", "bwd4_dx")} | {
-    ("prefill", "xA"), ("prefill", "xAB")}
+    ("prefill", "xA"), ("prefill", "xAB"), ("chunk", "xA"), ("chunk", "xAB")}
 # the same calls in f32, and the launcher's, take the streaming FFMA
 # kernels ("f32skinny")
 F32SKINNY_ROWS = MMA_ROWS | {("launcher", c) for c in ("xA", "xAB", "bwd2_dxA", "bwd4_dx")}
@@ -682,6 +699,13 @@ def kernel_phase(torch, dev):
             check("packed_matmul", case, "pair", d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
                   "2 calls: bmm(bmm(x, A), B)", path_fn=path_fn)
 
+    # one prefill chunk's calls (bf16, as serve runs them): #1's xA and xAB on
+    # "mma", #2 on "wgmma" (one 128-row tile, half its rows masked)
+    n, m = CHUNK_CASE
+    for (d_in, d_out), _ in PROJ:
+        scale = torch.ones((n,), device=dev)
+        packed_rows("chunk", n, m, d_in, d_out, torch.bfloat16, scale)
+        fused_rows("chunk", n, m, d_in, d_out, torch.bfloat16, scale)
     for dtype in (torch.bfloat16, torch.float32):
         for case, (n, m) in CASES.items():
             for (d_in, d_out), _ in PROJ:
@@ -760,13 +784,13 @@ def kernel_phase(torch, dev):
         for (d_in, d_out), _ in family_proj(cr):
             fused_q_rows(CR_LAUNCH_CASE, n, m, d_in, d_out, torch.float32, scale, modes=("nf4",),
                          rank=r, extra={"n": n, "m": m, "rank": r})
-    train_cases = {"train", CR_TRAIN_CASE, *(c for _, _, c in family_cases("train"))}
+    train_cases = {"train", "chunk", CR_TRAIN_CASE, *(c for _, _, c in family_cases("train"))}
     decode_cases = {"decode", CR_DECODE_CASE, *(c for _, _, c in family_cases("decode"))}
     off = [(r["case"], r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] in train_cases and r["dtype"] == "bfloat16"
            and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"]
     if off:
-        fail(f"training-shape fused rows off the wgmma path: {off}")
+        fail(f"training-shape or prefill-chunk fused rows off the wgmma path: {off}")
     # the launcher's own shapes on its f32 base: each same-rank segment of
     # its pack, at the segment's rank (ops._ragged_call), forward and dx,
     # and packed_matmul's calls of --impl auto
@@ -1073,6 +1097,49 @@ def teacher_forced(torch, cfg, base, adapters, prompts, smax, kimpl, pimpl, coun
     return per_step, want.abs().max().item(), per_step_launches
 
 
+def chunk_gates(torch, cfg, base, lora1s, prompts, impl: str, chunk: int) -> dict:
+    """Each prompt's last-position logits from ``prefill_chunked`` in
+    chunks of ``chunk`` under ``impl``, against the one-shot ``prefill``
+    under ``impl`` and against ``prefill_chunked`` on the same chunks under
+    ``impl``'s plain version; each difference relative to max |logit| of
+    what it is held against, and both gated at LOGIT_TOL. ``lora1s``: one
+    width-1 adapter tree a prompt (``row_adapters``)."""
+    from repro_torch.configs import LoraConfig
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models.model import prefill
+    from repro_torch.serve.decode import prefill_chunked
+
+    dev = base["embed"]["w"].device
+    ranks = pack_meta([LoraConfig(rank=16, alpha=16.0)]).ranks
+    kc = KernelConfig(impl=impl, ranks=ranks)
+    pc = KernelConfig(impl={"auto": "plain", "fused": "fused_plain"}[impl], ranks=ranks)
+    scales = torch.ones((1,), dtype=torch.float32, device=dev)  # alpha / r = 1
+    v = cfg.vocab_size
+    out = {"vs_one_shot": [], "vs_plain": []}
+    for lora1, p in zip(lora1s, prompts):
+        toks = torch.from_numpy(p[None]).to(dev)
+        with torch.no_grad():
+            one, _ = prefill(base, lora1, scales, {"tokens": toks}, cfg, kcfg=kc)
+            got, _ = prefill_chunked(base, lora1, scales, toks, cfg, chunk, kcfg=kc)
+            plain, _ = prefill_chunked(base, lora1, scales, toks, cfg, chunk, kcfg=pc)
+        one, got, plain = (t[0, -1, :v].float() for t in (one, got, plain))
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{cfg.name} impl={impl}: non-finite chunked prefill logits")
+        out["vs_one_shot"].append(((got - one).abs().max() / one.abs().max()).item())
+        out["vs_plain"].append(((got - plain).abs().max() / plain.abs().max()).item())
+    rec = {"phase": "serve_chunk_logits", "model": cfg.name, "impl": impl, "chunk": chunk,
+           "prompt_tokens": [len(p) for p in prompts],
+           "rel_err_vs_one_shot": out["vs_one_shot"], "rel_err_vs_plain": out["vs_plain"],
+           "tol": LOGIT_TOL}
+    emit(rec)
+    worst = max(out["vs_one_shot"] + out["vs_plain"])
+    if not worst <= LOGIT_TOL:
+        fail(f"{cfg.name} impl={impl}: chunked prefill logits differ by {worst} > {LOGIT_TOL} "
+             "(from the one-shot prefill or the plain path's chunks)")
+    return rec
+
+
 def profile_serve(torch, cfg, base, adapters, reqs, impl: str, out_dir: Path):
     """Serve 8 requests of 8 new tokens under ``torch.profiler`` (8 one-shot
     prefills, 7 decode steps) and report the device time by operator and
@@ -1130,9 +1197,15 @@ def port_kernels(kernels) -> dict:
 
 def serve_phase(torch, dev):
     """Serves on the first SERVE_LAYERS layers of full-width qwen25-7b (a
-    view of its base). Returns the launch counts of each impl's drain, and
-    the whole base model (the train, sweep and online phases reuse it)."""
+    view of its base): 16 requests under each impl with one-shot prefills,
+    then with their prompts streamed in chunks of CHUNK (``prefill_chunk``),
+    each chunked drain's tokens against its impl's one-shot drain, and two
+    prompts' chunked prefill logits held against the one-shot prefill's and
+    the plain path's (``chunk_gates``). Returns the launch counts of each
+    drain ("chunked:<impl>": the chunk path's launches), and the whole base
+    model (the train, sweep and online phases reuse it)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import launches as launch_counts
     from repro_torch.models.model import init_model
     from repro_torch.serve.engine import ServeEngine, poisson_requests
     from repro_torch.tree import tree_leaves
@@ -1184,6 +1257,42 @@ def serve_phase(torch, dev):
         del eng
     emit({"phase": "serve_agreement",
           "greedy_token_match_share": float((tokens["auto"] == tokens["fused"]).mean())})
+    # the same requests with their prompts streamed in chunks of CHUNK
+    # between decode steps; the chunks' calls take "mma" / "wgmma" (and
+    # "decode" at a tail of <= 16 rows)
+    chunk_path = {"auto": ("packed_matmul", "mma"), "fused": ("fused_matmul", "wgmma")}
+    for impl in ("auto", "fused"):
+        eng = ServeEngine(cfg, base, rows=8, smax=512, r_bucket=16, slot_capacity=8,
+                          prefill_chunk=CHUNK, impl=impl, device=dev)
+        for i, (tree, r) in enumerate(adapters):
+            eng.publish(f"ad{i}", tree, {"rank": r, "alpha": float(r)})
+        zero_counts()
+        stats = eng.serve(reqs)
+        torch.cuda.synchronize()
+        by_path = launch_counts.read_paths()
+        kernel, path = chunk_path[impl]
+        launches[f"chunked:{impl}"] = {f"{kernel}:{path}": by_path[kernel].get(path, 0)}
+        if by_path[kernel].get(path, 0) == 0:
+            fail(f"chunked impl={impl}: {kernel} never launched on \"{path}\" at chunk rows")
+        bad = [r for r in stats.results if r.error is not None or len(r.tokens) != 32]
+        if bad or len(stats.results) != 16:
+            fail(f"chunked impl={impl}: requests failed: {[(r.request_id, r.error) for r in bad]}")
+        toks = np.stack([r.tokens for r in stats.results])
+        if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            fail(f"chunked impl={impl}: token ids outside the vocabulary")
+        lat = stats.latency_summaries()
+        emit({"phase": "serve_chunked", "impl": impl, "prefill_chunk": CHUNK,
+              "requests": len(stats.results), "tokens": stats.tokens_emitted,
+              "steps": stats.steps, "mean_occupancy": stats.mean_occupancy,
+              "wall_s": stats.wall_seconds, "tokens_per_s": stats.tokens_per_s,
+              "ttft_p50_s": lat["ttft"]["p50"], "ttft_p95_s": lat["ttft"]["p95"],
+              "itl_p50_s": lat["itl"]["p50"], "itl_p95_s": lat["itl"]["p95"],
+              "greedy_token_match_share_vs_one_shot": float((toks == tokens[impl]).mean()),
+              "launches_by_path": by_path})
+        del eng
+    lora1s = row_adapters(torch, cfg, adapters[:2], dev)
+    for impl in ("auto", "fused"):
+        chunk_gates(torch, cfg, base, lora1s, [r.prompt for r in reqs[:2]], impl, CHUNK)
     with torch.no_grad():
         for kimpl, pimpl in (("auto", "plain"), ("fused", "fused_plain")):
             per_step, ref_max, per_dec = teacher_forced(
@@ -1198,8 +1307,8 @@ def serve_phase(torch, dev):
                 fail(f"impl={kimpl}: logits differ from {pimpl} by {rel} > {LOGIT_TOL}")
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
-    for impl in ("auto", "fused"):
-        profile_serve(torch, cfg, base, adapters, reqs, impl, out_dir)
+    # the fused drain only (the auto one was cut for the chunked drains' time)
+    profile_serve(torch, cfg, base, adapters, reqs, "fused", out_dir)
     return launches, full
 
 
@@ -2681,13 +2790,14 @@ FAMILY_TRAIN_SEQ = {"starcoder2-7b": 512, "gemma3-1b": 1024, "minicpm3-4b": 512,
 FAMILY_TRAIN_STEPS = 2
 FAMILY_TRAIN_IMPLS = ("auto", "fused")
 # (impls, prompt lengths [lo, hi), new tokens per request, teacher-forced
-# decode steps)
+# decode steps; gemma3's and mamba2's steps cut from 8 to 4 for the chunk
+# gates' time)
 FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 8, 4),
-                "gemma3-1b": (("auto", "fused"), (520, 601), 8, 8),
+                "gemma3-1b": (("auto", "fused"), (520, 601), 8, 4),
                 "minicpm3-4b": (("auto", "fused"), (64, 257), 8, 4),
                 # prompts of 200-600 tokens: below, across and past the scan's
                 # 256- and 512-token chunk boundaries
-                MAMBA2: (("auto", "fused"), (200, 601), 8, 8),
+                MAMBA2: (("auto", "fused"), (200, 601), 8, 4),
                 # a prefill of T tokens drops pairs past 1.25 T k / E slots an
                 # expert; 8 decode rows drop none (8 slots at least)
                 MOE: (("auto", "fused"), (64, 601), 8, 4),
@@ -2698,6 +2808,11 @@ FAMILY_SERVE = {"starcoder2-7b": (("auto",), (64, 257), 8, 4),
                 # internvl2's positions start after its 256 patches
                 WHISPER: (("auto", "fused"), (16, 201), 8, 4),
                 INTERNVL: (("auto", "fused"), (64, 258), 8, 4)}
+# the families whose first prompt's chunked prefill is held against its
+# one-shot prefill and the plain path's chunks (``chunk_gates``), with the
+# chunk: gemma3's prompt crosses its window of 512, minicpm3 takes MLA's
+# chunk branch, mamba2 resumes its scan at its own chunk of 256
+FAMILY_CHUNK = {"gemma3-1b": CHUNK, "minicpm3-4b": CHUNK, MAMBA2: 256}
 # the families whose serve check feeds the plain path the kernel path's
 # expert choices, as it feeds it the kernel path's tokens
 # (``teacher_forced(routes=)``). At a near-tie between a token's k-th and
@@ -2816,11 +2931,13 @@ def family_serve(torch, dev, arch: str, cfg, base):
     FAMILY_SERVE (launch counts zeroed just before each drain and read
     just after), each with its own frames or patches where the model takes
     them, then prefill logits and teacher-forced decode steps held against
-    the plain path. Returns each impl's launch counts."""
+    the plain path; for FAMILY_CHUNK, the first prompt's chunked prefill
+    (``chunk_gates``). Returns each impl's launch counts."""
     from repro_torch.serve.engine import ServeEngine, poisson_requests
 
     impls, (lo, hi), new_tokens, steps = FAMILY_SERVE[arch]
     adapters = make_adapters(torch, cfg, 8)
+    lora1s = row_adapters(torch, cfg, adapters, dev)
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(lo, hi)).astype(np.int32)
                for _ in range(8)]
@@ -2863,7 +2980,9 @@ def family_serve(torch, dev, arch: str, cfg, base):
             pimpl = {"auto": "plain", "fused": "fused_plain"}[impl]
             per_step, ref_max, per_dec = teacher_forced(
                 torch, cfg, base, adapters, prompts, smax, impl, pimpl, counters[impl], steps,
-                routes=routes, extras=extras)
+                lora1s=lora1s, routes=routes, extras=extras)
+            if arch in FAMILY_CHUNK:
+                chunk_gates(torch, cfg, base, lora1s[:1], prompts[:1], impl, FAMILY_CHUNK[arch])
         rel = max(per_step) / ref_max
         extra = {} if routes is None else {
             "plain_replays_kernel_routes": True,
@@ -3122,7 +3241,9 @@ CR_CHECK_LAYERS = 2
 # tree (int8 32.4 GB, nf4 20.0 GB) plus one layer's temporaries, or the
 # embedding's f32 draw (12.6 GB with the bf16 copy)
 CR_BUILD_PEAK = {"int8": 40e9, "nf4": 28e9}
-CR_TRAIN_STEPS = 3
+# steps cut from 3 to 2, and the teacher-forced decode steps below from 4
+# to 2, for the serve phase's chunked drains (PERF.md §4)
+CR_TRAIN_STEPS = 2
 CR_TRAIN_IMPLS = ("auto", "fused")
 # (base, impl) of each serve run: 8 requests of 64-256 prompt tokens, 16
 # new tokens each, 8 rows; under "fused" each decode step runs
@@ -3131,7 +3252,7 @@ CR_TRAIN_IMPLS = ("auto", "fused")
 CR_SERVE_RUNS = (("int8", "fused"), ("int8", "auto"), ("nf4", "fused"))
 CR_SERVE_PROMPT = (64, 257)
 CR_SERVE_NEW = 16
-CR_SERVE_STEPS = 4  # teacher-forced decode steps held against the plain path
+CR_SERVE_STEPS = 2  # teacher-forced decode steps held against the plain path
 # the launcher on an nf4 base with an f32 x (the launcher draws in f32):
 # fused_matmul_q on its "ffma" path, 2 captured steps after the warm-up
 CR_LAUNCH_ARGS = ["--arch", COMMAND_R, "--quant", "nf4", "--impl", "fused", "--seq", "512",
@@ -3730,6 +3851,14 @@ USES = [
      ("serve", "auto", "packed_matmul")),
     ("fused_matmul", "fused_matmul", ("fused",), "decode",
      "fused.cu", "src/repro/kernels/fused.py:275", ("serve", "fused", "fused_matmul")),
+    # one prefill chunk's calls (N = 1 x M = CHUNK), launched at chunk rows in
+    # the serve phase's chunked drains
+    ("packed_matmul:prefill_chunk", "packed_matmul", ("xA", "xAB"), "chunk",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("serve", "chunked:auto", "packed_matmul:mma")),
+    ("fused_matmul:prefill_chunk", "fused_matmul", ("fused",), "chunk",
+     "fused.cu", "src/repro/kernels/fused.py:275",
+     ("serve", "chunked:fused", "fused_matmul:wgmma")),
     ("packed_matmul:train_forward", "packed_matmul", ("xA", "xAB"), "train",
      "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
      ("train", "auto", "packed_matmul")),

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s phases alone on one CUDA card.
 
-    python3 scripts/smoke_phases.py              # kernels, command_r, moe, jamba, families
+    python3 scripts/smoke_phases.py              # kernels, command_r, moe, jamba, serve, families
     python3 scripts/smoke_phases.py kernels      # the kernel phase alone
     python3 scripts/smoke_phases.py command_r    # the command_r phase alone
     python3 scripts/smoke_phases.py kernels moe  # the kernel rows and qwen3-moe-30b-a3b
     python3 scripts/smoke_phases.py kernels jamba  # the kernel rows and jamba-v0.1-52b
+    python3 scripts/smoke_phases.py kernels serve  # the kernel rows and qwen25-7b's serve
     python3 scripts/smoke_phases.py kernels families
     python3 scripts/smoke_phases.py families:whisper-tiny,internvl2-1b  # some families
 
 Builds the kernels, then runs ``chip_smoke.kernel_phase``,
 ``chip_smoke.command_r_phase``, ``chip_smoke.moe_phase``,
-``chip_smoke.jamba_phase`` and/or ``chip_smoke.families_phase`` (in the
+``chip_smoke.jamba_phase``, ``chip_smoke.serve_phase`` (one-shot and
+chunked drains) and/or ``chip_smoke.families_phase`` (in the
 smoke's order; ``families:<arch>,...`` runs those families alone) with the smoke's own checks (a failed check exits
 non-zero), printing the smoke's JSON lines. With the kernel phase and
 another, one ``phase_use`` line per ``kernels`` entry of that phase's
@@ -27,7 +29,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("kernels", "command_r", "moe", "jamba", "families")
+PHASES = ("kernels", "command_r", "moe", "jamba", "serve", "families")
 
 
 def main() -> None:
@@ -72,6 +74,12 @@ def main() -> None:
         t0 = time.perf_counter()
         counts[cs.JAMBA] = cs.jamba_phase(torch, dev, out)
         cs.emit({"phase": "jamba_phase_done", "seconds": time.perf_counter() - t0})
+    if "serve" in which:
+        t0 = time.perf_counter()
+        counts["serve"], base = cs.serve_phase(torch, dev)
+        del base
+        torch.cuda.empty_cache()
+        cs.emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
     if "families" in which:
         t0 = time.perf_counter()
         if archs is not None and any(a not in cs.FAMILIES for a in archs):

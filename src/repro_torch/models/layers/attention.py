@@ -89,6 +89,16 @@ def decode_attention(q, k, v, pos, *, window: int = 0, scale=None):
     return out.reshape(b, 1, h, v.shape[-1])
 
 
+def chunk_start(pos) -> int:
+    """The first position of a prefill chunk (S > 1 against a cache): a
+    scalar, as the reference asserts (``attention.py:212-213``); a (NB,)
+    vector of per-row positions takes one token per row."""
+    if isinstance(pos, torch.Tensor) and pos.dim() != 0:
+        raise ValueError("a vector pos takes one token per row; a prefill chunk (S > 1) "
+                         "takes a scalar pos")
+    return int(pos)
+
+
 def init_gqa(gen, acfg: AttentionConfig, d_model, meta, targets, dtype=torch.float32, device=None):
     h, kv, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
     params = {
@@ -126,9 +136,17 @@ def apply_gqa(
 
     With a cache (single-token decode) this step's k/v are written into it
     in place at ``pos`` — a (NB,) vector writes each row at its own slot —
-    and the updated cache is returned. With ``cross_kv`` ({"k", "v"}: (NB,
-    S_enc, KV, D), an encoder's output through the cross sublayer's plain
-    k/v products) the queries, without rope, attend those keys and values
+    and the updated cache is returned. A cached call with S > 1 is one
+    chunk of a chunk-resumable prefill (``model.prefill_chunk``): ``pos`` a
+    scalar (a Python int, or a 0-d tensor read once on the host), the
+    chunk's k/v written in place at ``[pos, pos + S)``, and its queries, at
+    ``pos + arange(S)``, attend the whole cache under the layer's causal
+    mask and ``window`` (``_attend_chunk``; the reference's
+    ``attention.py:208-233``), the cache read in the compute dtype, as the
+    one-shot path's k/v are. With capacity S_total (the prompt's length)
+    the chunks reproduce the one-shot prefill. With ``cross_kv`` ({"k",
+    "v"}: (NB, S_enc, KV, D), an encoder's output through the cross
+    sublayer's plain k/v products) the queries, without rope, attend those keys and values
     unmasked, and no cache is written: the reference's cross-attention path
     (``attention.py:193-198``)."""
     lo = lora or {}
@@ -146,13 +164,19 @@ def apply_gqa(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if cache is not None:
-        if s != 1:
-            raise ValueError("cached attention takes one token per row")
         ck, cv = cache["k"], cache["v"]
-        rows = torch.arange(nb, device=x.device)
-        ck[rows, pos] = k[:, 0].to(ck.dtype)
-        cv[rows, pos] = v[:, 0].to(cv.dtype)
-        out = decode_attention(q, ck, cv, pos, window=window)
+        if s == 1:
+            rows = torch.arange(nb, device=x.device)
+            ck[rows, pos] = k[:, 0].to(ck.dtype)
+            cv[rows, pos] = v[:, 0].to(cv.dtype)
+            out = decode_attention(q, ck, cv, pos, window=window)
+        else:
+            p0 = chunk_start(pos)
+            ck[:, p0 : p0 + s] = k.to(ck.dtype)
+            cv[:, p0 : p0 + s] = v.to(cv.dtype)
+            kpos = torch.arange(ck.shape[1], device=x.device)
+            out = _attend_chunk(q, ck.to(q.dtype), cv.to(q.dtype), kpos[p0 : p0 + s], kpos,
+                                hd ** -0.5, window, causal)
         new_cache = cache
     else:
         out = flash_attention(q, k, v, causal=causal, window=window, chunk_q=chunk_q)
@@ -207,6 +231,18 @@ def _mla_qkv(params, lo, scales, x, n_pack, acfg, rope, kcfg=None):
     return q_nope, q_rope, ckv, k_rope
 
 
+def _mla_expand(params, acfg: AttentionConfig, q_nope, q_rope, ckv, k_rope):
+    """Train's and a prefill's per-head operands from the latent: Q = [q_nope
+    | q_rope], K = [ckv @ kv_b_k | k_rope, shared by every head], V = ckv @
+    kv_b_v. ckv: (NB, Sk, kvlr); k_rope: (NB, Sk, dr)."""
+    nb, sk, _ = ckv.shape
+    h, dn, dv = acfg.n_heads, acfg.qk_nope_head_dim, acfg.v_head_dim
+    k_nope = (ckv @ params["kv_b_k"]["w"].to(ckv.dtype)).reshape(nb, sk, h, dn)
+    v = (ckv @ params["kv_b_v"]["w"].to(ckv.dtype)).reshape(nb, sk, h, dv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(nb, sk, h, k_rope.shape[-1])], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k, v
+
+
 def apply_mla(
     params, lora, scales, x, *,
     acfg: AttentionConfig,
@@ -227,7 +263,13 @@ def apply_mla(
     k_rope are written into it in place at ``pos`` (a (NB,) vector writes
     each row at its own slot) and the step attends in the latent space:
     W_uk folded into q, scores against the compressed cache, the context
-    expanded through W_uv (the absorbed decode)."""
+    expanded through W_uv (the absorbed decode). A cached call with S > 1
+    (a prefill chunk at a scalar ``pos``, as GQA's) writes the chunk's ckv
+    and k_rope at ``[pos, pos + S)``, then expands the *whole* latent cache,
+    read in the compute dtype, through ``kv_b_k`` / ``kv_b_v`` exactly as
+    the prefill branch does and attends with ``_attend_chunk`` (the
+    reference's ``attention.py:355-381``): the absorbed form is not bitwise
+    the expanded one, so it stays for S = 1."""
     lo = lora or {}
     nb, s, _ = x.shape
     h = acfg.n_heads
@@ -235,15 +277,20 @@ def apply_mla(
     scale = (dn + dr) ** -0.5
     q_nope, q_rope, ckv, k_rope = _mla_qkv(params, lo, scales, x, n_pack, acfg, rope, kcfg)
     if cache is None:
-        k_nope = (ckv @ params["kv_b_k"]["w"].to(ckv.dtype)).reshape(nb, s, h, dn)
-        v = (ckv @ params["kv_b_v"]["w"].to(ckv.dtype)).reshape(nb, s, h, dv)
-        k = torch.cat([k_nope, k_rope.expand(nb, s, h, dr)], dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
+        q, k, v = _mla_expand(params, acfg, q_nope, q_rope, ckv, k_rope[:, :, 0, :])
         out = flash_attention(q, k, v, chunk_q=chunk_q, scale=scale)
         new_cache = {"ckv": ckv, "k_rope": k_rope[:, :, 0, :]} if make_cache else None
+    elif s > 1:
+        ckv_c, kr_c = cache["ckv"], cache["k_rope"]
+        p0 = chunk_start(pos)
+        ckv_c[:, p0 : p0 + s] = ckv.to(ckv_c.dtype)
+        kr_c[:, p0 : p0 + s] = k_rope[:, :, 0].to(kr_c.dtype)
+        q, k, v = _mla_expand(params, acfg, q_nope, q_rope, ckv_c.to(ckv.dtype),
+                              kr_c.to(k_rope.dtype))
+        kpos = torch.arange(ckv_c.shape[1], device=x.device)
+        out = _attend_chunk(q, k, v, kpos[p0 : p0 + s], kpos, scale)
+        new_cache = cache
     else:
-        if s != 1:
-            raise ValueError("cached attention takes one token per row")
         ckv_c, kr_c = cache["ckv"], cache["k_rope"]
         rows = torch.arange(nb, device=x.device)
         ckv_c[rows, pos] = ckv[:, 0].to(ckv_c.dtype)

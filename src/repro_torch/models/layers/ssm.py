@@ -164,6 +164,37 @@ def apply_ssm(params, lora, scales, x, *, scfg: SSMConfig, n_pack: int = 1,
     return out, cache
 
 
+def apply_ssm_chunk(params, lora, scales, x, cache, *, scfg: SSMConfig, n_pack: int = 1,
+                    kcfg=None):
+    """One chunk of a chunk-resumable prefill (the reference's
+    ``ssm.py:178-219``). x: (NB, S, d), S > 1; cache: {conv (NB, K-1, C),
+    state (NB, H, P, N)} as ``apply_ssm(return_state=True)`` or this leaves
+    them, updated in place (``copy_``, as ``apply_ssm_decode``) and
+    returned. The conv window is replayed from the cached K-1 rows (put
+    ahead of the chunk's conv input; the first K-1 outputs, over the zero
+    padding, are dropped) and the scan resumes from the cached state
+    (``_ssd_scan(state0=)``), with ``apply_ssm``'s promotions: the conv in
+    f32, the state f32. When every resume falls on a multiple of
+    ``scfg.chunk_size`` the chunks reproduce ``apply_ssm`` bit for bit on
+    the CPU's f32 path (``serve.decode.align_prefill_chunk`` rounds the
+    engine's chunk up to it); off that grid the scan regroups its sums."""
+    lo = lora or {}
+    nb, s, d = x.shape
+    di, h, n, k = scfg.d_inner(d), scfg.n_heads(d), scfg.d_state, scfg.d_conv
+    z, conv_in, dt_raw = _in_proj(params, lo, scales, x, scfg, n_pack, kcfg)
+    win = torch.cat([cache["conv"].float(), conv_in.float()], dim=1)  # (NB, K-1+S, C)
+    conv = F.silu(_causal_conv(win, params["conv_w"], params["conv_b"])[:, k - 1 :])
+    xs, b, c = conv[..., :di], conv[..., di : di + n], conv[..., di + n :]
+    dt = F.softplus(dt_raw.float())
+    xh = xs.reshape(nb, s, h, -1)
+    y, state = _ssd_scan(xh, b, c, dt, params["a_log"], scfg.chunk_size, state0=cache["state"])
+    y = y + params["d_skip"].float()[None, None, :, None] * xh
+    out = _out_proj(params, lo, scales, y.reshape(nb, s, di), z, n_pack, kcfg)
+    cache["conv"].copy_(win[:, -(k - 1) :])
+    cache["state"].copy_(state)
+    return out, cache
+
+
 def apply_ssm_decode(params, lora, scales, x, cache, *, scfg: SSMConfig, n_pack: int = 1,
                      kcfg=None):
     """One-token step. x: (NB, 1, d); cache: {conv (NB, K-1, C), state (NB,

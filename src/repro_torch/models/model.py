@@ -12,6 +12,7 @@ unchanged):
   logits(base, hidden, cfg)                  -> (NB,S,V)
   init_caches(cfg, nb, smax)                 -> cache tree
   prefill(...)                               -> (last logits (NB,1,V), caches)
+  prefill_chunk(...)                         -> (last logits (NB,1,V), caches)
   decode_step(...)                           -> (logits (NB,1,V), caches)
 
 The pack dim N is folded into the leading batch: every tensor is (N*B, ...).
@@ -31,6 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ENCODER_LAYER, ModelConfig, lora_layout
 from repro_torch.core.adapter import PackMeta
+from repro_torch.models.layers.attention import chunk_start
 from repro_torch.models.layers.common import apply_norm, init_linear, init_norm
 from repro_torch.models.transformer import (
     LayerSpec,
@@ -268,3 +270,35 @@ def prefill(base, lora, scales, batch, cfg: ModelConfig, *,
     hidden, caches, _ = forward(base, lora, scales, batch, cfg, n_pack=n_pack,
                              chunk_q=chunk_q, make_cache=True, kcfg=kcfg)
     return logits(base, hidden[:, -1:, :], cfg), caches
+
+
+def prefill_chunk(base, lora, scales, tokens: torch.Tensor, caches, pos: int, cfg: ModelConfig, *,
+                  n_pack: int = 1, kcfg=None):
+    """One chunk of a chunk-resumable prefill (the reference's
+    ``model.py:200-237``): embed ``tokens`` (NB, C) at positions ``pos +
+    arange(C)`` (``pos`` a Python int: the caller's loop knows it, so no
+    layer reads it back from the card), run the stack against the
+    partly filled ``caches`` (updated in place: attention writes the
+    chunk's k/v at ``pos`` and attends the whole cache under its masks,
+    an SSM layer replays its conv window and resumes its state), and
+    return (last-position logits (NB, 1, V), caches).
+
+    Over consecutive chunks into caches of capacity S (the prompt's
+    length) this reproduces ``prefill``'s logits and caches; on an SSM
+    stack every ``pos`` must be a multiple of ``cfg.ssm.chunk_size`` for
+    that. An encoder-decoder raises ``ValueError``: its prefill is one
+    shot, as a VLM's with its patch prefix is (the engine keeps both so)."""
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: an encoder-decoder's prefill is one shot; "
+                         "prefill_chunk does not take it")
+    pos = chunk_start(pos)
+    x = _embed(base, tokens, cfg)
+    positions = torch.arange(pos, pos + tokens.shape[1], device=tokens.device)
+    x, caches, _ = apply_stack(
+        base["decoder"], (lora or {}).get("decoder", _NO_LORA), scales, x, cfg,
+        layer_specs(cfg), n_pack=n_pack, rope_cache=make_rope_cache(cfg, positions),
+        caches=caches, kcfg=kcfg,
+        # a one-token chunk takes the decode step's formulas, which index by a tensor
+        pos=positions[0] if tokens.shape[1] == 1 else pos,
+    )
+    return logits(base, _final_norm(base, x, cfg)[:, -1:, :], cfg), caches

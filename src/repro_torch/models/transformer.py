@@ -33,6 +33,7 @@ from repro_torch.kernels.quant import quantize_base_params
 from repro_torch.models.layers.attention import (
     apply_gqa,
     apply_mla,
+    chunk_start,
     init_gqa,
     init_gqa_cache,
     init_mla,
@@ -41,7 +42,13 @@ from repro_torch.models.layers.attention import (
 from repro_torch.models.layers.common import apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.models.layers.moe import apply_moe, init_moe
 from repro_torch.models.layers.rope import rope_tables
-from repro_torch.models.layers.ssm import apply_ssm, apply_ssm_decode, init_ssm, init_ssm_cache
+from repro_torch.models.layers.ssm import (
+    apply_ssm,
+    apply_ssm_chunk,
+    apply_ssm_decode,
+    init_ssm,
+    init_ssm_cache,
+)
 from repro_torch.tree import tree_index, tree_map, tree_stack
 
 
@@ -147,20 +154,24 @@ def apply_layer(
     base's dtype, and the residual adds stay f32 (see ``layers/ssm.py``);
     an MoE router reads its norm's f32 output, its experts the cast, and
     its combine sums in f32 (``layers/moe.py``). In a family whose stream
-    is the base's dtype the casts do nothing. An SSM layer with a cache
-    takes one token per row (``apply_ssm_decode``, the cache updated in
-    place); the reference's chunk-resumable prefill (``apply_ssm_chunk``)
-    is not ported, so a cached call with S > 1 raises, as MLA's does."""
+    is the base's dtype the casts do nothing. With a cache a layer takes
+    one token per row (decode) or, at a scalar ``pos``, one chunk of a
+    chunk-resumable prefill (S > 1; ``model.prefill_chunk``): an SSM layer
+    runs ``apply_ssm_decode`` or ``apply_ssm_chunk`` (the reference's
+    ``transformer.py:215-218``), attention writes the chunk at ``[pos, pos
+    + S)`` and attends the whole cache; either updates the cache in place.
+    An MoE layer needs nothing of it: a chunk's expert capacity is set by
+    the chunk's own tokens, as in the reference."""
     lo = lora or {}
     h = apply_norm(params["norm1"], x, cfg.norm_kind).to(params["norm1"]["scale"].dtype)
     if spec.mixer == "ssm":
         grp = "ssm"
         kw = dict(scfg=cfg.ssm, n_pack=n_pack, kcfg=kcfg)
-        if cache:
-            if h.shape[1] != 1:
-                raise ValueError("a cached SSM layer takes one token per row (chunked "
-                                 "prefill is not ported)")
+        if cache and h.shape[1] == 1:
             y, c = apply_ssm_decode(params["ssm"], lo.get("ssm"), scales, h, cache["ssm"], **kw)
+        elif cache:
+            chunk_start(pos)  # a chunk's pos is a scalar, as attention's
+            y, c = apply_ssm_chunk(params["ssm"], lo.get("ssm"), scales, h, cache["ssm"], **kw)
         else:
             y, c = apply_ssm(params["ssm"], lo.get("ssm"), scales, h, return_state=make_cache,
                              **kw)

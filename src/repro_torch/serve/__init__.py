@@ -1,4 +1,11 @@
-from repro_torch.serve.decode import generate, make_prefill, make_serve_step, pad_caches
+from repro_torch.serve.decode import (
+    align_prefill_chunk,
+    generate,
+    make_prefill,
+    make_serve_step,
+    pad_caches,
+    prefill_chunked,
+)
 from repro_torch.serve.engine import (
     AdapterSlotCache,
     ServeEngine,
@@ -11,10 +18,12 @@ from repro_torch.serve.engine import (
 )
 
 __all__ = [
+    "align_prefill_chunk",
     "generate",
     "make_prefill",
     "make_serve_step",
     "pad_caches",
+    "prefill_chunked",
     "AdapterSlotCache",
     "ServeEngine",
     "ServeExecutor",

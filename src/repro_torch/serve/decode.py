@@ -12,7 +12,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter import PackMeta
-from repro_torch.models.model import decode_step, prefill
+from repro_torch.models.model import decode_step, init_caches, prefill
 
 
 def _scales(meta: Optional[PackMeta], device) -> torch.Tensor:
@@ -86,6 +86,46 @@ def pad_caches(caches, target_len: int):
         return t
 
     return walk(caches)
+
+
+def align_prefill_chunk(cfg: ModelConfig, chunk: Optional[int]) -> Optional[int]:
+    """A prefill chunk rounded up so that every resume is safe (the
+    reference's ``decode.py:91-105``): attention chunks commute with the
+    causal mask at any boundary, but an SSD scan resumes bit for bit only on
+    its own chunk grid, so on a stack with an SSM layer the chunk rounds up
+    to a multiple of ``cfg.ssm.chunk_size``. None or 0 (or less): no
+    chunking, one-shot prefill."""
+    if not chunk or chunk <= 0:
+        return None
+    if cfg.ssm is not None and "ssm" in cfg.layer_kinds():
+        q = cfg.ssm.chunk_size
+        chunk = -(-chunk // q) * q
+    return int(chunk)
+
+
+def prefill_chunked(base, lora, scales, tokens: torch.Tensor, cfg: ModelConfig, chunk: int, *,
+                    n_pack: int = 1, kcfg=None, executor=None, capacity: Optional[int] = None):
+    """``prefill``'s contract built from ``prefill_chunk`` steps of at most
+    ``chunk`` tokens (aligned by ``align_prefill_chunk``), the reference's
+    ``decode.py:107-143``: returns (last-position logits (NB, 1, V), caches)
+    with caches of capacity ``capacity or S``, in f32 as the reference's
+    (the engine casts them where it writes a row). At capacity S the result
+    equals the one-shot ``prefill``'s: every chunk attends a cache of the
+    one-shot operands' shapes. ``tokens`` (NB, S) lie on the device the
+    caches are made on."""
+    from repro_torch.serve.engine import ServeExecutor
+
+    chunk = align_prefill_chunk(cfg, chunk)
+    if not chunk:
+        raise ValueError("prefill_chunked needs a positive chunk size")
+    ex = executor if executor is not None else ServeExecutor()
+    nb, s = tokens.shape
+    caches = init_caches(cfg, nb, capacity or s, dtype=torch.float32, device=tokens.device)
+    fn = ex.prefill_chunk_fn(cfg, n_pack, kcfg=kcfg)
+    lg = None
+    for p0 in range(0, s, chunk):
+        lg, caches = fn(base, lora, scales, tokens[:, p0 : p0 + chunk], caches, p0)
+    return lg, caches
 
 
 def generate(base, lora, cfg: ModelConfig, meta: Optional[PackMeta],

@@ -1,11 +1,17 @@
-"""Continuous-batching multi-LoRA serving engine (greedy, one-shot prefill).
+"""Continuous-batching multi-LoRA serving engine (greedy).
 
 The port of ``repro/serve/engine.py``'s serve side. The decode batch has a
 fixed width of ``rows`` independent slots, each carrying its *own* adapter:
 the packed-LoRA delta runs at row granularity (``n_pack == rows``, one token
 per row, per-row scales and per-row decode positions). When a row finishes
 its request, the next queued request is admitted into it before the next
-step, so the batch never drains while work is queued.
+step, so the batch never drains while work is queued. Admission prefills a
+prompt in one shot (the default), or, with ``prefill_chunk`` set, streams
+it into a row-private cache in chunks of at most that many tokens, one
+chunk per engine iteration between decode steps (``model.prefill_chunk``;
+the reference's ``engine.py:11-16``): the other rows keep emitting while a
+long prompt fills, each paying one chunk of inter-token latency a step, not
+the whole prefill.
 
 ``AdapterSlotCache``
     Fixed-capacity host-side staging for adapter weights, LRU-evicted;
@@ -14,16 +20,18 @@ step, so the batch never drains while work is queued.
     checkpoint pool is not ported yet).
 
 ``ServeExecutor``
-    A keyed cache of the prefill and decode-step closures, one per
-    ``(kind, cfg, n_rows, ...)`` key, with ``scales`` a runtime argument.
+    A keyed cache of the prefill, prefill-chunk and decode-step closures,
+    one per ``(kind, cfg, n_rows, ...)`` key, with ``scales`` a runtime
+    argument.
 
 ``ServeEngine``
     The event loop: ``publish``, ``submit``, ``serve`` and the width-1
     ``serve_sequential`` baseline.
 
-Invariants, checked in ``tests/test_torch_serve.py``: continuous batching
-emits the same greedy tokens as ``serve_sequential``. Unlike the reference,
-the logits are equal only within rounding, not bitwise: the base GEMMs run
+Invariants, checked in ``tests/test_torch_serve.py`` and
+``tests/test_torch_chunked_prefill.py``: continuous batching, chunked or
+not, emits the same greedy tokens as ``serve_sequential``. Unlike the
+reference, the logits are equal only within rounding, not bitwise: the base GEMMs run
 at another batch width (PyTorch picks its GEMM by shape), and the
 sequential path decodes from compute-dtype caches where the engine's row
 caches are bf16 — as in the reference. MoE capacity couples rows (the
@@ -47,9 +55,9 @@ from repro_torch.configs.base import LoraConfig, ModelConfig
 from repro_torch.core.adapter import pack_meta
 from repro_torch.core.packed_lora import inject_adapter
 from repro_torch.kernels.quant import base_storage
-from repro_torch.models.model import decode_step, init_caches, lora_zeros, prefill
+from repro_torch.models.model import decode_step, init_caches, lora_zeros, prefill, prefill_chunk
 from repro_torch.obs import NULL_TRACER, Histogram
-from repro_torch.serve.decode import pad_caches
+from repro_torch.serve.decode import align_prefill_chunk, pad_caches
 from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -265,6 +273,21 @@ class ServeExecutor:
             self._fns[key] = prefill_
         return self._fns[key]
 
+    def prefill_chunk_fn(self, cfg: ModelConfig, n_rows: int, *, kcfg=None):
+        """``(base, lora, scales, tokens (R, C), caches, pos) -> (last-pos
+        logits (R,1,V), caches)``, the caches advanced in place
+        (``model.prefill_chunk``); ``pos`` a Python int. One closure per
+        ``(cfg, n_rows, kcfg)``, as the reference's ``engine.py:414-435``."""
+        key = ("prefill_chunk", cfg, n_rows, kcfg)
+        if key not in self._fns:
+
+            def chunk_(base, lora, scales, tokens, caches, pos):
+                return prefill_chunk(base, lora, scales, tokens, caches, pos, cfg,
+                                     n_pack=n_rows, kcfg=kcfg)
+
+            self._fns[key] = chunk_
+        return self._fns[key]
+
 
 # ---------------------------------------------------------------------------
 # Row-granular write
@@ -299,6 +322,22 @@ def write_row_caches(caches, row_caches, row: int):
 
 
 @dataclass
+class _PrefillState:
+    """A row's chunked prefill in progress (the reference's
+    ``engine.py:489-504``): its own width-1 f32 cache of capacity exactly
+    its prompt's length, so that every chunk's attention sees the one-shot
+    prefill's shapes; written into the row (cast to the engine's cache
+    dtype) once the whole prompt is in."""
+
+    lora1: dict  # the row's width-1 adapter tree, on the device
+    scale: float
+    scales: torch.Tensor  # (1,) f32 of ``scale``, on the device
+    caches: dict  # width-1 f32 caches, capacity len(prompt)
+    tokens: torch.Tensor  # (1, S) on the device: one copy, sliced per chunk
+    filled: int = 0  # prompt tokens already in the cache
+
+
+@dataclass
 class _ActiveRow:
     request: ServeRequest
     emitted: List[int]
@@ -306,6 +345,8 @@ class _ActiveRow:
     admitted_wall: float
     n_prompt: int
     last_emit_wall: float = 0.0
+    # a chunked prefill in progress; None once the row decodes
+    prefill: Optional[_PrefillState] = None
 
 
 class ServeEngine:
@@ -322,10 +363,18 @@ class ServeEngine:
     tree's own storage must be that scheme): under a fused impl prefill and
     each decode step run ``fused_matmul_q`` on the codes, at prefill rows
     and at decode rows; under "auto" each projection is dequantized per
-    call, the reference's two-pass formulation."""
+    call, the reference's two-pass formulation.
+
+    ``prefill_chunk`` (None or 0: one-shot prefill) streams a plain-token
+    request's prompt in chunks of at most that many tokens, rounded up to
+    the SSD chunk on a stack with SSM layers (``align_prefill_chunk``):
+    one chunk per filling row per engine iteration, before the decode
+    step. A request with ``extra`` fields, and any request to a VLM or an
+    encoder-decoder, is prefilled in one shot, as in the reference."""
 
     def __init__(self, cfg: ModelConfig, base_params, *, rows: int = 4, smax: int = 64,
                  r_bucket: int = 8, slot_capacity: int = 8,
+                 prefill_chunk: Optional[int] = None,
                  serve_executor: Optional[ServeExecutor] = None, impl: Optional[str] = None,
                  remat: Optional[str] = None, base_dtype: Optional[str] = None,
                  tracer=None, device=None):
@@ -341,6 +390,7 @@ class ServeEngine:
         self.cfg = cfg
         self.rows = rows
         self.smax = smax
+        self.prefill_chunk = align_prefill_chunk(cfg, prefill_chunk)
         # uniform engine-wide rank bucket: every admitted adapter is
         # zero-padded to r_bucket, so the pack shape never changes
         self.meta = pack_meta([LoraConfig(rank=r_bucket, alpha=float(r_bucket))] * rows)
@@ -412,9 +462,12 @@ class ServeEngine:
 
     def _admit(self, req: ServeRequest, row: int, step: int, wall: float,
                stats: Optional[ServeStats] = None) -> Optional[ServeResult]:
-        """Admit ``req`` into free row ``row`` with a one-shot prefill, or
-        reject it (oversized prompt, unknown adapter, no rank/alpha) as an
-        errored result — validated before any pin or latency sample."""
+        """Admit ``req`` into free row ``row``, or reject it (oversized
+        prompt, unknown adapter, no rank/alpha) as an errored result --
+        validated before any pin or latency sample. The admitted row either
+        decodes (a one-shot prefill emitted its first token) or fills its
+        cache chunk by chunk (``_prefill_advance``; the reference's
+        ``engine.py:788-812``)."""
         prompt = np.asarray(req.prompt, np.int32)
         s_total = prompt.shape[0] + self.cfg.n_patch_tokens
         if s_total + req.max_new_tokens > self.smax:
@@ -433,6 +486,19 @@ class ServeEngine:
             self.slot_cache.pin(req.adapter_id)
             lora1 = self._device_tree(inject_adapter(self._lora1_host, adapter, 0))
             write_row_caches(self._lora, lora1, row)
+            if (self.prefill_chunk is not None and not req.extra
+                    and not self.cfg.n_patch_tokens and not self.cfg.is_encdec):
+                self._rows[row] = _ActiveRow(
+                    request=req, emitted=[], admitted_step=step, admitted_wall=wall,
+                    n_prompt=int(prompt.shape[0]),
+                    prefill=_PrefillState(
+                        lora1=lora1, scale=scale,
+                        scales=torch.full((1,), scale, dtype=torch.float32, device=self.device),
+                        caches=init_caches(self.cfg, 1, s_total, torch.float32, self.device),
+                        tokens=torch.from_numpy(prompt[None, :]).to(self.device),
+                    ),
+                )
+                return None
             with self.tracer.span("serve.prefill", cat="serve", track=f"row{row}",
                                   request_id=req.request_id, n_prompt=int(prompt.shape[0])):
                 pf = self.serve_executor.prefill_fn(self.cfg, 1, kcfg=self.kcfg1)
@@ -452,6 +518,42 @@ class ServeEngine:
             n_prompt=int(prompt.shape[0]), last_emit_wall=now - self._serve_t0,
         )
         return None
+
+    def _prefill_advance(self, row: int, step: int, stats: ServeStats) -> bool:
+        """Run one prefill chunk of ``row``'s request (the reference's
+        ``engine.py:860-917``) under a ``serve.prefill_chunk`` span on the
+        row's track; after a chunk that is not the last, wait for the card,
+        so that the span measures the chunk. The last chunk writes the
+        row's caches (``write_row_caches``: the prompt's leading part of
+        each sequence leaf, every fixed-size leaf, cast to the engine's
+        dtypes), emits the first token and records TTFT. Returns True once
+        the row decodes."""
+        a = self._rows[row]
+        ps = a.prefill
+        n = ps.tokens.shape[1]
+        c = min(self.prefill_chunk, n - ps.filled)
+        with self.tracer.span("serve.prefill_chunk", cat="serve", track=f"row{row}",
+                              request_id=a.request.request_id, step=step, pos=ps.filled,
+                              chunk=c, n_prompt=n):
+            fn = self.serve_executor.prefill_chunk_fn(self.cfg, 1, kcfg=self.kcfg1)
+            lg, ps.caches = fn(self.base, ps.lora1, ps.scales,
+                               ps.tokens[:, ps.filled : ps.filled + c], ps.caches, ps.filled)
+            ps.filled += c
+            if ps.filled < n:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                return False
+            write_row_caches(self._caches, ps.caches, row)
+            first = int(torch.argmax(lg[0, -1, :]))
+        now = time.perf_counter()
+        stats.ttft.record(max(0.0, now - self._enq_abs[a.request.request_id]))
+        self._scales[row] = ps.scale
+        self._tok[row, 0] = first
+        self._pos[row] = n
+        a.emitted.append(first)
+        a.last_emit_wall = now - self._serve_t0
+        a.prefill = None
+        return True
 
     def _prefill_batch(self, req: ServeRequest, prompt: np.ndarray) -> dict:
         """A request's width-1 prefill batch: its tokens and its ``extra``
@@ -486,8 +588,8 @@ class ServeEngine:
 
         Virtual time is the decode-step counter: a request becomes
         admissible once ``step >= arrival``; freed rows are refilled before
-        the next step. ``max_steps`` bounds the drain: rows still in flight
-        retire as partial results."""
+        the next step. ``max_steps`` bounds the drain: rows still in flight,
+        filling rows too, retire as partial results."""
         pending = deque(sorted(requests or (), key=lambda r: (r.arrival, r.request_id)))
         if self._caches is None:
             self._caches = init_caches(self.cfg, self.rows, self.smax, device=self.device)
@@ -514,8 +616,9 @@ class ServeEngine:
                 if rejected is not None:
                     stats.results.append(rejected)
                     continue
-                if len(self._rows[row].emitted) >= req.max_new_tokens:
-                    stats.tokens_emitted += len(self._rows[row].emitted)
+                a = self._rows[row]
+                if a.prefill is None and len(a.emitted) >= req.max_new_tokens:
+                    stats.tokens_emitted += len(a.emitted)
                     stats.results.append(self._retire(row, step, wall))
 
     def _serve_drain(self, pending, stats: ServeStats, max_steps: Optional[int]) -> None:
@@ -531,7 +634,17 @@ class ServeEngine:
                 self.queue.append(req)
             qdepth.set(len(self.queue))
             self._fill_rows(step, wall, stats)
+            # one prefill chunk per filling row: admission is paid in bounded
+            # slices between decode steps, not as one stall of every row
             for row in range(self.rows):
+                a = self._rows[row]
+                if (a is not None and a.prefill is not None
+                        and self._prefill_advance(row, step, stats)
+                        and len(a.emitted) >= a.request.max_new_tokens):
+                    wall = time.perf_counter() - t0
+                    stats.tokens_emitted += len(a.emitted)
+                    stats.results.append(self._retire(row, step, wall))
+            for row in range(self.rows):  # filling rows too
                 a = self._rows[row]
                 if a is not None and self._deadline_blown(a.request):
                     wall = time.perf_counter() - t0
@@ -551,8 +664,18 @@ class ServeEngine:
                     stats.tokens_emitted += len(self._rows[row].emitted)
                     stats.results.append(self._retire(row, step, wall))
                 break
+            decoding = [r for r in active if self._rows[r].prefill is None]
+            if not decoding:
+                # chunk work only: virtual time still advances, so trace
+                # arrivals keep landing in free rows while a prompt fills
+                step += 1
+                continue
+            # the step runs every row; a filling row's stale token writes its
+            # k/v at a stale position (masked, and overwritten by the row's
+            # own later writes) and moves its SSM state, which its last
+            # chunk's write replaces
             with self.tracer.span("serve.step", cat="serve", track="serve",
-                                  step=step, batch=len(active)):
+                                  step=step, batch=len(decoding)):
                 fn = self.serve_executor.step_fn(self.cfg, self.rows, kcfg=self.kcfg)
                 next_tok, _lg, self._caches = fn(
                     self.base, self._lora,
@@ -563,9 +686,9 @@ class ServeEngine:
                 next_tok = next_tok.cpu().numpy()
             step += 1
             stats.steps += 1
-            stats.occupancy_sum += len(active)
+            stats.occupancy_sum += len(decoding)
             wall = time.perf_counter() - t0
-            for row in active:
+            for row in decoding:
                 a = self._rows[row]
                 stats.itl.record(max(0.0, wall - a.last_emit_wall))
                 a.last_emit_wall = wall

@@ -1460,3 +1460,55 @@ def test_command_r_training_rows_match_plain_on_their_paths(cuda, d_in, d_out):
         got = fused_matmul_q(x, codes, scales, a, b, s)
         assert _count(fused_matmul_q, "fwd", path) == n0 + 1
         _close(got, fused_matmul_q_ref(x, codes, scales, a, b, s))
+
+
+# a 2-layer model's last-position logits in bf16, relative to max |logit|:
+# a summation order that differs in one projection moves its bf16 output
+# by an ulp, which the layers after it carry (the smoke's LOGIT_TOL)
+LOGIT_TOL = 5e-2
+# the kernels' paths a chunked prefill takes, by impl: "mma" / "wgmma" at
+# chunk rows, "decode" at a tail of at most 16
+CHUNK_PATHS = {"auto": ("packed_matmul", ("mma", "decode")),
+               "fused": ("fused_matmul", ("wgmma", "decode"))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+def test_chunked_prefill_on_the_card(cuda, impl):
+    """Reduced qwen25-7b in bf16: ``prefill_chunked`` in chunks of 64 over
+    prompts of 104 tokens (a ragged tail of 40) and 137 (a tail of 9, the
+    decode kernels' rows) holds the one-shot ``prefill``'s last-position
+    logits within LOGIT_TOL of max |logit|, and the plain path's on the same
+    chunks; its projections launch the kernels on "mma" / "wgmma" and on
+    "decode"."""
+    from repro_torch.configs import LoraConfig, get_config, reduced
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.models.model import init_model, prefill
+    from repro_torch.serve.decode import prefill_chunked
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_config("qwen25-7b"))
+    meta = pack_meta([LoraConfig(rank=16, alpha=16.0)])
+    base, lora = init_model(0, cfg, meta, torch.bfloat16, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    lora = tree_map(lambda t: t + _rnd(gen, t.shape, t.dtype, 0.02), lora)
+    scales = meta.scales(cuda)
+    kcfg = ops.KernelConfig(impl=impl, ranks=meta.ranks)
+    plain = ops.KernelConfig(impl={"auto": "plain", "fused": "fused_plain"}[impl],
+                             ranks=meta.ranks)
+    kernel, paths = CHUNK_PATHS[impl]
+    for s in (104, 137):
+        toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=cuda)
+        with torch.no_grad():
+            want, _ = prefill(base, lora, scales, {"tokens": toks}, cfg, kcfg=kcfg)
+            launches.zero()
+            got, _ = prefill_chunked(base, lora, scales, toks, cfg, 64, kcfg=kcfg)
+            torch.cuda.synchronize()
+            by_path = launches.read_paths()[kernel]
+            ref, _ = prefill_chunked(base, lora, scales, toks, cfg, 64, kcfg=plain)
+        top = want.float().abs().max()
+        assert torch.isfinite(got.float()).all()
+        assert (got.float() - want.float()).abs().max() <= LOGIT_TOL * top
+        assert (got.float() - ref.float()).abs().max() <= LOGIT_TOL * ref.float().abs().max()
+        tail = "decode" if s % 64 <= 16 else paths[0]
+        assert by_path.get(paths[0], 0) > 0 and by_path.get(tail, 0) > 0, by_path

@@ -346,7 +346,10 @@ def test_prefill_then_decode_steps_match_reference(world):
     """``prefill`` of 80 tokens (the last position's logits, the conv
     windows and states), then three ``decode_step``s on the reference's
     caches (``pad_caches`` passes the fixed-size ``"ssm"`` subtree
-    through): logits and caches."""
+    through): logits and caches. Several tokens a row against a cache are a
+    prefill chunk: a vector of per-row positions refuses them, and
+    ``prefill_chunk`` at a scalar position takes them (chunks of 32, the
+    SSD chunk, give the one-shot prefill's logits and caches)."""
     jc, tc = world["jcfg"], world["cfg"]
     toks = _tokens(jc, seed=6)
     jlg, jcaches = jm.prefill(world["base"], world["lora"], world["jmeta"].scales(),
@@ -356,6 +359,7 @@ def test_prefill_then_decode_steps_match_reference(world):
     _close(tlg, jlg, LOGITS)
     for a, b in zip(tree_leaves(tcaches), jax.tree_util.tree_leaves(_host(jcaches))):
         _close(a, b, LOGITS)
+    prefilled = (tlg, tcaches)
     jcaches = j_pad(jcaches, S + 8)
     tcaches = bridge.to_torch(_host(jcaches), "cpu")
     pos = np.array([S, S - 1, S, S - 5])
@@ -373,7 +377,16 @@ def test_prefill_then_decode_steps_match_reference(world):
         _close(a, b, LOGITS)
     with pytest.raises(ValueError, match="one token per row"):
         tm.decode_step(world["tbase"], world["tlora"], world["meta"].scales(),
-                       torch.from_numpy(toks[:, :2]), tcaches, torch.tensor(S), tc, n_pack=2)
+                       torch.from_numpy(toks[:, :2]), tcaches, torch.from_numpy(pos), tc,
+                       n_pack=2)
+    caches = tm.init_caches(tc, NB, S, torch.float32, "cpu")
+    for p0 in range(0, S, 32):
+        tlg, caches = tm.prefill_chunk(world["tbase"], world["tlora"], world["meta"].scales(),
+                                       torch.from_numpy(toks[:, p0:p0 + 32]), caches,
+                                       torch.tensor(p0), tc, n_pack=2)
+    _close(tlg, prefilled[0], LOGITS)
+    for a, b in zip(tree_leaves(caches), tree_leaves(prefilled[1]), strict=True):
+        _close(a, b, LOGITS)
 
 
 def test_packed_adapter_equals_the_adapter_alone(world):

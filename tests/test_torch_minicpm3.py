@@ -234,7 +234,17 @@ def test_apply_mla_absorbed_decode_matches_reference(world, per_row):
     np.testing.assert_allclose(_np(torch.cat(outs, 1)), _np(full[:, : S // 2]), **ABSORBED)
     with pytest.raises(ValueError, match="one token per row"):
         tattn.apply_mla(tp, tl, ts, torch.from_numpy(x[:, :2]), acfg=acfg, n_pack=2,
-                        rope=_ropes(acfg, np.arange(2))[1], cache=cache, pos=torch.tensor(0))
+                        rope=_ropes(acfg, np.arange(2))[1], cache=cache,
+                        pos=torch.zeros((NB,), dtype=torch.long))
+    # a scalar position takes a prefill chunk: the second half in two chunks
+    # on the cache the steps above filled, expanded as the train path does
+    outs = []
+    for p0 in (S // 2, 3 * S // 4):
+        o, cache = tattn.apply_mla(tp, tl, ts, torch.from_numpy(x[:, p0:p0 + S // 4]), acfg=acfg,
+                                   n_pack=2, rope=_ropes(acfg, np.arange(p0, p0 + S // 4))[1],
+                                   cache=cache, pos=torch.tensor(p0))
+        outs.append(o)
+    np.testing.assert_allclose(_np(torch.cat(outs, 1)), _np(full[:, S // 2:]), **F32)
 
 
 def _tokens(cfg, seed=4, s=S):
