@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``f32_short_k_kernel``.
 3. kernels -- calls each kernel at the qwen25-7b serving shapes (decode:
    N=8 rows, M=1; prefill: N=1, M=256; a prefill chunk, ``chunk``: N=1,
-   M=CHUNK=64, bf16; r=16; plus a ragged pack of ranks (8, 16)) and at its
+   M=CHUNK=64, bf16; r=16; plus a ragged pack of ranks (8, 16); and the
+   tune_serve drains' decode rows, ``decode_r128``: N=8, M=1 at the pool's
+   rank bucket r=128, bf16) and at its
    training shapes (N=2 adapters, M=1024 tokens each,
    r=16: the forward calls, the four backward cases of ``packed_matmul``,
    the fused dx reading W^T in place, and ``fused_matmul_q`` on int8 and nf4
@@ -202,7 +204,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step of that shape run under ``torch.profiler``. Each job's own peak
    allocated memory (the device's peak less what earlier phases left
    allocated, besides the base) must lie within [peak, 1.3 x peak] of the
-   cost model's ``job_mem_bytes`` (ROADMAP C3).
+   cost model's ``job_mem_bytes`` (ROADMAP C3). The runner is a
+   ``ServeEngine`` (the ``Runner`` surface: its ``run`` drives an inner
+   ``ClusterRunner`` on the sweep's executor), which then serves the pool
+   (``tune_serve``): 12 requests of 64-256 prompt tokens and TS_NEW = 16
+   new tokens over the 9 adapters (ranks 8-128) at a rank bucket of 128, 8
+   rows, 4 adapter slots (each adapter loaded from the pool on a miss),
+   every odd request sampled at temperature 0.8, top-k 50; under "auto"
+   and "fused": a mixed drain, its repeat under the same seed, an
+   all-greedy drain and its repeat, and under "fused" a drain over the
+   adapters ``publish``ed from the pool. Fails unless every request
+   returns 16 in-vocabulary tokens, the first drain misses >= 9 times and
+   evicts, the impl's kernel launches on "decode", the greedy rows equal
+   the all-greedy drain's and the sampled ones their repeat (as far as an
+   all-greedy drain repeats itself), the published drain equals the
+   miss-loaded one, 16,384 draws from each of 2 rows of the base's
+   logits stay in the top-k set within a total variation of 0.05 of the
+   exact masked softmax, and ``merge_model`` of the largest-rank adapter
+   into the bf16 base, with no adapter, holds within LOGIT_TOL of the
+   "auto" path with the adapter over 2 prompts and 4 teacher-forced
+   decode steps.
 9. online  -- the online engine on the same base: six configurations of
    ``default_search_space(300, seq_len=512)`` (two of batch 8, one of rank
    128, ranks 16-128) arrive on a ``poisson_trace``;
@@ -695,7 +716,7 @@ def kernel_phase(torch, dev):
                   path_fn=lambda x, w, s=None: packed_matmul_path(x, w), extra=extra)
         if case.startswith("decode"):  # both passes of the delta as one call
             args_fn, kfn, pfn, lfn, flops, path_fn = pair_call(torch, rnd, dtype, n, m, d_in, d_out,
-                                                               RANK, scale)
+                                                               rank, scale)
             check("packed_matmul", case, "pair", d_in, d_out, dtype, kfn, pfn, lfn, args_fn, flops,
                   "2 calls: bmm(bmm(x, A), B)", path_fn=path_fn)
 
@@ -706,6 +727,13 @@ def kernel_phase(torch, dev):
         scale = torch.ones((n,), device=dev)
         packed_rows("chunk", n, m, d_in, d_out, torch.bfloat16, scale)
         fused_rows("chunk", n, m, d_in, d_out, torch.bfloat16, scale)
+    # the tune_serve drains' decode steps: 8 rows at the pool's rank bucket
+    # of 128 (#1's xA, xAB and pair; #2), bf16
+    n, m = CASES["decode"]
+    for (d_in, d_out), _ in PROJ:
+        scale = torch.linspace(0.5, 2.0, n, device=dev)
+        packed_rows(TS_CASE, n, m, d_in, d_out, torch.bfloat16, scale, rank=TS_R_BUCKET)
+        fused_rows(TS_CASE, n, m, d_in, d_out, torch.bfloat16, scale, rank=TS_R_BUCKET)
     for dtype in (torch.bfloat16, torch.float32):
         for case, (n, m) in CASES.items():
             for (d_in, d_out), _ in PROJ:
@@ -785,7 +813,8 @@ def kernel_phase(torch, dev):
             fused_q_rows(CR_LAUNCH_CASE, n, m, d_in, d_out, torch.float32, scale, modes=("nf4",),
                          rank=r, extra={"n": n, "m": m, "rank": r})
     train_cases = {"train", "chunk", CR_TRAIN_CASE, *(c for _, _, c in family_cases("train"))}
-    decode_cases = {"decode", CR_DECODE_CASE, *(c for _, _, c in family_cases("decode"))}
+    decode_cases = {"decode", TS_CASE, CR_DECODE_CASE,
+                    *(c for _, _, c in family_cases("decode"))}
     off = [(r["case"], r["kernel"], r["call"], r["d_in"], r["d_out"], r["path"]) for r in rows
            if r["case"] in train_cases and r["dtype"] == "bfloat16"
            and r["kernel"] != "packed_matmul" and r["path"] != "wgmma"]
@@ -1811,7 +1840,7 @@ def sweep_phase(torch, dev, base, out_dir: Path):
 
 
 def _sweep(torch, dev, base, out_dir, sw, pool):
-    from repro_torch.cluster import ClusterRunner, DevicePool, SliceExecutor
+    from repro_torch.cluster import DevicePool, SliceExecutor
     from repro_torch.cluster.executor import WARMUP_STEPS
     from repro_torch.configs import LoraConfig
     from repro_torch.core.adapter import pack_meta
@@ -1819,23 +1848,29 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
     from repro_torch.models.model import lora_zeros
     from repro_torch.obs import MetricsTracer
     from repro_torch.sched import H100, ExecutionEngine, plan
+    from repro_torch.serve import ServeEngine
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg, space, cm, sched, jobs = sw.cfg, sw.space, sw.cm, sw.sched, sw.jobs
     tracer = MetricsTracer()
     ex = SliceExecutor(tracer=tracer)
-    runner = ClusterRunner(ex, DevicePool([dev]), tracer=tracer)
+    # the tune side runs through the serve engine (a Runner), which then
+    # serves the pool its jobs fill (tune_serve)
+    engine = ServeEngine(cfg, base, rows=TS_ROWS, smax=TS_SMAX, r_bucket=TS_R_BUCKET,
+                         slot_capacity=TS_SLOTS, checkpoint_pool=pool,
+                         device_pool=DevicePool([dev]), train_executor=ex, impl="auto",
+                         seed=TS_SEED, tracer=tracer, device=dev)
     torch.cuda.synchronize(dev)
     held = held_bytes(torch, dev, base)
     zero_counts()
     t0 = time.perf_counter()
     records, makespan = ExecutionEngine(cm, 1, tracer=tracer).run_local(
-        sched, space, cfg, base, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, pool=pool, runner=runner,
+        sched, space, cfg, base, n_steps=SWEEP_STEPS, seq=SWEEP_SEQ, pool=pool, runner=engine,
         impl="auto")
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = train_counts()
-    timings = {t.job_id: t for t in runner.last_result.timings}
+    timings = {t.job_id: t for t in engine.last_result.timings}
     rows = []
     for job_id, (j, rec) in enumerate(zip(sched.jobs, records)):
         t, m = timings[job_id], pack_meta(jobs[job_id])
@@ -1861,7 +1896,8 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
     fit["plan_config_ids"] = [list(j.config_ids) for j in plan(
         fitted, space, 1, SWEEP_SEQ, SWEEP_STEPS).jobs]
     builds, hits = ex.n_builds, ex.n_hits
-    emit({"phase": "sweep", "jobs": rows, "held_bytes": held, "wall_s": wall,
+    emit({"phase": "sweep", "runner": type(engine).__name__, "jobs": rows, "held_bytes": held,
+          "wall_s": wall,
           "measured_makespan_s": makespan,
           "planned_makespan_s": sched.makespan, "min_gpu_makespan_s": sw.mingpu.makespan,
           "planned_compute_s": sum(cm.iter_time(jc, 1, SWEEP_SEQ) * SWEEP_STEPS for jc in jobs),
@@ -1948,6 +1984,244 @@ def _sweep(torch, dev, base, out_dir, sw, pool):
         fail("extract -> inject -> extract of an adapter on the card is not bit-exact")
     if launches != expect:
         fail(f"the sweep counted {launches} launches; its eager steps make {expect}")
+    del eager, win, hit
+    torch.cuda.empty_cache()
+    ts_launches = tune_serve(torch, dev, cfg, base, pool, engine, metas)
+    return launches, ts_launches
+
+
+# ---------------------------------------------------------------------------
+# tune-then-serve: the sweep's pool served, sampled, merged
+# ---------------------------------------------------------------------------
+
+# the sweep's 9 adapters (ranks 8-128) served at a rank bucket of 128 from 4
+# slots: 12 requests in 3 waves of 4 (a wave's adapters fit the slots, which
+# active rows pin), TS_NEW tokens each, so that misses and evictions happen;
+# every odd request sampled at TS_TEMP / TS_TOP_K
+TS_ROWS, TS_SLOTS, TS_R_BUCKET = 8, 4, 128
+TS_ADAPTERS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 0, 4, 8)
+TS_WAVE = 4
+TS_NEW = 16
+TS_PROMPT = (64, 257)
+TS_SMAX = 512
+TS_TEMP, TS_TOP_K = 0.8, 50
+TS_SEED = 7
+TS_MIN_MISSES = 9
+# the sampler on the card: draws per logits row, in batches; its law
+TS_DRAWS, TS_DRAW_BATCH = 16_384, 1024
+TS_TV = 0.05
+TS_MERGE_STEPS = 4
+TS_CASE = "decode_r128"  # the kernel phase's rows at the engine's decode shape
+TS_KERNELS = {"auto": "packed_matmul", "fused": "fused_matmul"}
+
+
+def ts_requests(names, prompts, sampled: bool):
+    """The 12 requests: wave w arrives at step w * TS_NEW (after the wave
+    before has retired); odd ones sampled when ``sampled``."""
+    from repro_torch.serve import ServeRequest
+
+    return [ServeRequest(i, names[a], prompts[i], max_new_tokens=TS_NEW,
+                         arrival=float(i // TS_WAVE * TS_NEW),
+                         temperature=TS_TEMP if sampled and i % 2 else 0.0,
+                         top_k=TS_TOP_K if sampled and i % 2 else 0)
+            for i, a in enumerate(TS_ADAPTERS)]
+
+
+def ts_drain(torch, eng, reqs, what: str):
+    """One drain with the launch counts zeroed just before it and read just
+    after: (stats, tokens (R, TS_NEW), launches by kernel and path)."""
+    from repro_torch.kernels import launches as launch_counts
+
+    zero_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    by_path = launch_counts.read_paths()
+    bad = [(r.request_id, r.error) for r in stats.results
+           if r.error is not None or len(r.tokens) != TS_NEW]
+    if bad or len(stats.results) != len(reqs):
+        fail(f"tune_serve {what}: requests failed: {bad}")
+    toks = np.stack([r.tokens for r in stats.results])
+    if toks.min() < 0 or toks.max() >= eng.cfg.vocab_size:
+        fail(f"tune_serve {what}: token ids outside the vocabulary")
+    return stats, toks, by_path
+
+
+def ts_sampler(torch, dev, cfg, base, prompts) -> dict:
+    """``sample_tokens`` on 2 rows of the base's real last-position logits:
+    TS_DRAWS draws a row at TS_TEMP / TS_TOP_K against the exact softmax of
+    the masked logits (ties at the k-th value kept); and one call's time at
+    the engine's TS_ROWS rows beside the greedy argmax's."""
+    from repro_torch.models.model import prefill
+    from repro_torch.serve import sample_tokens
+
+    v = cfg.vocab_size
+    one = torch.ones((1,), device=dev)
+    rows = []
+    with torch.no_grad():
+        for p in prompts[:2]:
+            lg, _ = prefill(base, None, one, {"tokens": torch.from_numpy(p[None]).to(dev)}, cfg)
+            rows.append(lg[0, -1, :v].float())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    temp = torch.full((TS_DRAW_BATCH,), TS_TEMP, device=dev)
+    topk = torch.full((TS_DRAW_BATCH,), TS_TOP_K, dtype=torch.int32, device=dev)
+    out = []
+    for row in rows:
+        thresh = torch.sort(row).values[v - TS_TOP_K]
+        keep = row >= thresh
+        exact = torch.softmax(torch.where(keep, row, float("-inf")).double() / TS_TEMP, 0)
+        counts = torch.zeros(v, dtype=torch.float64, device=dev)
+        for _ in range(TS_DRAWS // TS_DRAW_BATCH):
+            toks = sample_tokens(row[None].expand(TS_DRAW_BATCH, -1), temp, topk, gen)
+            counts += torch.bincount(toks.long(), minlength=v).double()
+        freq = counts / counts.sum()
+        out.append({"kept": int(keep.sum()), "outside_top_k": int(counts[~keep].sum()),
+                    "tv": 0.5 * float((freq - exact).abs().sum()),
+                    "max_prob": float(exact.max())})
+    lg8 = torch.stack(rows * (TS_ROWS // 2)).to(torch.bfloat16)
+    t8 = torch.tensor([TS_TEMP if i % 2 else 0.0 for i in range(TS_ROWS)], device=dev)
+    k8 = torch.full((TS_ROWS,), TS_TOP_K, dtype=torch.int32, device=dev)
+    ms = time_ms(torch, sample_tokens, [(lg8, t8, k8, gen)])
+    argmax_ms = time_ms(torch, lambda x: torch.argmax(x, dim=-1), [(lg8,)])
+    return {"rows": out, "draws_per_row": TS_DRAWS, "sample_ms_8_rows": ms,
+            "argmax_ms_8_rows": argmax_ms}
+
+
+def ts_merge(torch, dev, cfg, base, pool, name: str, prompts) -> dict:
+    """``merge_model`` of pool adapter ``name`` into the bf16 base: the
+    merged base with no adapter, teacher-forced over 2 prompts and
+    TS_MERGE_STEPS decode steps, against the "auto" kernel path with the
+    adapter (the adapter path's greedy tokens fed to both)."""
+    from repro_torch import bridge
+    from repro_torch.configs import LoraConfig
+    from repro_torch.core.adapter import pack_meta
+    from repro_torch.core.packed_lora import inject_adapter, merge_model
+    from repro_torch.models.model import decode_step, lora_zeros, prefill
+    from repro_torch.serve.decode import pad_caches
+    from repro_torch.tree import tree_map
+
+    meta = pool.load_meta(name)
+    meta1 = pack_meta([LoraConfig(rank=meta["rank"], alpha=meta["alpha"])])
+    tmpl = tree_map(lambda t: t.numpy(), lora_zeros(cfg, meta1, torch.float32, "cpu"))
+    lora32 = bridge.to_torch(inject_adapter(tmpl, pool.load_adapter(name), 0), dev)
+    lora16 = tree_map(lambda t: t.to(torch.bfloat16), lora32)
+    scales = meta1.scales(dev)
+    kc = meta1.kernel_config("auto")
+    v = cfg.vocab_size
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        merged = merge_model(base, lora32, scales, 0)
+        torch.cuda.synchronize(dev)
+        merge_s = time.perf_counter() - t0
+        per_step, ref_max = [0.0] * (1 + TS_MERGE_STEPS), 0.0
+        for p in prompts[:2]:
+            batch = {"tokens": torch.from_numpy(p[None]).to(dev)}
+            la, ca = prefill(base, lora16, scales, batch, cfg, kcfg=kc)
+            lm, cm = prefill(merged, None, scales, batch, cfg)
+            ca, cm = (pad_caches(c, len(p) + TS_MERGE_STEPS) for c in (ca, cm))
+            for s in range(1 + TS_MERGE_STEPS):
+                if s:
+                    tok = torch.argmax(la[:, -1, :v], dim=-1).to(torch.int32)[:, None]
+                    pos = torch.tensor(len(p) + s - 1, device=dev)
+                    la, ca = decode_step(base, lora16, scales, tok, ca, pos, cfg, kcfg=kc)
+                    lm, cm = decode_step(merged, None, scales, tok, cm, pos, cfg)
+                a, m = la[0, -1, :v].float(), lm[0, -1, :v].float()
+                if not (torch.isfinite(a).all() and torch.isfinite(m).all()):
+                    fail("tune_serve merge: non-finite logits")
+                per_step[s] = max(per_step[s], (a - m).abs().max().item())
+                ref_max = max(ref_max, a.abs().max().item())
+        del merged
+    return {"adapter": name, "rank": meta["rank"], "alpha": meta["alpha"], "merge_s": merge_s,
+            "max_abs_err_prefill": per_step[0], "max_abs_err_decode": per_step[1:],
+            "max_abs_logit": ref_max, "rel_err": max(per_step) / ref_max, "tol": LOGIT_TOL}
+
+
+def tune_serve(torch, dev, cfg, base, pool, engine, metas) -> dict:
+    """Tune-then-serve on the sweep's pool, on its 8-layer base: the 12
+    requests (``ts_requests``) through the sweep's own ``engine`` (impl
+    "auto") and a fused one, each adapter loaded from the pool on a slot
+    miss: a mixed drain, its repeat under the same seed, an all-greedy
+    drain and its repeat; under "fused" also a drain over the adapters
+    ``publish``ed from ``pool.load_adapter``. Then the sampler on the
+    card (``ts_sampler``) and a merged base (``ts_merge``). Returns the
+    decode-path launches of each impl's mixed drain."""
+    from repro_torch.cluster import DevicePool
+    from repro_torch.serve import ServeEngine
+
+    names = sorted(metas)
+    rng = np.random.RandomState(SEED + 4)
+    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(*TS_PROMPT)).astype(np.int32)
+               for _ in TS_ADAPTERS]
+    mixed_reqs, greedy_reqs = (ts_requests(names, prompts, s) for s in (True, False))
+    sampled = np.array([r.temperature > 0 for r in mixed_reqs])
+    rec, launches = {"requests": len(mixed_reqs), "new_tokens": TS_NEW, "rows": TS_ROWS,
+                     "slot_capacity": TS_SLOTS, "r_bucket": TS_R_BUCKET,
+                     "adapter_ranks": [metas[n]["rank"] for n in names],
+                     "temperature": TS_TEMP, "top_k": TS_TOP_K, "seed": TS_SEED}, {}
+    t0 = time.perf_counter()
+    for impl in ("auto", "fused"):
+        eng = engine if impl == "auto" else ServeEngine(
+            cfg, base, rows=TS_ROWS, smax=TS_SMAX, r_bucket=TS_R_BUCKET, slot_capacity=TS_SLOTS,
+            checkpoint_pool=pool, device_pool=DevicePool([dev]), impl=impl, seed=TS_SEED,
+            device=dev)
+        kernel = TS_KERNELS[impl]
+        stats, mixed, by_path = ts_drain(torch, eng, mixed_reqs, f"{impl} mixed")
+        launches[impl] = {kernel: by_path[kernel].get("decode", 0)}
+        cache = {"hits": stats.cache_hits, "misses": stats.cache_misses,
+                 "evictions": stats.cache_evictions}
+        _, again, _ = ts_drain(torch, eng, mixed_reqs, f"{impl} mixed, again")
+        _, greedy, _ = ts_drain(torch, eng, greedy_reqs, f"{impl} all-greedy")
+        _, greedy2, _ = ts_drain(torch, eng, greedy_reqs, f"{impl} all-greedy, again")
+        lat = stats.latency_summaries()
+        r = {"cache": cache, "launches_by_path": by_path, "wall_s": stats.wall_seconds,
+             "steps": stats.steps, "tokens_per_s": stats.tokens_per_s,
+             "ttft": lat["ttft"], "itl": lat["itl"],
+             "sampled_repeat_share": float((again[sampled] == mixed[sampled]).mean()),
+             "greedy_repeat_share": float((greedy2 == greedy).mean()),
+             "greedy_rows_match_share": float((mixed[~sampled] == greedy[~sampled]).mean()),
+             "sampled_differs_from_greedy_share":
+                 float((mixed[sampled] != greedy[sampled]).mean())}
+        if impl == "fused":
+            pub = ServeEngine(cfg, base, rows=TS_ROWS, smax=TS_SMAX, r_bucket=TS_R_BUCKET,
+                              slot_capacity=len(names), device_pool=DevicePool([dev]),
+                              impl=impl, seed=TS_SEED, device=dev)
+            for n in names:
+                pub.publish(n, pool.load_adapter(n), pool.load_meta(n))
+            pstats, published, _ = ts_drain(torch, pub, mixed_reqs, "fused published")
+            r["published_equal"] = bool(np.array_equal(published, mixed))
+            r["published_misses"] = pstats.cache_misses
+            del pub
+        rec[impl] = r
+        if cache["misses"] < TS_MIN_MISSES or cache["evictions"] <= 0:
+            fail(f"tune_serve {impl}: {cache} (misses >= {TS_MIN_MISSES} and evictions > 0 "
+                 "wanted)")
+        if launches[impl][kernel] == 0:
+            fail(f"tune_serve {impl}: {kernel} never launched on \"decode\" at r = "
+                 f"{TS_R_BUCKET}")
+        # greedy rows held to the all-greedy drain, and the sampled ones to
+        # their repeat, as far as an all-greedy drain repeats itself
+        floor = r["greedy_repeat_share"]
+        if r["greedy_rows_match_share"] < floor or r["sampled_repeat_share"] < floor:
+            fail(f"tune_serve {impl}: greedy rows match the all-greedy drain at "
+                 f"{r['greedy_rows_match_share']}, sampled rows their repeat at "
+                 f"{r['sampled_repeat_share']}; an all-greedy drain repeats at {floor}")
+        if impl == "fused" and not r["published_equal"]:
+            fail("tune_serve fused: adapters published from the pool serve other tokens than "
+                 "the same adapters loaded on a miss")
+        if eng is not engine:
+            del eng
+        torch.cuda.empty_cache()
+    rec["drains_s"] = time.perf_counter() - t0
+    rec["sampler"] = ts_sampler(torch, dev, cfg, base, prompts)
+    for i, row in enumerate(rec["sampler"]["rows"]):
+        if row["outside_top_k"] or not row["tv"] <= TS_TV:
+            fail(f"tune_serve sampler row {i}: {row['outside_top_k']} draws outside the top-k "
+                 f"set, total variation {row['tv']} (<= {TS_TV} wanted)")
+    name = max(names, key=lambda n: (metas[n]["rank"], n))
+    rec["merge"] = ts_merge(torch, dev, cfg, base, pool, name, prompts)
+    if not rec["merge"]["rel_err"] <= LOGIT_TOL:
+        fail(f"tune_serve merge: the merged base's logits differ from the adapter path's by "
+             f"{rec['merge']['rel_err']} > {LOGIT_TOL}")
+    emit({"phase": "tune_serve", **rec})
     torch.cuda.empty_cache()
     return launches
 
@@ -3251,7 +3525,9 @@ CR_TRAIN_IMPLS = ("auto", "fused")
 # dequantized per call (the reference's formulation: slow by design)
 CR_SERVE_RUNS = (("int8", "fused"), ("int8", "auto"), ("nf4", "fused"))
 CR_SERVE_PROMPT = (64, 257)
-CR_SERVE_NEW = 16
+# 8 new tokens a request (16 before the sweep phase's tune_serve step came:
+# the cut that pays for it)
+CR_SERVE_NEW = 8
 CR_SERVE_STEPS = 2  # teacher-forced decode steps held against the plain path
 # the launcher on an nf4 base with an f32 x (the launcher draws in f32):
 # fused_matmul_q on its "ffma" path, 2 captured steps after the warm-up
@@ -3851,6 +4127,14 @@ USES = [
      ("serve", "auto", "packed_matmul")),
     ("fused_matmul", "fused_matmul", ("fused",), "decode",
      "fused.cu", "src/repro/kernels/fused.py:275", ("serve", "fused", "fused_matmul")),
+    # the tune_serve drains' decode steps (8 rows at r = 128, the sweep's
+    # pool served at its rank bucket): launches on "decode" in each impl's
+    # mixed drain
+    ("packed_matmul:decode_r128", "packed_matmul", ("xA", "xAB"), TS_CASE,
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("tune_serve", "auto", "packed_matmul")),
+    ("fused_matmul:decode_r128", "fused_matmul", ("fused",), TS_CASE,
+     "fused.cu", "src/repro/kernels/fused.py:275", ("tune_serve", "fused", "fused_matmul")),
     # one prefill chunk's calls (N = 1 x M = CHUNK), launched at chunk rows in
     # the serve phase's chunked drains
     ("packed_matmul:prefill_chunk", "packed_matmul", ("xA", "xAB"), "chunk",
@@ -3968,6 +4252,7 @@ EXTRA_SUMS = [("fused_matmul_q:decode_int8", "fused_matmul_q", ("int8",), "decod
               ("fused_matmul_q:decode_nf4", "fused_matmul_q", ("nf4",), "decode"),
               # the delta's two decode passes as one packed_matmul_pair call, which serve runs
               ("packed_matmul:decode_pair", "packed_matmul", ("pair",), "decode"),
+              ("packed_matmul:decode_r128_pair", "packed_matmul", ("pair",), TS_CASE),
               ("packed_matmul:gemma3_decode_pair", "packed_matmul", ("pair",), "decode_gemma3"),
               ("packed_matmul:minicpm3_decode_pair", "packed_matmul", ("pair",),
                "decode_minicpm3"),
@@ -4122,7 +4407,7 @@ def main() -> None:
     train_launches = train_phase(torch, dev, base, out_dir)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    sweep_launches = sweep_phase(torch, dev, base, out_dir)
+    sweep_launches, tune_serve_launches = sweep_phase(torch, dev, base, out_dir)
     emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     online_launches, adaptive_launches = online_phase(torch, dev, base, out_dir)
@@ -4140,6 +4425,7 @@ def main() -> None:
     emit({"phase": "families_done", "seconds": time.perf_counter() - t0})
     summary = summarize(rows, {"serve": serve_launches, "train": train_launches,
                                "sweep": {"auto": sweep_launches},
+                               "tune_serve": tune_serve_launches,
                                "online": {"auto": online_launches},
                                "launcher": launcher_launches, **family_launches,
                                COMMAND_R: command_r_launches, MOE: moe_launches,

@@ -7,13 +7,16 @@
     python3 scripts/smoke_phases.py kernels moe  # the kernel rows and qwen3-moe-30b-a3b
     python3 scripts/smoke_phases.py kernels jamba  # the kernel rows and jamba-v0.1-52b
     python3 scripts/smoke_phases.py kernels serve  # the kernel rows and qwen25-7b's serve
+    python3 scripts/smoke_phases.py kernels sweep  # the kernel rows, the sweep and tune_serve
     python3 scripts/smoke_phases.py kernels families
     python3 scripts/smoke_phases.py families:whisper-tiny,internvl2-1b  # some families
 
 Builds the kernels, then runs ``chip_smoke.kernel_phase``,
 ``chip_smoke.command_r_phase``, ``chip_smoke.moe_phase``,
 ``chip_smoke.jamba_phase``, ``chip_smoke.serve_phase`` (one-shot and
-chunked drains) and/or ``chip_smoke.families_phase`` (in the
+chunked drains), ``chip_smoke.sweep_phase`` (the sweep through the serve
+engine, then ``tune_serve`` on its pool; on the serve phase's base, or on
+one of its own) and/or ``chip_smoke.families_phase`` (in the
 smoke's order; ``families:<arch>,...`` runs those families alone) with the smoke's own checks (a failed check exits
 non-zero), printing the smoke's JSON lines. With the kernel phase and
 another, one ``phase_use`` line per ``kernels`` entry of that phase's
@@ -29,7 +32,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("kernels", "command_r", "moe", "jamba", "serve", "families")
+PHASES = ("kernels", "command_r", "moe", "jamba", "serve", "sweep", "families")
 
 
 def main() -> None:
@@ -74,12 +77,24 @@ def main() -> None:
         t0 = time.perf_counter()
         counts[cs.JAMBA] = cs.jamba_phase(torch, dev, out)
         cs.emit({"phase": "jamba_phase_done", "seconds": time.perf_counter() - t0})
+    base = None
     if "serve" in which:
         t0 = time.perf_counter()
         counts["serve"], base = cs.serve_phase(torch, dev)
-        del base
-        torch.cuda.empty_cache()
         cs.emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
+    if "sweep" in which:
+        if base is None:
+            from repro_torch.configs import get_config
+            from repro_torch.models.model import init_model
+
+            base, _ = init_model(cs.SEED, get_config("qwen25-7b"), None, dtype=torch.bfloat16,
+                                 device=dev)
+        t0 = time.perf_counter()
+        sweep, counts["tune_serve"] = cs.sweep_phase(torch, dev, base, out)
+        counts["sweep"] = {"auto": sweep}
+        cs.emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
+    del base
+    torch.cuda.empty_cache()
     if "families" in which:
         t0 = time.perf_counter()
         if archs is not None and any(a not in cs.FAMILIES for a in archs):

@@ -1,10 +1,11 @@
-"""Packed-LoRA application and per-adapter extraction.
+"""Packed-LoRA application, merging and per-adapter extraction.
 
 ``lora_linear`` is the entry point every model layer uses: a frozen base
 matmul plus the packed adapter delta computed by ``repro_torch.kernels.ops``.
 The activation carries the pack as the outermost batch factor — x has shape
 (N*B, ..., d_in) with adapter n owning rows [n*B, (n+1)*B) — so packing never
-changes the math of any single adapter.
+changes the math of any single adapter. ``merge_adapter`` / ``merge_model``
+fold one adapter into the base for serving without one.
 """
 from __future__ import annotations
 
@@ -67,6 +68,44 @@ def lora_linear(
         )
         y = y + delta.reshape(*lead, d_out)
     return y
+
+
+def merge_adapter(base_w, lora: dict, scale: float, idx: int) -> torch.Tensor:
+    """Fold adapter ``idx`` into the base weight: W + scale * A_idx @ B_idx
+    (the paper's inference-time merge, the reference's
+    ``packed_lora.py:96-112``). The pack axis is ``ndim - 3``, so plain
+    (N, d, r) and layer-stacked (L, N, d, r) packs both work. A quantized
+    W is dequantized first: the merged weight is dense (its codes no longer
+    describe it). The result has the base's dtype; A @ B is taken in the
+    adapter's dtype on the base's device."""
+    if is_quantized(base_w):
+        base_w = dequantize(base_w)
+    a = torch.as_tensor(lora["a"]).to(base_w.device)
+    b = torch.as_tensor(lora["b"]).to(base_w.device)
+    delta = torch.matmul(a.select(a.dim() - 3, idx), b.select(b.dim() - 3, idx))
+    return (base_w + scale * delta.to(base_w.dtype)).to(base_w.dtype)
+
+
+def merge_model(base_params, lora_params, scales, idx: int):
+    """A new base tree with adapter ``idx`` merged into every projection
+    that carries one: a ``"w"`` leaf whose sibling LoRA dict holds ``"a"``
+    and ``"b"``; every other leaf is shared, not copied (the reference's
+    ``packed_lora.py:115-140``). The result serves with no adapter."""
+    scale = float(scales[idx])
+
+    def walk(bp, lp):
+        if not isinstance(bp, dict):
+            return bp
+        out = {}
+        for k, v in bp.items():
+            if k == "w" and isinstance(lp, dict) and "a" in lp and "b" in lp:
+                out[k] = merge_adapter(v, lp, scale, idx)
+            else:
+                sub = lp.get(k) if isinstance(lp, dict) else None
+                out[k] = walk(v, sub if sub is not None else {})
+        return out
+
+    return walk(base_params, lora_params or {})
 
 
 def _host(leaf) -> np.ndarray:

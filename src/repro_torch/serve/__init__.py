@@ -13,7 +13,9 @@ from repro_torch.serve.engine import (
     ServeRequest,
     ServeResult,
     ServeStats,
+    draw_seed,
     poisson_requests,
+    sample_tokens,
     write_row_caches,
 )
 
@@ -30,6 +32,8 @@ __all__ = [
     "ServeRequest",
     "ServeResult",
     "ServeStats",
+    "draw_seed",
     "poisson_requests",
+    "sample_tokens",
     "write_row_caches",
 ]

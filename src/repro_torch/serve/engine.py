@@ -1,6 +1,6 @@
-"""Continuous-batching multi-LoRA serving engine (greedy).
+"""Continuous-batching multi-LoRA serving engine.
 
-The port of ``repro/serve/engine.py``'s serve side. The decode batch has a
+The port of ``repro/serve/engine.py``. The decode batch has a
 fixed width of ``rows`` independent slots, each carrying its *own* adapter:
 the packed-LoRA delta runs at row granularity (``n_pack == rows``, one token
 per row, per-row scales and per-row decode positions). When a row finishes
@@ -13,20 +13,30 @@ the reference's ``engine.py:11-16``): the other rows keep emitting while a
 long prompt fills, each paying one chunk of inter-token latency a step, not
 the whole prefill.
 
+A request at ``temperature`` > 0 samples its tokens (``sample_tokens``:
+top-k, then a categorical draw by Gumbel-max from a ``torch.Generator``
+re-seeded for each draw from the engine's ``seed`` and the request id (its
+first token) or the decode step, so a drain replays exactly); a request at
+0 takes the argmax.
+
 ``AdapterSlotCache``
-    Fixed-capacity host-side staging for adapter weights, LRU-evicted;
-    ``publish()`` inserts an adapter from memory. Adapters of active rows are
-    pinned and never evicted. A miss raises ``KeyError`` (loading from a
-    checkpoint pool is not ported yet).
+    Fixed-capacity host-side staging for adapter weights, LRU-evicted.
+    A miss loads the adapter from a ``CheckpointPool`` (the sweep's);
+    ``publish()`` inserts an adapter from memory (tune-then-serve with no
+    disk round trip). Adapters of active rows are pinned and never evicted.
 
 ``ServeExecutor``
-    A keyed cache of the prefill, prefill-chunk and decode-step closures,
-    one per ``(kind, cfg, n_rows, ...)`` key, with ``scales`` a runtime
-    argument.
+    A keyed cache of the prefill, prefill-chunk, decode-step and
+    sampling decode-step closures, one per ``(kind, cfg, n_rows, ...)``
+    key, with ``scales`` (and temperature, top-k and generator) runtime
+    arguments.
 
 ``ServeEngine``
     The event loop: ``publish``, ``submit``, ``serve`` and the width-1
-    ``serve_sequential`` baseline.
+    ``serve_sequential`` baseline. It is also a
+    :class:`~repro_torch.cluster.api.Runner`: ``run()`` executes planned
+    training segments through an inner ``ClusterRunner`` on the engine's
+    ``device_pool``, and ``serve_lease()`` reserves units for decoding.
 
 Invariants, checked in ``tests/test_torch_serve.py`` and
 ``tests/test_torch_chunked_prefill.py``: continuous batching, chunked or
@@ -44,6 +54,7 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict, deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -51,14 +62,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.cluster.executor import SliceExecutor
+from repro_torch.cluster.pool import DevicePool
+from repro_torch.cluster.runner import ClusterRunner
 from repro_torch.configs.base import LoraConfig, ModelConfig
 from repro_torch.core.adapter import pack_meta
-from repro_torch.core.packed_lora import inject_adapter
+from repro_torch.core.packed_lora import extract_adapter
 from repro_torch.kernels.quant import base_storage
 from repro_torch.models.model import decode_step, init_caches, lora_zeros, prefill, prefill_chunk
 from repro_torch.obs import NULL_TRACER, Histogram
 from repro_torch.serve.decode import align_prefill_chunk, pad_caches
-from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Request / result / stats surface
@@ -67,7 +80,7 @@ from repro_torch.tree import tree_map
 
 @dataclass(frozen=True)
 class ServeRequest:
-    """One greedy decode request against one adapter.
+    """One decode request against one adapter.
 
     ``arrival`` is in virtual time (decode steps since trace start).
     ``extra`` adds fields to the request's prefill batch (its frames or
@@ -78,7 +91,10 @@ class ServeRequest:
     them. ``deadline_ms`` is a wall-clock SLO from the moment the request
     entered the queue: a queued request past it is rejected before any
     prefill, and an in-flight row that goes overdue retires as a partial
-    result; both carry ``error="deadline"``."""
+    result; both carry ``error="deadline"``.
+    ``temperature`` 0 (the default) takes the argmax; above 0 the request
+    samples at that temperature from its ``top_k`` largest logits (0: the
+    whole vocabulary; ties at the k-th value are kept)."""
 
     request_id: int
     adapter_id: str
@@ -91,6 +107,8 @@ class ServeRequest:
     # the prefill batch's other fields: an encoder-decoder's "frames" (1,
     # S_enc, d), a VLM's "patches" (1, P, d)
     extra: Optional[dict] = None
+    temperature: float = 0.0
+    top_k: int = 0
 
 
 @dataclass
@@ -165,14 +183,18 @@ def poisson_requests(adapter_ids: Sequence[str], prompts: Sequence[np.ndarray],
 
 
 class AdapterSlotCache:
-    """Fixed-capacity LRU cache of host-side adapter weights. ``pin``ned
-    adapters (referenced by active rows) are never evicted; if every slot is
-    pinned a new insert is refused rather than growing past capacity."""
+    """Fixed-capacity LRU cache of host-side adapter weights. ``get``
+    loads a missing adapter from ``pool`` (a ``CheckpointPool``: its
+    ``load_adapter`` and ``load_meta``); ``publish`` inserts one from
+    memory. ``pin``ned adapters (referenced by active rows) are never
+    evicted; if every slot is pinned a new insert is refused rather than
+    growing past capacity."""
 
-    def __init__(self, capacity: int, *, metrics=None):
+    def __init__(self, capacity: int, pool=None, *, metrics=None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
+        self.pool = pool
         self._slots: "OrderedDict[str, Tuple[dict, dict]]" = OrderedDict()
         self._pins: Dict[str, int] = {}
         self.hits = 0
@@ -228,7 +250,67 @@ class AdapterSlotCache:
             return self._slots[adapter_id]
         self.misses += 1
         self.metrics.counter("serve.adapter_cache_misses").inc()
-        raise KeyError(f"adapter {adapter_id!r} is neither staged nor in the checkpoint pool")
+        if self.pool is None or not self.pool.has(adapter_id):
+            raise KeyError(f"adapter {adapter_id!r} is neither staged nor in the checkpoint pool")
+        tree = self.pool.load_adapter(adapter_id)
+        meta = self.pool.load_meta(adapter_id)
+        self._evict_to_fit()
+        self._slots[adapter_id] = (tree, dict(meta))
+        return self._slots[adapter_id]
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+_M64 = (1 << 64) - 1
+# the two streams of draws: a request's first token (keyed by its id) and a
+# decode step's tokens (keyed by the drain's step counter)
+FIRST_TOKEN, DECODE_STEP = 1, 2
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def draw_seed(seed: int, stream: int, value: int) -> int:
+    """The generator seed of one draw: splitmix64 folded over ``(seed,
+    stream, value)``, cut to 63 bits -- the counterpart of the reference's
+    ``fold_in(fold_in(PRNGKey(seed), 0x5EED), value)``, whose streams torch
+    cannot reproduce. ``stream`` is ``FIRST_TOKEN`` (``value``: the request
+    id) or ``DECODE_STEP`` (``value``: the step)."""
+    h = _splitmix64(seed & _M64)
+    h = _splitmix64(h ^ stream)
+    return _splitmix64(h ^ (value & _M64)) >> 1
+
+
+def sample_tokens(lg: torch.Tensor, temp: torch.Tensor, topk: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Per-row temperature / top-k sampling over last-position logits (the
+    reference's ``engine.py:317-338``).
+
+    lg: (R, V); temp: (R,) f32; topk: (R,) int (0: the whole vocabulary);
+    ``generator`` on ``lg``'s device draws the rows' uniforms. A row at
+    ``temp == 0`` returns exactly the argmax, in a mixed batch too. The
+    top-k threshold is the ``k``-th largest logit (``k`` clipped to [1,
+    V]), and every logit at or above it is kept, ties included; the draw is
+    categorical over ``masked / max(temp, 1e-6)``, by Gumbel-max (argmax
+    of the scaled logits plus -log(-log(u))), as ``jax.random.categorical``
+    draws. Returns (R,) int32 on ``lg``'s device; nothing goes to the host."""
+    v = lg.shape[-1]
+    lg = lg.float()
+    greedy = torch.argmax(lg, dim=-1).to(torch.int32)
+    k_eff = torch.where(topk > 0, topk, v).clamp(1, v).to(torch.int64)
+    thresh = torch.sort(lg, dim=-1).values.gather(-1, (v - k_eff)[:, None])
+    masked = torch.where(lg >= thresh, lg, float("-inf"))
+    t = temp.float().clamp_min(1e-6)[:, None]
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    sampled = torch.argmax(masked / t + gumbel, dim=-1).to(torch.int32)
+    return torch.where(temp > 0, sampled, greedy)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +339,23 @@ class ServeExecutor:
                 lg, caches = decode_step(base, lora, scales, token, caches, pos, cfg,
                                          n_pack=n_rows, kcfg=kcfg)
                 return torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32), lg, caches
+
+            self._fns[key] = step
+        return self._fns[key]
+
+    def sample_step_fn(self, cfg: ModelConfig, n_rows: int, *, kcfg=None):
+        """``(base, lora, scales, caches, token, pos, temp (R,), topk (R,),
+        generator) -> (next_tok (R,), logits, caches)``: the decode step,
+        then ``sample_tokens`` on its last-position logits; temperature,
+        top-k and generator are runtime arguments, so one closure serves
+        every request's settings (the reference's ``engine.py:373-394``)."""
+        key = ("sample_step", cfg, n_rows, kcfg)
+        if key not in self._fns:
+
+            def step(base, lora, scales, caches, token, pos, temp, topk, generator):
+                lg, caches = decode_step(base, lora, scales, token, caches, pos, cfg,
+                                         n_pack=n_rows, kcfg=kcfg)
+                return sample_tokens(lg[:, -1, :], temp, topk, generator), lg, caches
 
             self._fns[key] = step
         return self._fns[key]
@@ -350,7 +449,7 @@ class _ActiveRow:
 
 
 class ServeEngine:
-    """Continuous-batching greedy decode over ``rows`` adapter slots.
+    """Continuous-batching decode over ``rows`` adapter slots.
 
     The base parameters must lie on ``device`` (CUDA unless given); their
     embedding's dtype is the compute dtype, and the row pack of adapters is
@@ -370,14 +469,25 @@ class ServeEngine:
     the SSD chunk on a stack with SSM layers (``align_prefill_chunk``):
     one chunk per filling row per engine iteration, before the decode
     step. A request with ``extra`` fields, and any request to a VLM or an
-    encoder-decoder, is prefilled in one shot, as in the reference."""
+    encoder-decoder, is prefilled in one shot, as in the reference.
+
+    ``checkpoint_pool``: where a slot-cache miss loads its adapter from.
+    ``seed`` keys every sampled draw (``draw_seed``); the drain routes its
+    steps through the sampling step only while some row samples, so an
+    all-greedy drain runs exactly the greedy step.
+
+    The training side (the ``Runner`` surface): ``device_pool`` (default:
+    the CUDA devices, or the engine's own device when it is not CUDA) and
+    ``train_executor`` (default: ``SliceExecutor(tracer=)``) back an inner
+    ``ClusterRunner`` that ``run`` delegates to."""
 
     def __init__(self, cfg: ModelConfig, base_params, *, rows: int = 4, smax: int = 64,
                  r_bucket: int = 8, slot_capacity: int = 8,
-                 prefill_chunk: Optional[int] = None,
-                 serve_executor: Optional[ServeExecutor] = None, impl: Optional[str] = None,
-                 remat: Optional[str] = None, base_dtype: Optional[str] = None,
-                 tracer=None, device=None):
+                 prefill_chunk: Optional[int] = None, checkpoint_pool=None,
+                 device_pool: Optional[DevicePool] = None,
+                 serve_executor: Optional[ServeExecutor] = None, train_executor=None,
+                 impl: Optional[str] = None, remat: Optional[str] = None,
+                 base_dtype: Optional[str] = None, seed: int = 0, tracer=None, device=None):
         self.device = resolve_device(device)
         emb = base_params["embed"]["w"]
         if emb.device != self.device:
@@ -399,21 +509,64 @@ class ServeEngine:
         self.kcfg1 = self.meta1.kernel_config(impl, remat, base_dtype)
         self.base = base_params
         # device-resident R-row pack (zero: empty rows add exactly nothing)
-        # and the width-1 host template that admission injects into
         self._lora = lora_zeros(cfg, self.meta, self.dtype, self.device)
-        self._lora1_host = tree_map(
-            lambda t: t.numpy(), lora_zeros(cfg, self.meta1, torch.float32, "cpu")
-        )
         self._scales = np.zeros((rows,), np.float32)
         self._caches = None  # allocated on first serve()
         self._tok = np.zeros((rows, 1), np.int32)
         self._pos = np.zeros((rows,), np.int64)
         self._rows: List[Optional[_ActiveRow]] = [None] * rows
-        self.slot_cache = AdapterSlotCache(slot_capacity, metrics=self.tracer.metrics)
+        # per-row sampling settings (temperature 0: a greedy row)
+        self._temp = np.zeros((rows,), np.float32)
+        self._topk = np.zeros((rows,), np.int32)
+        self.seed = seed
+        self._gen = torch.Generator(device=self.device)
+        self.slot_cache = AdapterSlotCache(slot_capacity, pool=checkpoint_pool,
+                                           metrics=self.tracer.metrics)
         self.queue: "deque[ServeRequest]" = deque()
         self._enq_abs: Dict[int, float] = {}
         self._serve_t0 = 0.0
         self.serve_executor = serve_executor or ServeExecutor()
+        # the training side
+        if device_pool is None:
+            device_pool = DevicePool(None if self.device.type == "cuda" else [self.device])
+        self.device_pool = device_pool
+        self.executor = train_executor or SliceExecutor(tracer=self.tracer)
+        self._runner = ClusterRunner(self.executor, self.device_pool, concurrent=None,
+                                     tracer=self.tracer)
+        self.concurrent = self._runner.concurrent
+
+    # ---------------- Runner surface (the training side) -------------------
+
+    def run(self, segments: Sequence, configs_by_cid: Dict, total_steps: Dict[int, int], cfg,
+            base_params, *, seq: int, pool=None, data_iter_fn: Optional[Callable] = None,
+            seed: int = 0, estimator=None, impl: Optional[str] = None,
+            remat: Optional[str] = None, base_dtype: Optional[str] = None):
+        """Execute planned training segments on the engine's device pool
+        through its inner ``ClusterRunner`` (the reference's
+        ``engine.py:643-670``); units held by ``serve_lease`` stay held."""
+        return self._runner.run(
+            segments, configs_by_cid, total_steps, cfg, base_params, seq=seq, pool=pool,
+            data_iter_fn=data_iter_fn, seed=seed, estimator=estimator, impl=impl, remat=remat,
+            base_dtype=base_dtype)
+
+    @property
+    def last_result(self):
+        """The inner runner's last ``ClusterResult`` (its segment timings)."""
+        return self._runner.last_result
+
+    @contextmanager
+    def serve_lease(self, n: int = 1):
+        """Reserve the last ``n`` units of the device pool for decoding: the
+        planner assigns units from 0 upward, so a plan over ``total - n``
+        units never waits on them."""
+        total = self.device_pool.total
+        if not 1 <= n <= total:
+            raise ValueError(f"serve_lease({n}) on a pool of {total} units")
+        sl = self.device_pool.acquire_units(list(range(total - n, total)))
+        try:
+            yield sl
+        finally:
+            self.device_pool.release(sl)
 
     # ---------------- adapter staging --------------------------------------
 
@@ -422,11 +575,35 @@ class ServeEngine:
         ``extract_adapter``) with its ``{"rank", "alpha"}``."""
         self.slot_cache.publish(adapter_id, adapter_tree, meta)
 
-    def _device_tree(self, host_tree):
-        return tree_map(
-            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device, self.dtype),
-            host_tree,
-        )
+    def publish_from_packed_state(self, pool, state_id: str, idx: int, adapter_id: str, *,
+                                  rank: int, alpha: float) -> None:
+        """Stage adapter ``idx`` of a whole-pack training snapshot
+        (``CheckpointPool.save_packed_state``), as ``extract_adapter`` slices
+        it (at the snapshot's rank bucket)."""
+        lora, _opt, _meta = pool.load_packed_state(state_id)
+        self.publish(adapter_id, extract_adapter(lora, idx), {"rank": rank, "alpha": alpha})
+
+    def _row_lora(self, adapter) -> dict:
+        """A request's width-1 adapter pack on the device, in the compute
+        dtype: zeros at the rank bucket with the adapter's leaves (host
+        trees, as staged) copied into their leading part -- what
+        ``inject_adapter`` pads to, with only the adapter's own bytes
+        crossing to the card. Leaves the adapter lacks stay zero."""
+
+        def put(t, sub, in_blocks):
+            if isinstance(t, dict):
+                return {k: put(v, sub.get(k) if isinstance(sub, dict) else None,
+                               in_blocks or k == "blocks") for k, v in t.items()}
+            if sub is not None:
+                src = (sub.detach() if isinstance(sub, torch.Tensor)
+                       else torch.from_numpy(np.ascontiguousarray(np.asarray(sub, np.float32))))
+                dst = t.select(1 if in_blocks else 0, 0)
+                for ax in range(src.dim()):
+                    dst = dst.narrow(ax, 0, src.shape[ax])
+                dst.copy_(src)
+            return t
+
+        return put(lora_zeros(self.cfg, self.meta1, self.dtype, self.device), adapter, False)
 
     # ---------------- admission / retirement --------------------------------
 
@@ -484,7 +661,7 @@ class ServeEngine:
         with self.tracer.span("serve.admit", cat="serve", track=f"row{row}",
                               request_id=req.request_id, adapter=req.adapter_id, step=step):
             self.slot_cache.pin(req.adapter_id)
-            lora1 = self._device_tree(inject_adapter(self._lora1_host, adapter, 0))
+            lora1 = self._row_lora(adapter)
             write_row_caches(self._lora, lora1, row)
             if (self.prefill_chunk is not None and not req.extra
                     and not self.cfg.n_patch_tokens and not self.cfg.is_encdec):
@@ -506,11 +683,13 @@ class ServeEngine:
                             torch.full((1,), scale, dtype=torch.float32, device=self.device),
                             self._prefill_batch(req, prompt))
                 write_row_caches(self._caches, pad_caches(c1, self.smax), row)
-                first = int(torch.argmax(lg[0, -1, :]))
+                first = self._first_token(lg, req)
         now = time.perf_counter()
         if stats is not None:
             stats.ttft.record(max(0.0, now - self._enq_abs[req.request_id]))
         self._scales[row] = scale
+        self._temp[row] = req.temperature
+        self._topk[row] = req.top_k
         self._tok[row, 0] = first
         self._pos[row] = s_total
         self._rows[row] = _ActiveRow(
@@ -544,16 +723,33 @@ class ServeEngine:
                     torch.cuda.synchronize(self.device)
                 return False
             write_row_caches(self._caches, ps.caches, row)
-            first = int(torch.argmax(lg[0, -1, :]))
+            first = self._first_token(lg, a.request)
         now = time.perf_counter()
         stats.ttft.record(max(0.0, now - self._enq_abs[a.request.request_id]))
         self._scales[row] = ps.scale
+        self._temp[row] = a.request.temperature
+        self._topk[row] = a.request.top_k
         self._tok[row, 0] = first
         self._pos[row] = n
         a.emitted.append(first)
         a.last_emit_wall = now - self._serve_t0
         a.prefill = None
         return True
+
+    def _keyed(self, stream: int, value: int) -> torch.Generator:
+        """The engine's generator, re-seeded for one draw (``draw_seed``)."""
+        return self._gen.manual_seed(draw_seed(self.seed, stream, value))
+
+    def _first_token(self, lg: torch.Tensor, req: ServeRequest) -> int:
+        """A request's first token from its prefill's (1, S, V) logits: the
+        argmax, or at temperature > 0 a draw keyed by its request id, so
+        that admission order does not change it."""
+        if req.temperature <= 0.0:
+            return int(torch.argmax(lg[0, -1, :]))
+        return int(sample_tokens(
+            lg[:, -1, :], torch.full((1,), float(req.temperature), device=self.device),
+            torch.full((1,), int(req.top_k), dtype=torch.int32, device=self.device),
+            self._keyed(FIRST_TOKEN, req.request_id))[0])
 
     def _prefill_batch(self, req: ServeRequest, prompt: np.ndarray) -> dict:
         """A request's width-1 prefill batch: its tokens and its ``extra``
@@ -565,6 +761,8 @@ class ServeEngine:
         active = self._rows[row]
         self._rows[row] = None
         self._scales[row] = 0.0
+        self._temp[row] = 0.0
+        self._topk[row] = 0
         self.slot_cache.unpin(active.request.adapter_id)
         self._enq_abs.pop(active.request.request_id, None)
         self.tracer.add_span(
@@ -676,13 +874,18 @@ class ServeEngine:
             # chunk's write replaces
             with self.tracer.span("serve.step", cat="serve", track="serve",
                                   step=step, batch=len(decoding)):
-                fn = self.serve_executor.step_fn(self.cfg, self.rows, kcfg=self.kcfg)
-                next_tok, _lg, self._caches = fn(
-                    self.base, self._lora,
-                    torch.from_numpy(self._scales).to(self.device),
-                    self._caches, torch.from_numpy(self._tok).to(self.device),
-                    torch.from_numpy(self._pos).to(self.device),
-                )
+                args = (self.base, self._lora, torch.from_numpy(self._scales).to(self.device),
+                        self._caches, torch.from_numpy(self._tok).to(self.device),
+                        torch.from_numpy(self._pos).to(self.device))
+                if self._temp.any():  # some row samples: the step keyed by (seed, step)
+                    fn = self.serve_executor.sample_step_fn(self.cfg, self.rows, kcfg=self.kcfg)
+                    next_tok, _lg, self._caches = fn(
+                        *args, torch.from_numpy(self._temp).to(self.device),
+                        torch.from_numpy(self._topk).to(self.device),
+                        self._keyed(DECODE_STEP, step))
+                else:
+                    fn = self.serve_executor.step_fn(self.cfg, self.rows, kcfg=self.kcfg)
+                    next_tok, _lg, self._caches = fn(*args)
                 next_tok = next_tok.cpu().numpy()
             step += 1
             stats.steps += 1
@@ -705,7 +908,8 @@ class ServeEngine:
     def serve_sequential(self, requests: Sequence[ServeRequest]) -> ServeStats:
         """One request at a time at batch width 1 (``generate()`` semantics)
         through the same executor: the baseline continuous batching is held
-        against."""
+        against. Greedy whatever a request's temperature, as in the
+        reference."""
         stats = ServeStats()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -713,7 +917,7 @@ class ServeEngine:
                 stats.queue_wait.record(time.perf_counter() - t0)
                 adapter, ameta = self.slot_cache.get(req.adapter_id)
                 scale = self._scale_for(req, ameta)
-                lora1 = self._device_tree(inject_adapter(self._lora1_host, adapter, 0))
+                lora1 = self._row_lora(adapter)
                 prompt = np.asarray(req.prompt, np.int32)
                 s_total = prompt.shape[0] + self.cfg.n_patch_tokens
                 scales = torch.full((1,), scale, dtype=torch.float32, device=self.device)

@@ -1512,3 +1512,35 @@ def test_chunked_prefill_on_the_card(cuda, impl):
         assert (got.float() - ref.float()).abs().max() <= LOGIT_TOL * ref.float().abs().max()
         tail = "decode" if s % 64 <= 16 else paths[0]
         assert by_path.get(paths[0], 0) > 0 and by_path.get(tail, 0) > 0, by_path
+
+
+@pytest.mark.gpu
+def test_sample_tokens_on_the_card(cuda):
+    """``serve.sample_tokens`` on CUDA logits at qwen25-7b's vocabulary:
+    greedy rows are the argmax bit for bit beside sampled ones, one seed
+    repeats its draws, and no draw leaves its row's top-k set (ties kept)."""
+    from repro_torch.serve import sample_tokens
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rows, v = 8, 152_064
+    lg = _rnd(g, (rows, v), torch.bfloat16, 4.0)
+    lg[3, :50] = lg[3].max()  # a tie at the threshold wider than k
+    temp = torch.tensor([0.0, 0.8, 0.0, 1.0, 0.5, 0.0, 2.0, 0.8], device=cuda)
+    topk = torch.tensor([0, 50, 0, 20, 1, 50, 0, 50], dtype=torch.int32, device=cuda)
+
+    def draw(seed):
+        return sample_tokens(lg, temp, topk, torch.Generator(device=cuda).manual_seed(seed))
+
+    a = draw(5)
+    assert a.device.type == "cuda" and a.dtype == torch.int32
+    argmax = torch.argmax(lg.float(), dim=-1).to(torch.int32)
+    greedy = temp == 0
+    assert torch.equal(a[greedy], argmax[greedy]) and int(a[4]) == int(argmax[4])
+    assert torch.equal(a, draw(5))
+    draws = torch.stack([draw(s) for s in range(64)])
+    lgf = lg.float()
+    for i in range(rows):
+        k = int(topk[i]) or v
+        thresh = torch.sort(lgf[i]).values[v - k]
+        assert bool((lgf[i, draws[:, i].long()] >= thresh).all()), i
+    assert len(set(draws[:, 6].tolist())) > 1  # the sampled rows do sample
