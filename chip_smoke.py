@@ -57,7 +57,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``csrc/fused.cuh``'s plan; ``packed_matmul``: ``decode``, ``mma``,
    ``f32skinny`` or ``fma``, ``packed_matmul_path``), ``device_ms`` and
    ``library_device_ms``
-   (a CUDA graph of 20 calls replayed: the host out of the loop; the
+   (a CUDA graph of 20 calls replayed, 5 for a row whose call takes over
+   2 ms: the host out of the loop; the
    library yardstick of ``fused_matmul_q`` dequantizes W inside the
    graph) and ``host_us`` and ``library_host_us`` (host time per call, not
    synchronised). The run fails if a bf16 training-shape row of
@@ -159,8 +160,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prefill logits are held against the one-shot prefill's and against the
    plain path's on the same chunks at LOGIT_TOL (``chunk_gates``).
    Prefill logits and 4 teacher-forced decode steps are held against the
-   plain-version path on the same weights. Then a short fused drain runs
-   under ``torch.profiler`` (device busy share, device time by kernel).
+   plain-version path on the same weights. Every drain of the smoke runs
+   its decode steps as the engine's CUDA graphs (``ServeEngine``'s
+   default on the card); each family's serve, and command-r's, also holds
+   one captured step's logits ``torch.equal`` to the eager step's on the
+   same inputs and caches (``step_gate``).
+6b. serve_captured -- the serve phase's base at its full 28 layers: the
+   16 requests (64-256 prompt tokens, 32 new) at 8 rows, r_bucket 16,
+   one-shot prefill, under each impl through an eager engine
+   (``capture=False``) and a captured one (after two 1-request warm
+   drains that capture the greedy and the sampling step): the all-greedy drain,
+   then a mixed one (every odd request at temperature 0.8, top-k 50, one
+   seed). Fails unless every request returns its 32 tokens, the captured
+   drains' tokens equal the eager ones', the captured drain's launch
+   counts equal the eager drain's, one captured step's logits equal the
+   eager step's (``step_gate``), and dropping the captured engine returns
+   the allocated memory to its level before it. Records ITL p50 / p95 /
+   p99, TTFT p50, tokens/s and host µs per step, eager and captured side
+   by side, and each capture's seconds and pool bytes; then a short fused
+   drain on a captured engine runs under ``torch.profiler`` (device busy
+   share, device time by kernel).
 7. train   -- full-width qwen25-7b cut to its first TRAIN_LAYERS = 5
    layers (a view of the serve phase's bf16 base), a pack of 4 adapters
    of ranks (8, 16, 16, 32) (ragged
@@ -320,7 +339,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Prints one JSON line per measurement, then a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last. Details also go to
-``smoke_out/`` (``chip_smoke.json``, ``profile_<impl>.txt``,
+``smoke_out/`` (``chip_smoke.json``, ``profile_captured_fused.txt``,
 ``profile_train_{auto,fused,nf4}.txt``, ``profile_sweep_{captured,eager}.txt``,
 ``profile_launcher_{fused,auto,tuned}.txt``, the autotune caches
 ``autotune_{float32,bfloat16,launcher}.json``, the tuned launcher run's
@@ -499,9 +518,13 @@ def host_us(torch, fn, arg_sets, iters: int = 20, rounds: int = 2) -> float:
 # the kernel rows' repeats (cut for the smoke's time, PERF.md §4): a
 # plain version is timed over PLAIN_ITERS calls (its "plain_ms" is
 # reported, not checked), and a row's graph of 20 calls is replayed
-# ROW_DEVICE_REPS times for its device time
+# ROW_DEVICE_REPS times for its device time; a row whose kernel call takes
+# over LONG_ROW_MS takes its library, device and host times over
+# LONG_ROW_ITERS calls (each window still spans over 10 ms of device time)
 PLAIN_ITERS = 5
 ROW_DEVICE_REPS = 1
+LONG_ROW_MS = 2.0
+LONG_ROW_ITERS = 5
 
 
 def copies_for(nbytes: int) -> int:
@@ -623,8 +646,9 @@ def kernel_phase(torch, dev):
         in_bytes = nbytes(*[a for a in args if a is not None]) + nbytes(got)
         sets = [args] + [args_fn() for _ in range(copies_for(in_bytes) - 1)]
         ms = time_ms(torch, kfn, sets)
+        iters = LONG_ROW_ITERS if ms > LONG_ROW_MS else 20
         plain_ms = time_ms(torch, pfn, sets, iters=PLAIN_ITERS)
-        library_ms = time_ms(torch, lfn, sets)
+        library_ms = time_ms(torch, lfn, sets, iters=iters)
         dname = str(dtype).split(".")[-1]
         b_ms, b_by, _, _ = bound(in_bytes, flops, dname)
         row = {"phase": "kernel", "kernel": name, "case": case, "call": call,
@@ -635,9 +659,10 @@ def kernel_phase(torch, dev):
         if path is not None:
             row["path"] = path
         # device time with the host out of the loop, and host time
-        row.update(device_ms=device_ms(torch, kfn, sets, reps=ROW_DEVICE_REPS),
-                   library_device_ms=device_ms(torch, lfn, sets, reps=ROW_DEVICE_REPS),
-                   host_us=host_us(torch, kfn, sets), library_host_us=host_us(torch, lfn, sets))
+        row.update(device_ms=device_ms(torch, kfn, sets, iters, reps=ROW_DEVICE_REPS),
+                   library_device_ms=device_ms(torch, lfn, sets, iters, reps=ROW_DEVICE_REPS),
+                   host_us=host_us(torch, kfn, sets, iters),
+                   library_host_us=host_us(torch, lfn, sets, iters))
         emit(row)
         rows.append(row)
         del sets, args, got, want
@@ -1169,16 +1194,19 @@ def chunk_gates(torch, cfg, base, lora1s, prompts, impl: str, chunk: int) -> dic
     return rec
 
 
-def profile_serve(torch, cfg, base, adapters, reqs, impl: str, out_dir: Path):
+def profile_serve(torch, cfg, base, adapters, reqs, impl: str, out_dir: Path,
+                  capture: bool = True):
     """Serve 8 requests of 8 new tokens under ``torch.profiler`` (8 one-shot
-    prefills, 7 decode steps) and report the device time by operator and
-    the device's busy share of the wall time. The table goes to
-    ``smoke_out/profile_<impl>.txt``."""
+    prefills, 7 decode steps; with ``capture``, replays of the engine's
+    greedy graph, captured by a warm-up drain outside the window) and
+    report the device time by operator and the device's busy share of the
+    wall time. The table goes to ``smoke_out/profile_<captured|eager>_<impl>.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ServeEngine
 
-    eng = ServeEngine(cfg, base, rows=8, smax=512, r_bucket=16, impl=impl, device=base["embed"]["w"].device)
+    eng = ServeEngine(cfg, base, rows=8, smax=512, r_bucket=16, impl=impl, capture=capture,
+                      device=base["embed"]["w"].device)
     for i, (tree, r) in enumerate(adapters):
         eng.publish(f"ad{i}", tree, {"rank": r, "alpha": float(r)})
     short = [dataclasses.replace(r, max_new_tokens=8, arrival=0.0) for r in reqs[:8]]
@@ -1186,10 +1214,13 @@ def profile_serve(torch, cfg, base, adapters, reqs, impl: str, out_dir: Path):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.serve(short)
+        stats = eng.serve(short)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    emit({"phase": "profile", "impl": impl, **read_profile(prof, wall_ms, out_dir / f"profile_{impl}.txt")})
+    label = "captured" if capture else "eager"
+    emit({"phase": "profile", "impl": impl, "captured": capture, "n_layers": cfg.n_layers,
+          "decode_steps": stats.steps,
+          **read_profile(prof, wall_ms, out_dir / f"profile_{label}_{impl}.txt")})
 
 
 def read_profile(prof, wall_ms: float, table_path: Path) -> dict:
@@ -1334,11 +1365,165 @@ def serve_phase(torch, dev):
                   "max_abs_logit": ref_max, "rel_err": rel, "tol": LOGIT_TOL})
             if not rel <= LOGIT_TOL:
                 fail(f"impl={kimpl}: logits differ from {pimpl} by {rel} > {LOGIT_TOL}")
-    out_dir = ROOT / "smoke_out"
-    out_dir.mkdir(exist_ok=True)
-    # the fused drain only (the auto one was cut for the chunked drains' time)
-    profile_serve(torch, cfg, base, adapters, reqs, "fused", out_dir)
+    # the profiled drain runs at full depth, captured (serve_captured)
     return launches, full
+
+
+# ---------------------------------------------------------------------------
+# serve_captured phase
+# ---------------------------------------------------------------------------
+
+SC_REQUESTS = 16
+SC_NEW = 32
+SC_TEMP, SC_TOP_K = 0.8, 50  # every odd request of the mixed drain
+SC_COUNTERS = {"auto": "packed_matmul", "fused": "fused_matmul"}  # each impl's forward count
+
+
+def step_gate(torch, eng, tokens, positions, what: str) -> dict:
+    """One decode step of ``eng`` (a captured engine) at ``tokens`` and
+    ``positions``, every row at scale 1, through its greedy graph and
+    through the eager step on the same caches (restored between the two:
+    an SSM state advances): the logits must be ``torch.equal``, the same
+    kernels in the same order on the same buffers."""
+    from repro_torch.tree import tree_map
+
+    snapshot = tree_map(torch.clone, eng._caches)
+    ones = [1.0] * eng.rows
+    got = eng.decode_once(tokens, positions, ones)[1].clone()
+    tree_map(lambda d, s: d.copy_(s), eng._caches, snapshot)
+    want = eng.decode_once(tokens, positions, ones, eager=True)[1]
+    rec = {"logits_equal": bool(torch.equal(got, want)),
+           "max_abs_diff": (got.float() - want.float()).abs().max().item()}
+    del snapshot, got, want
+    if not rec["logits_equal"]:
+        fail(f"{what}: a captured decode step's logits differ from the eager step's by "
+             f"{rec['max_abs_diff']} (bitwise equality wanted)")
+    return rec
+
+
+def sc_drain(torch, eng, reqs, what: str):
+    """One drain with the launch counts zeroed just before it and read just
+    after: (stats, tokens (R, new), counts)."""
+    new = {r.request_id: r.max_new_tokens for r in reqs}
+    zero_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    counts = train_counts()
+    bad = [(r.request_id, r.error) for r in stats.results
+           if r.error is not None or len(r.tokens) != new[r.request_id]]
+    if bad or len(stats.results) != len(reqs):
+        fail(f"serve_captured {what}: requests failed: {bad}")
+    toks = np.stack([r.tokens for r in stats.results])
+    if toks.min() < 0 or toks.max() >= eng.cfg.vocab_size:
+        fail(f"serve_captured {what}: token ids outside the vocabulary")
+    return stats, toks, counts
+
+
+def sc_summary(stats) -> dict:
+    """A drain's end-to-end numbers: wall, tokens/s, TTFT p50, ITL p50 /
+    p95 / p99 and the host's time per decode step."""
+    lat = stats.latency_summaries()
+    return {"wall_s": stats.wall_seconds, "steps": stats.steps,
+            "tokens": stats.tokens_emitted, "tokens_per_s": stats.tokens_per_s,
+            "ttft_p50_s": lat["ttft"]["p50"], "itl_p50_s": lat["itl"]["p50"],
+            "itl_p95_s": lat["itl"]["p95"], "itl_p99_s": lat["itl"]["p99"],
+            "step_host_us_p50": 1e6 * lat["step_host"]["p50"],
+            "step_host_us_mean": 1e6 * lat["step_host"]["mean"]}
+
+
+def serve_captured(torch, dev, base, out_dir: Path) -> dict:
+    """qwen25-7b at its full 28 layers (``base``, the serve phase's whole
+    model): SC_REQUESTS requests of 64-256 prompt tokens and SC_NEW new
+    ones at 8 rows, r_bucket 16, one-shot prefill, under each impl through
+    an eager engine and a captured one: the all-greedy drain, then the
+    mixed one (every odd request sampled at SC_TEMP, top-k SC_TOP_K, one
+    seed). The captured engine first serves a greedy request, then a
+    sampled one, in warm drains that capture the two steps. Gates: every
+    request returns its tokens; the captured drains' tokens equal the eager
+    ones'; the captured greedy drain's launch counts equal the eager
+    drain's (a replay adds what its capture recorded); one captured step's
+    logits equal the eager step's (``step_gate``); the allocated memory
+    after the captured engine is dropped equals its level before it. Then
+    a profiled captured fused drain (``profile_serve``). Returns each
+    impl's launch counts of its captured greedy drain."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine, poisson_requests
+
+    cfg = get_config("qwen25-7b")
+    adapters = make_adapters(torch, cfg, 8, device=dev)
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(64, 257)).astype(np.int32)
+               for _ in range(SC_REQUESTS)]
+    greedy = poisson_requests([f"ad{i % 8}" for i in range(SC_REQUESTS)], prompts, 2.0,
+                              max_new_tokens=SC_NEW, seed=SEED)
+    mixed = [dataclasses.replace(r, temperature=SC_TEMP if i % 2 else 0.0,
+                                 top_k=SC_TOP_K if i % 2 else 0) for i, r in enumerate(greedy)]
+    # two warm drains of one request each: the greedy step's capture, then
+    # the sampling step's (a drain with a sampled row runs only the latter)
+    warm = [[dataclasses.replace(r, max_new_tokens=3, arrival=0.0)] for r in mixed[:2]]
+    sampled = np.array([r.temperature > 0 for r in mixed])
+
+    def engine(impl, capture):
+        eng = ServeEngine(cfg, base, rows=8, smax=512, r_bucket=16, slot_capacity=8, impl=impl,
+                          seed=SEED, capture=capture, device=dev)
+        for i, (tree, r) in enumerate(adapters):
+            eng.publish(f"ad{i}", tree, {"rank": r, "alpha": float(r)})
+        return eng
+
+    launches = {}
+    for impl in ("auto", "fused"):
+        counter = SC_COUNTERS[impl]
+        eng = engine(impl, False)
+        e_stats, e_greedy, e_counts = sc_drain(torch, eng, greedy, f"{impl} eager")
+        _, e_mixed, _ = sc_drain(torch, eng, mixed, f"{impl} eager mixed")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)
+        eng = engine(impl, None)
+        if not eng.capture:
+            fail(f"serve_captured {impl}: ServeEngine on {dev} does not capture by default")
+        t0 = time.perf_counter()
+        for w in warm:
+            sc_drain(torch, eng, w, f"{impl} warm")
+        warm_s = time.perf_counter() - t0
+        c_stats, c_greedy, c_counts = sc_drain(torch, eng, greedy, f"{impl} captured")
+        _, c_mixed, _ = sc_drain(torch, eng, mixed, f"{impl} captured mixed")
+        gate = step_gate(torch, eng, [int(t) for t in c_greedy[:8, 0]],
+                         [len(p) for p in prompts[:8]], f"serve_captured {impl}")
+        captures = list(eng.captures)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated(dev)
+        launches[impl] = c_counts
+        emit({"phase": "serve_captured", "model": cfg.name, "n_layers": cfg.n_layers,
+              "impl": impl, "requests": len(greedy), "new_tokens": SC_NEW, "rows": 8,
+              "eager": sc_summary(e_stats), "captured": sc_summary(c_stats),
+              "warm_drain_s": warm_s, "captures": captures,
+              "launches_eager": e_counts, "launches_captured": c_counts,
+              "greedy_equal": bool(np.array_equal(c_greedy, e_greedy)),
+              "mixed_equal": bool(np.array_equal(c_mixed, e_mixed)),
+              "sampled_differs_from_greedy_share":
+                  float((c_mixed[sampled] != c_greedy[sampled]).mean()),
+              "step_logits": gate, "allocated_before": held, "allocated_after_del": after})
+        if not np.array_equal(c_greedy, e_greedy):
+            fail(f"serve_captured {impl}: captured greedy tokens differ from the eager drain's "
+                 f"at {float((c_greedy != e_greedy).mean())} of them")
+        if not np.array_equal(c_mixed, e_mixed):
+            fail(f"serve_captured {impl}: captured mixed-drain tokens differ from the eager "
+                 f"mixed drain's under one seed at {float((c_mixed != e_mixed).mean())}")
+        if c_counts[counter] == 0 or c_counts != e_counts:
+            fail(f"serve_captured {impl}: captured launches {c_counts} against eager "
+                 f"{e_counts} ({counter} must launch, and the counts agree)")
+        if [c["sampling"] for c in captures] != [False, True]:
+            fail(f"serve_captured {impl}: captures {captures} (the greedy step, then the "
+                 "sampling step, once each)")
+        if after != held:
+            fail(f"serve_captured {impl}: {after} bytes allocated after the captured engine was "
+                 f"dropped, {held} before it")
+    profile_serve(torch, cfg, base, adapters, greedy, "fused", out_dir, capture=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2173,6 +2358,7 @@ def tune_serve(torch, dev, cfg, base, pool, engine, metas) -> dict:
         _, greedy2, _ = ts_drain(torch, eng, greedy_reqs, f"{impl} all-greedy, again")
         lat = stats.latency_summaries()
         r = {"cache": cache, "launches_by_path": by_path, "wall_s": stats.wall_seconds,
+             "captures": list(eng.captures),
              "steps": stats.steps, "tokens_per_s": stats.tokens_per_s,
              "ttft": lat["ttft"], "itl": lat["itl"],
              "sampled_repeat_share": float((again[sampled] == mixed[sampled]).mean()),
@@ -3231,6 +3417,9 @@ def family_serve(torch, dev, arch: str, cfg, base):
         stats = eng.serve(reqs)
         torch.cuda.synchronize()
         launches[impl] = train_counts()
+        gate = step_gate(torch, eng, [int(p[-1]) for p in prompts],
+                         [len(p) + cfg.n_patch_tokens for p in prompts],
+                         f"{cfg.name} serve impl={impl}")
         bad = [r for r in stats.results if r.error is not None or len(r.tokens) != new_tokens]
         toks = np.stack([r.tokens for r in stats.results]) if not bad else np.zeros((0,))
         lat = stats.latency_summaries()
@@ -3239,7 +3428,8 @@ def family_serve(torch, dev, arch: str, cfg, base):
               "tokens": stats.tokens_emitted, "steps": stats.steps,
               "wall_s": stats.wall_seconds, "tokens_per_s": stats.tokens_per_s,
               "ttft_p50_s": lat["ttft"]["p50"], "itl_p50_s": lat["itl"]["p50"],
-              "launches": launches[impl]})
+              "step_host_us_p50": 1e6 * lat["step_host"]["p50"], "captures": eng.captures,
+              "step_logits": gate, "launches": launches[impl]})
         if launches[impl][counters[impl]] == 0:
             fail(f"{cfg.name} serve impl={impl}: the {counters[impl]} kernel was never launched")
         if bad or len(stats.results) != 8:
@@ -3656,6 +3846,8 @@ def cr_serve(torch, dev, cfg, base, mode: str, impls, adapters, lora1s, prompts)
         counts, paths = train_counts(), launch_counts.read_paths()
         counts["fused_matmul_q_decode"] = paths["fused_matmul_q"]["decode"]
         out[f"serve:{impl}:{mode}"] = counts
+        gate = step_gate(torch, eng, [int(p[-1]) for p in prompts], [len(p) for p in prompts],
+                         f"{cfg.name} {mode} serve impl={impl}")
         bad = [r for r in stats.results if r.error is not None or len(r.tokens) != CR_SERVE_NEW]
         toks = np.stack([r.tokens for r in stats.results]) if not bad else np.zeros((0,))
         lat = stats.latency_summaries()
@@ -3664,7 +3856,9 @@ def cr_serve(torch, dev, cfg, base, mode: str, impls, adapters, lora1s, prompts)
               "requests": len(stats.results), "tokens": stats.tokens_emitted,
               "steps": stats.steps, "wall_s": stats.wall_seconds,
               "tokens_per_s": stats.tokens_per_s, "ttft_p50_s": lat["ttft"]["p50"],
-              "itl_p50_s": lat["itl"]["p50"], "launches": counts, "launches_by_path": paths})
+              "itl_p50_s": lat["itl"]["p50"], "step_host_us_p50": 1e6 * lat["step_host"]["p50"],
+              "captures": eng.captures, "step_logits": gate, "launches": counts,
+              "launches_by_path": paths})
         del eng
         if counts[counter[impl]] == 0:
             fail(f"{cfg.name} {mode} serve impl={impl}: the {counter[impl]} kernel never launched")
@@ -4127,6 +4321,13 @@ USES = [
      ("serve", "auto", "packed_matmul")),
     ("fused_matmul", "fused_matmul", ("fused",), "decode",
      "fused.cu", "src/repro/kernels/fused.py:275", ("serve", "fused", "fused_matmul")),
+    # the same decode rows in qwen25-7b's captured greedy drains at 28
+    # layers (serve_captured): each replay adds what its graph recorded
+    ("packed_matmul:decode_captured", "packed_matmul", ("xA", "xAB"), "decode",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("serve_captured", "auto", "packed_matmul")),
+    ("fused_matmul:decode_captured", "fused_matmul", ("fused",), "decode",
+     "fused.cu", "src/repro/kernels/fused.py:275", ("serve_captured", "fused", "fused_matmul")),
     # the tune_serve drains' decode steps (8 rows at r = 128, the sweep's
     # pool served at its rank bucket): launches on "decode" in each impl's
     # mixed drain
@@ -4404,6 +4605,9 @@ def main() -> None:
     serve_launches, base = serve_phase(torch, dev)
     emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    captured_launches = serve_captured(torch, dev, base, out_dir)
+    emit({"phase": "serve_captured_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     train_launches = train_phase(torch, dev, base, out_dir)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -4423,7 +4627,8 @@ def main() -> None:
     t0 = time.perf_counter()
     family_launches = families_phase(torch, dev, out_dir)
     emit({"phase": "families_done", "seconds": time.perf_counter() - t0})
-    summary = summarize(rows, {"serve": serve_launches, "train": train_launches,
+    summary = summarize(rows, {"serve": serve_launches, "serve_captured": captured_launches,
+                               "train": train_launches,
                                "sweep": {"auto": sweep_launches},
                                "tune_serve": tune_serve_launches,
                                "online": {"auto": online_launches},

@@ -6,7 +6,8 @@
     python3 scripts/smoke_phases.py command_r    # the command_r phase alone
     python3 scripts/smoke_phases.py kernels moe  # the kernel rows and qwen3-moe-30b-a3b
     python3 scripts/smoke_phases.py kernels jamba  # the kernel rows and jamba-v0.1-52b
-    python3 scripts/smoke_phases.py kernels serve  # the kernel rows and qwen25-7b's serve
+    python3 scripts/smoke_phases.py kernels serve  # the kernel rows, qwen25-7b's serve and
+                                                   # its captured decode at 28 layers
     python3 scripts/smoke_phases.py kernels sweep  # the kernel rows, the sweep and tune_serve
     python3 scripts/smoke_phases.py kernels families
     python3 scripts/smoke_phases.py families:whisper-tiny,internvl2-1b  # some families
@@ -14,7 +15,8 @@
 Builds the kernels, then runs ``chip_smoke.kernel_phase``,
 ``chip_smoke.command_r_phase``, ``chip_smoke.moe_phase``,
 ``chip_smoke.jamba_phase``, ``chip_smoke.serve_phase`` (one-shot and
-chunked drains), ``chip_smoke.sweep_phase`` (the sweep through the serve
+chunked drains) with ``chip_smoke.serve_captured`` (eager against
+captured decode on all 28 layers), ``chip_smoke.sweep_phase`` (the sweep through the serve
 engine, then ``tune_serve`` on its pool; on the serve phase's base, or on
 one of its own) and/or ``chip_smoke.families_phase`` (in the
 smoke's order; ``families:<arch>,...`` runs those families alone) with the smoke's own checks (a failed check exits
@@ -82,6 +84,9 @@ def main() -> None:
         t0 = time.perf_counter()
         counts["serve"], base = cs.serve_phase(torch, dev)
         cs.emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        counts["serve_captured"] = cs.serve_captured(torch, dev, base, out)
+        cs.emit({"phase": "serve_captured_done", "seconds": time.perf_counter() - t0})
     if "sweep" in which:
         if base is None:
             from repro_torch.configs import get_config

@@ -140,16 +140,17 @@ def _gb(n: float) -> str:
     return f"{n / 1e9:.2f} GB"
 
 
-def _check_fits(need: int, device, what: str) -> None:
-    """Raise ``torch.OutOfMemoryError`` with the numbers when ``need`` bytes
-    exceed what ``device`` has free: the driver's free memory plus the
-    blocks the allocator caches but does not use."""
+def _check_fits(need: int, device, what: str,
+                hint: str = "train a narrower pack, or fewer rows per adapter") -> None:
+    """Raise ``torch.OutOfMemoryError`` with the numbers, and ``hint``, when
+    ``need`` bytes exceed what ``device`` has free: the CUDA driver's free memory
+    plus the blocks the allocator caches but does not use."""
     free, total = torch.cuda.mem_get_info(device)
     free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
     if need > free:
         raise torch.OutOfMemoryError(
             f"{what} needs {_gb(need)} on {device}, which has {_gb(free)} free of "
-            f"{_gb(total)}: train a narrower pack, or fewer rows per adapter")
+            f"{_gb(total)}: {hint}")
 
 
 @contextlib.contextmanager

@@ -113,12 +113,12 @@ def prefill_chunked(base, lora, scales, tokens: torch.Tensor, cfg: ModelConfig, 
     equals the one-shot ``prefill``'s: every chunk attends a cache of the
     one-shot operands' shapes. ``tokens`` (NB, S) lie on the device the
     caches are made on."""
-    from repro_torch.serve.engine import ServeExecutor
+    from repro_torch.serve.engine import default_executor
 
     chunk = align_prefill_chunk(cfg, chunk)
     if not chunk:
         raise ValueError("prefill_chunked needs a positive chunk size")
-    ex = executor if executor is not None else ServeExecutor()
+    ex = executor if executor is not None else default_executor()
     nb, s = tokens.shape
     caches = init_caches(cfg, nb, capacity or s, dtype=torch.float32, device=tokens.device)
     fn = ex.prefill_chunk_fn(cfg, n_pack, kcfg=kcfg)
@@ -138,12 +138,12 @@ def generate(base, lora, cfg: ModelConfig, meta: Optional[PackMeta],
     "frames", a VLM's "patches"). A VLM's positions start after its
     ``n_patch_tokens`` patch positions, as in the reference, whether or not
     the batch carries patches."""
-    from repro_torch.serve.engine import ServeExecutor
+    from repro_torch.serve.engine import default_executor
 
     device = resolve_device(device)
     if prompt_tokens.device != device:
         raise ValueError(f"prompt on {prompt_tokens.device}, expected {device}")
-    ex = executor if executor is not None else ServeExecutor()
+    ex = executor if executor is not None else default_executor()
     scales = _scales(meta, device)
     n_pack = meta.n if meta else 1
     s_total = prompt_tokens.shape[1] + cfg.n_patch_tokens

@@ -29,7 +29,20 @@ first token) or the decode step, so a drain replays exactly); a request at
     A keyed cache of the prefill, prefill-chunk, decode-step and
     sampling decode-step closures, one per ``(kind, cfg, n_rows, ...)``
     key, with ``scales`` (and temperature, top-k and generator) runtime
-    arguments.
+    arguments. ``default_executor()`` is the process-wide one that
+    ``generate``, ``prefill_chunked`` and every engine given none share.
+
+On a CUDA device the engine runs its decode step as a CUDA graph, as the
+reference jits it (``repro/serve/engine.py:356-394``): one graph of the
+greedy step and one of the sampling step, each captured on its first use
+after an eager warm-up, reading the base, the engine's row pack and caches
+in place and its row vectors from static device buffers. Each step stages
+those vectors through one pinned host buffer (one copy to the card) and
+reads its tokens back through another; the logits stay on the card. The
+graphs belong to the engine, never to the executor: they pin its caches
+and pack, and go back to the device with it. Prefill stays eager: it
+specializes on the prompt's length, so a graph would almost never be
+replayed.
 
 ``ServeEngine``
     The event loop: ``publish``, ``submit``, ``serve`` and the width-1
@@ -62,16 +75,25 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.cluster.executor import SliceExecutor
+from repro_torch.cluster.executor import (
+    _CAPTURING,
+    WARMUP_STEPS,
+    SliceExecutor,
+    _check_fits,
+    _copy_tree,
+    _no_collection,
+)
 from repro_torch.cluster.pool import DevicePool
 from repro_torch.cluster.runner import ClusterRunner
 from repro_torch.configs.base import LoraConfig, ModelConfig
 from repro_torch.core.adapter import pack_meta
 from repro_torch.core.packed_lora import extract_adapter
+from repro_torch.kernels import launches
 from repro_torch.kernels.quant import base_storage
 from repro_torch.models.model import decode_step, init_caches, lora_zeros, prefill, prefill_chunk
 from repro_torch.obs import NULL_TRACER, Histogram
 from repro_torch.serve.decode import align_prefill_chunk, pad_caches
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Request / result / stats surface
@@ -146,6 +168,9 @@ class ServeStats:
     ttft: Histogram = field(default_factory=lambda: Histogram("serve.ttft"))
     itl: Histogram = field(default_factory=lambda: Histogram("serve.itl"))
     queue_wait: Histogram = field(default_factory=lambda: Histogram("serve.queue_wait"))
+    # host seconds a decode step takes to stage its row vectors and queue
+    # its work, before it waits for its tokens (a graph's capture included)
+    step_host: Histogram = field(default_factory=lambda: Histogram("serve.step_host"))
 
     @property
     def tokens_per_s(self) -> float:
@@ -157,7 +182,7 @@ class ServeStats:
 
     def latency_summaries(self) -> Dict[str, Dict[str, float]]:
         return {"ttft": self.ttft.summary(), "itl": self.itl.summary(),
-                "queue_wait": self.queue_wait.summary()}
+                "queue_wait": self.queue_wait.summary(), "step_host": self.step_host.summary()}
 
 
 def poisson_requests(adapter_ids: Sequence[str], prompts: Sequence[np.ndarray],
@@ -320,7 +345,9 @@ def sample_tokens(lg: torch.Tensor, temp: torch.Tensor, topk: torch.Tensor,
 
 class ServeExecutor:
     """One prefill and one decode-step closure per key; ``scales`` is a
-    runtime argument of both, so admission never builds a new one."""
+    runtime argument of both, so admission never builds a new one. It
+    holds closures only: an engine's CUDA graphs of these steps are the
+    engine's own."""
 
     def __init__(self):
         self._fns: Dict[Tuple, Callable] = {}
@@ -386,6 +413,98 @@ class ServeExecutor:
 
             self._fns[key] = chunk_
         return self._fns[key]
+
+
+_DEFAULT_EXECUTOR: Optional[ServeExecutor] = None
+
+
+def default_executor() -> ServeExecutor:
+    """The process-wide ``ServeExecutor`` (the reference's
+    ``engine.py:438-447``): ``generate``, ``prefill_chunked`` and every
+    engine that brings none share its closures."""
+    global _DEFAULT_EXECUTOR
+    if _DEFAULT_EXECUTOR is None:
+        _DEFAULT_EXECUTOR = ServeExecutor()
+    return _DEFAULT_EXECUTOR
+
+
+# ---------------------------------------------------------------------------
+# Captured decode steps
+# ---------------------------------------------------------------------------
+
+# the decode step's row vectors, one buffer on the host and one on the
+# device: name -> dtype, in an order that keeps every view aligned
+_ROW_VECTORS = (("pos", torch.int64), ("tok", torch.int32), ("topk", torch.int32),
+                ("scales", torch.float32), ("temp", torch.float32))
+
+# one side stream per CUDA device for every decode capture of the process:
+# a stream's first cuBLAS call allocates a workspace that stays with the
+# stream, so engines that all capture on one stream leave nothing behind
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _row_vectors(buf: torch.Tensor, rows: int) -> Dict[str, torch.Tensor]:
+    """Views of the uint8 ``buf`` as the row vectors of ``_ROW_VECTORS``,
+    each (rows,)."""
+    out, off = {}, 0
+    for name, dt in _ROW_VECTORS:
+        n = rows * dt.itemsize
+        out[name] = buf[off : off + n].view(dt)
+        off += n
+    return out
+
+
+class _CapturedDecode:
+    """One CUDA graph of an engine's decode step, greedy or sampling,
+    captured as ``cluster.executor._CapturedStep`` captures a train step.
+    ``fn(*args)`` is the eager step on the engine's base, row pack, caches
+    and static row-vector buffers, which the graph then reads in place. A
+    sampling step's ``generator`` is registered with the graph, so that
+    re-seeding it before a replay keys the replay's draws as it keys an
+    eager step's. Each replay adds the launches the capture recorded to the
+    kernels' counts."""
+
+    def __init__(self, fn: Callable, args: Tuple, generator, caches, device, what: str):
+        side = _SIDE_STREAMS.get(device)
+        if side is None:
+            side = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+        # the warm-up steps the caches (an SSM layer's state advances):
+        # they go back to what they held before it
+        snapshot = tree_map(torch.clone, caches)
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    fn(*args)
+        except torch.OutOfMemoryError as e:
+            raise torch.OutOfMemoryError(f"{what}: its eager warm-up step ran out of memory "
+                                         f"on {device}: {e}") from e
+        torch.cuda.current_stream(device).wait_stream(side)
+        _copy_tree(caches, snapshot)
+        torch.cuda.synchronize(device)
+        del snapshot
+        torch.cuda.empty_cache()
+        # what the graph's pool will hold: the warm-up's transient peak
+        self.transient_bytes = torch.cuda.max_memory_allocated(device) - held
+        _check_fits(self.transient_bytes, device, f"{what}: its graph's memory pool",
+                    "serve fewer rows, or a shorter smax")
+        reserved = torch.cuda.memory_reserved(device)
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        with _no_collection(), launches.recorded() as self.launches, torch.cuda.graph(
+                self.graph, stream=side, capture_error_mode="thread_local"):
+            self.next_tok, self.logits, _ = fn(*args)
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+
+    def __call__(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One replay: (next tokens (R,), logits (R, 1, V)), the graph's
+        own output buffers."""
+        self.graph.replay()
+        launches.add(self.launches)
+        return self.next_tok, self.logits
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +595,15 @@ class ServeEngine:
     steps through the sampling step only while some row samples, so an
     all-greedy drain runs exactly the greedy step.
 
+    ``capture`` (None: on a CUDA device, not on the CPU): run the greedy
+    and the sampling decode step each as a CUDA graph of the engine's own
+    (``captures`` records each capture's seconds, pool and transient
+    bytes), or eagerly (``False``). ``True`` on the CPU raises; a capture
+    or replay that fails raises, and nothing falls back to the eager step.
+    A capture resets the device's peak memory statistics (its warm-up's
+    peak sizes the graph's pool). ``serve_executor`` (default:
+    ``default_executor()``) holds the step closures, shared across engines.
+
     The training side (the ``Runner`` surface): ``device_pool`` (default:
     the CUDA devices, or the engine's own device when it is not CUDA) and
     ``train_executor`` (default: ``SliceExecutor(tracer=)``) back an inner
@@ -487,11 +615,18 @@ class ServeEngine:
                  device_pool: Optional[DevicePool] = None,
                  serve_executor: Optional[ServeExecutor] = None, train_executor=None,
                  impl: Optional[str] = None, remat: Optional[str] = None,
-                 base_dtype: Optional[str] = None, seed: int = 0, tracer=None, device=None):
+                 base_dtype: Optional[str] = None, seed: int = 0,
+                 capture: Optional[bool] = None, tracer=None, device=None):
         self.device = resolve_device(device)
         emb = base_params["embed"]["w"]
         if emb.device != self.device:
             raise ValueError(f"base params on {emb.device}, engine on {self.device}")
+        on_cuda = self.device.type == "cuda"
+        if capture and not on_cuda:
+            raise ValueError(f"capture=True on {self.device}: a CUDA graph needs a CUDA device")
+        self.capture = on_cuda if capture is None else capture
+        self._graphs: Dict[bool, _CapturedDecode] = {}  # sampling? -> its graph
+        self.captures: List[Dict[str, float]] = []
         if base_dtype is not None and base_storage(base_params) != base_dtype:
             raise ValueError(f"base_dtype={base_dtype!r}, but the base is stored as "
                              f"{base_storage(base_params)!r}")
@@ -510,14 +645,23 @@ class ServeEngine:
         self.base = base_params
         # device-resident R-row pack (zero: empty rows add exactly nothing)
         self._lora = lora_zeros(cfg, self.meta, self.dtype, self.device)
-        self._scales = np.zeros((rows,), np.float32)
-        self._caches = None  # allocated on first serve()
-        self._tok = np.zeros((rows, 1), np.int32)
-        self._pos = np.zeros((rows,), np.int64)
+        self._caches = None  # allocated on first use, then updated in place
+        # the row vectors: numpy views of one pinned host buffer, copied as
+        # one to the device buffer whose views the steps read; per-row
+        # sampling settings among them (temperature 0: a greedy row)
+        nbytes = rows * sum(dt.itemsize for _, dt in _ROW_VECTORS)
+        self._rows_host = torch.zeros((nbytes,), dtype=torch.uint8, pin_memory=on_cuda)
+        self._rows_dev = torch.zeros((nbytes,), dtype=torch.uint8, device=self.device)
+        host = {k: v.numpy() for k, v in _row_vectors(self._rows_host, rows).items()}
+        self._pos, self._scales, self._temp, self._topk = (
+            host["pos"], host["scales"], host["temp"], host["topk"])
+        self._tok = host["tok"].reshape(rows, 1)
+        self._dev = _row_vectors(self._rows_dev, rows)
+        self._dev["tok"] = self._dev["tok"].view(rows, 1)
+        # a step's tokens come back through this pinned buffer
+        self._tok_out = torch.zeros((rows,), dtype=torch.int32, pin_memory=on_cuda)
+        self._tok_out_np = self._tok_out.numpy()
         self._rows: List[Optional[_ActiveRow]] = [None] * rows
-        # per-row sampling settings (temperature 0: a greedy row)
-        self._temp = np.zeros((rows,), np.float32)
-        self._topk = np.zeros((rows,), np.int32)
         self.seed = seed
         self._gen = torch.Generator(device=self.device)
         self.slot_cache = AdapterSlotCache(slot_capacity, pool=checkpoint_pool,
@@ -525,7 +669,7 @@ class ServeEngine:
         self.queue: "deque[ServeRequest]" = deque()
         self._enq_abs: Dict[int, float] = {}
         self._serve_t0 = 0.0
-        self.serve_executor = serve_executor or ServeExecutor()
+        self.serve_executor = serve_executor or default_executor()
         # the training side
         if device_pool is None:
             device_pool = DevicePool(None if self.device.type == "cuda" else [self.device])
@@ -789,8 +933,7 @@ class ServeEngine:
         the next step. ``max_steps`` bounds the drain: rows still in flight,
         filling rows too, retire as partial results."""
         pending = deque(sorted(requests or (), key=lambda r: (r.arrival, r.request_id)))
-        if self._caches is None:
-            self._caches = init_caches(self.cfg, self.rows, self.smax, device=self.device)
+        self._ensure_caches()
         stats = ServeStats()
         with torch.no_grad(), self.tracer.span(
             "serve.drain", cat="serve", track="serve",
@@ -871,22 +1014,14 @@ class ServeEngine:
             # the step runs every row; a filling row's stale token writes its
             # k/v at a stale position (masked, and overwritten by the row's
             # own later writes) and moves its SSM state, which its last
-            # chunk's write replaces
+            # chunk's write replaces. Some row samples: the sampling step,
+            # keyed by (seed, step)
             with self.tracer.span("serve.step", cat="serve", track="serve",
                                   step=step, batch=len(decoding)):
-                args = (self.base, self._lora, torch.from_numpy(self._scales).to(self.device),
-                        self._caches, torch.from_numpy(self._tok).to(self.device),
-                        torch.from_numpy(self._pos).to(self.device))
-                if self._temp.any():  # some row samples: the step keyed by (seed, step)
-                    fn = self.serve_executor.sample_step_fn(self.cfg, self.rows, kcfg=self.kcfg)
-                    next_tok, _lg, self._caches = fn(
-                        *args, torch.from_numpy(self._temp).to(self.device),
-                        torch.from_numpy(self._topk).to(self.device),
-                        self._keyed(DECODE_STEP, step))
-                else:
-                    fn = self.serve_executor.step_fn(self.cfg, self.rows, kcfg=self.kcfg)
-                    next_tok, _lg, self._caches = fn(*args)
-                next_tok = next_tok.cpu().numpy()
+                t_host = time.perf_counter()
+                next_tok, _lg = self._decode(bool(self._temp.any()), step, self.capture)
+                stats.step_host.record(time.perf_counter() - t_host)
+                next_tok = self._tokens_to_host(next_tok)
             step += 1
             stats.steps += 1
             stats.occupancy_sum += len(decoding)
@@ -902,6 +1037,87 @@ class ServeEngine:
                     stats.tokens_emitted += len(a.emitted)
                     stats.results.append(self._retire(row, step, wall))
         stats.wall_seconds = time.perf_counter() - t0
+
+    # ---------------- the decode step ---------------------------------------
+
+    def _ensure_caches(self) -> None:
+        if self._caches is None:
+            self._caches = init_caches(self.cfg, self.rows, self.smax, device=self.device)
+
+    def _step_call(self, sampling: bool) -> Tuple[Callable, Tuple]:
+        """The executor's eager step and its arguments: the base, the row
+        pack, the caches and the device's row vectors (a sampling step's
+        temperatures, top-k and generator too)."""
+        v = self._dev
+        args = (self.base, self._lora, v["scales"], self._caches, v["tok"], v["pos"])
+        if sampling:
+            fn = self.serve_executor.sample_step_fn(self.cfg, self.rows, kcfg=self.kcfg)
+            return fn, args + (v["temp"], v["topk"], self._gen)
+        return self.serve_executor.step_fn(self.cfg, self.rows, kcfg=self.kcfg), args
+
+    def _capture(self, sampling: bool, fn: Callable, args: Tuple) -> _CapturedDecode:
+        """Capture the greedy or the sampling step (``_CapturedDecode``),
+        one capture at a time across threads, as the train steps'."""
+        kind = "sampling" if sampling else "greedy"
+        what = f"the captured {kind} decode step of {self.rows} rows"
+        t0 = time.perf_counter()
+        with _CAPTURING, self.tracer.span("serve.capture", cat="serve", track="serve",
+                                          sampling=sampling):
+            graph = _CapturedDecode(fn, args, self._gen if sampling else None, self._caches,
+                                    self.device, what)
+        self._graphs[sampling] = graph
+        self.captures.append({"sampling": sampling, "seconds": time.perf_counter() - t0,
+                              "pool_bytes": graph.pool_bytes,
+                              "transient_bytes": graph.transient_bytes})
+        return graph
+
+    def _decode(self, sampling: bool, step: int, captured: bool):
+        """One decode step of every row from the host's row vectors: (next
+        tokens (R,) int32, logits (R, 1, V)) on the device, the caches
+        advanced in place; a replay of the engine's graph (captured on first
+        use) or the eager step. The vectors go to the card in one
+        non-blocking copy from pinned memory: the host writes them only
+        after the previous step's tokens came back, so after that copy ran."""
+        self._rows_dev.copy_(self._rows_host, non_blocking=True)
+        fn, args = self._step_call(sampling)
+        graph = None
+        if captured:
+            graph = self._graphs.get(sampling) or self._capture(sampling, fn, args)
+        if sampling:  # re-seeded just before the step: the warm-up drew too
+            self._keyed(DECODE_STEP, step)
+        if graph is not None:
+            return graph()
+        next_tok, lg, _ = fn(*args)
+        return next_tok, lg
+
+    def _tokens_to_host(self, next_tok: torch.Tensor) -> np.ndarray:
+        """A step's tokens on the host, through the pinned buffer: waits for
+        the step. The array is that buffer's view, rewritten by the next."""
+        self._tok_out.copy_(next_tok, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._tok_out_np
+
+    def decode_once(self, tokens, positions, scales, temperature=None, top_k=None, *,
+                    step: int = 0, eager: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One decode step of every row outside a drain, on the row pack and
+        caches as they stand (the caches advance in place): ``tokens``,
+        ``positions``, ``scales`` and, for a sampling step keyed by
+        ``step``, ``temperature`` and ``top_k`` are host sequences of
+        ``rows`` values, staged as a drain stages them. The engine's graph
+        runs unless ``eager`` or the engine does not capture. Returns (next
+        tokens (R,) int32, logits (R, 1, V)) on the device; a graph's are
+        its output buffers, which its next replay overwrites."""
+        self._ensure_caches()
+        if self.device.type == "cuda":  # the last step's copy has read the buffer
+            torch.cuda.current_stream(self.device).synchronize()
+        self._tok[:, 0] = tokens
+        self._pos[:] = positions
+        self._scales[:] = scales
+        self._temp[:] = 0.0 if temperature is None else temperature
+        self._topk[:] = 0 if top_k is None else top_k
+        with torch.no_grad():
+            return self._decode(temperature is not None, step, self.capture and not eager)
 
     # ---------------- sequential baseline -----------------------------------
 
