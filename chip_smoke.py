@@ -26,7 +26,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 4) at the sweep's shapes in bf16 (each same-rank segment of each
    job the sweep phase plans: N, M = rows per adapter x 512 and r of that
    segment, r 8-128, and likewise each of the online plan's segments, M
-   up to 4,096), and in f32 at the launcher's shapes (phase 10's pack:
+   up to 4,096, and the multihost phase's two jobs, ``multihost``: N = 2 x
+   M = 512 at r = 8 and at r = 16), and in f32 at the launcher's shapes (phase 11's pack:
    N = 1 x M = 1,024 at r = 8 and at r = 16; the fused forward and dx,
    and ``packed_matmul``'s xA, xAB and cases 2 and 4), and in bf16 at the
    training shapes of starcoder2-7b, gemma3-1b, minicpm3-4b,
@@ -165,13 +166,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    default on the card); each family's serve, and command-r's, also holds
    one captured step's logits ``torch.equal`` to the eager step's on the
    same inputs and caches (``step_gate``).
-6b. serve_captured -- the serve phase's base at its full 28 layers: the
-   16 requests (64-256 prompt tokens, 32 new) at 8 rows, r_bucket 16,
+6b. serve_captured -- the serve phase's base at its full 28 layers:
+   SC_REQUESTS = 8 requests (64-256 prompt tokens, SC_NEW = 16 new) at 8
+   rows, r_bucket 16,
    one-shot prefill, under each impl through an eager engine
    (``capture=False``) and a captured one (after two 1-request warm
    drains that capture the greedy and the sampling step): the all-greedy drain,
    then a mixed one (every odd request at temperature 0.8, top-k 50, one
-   seed). Fails unless every request returns its 32 tokens, the captured
+   seed). Fails unless every request returns its 16 tokens, the captured
    drains' tokens equal the eager ones', the captured drain's launch
    counts equal the eager drain's, one captured step's logits equal the
    eager step's (``step_gate``), and dropping the captured engine returns
@@ -243,7 +245,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    into the bf16 base, with no adapter, holds within LOGIT_TOL of the
    "auto" path with the adapter over 2 prompts and 4 teacher-forced
    decode steps.
-9. online  -- the online engine on the same base: six configurations of
+9. multihost -- the dispatch tier (``cluster/multihost.py``) on the same
+   base cut to SWEEP_LAYERS = 8 layers: four batch-1 adapters of
+   ``default_search_space(300, seq_len=512)`` (MH_IDS, ranks 8, 8, 16, 16)
+   as two jobs of two, one per host, 4 captured steps each (impl="auto"),
+   run by ``ExecutionEngine(cm, 2, host_size=1).run_local`` in this process
+   (a ``ClusterRunner``, one job after the other), then through
+   ``HostDispatcher([1, 1])``: two spawned worker processes sharing the
+   card, each sent the base once (``init``), heartbeats every MH_HEARTBEAT
+   s; host 0's worker is SIGKILLed while its first segment is in flight
+   (its init under way) and the segment re-runs on a respawned worker;
+   then the same workload again on
+   the warm workers (no second ``init``), traced. Prints each worker's
+   spawn-to-ready, ``init`` bytes and seconds, capture seconds, s/iter
+   against the in-process run's, peak memory, the walls, the recovery's
+   seconds and the card's free memory before, at its least and after
+   ``close()``. Fails unless the kill landed mid-segment and was recovered,
+   both runs' losses and pooled adapters equal the in-process run's bit
+   for bit with every budget exact, the hosts' segments overlapped, both
+   hosts end ALIVE, the trace is valid with both hosts' ``host*.segment``
+   spans stitched under ``dispatch.segment``, the card's free memory comes
+   back within MH_MEM_SLACK after ``close()``, and the workers' launches
+   (sent back with each segment) equal the in-process run's (cold) and its
+   replays' (warm).
+10. online  -- the online engine on the same base: six configurations of
    ``default_search_space(300, seq_len=512)`` (two of batch 8, one of rank
    128, ranks 16-128) arrive on a ``poisson_trace``;
    ``ExecutionEngine.plan_online`` on the ``H100`` preset (the port's
@@ -269,7 +294,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step, finish every adapter with a finite loss and round-trip its
    observation store through JSON. Last, ``c3_fit`` fits the memory
    model's logits copies and per-job bytes to every captured job's peak.
-10. launcher -- ``repro_torch.launch.train.main``, the port's training
+11. launcher -- ``repro_torch.launch.train.main``, the port's training
    entry point, on full qwen25-7b with its f32 base (``init_model``'s
    default; the smoke's bf16 base is freed first): ``--seq 512 --ranks
    8,16 --batch-sizes 2,2 --steps 3`` (two adapters of 1,024 tokens, ranks
@@ -296,7 +321,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    metrics count an executor build (it prints the uncalibrated and the
    calibrated prior's s/step beside the measured, and the split it ran),
    and the control's reads above LAUNCH_CONTROL_FACTOR times that limit.
-11. families -- starcoder2-7b (LayerNorm, the two-matrix GELU MLP, biased
+12. families -- starcoder2-7b (LayerNorm, the two-matrix GELU MLP, biased
    GQA; cut to its first 8 of 32 layers, FAMILY_LAYERS), gemma3-1b
    (512-token sliding windows, every 6th layer global with its own rope
    theta, the gated GELU, tied embeddings; cut to 7 of 26), minicpm3-4b (multi-head
@@ -790,6 +815,13 @@ def kernel_phase(torch, dev):
     for job, n, m, r in sweep_segments(sweep_plan().jobs):
         for (d_in, d_out), _ in PROJ:
             packed_rows("sweep", n, m, d_in, d_out, torch.bfloat16,
+                        torch.linspace(0.5, 2.0, n, device=dev), backward_cases=True, rank=r,
+                        only=SWEEP_CALLS, extra={"job": job, "n": n, "m": m, "rank": r})
+    # the multihost phase's jobs (two adapters of one rank a job, batch 1:
+    # N = 2 x M = 512 at r = 8 and at r = 16)
+    for job, n, m, r in sweep_segments(mh_jobs()):
+        for (d_in, d_out), _ in PROJ:
+            packed_rows("multihost", n, m, d_in, d_out, torch.bfloat16,
                         torch.linspace(0.5, 2.0, n, device=dev), backward_cases=True, rank=r,
                         only=SWEEP_CALLS, extra={"job": job, "n": n, "m": m, "rank": r})
     # the online plan's shapes (batch 8: M = 4,096 tokens per adapter)
@@ -1373,8 +1405,10 @@ def serve_phase(torch, dev):
 # serve_captured phase
 # ---------------------------------------------------------------------------
 
-SC_REQUESTS = 16
-SC_NEW = 32
+# 8 requests of 16 new tokens (16 of 32 until the multihost phase came: the
+# cut that pays for it; the step gate feeds 8 rows, so no fewer)
+SC_REQUESTS = 8
+SC_NEW = 16
 SC_TEMP, SC_TOP_K = 0.8, 50  # every odd request of the mixed drain
 SC_COUNTERS = {"auto": "packed_matmul", "fused": "fused_matmul"}  # each impl's forward count
 
@@ -2410,6 +2444,294 @@ def tune_serve(torch, dev, cfg, base, pool, engine, metas) -> dict:
     emit({"phase": "tune_serve", **rec})
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# multihost phase
+# ---------------------------------------------------------------------------
+
+# four batch-1 adapters of default_search_space(300, seq_len=512), ranks 8,
+# 8, 16 and 16, as two jobs of two adapters, one per host from t = 0: the
+# planner packs all four into one job on the H100 preset (``multihost_plan``
+# prints its plan), so the schedule is given by hand
+MH_IDS = (0, 37, 74, 110)
+MH_JOBS = ((0, 1), (2, 3))
+MH_STEPS = 4
+# the heartbeat interval: a host is declared dead 12 intervals after its
+# last pong (a timeout of 3 intervals, doubled at each of the 3 misses), and
+# a worker answers no ping while it takes its init (the 8-layer base, 5.9 GB
+# of bf16, sent through a pipe and placed on the card), so 12 intervals
+# must cover a cold worker's init with room: 24 s against its 12.1-12.5 s
+# with both workers taking theirs at once beside their warm-up steps (H100
+# 80GB HBM3, 700 W)
+MH_HEARTBEAT = 2.0
+# the kill lands this long after host 0's segment request goes out: while
+# the worker takes its init (12.1-12.5 s beside its warm-up step, H100 80GB
+# HBM3, 700 W), so the killed attempt costs little besides its spawn
+MH_KILL_DELAY = 1.0
+MH_KILL_ATTEMPTS = 2  # a cold dispatcher each, should the segment end first
+# the card's free memory after close() against its level before the
+# dispatcher started: every worker's context and memory must be gone
+MH_MEM_SLACK = 128 * 2**20
+
+
+def mh_plan():
+    """(config cut to SWEEP_LAYERS, the four adapters, the H100 cost model,
+    the hand schedule, the planner's own plan of the four on 2 units)."""
+    from repro_torch.configs import default_search_space, get_config
+    from repro_torch.sched import H100, CostModel, Schedule, ScheduledJob, plan
+
+    cfg = get_config("qwen25-7b").replace(n_layers=SWEEP_LAYERS)
+    space = default_search_space(300, seq_len=SWEEP_SEQ)
+    configs = [space[i] for i in MH_IDS]
+    cm = CostModel(cfg, H100)
+    dur = MH_STEPS * max(cm.iter_time([configs[c] for c in job], 1, SWEEP_SEQ) for job in MH_JOBS)
+    sched = Schedule([ScheduledJob(job, 1, 0.0, dur) for job in MH_JOBS], dur, 2)
+    return cfg, configs, cm, sched, plan(cm, configs, 2, SWEEP_SEQ, MH_STEPS, max_degree=1)
+
+
+def mh_jobs():
+    """Each job's adapters (``sweep_segments`` takes them)."""
+    configs = mh_plan()[1]
+    return [[configs[c] for c in job] for job in MH_JOBS]
+
+
+class MemWatch:
+    """Samples the card's free memory on a thread until ``stop``: the least
+    free is the most that this process and its workers held at once."""
+
+    def __init__(self, torch, dev, every: float = 0.1):
+        import threading
+
+        self.torch, self.dev, self.every = torch, dev, every
+        self.least_free = torch.cuda.mem_get_info(dev)[0]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        while not self._stop.wait(self.every):
+            self.least_free = min(self.least_free, self.torch.cuda.mem_get_info(self.dev)[0])
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return self.least_free
+
+
+def multihost_phase(torch, dev, base, out_dir: Path):
+    """The dispatch tier on the card: qwen25-7b at full width on its first
+    SWEEP_LAYERS layers (a view of ``base``), four adapters as two jobs of
+    two, MH_STEPS captured steps each at SWEEP_SEQ tokens (impl="auto"):
+    in process first (``ClusterRunner``, one job after the other), then
+    through ``HostDispatcher([1, 1])``: two spawned workers sharing the
+    card, the heartbeat on, host 0's worker SIGKILLed while its first
+    segment is in flight (MH_KILL_DELAY after its request, during its
+    init), then the same workload again on the warm workers, traced.
+    Returns the launch counts of the kill run (the workers' launches, sent
+    back with each segment)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+
+    cfg, configs, cm, sched, planned = mh_plan()
+    _, base = depth_cut(get_config("qwen25-7b"), base, SWEEP_LAYERS)
+    emit({"phase": "multihost_plan", "n_layers": cfg.n_layers, "ids": list(MH_IDS),
+          "configs": [{"rank": c.rank, "alpha": c.alpha, "lr": c.learning_rate,
+                       "batch_size": c.batch_size} for c in configs],
+          "jobs": [list(j.config_ids) for j in sched.jobs],
+          "planner_jobs": [list(j.config_ids) for j in planned.jobs],
+          "job_mem_bytes": [cm.job_mem_bytes([configs[c] for c in job], 1, SWEEP_SEQ)
+                            for job in MH_JOBS],
+          "heartbeat_s": MH_HEARTBEAT, "dead_after_s": 12 * MH_HEARTBEAT})
+    pool_dir = ROOT / "smoke_pool"
+    shutil.rmtree(pool_dir, ignore_errors=True)
+    try:
+        return _multihost(torch, dev, base, out_dir, cfg, configs, cm, sched, pool_dir)
+    finally:
+        shutil.rmtree(pool_dir, ignore_errors=True)
+
+
+def _multihost(torch, dev, base, out_dir, cfg, configs, cm, sched, pool_dir):
+    import threading
+
+    from repro_torch.cluster import ClusterRunner, DevicePool, HostDispatcher, SliceExecutor
+    from repro_torch.cluster.executor import WARMUP_STEPS
+    from repro_torch.obs import Tracer, trace_tiers, validate_chrome_trace
+    from repro_torch.sched import ExecutionEngine
+    from repro_torch.train.checkpoint import CheckpointPool
+    from repro_torch.tree import tree_leaves
+
+    def run(runner, name, tracer=None):
+        """One run of the workload, counts zeroed just before it and read
+        just after: losses by config, the pooled adapters, wall, counts."""
+        pool = CheckpointPool(str(pool_dir / name))
+        zero_counts()
+        t0 = time.perf_counter()
+        records, _ = ExecutionEngine(cm, 2, host_size=1, tracer=tracer).run_local(
+            sched, configs, cfg, base, n_steps=MH_STEPS, seq=SWEEP_SEQ, pool=pool,
+            runner=runner, impl="auto")
+        torch.cuda.synchronize(dev)
+        t_end = time.perf_counter()
+        counts = train_counts()
+        losses = {}
+        for rec in records:
+            for cid, loss in zip(rec.job.config_ids, rec.final_losses):
+                losses[cid] = np.float32(loss)
+        adapters = [tree_leaves(pool.load_adapter(f"adapter_{i:04d}")) for i in range(len(configs))]
+        metas = [pool.load_meta(f"adapter_{i:04d}") for i in range(len(configs))]
+        return {"losses": np.array([losses[c] for c in range(len(configs))]),
+                "adapters": adapters, "metas": metas, "wall_s": t_end - t0, "t_end": t_end,
+                "counts": counts, "records": records,
+                "s_per_iter": [t.measured_iter for t in runner.last_result.timings],
+                "overlap": runner.last_result.max_overlap()}
+
+    def same(a, b) -> bool:
+        """Losses and pooled adapters equal bit for bit."""
+        return a["losses"].tobytes() == b["losses"].tobytes() and all(
+            len(x) == len(y) and all(np.asarray(p).dtype == np.asarray(q).dtype
+                                     and np.asarray(p).tobytes() == np.asarray(q).tobytes()
+                                     for p, q in zip(x, y))
+            for x, y in zip(a["adapters"], b["adapters"]))
+
+    # in process: the same jobs one after the other on the parent's card
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ex = SliceExecutor()
+    ref = run(ClusterRunner(ex, DevicePool([dev, dev]), concurrent=False), "in_process")
+    ref_captures = [c["seconds"] for c in ex.captures]
+    parent_peak = torch.cuda.max_memory_allocated(dev)
+    ex.clear()
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()  # the card as the workers find it
+    torch.cuda.synchronize(dev)
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    watch = MemWatch(torch, dev)
+    tracer = Tracer()
+    kill_t = [None]
+    disp = None
+    try:
+        for attempt in range(MH_KILL_ATTEMPTS):
+            if disp is not None:
+                disp.close()
+            disp = HostDispatcher([1, 1], heartbeat_interval=MH_HEARTBEAT, tracer=tracer)
+            stop = threading.Event()
+
+            def killer():
+                while not stop.is_set():
+                    if disp.in_flight(0) > 0:
+                        time.sleep(MH_KILL_DELAY)
+                        if disp.in_flight(0) > 0 and not stop.is_set():
+                            kill_t[0] = time.perf_counter()
+                            disp.kill_host(0)
+                        return
+                    time.sleep(0.005)
+
+            th = threading.Thread(target=killer, daemon=True)
+            th.start()
+            try:
+                kill = run(disp, f"kill{attempt}", tracer)
+            except Exception:
+                # what the dispatcher saw, before the failure propagates
+                emit({"phase": "multihost_failed", "host_stats": [
+                          {k: v for k, v in st.items() if k != "launches"}
+                          for st in disp.host_stats],
+                      "kill_t": kill_t[0], "membership": [
+                          {"name": sp.name, "t": sp.start, **sp.args} for sp in tracer.spans()
+                          if sp.track == "membership"]})
+                raise
+            finally:
+                stop.set()
+                th.join(timeout=30)
+            kill_stats = [dict(st) for st in disp.host_stats]
+            if disp.n_restarts >= 1:
+                break
+        warm = run(disp, "warm", tracer)
+        warm_stats = [dict(st) for st in disp.host_stats]
+        states = [disp.host_state(h) for h in range(len(disp.hosts))]
+        n_restarts = disp.n_restarts
+    finally:
+        if disp is not None:
+            disp.close()
+    # a killed or stopped process gives its memory back once it has exited
+    deadline = time.perf_counter() + 30
+    while torch.cuda.mem_get_info(dev)[0] < free0 - MH_MEM_SLACK and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    free_after = torch.cuda.mem_get_info(dev)[0]
+    least_free = watch.stop()
+    chrome = tracer.to_chrome()
+    (out_dir / "trace_multihost.json").write_text(json.dumps(chrome))
+    spans = tracer.spans()
+    dispatch = {s.span_id: s for s in spans if s.name == "dispatch.segment"}
+    roots = [s for s in spans if s.cat == "host" and s.name.endswith(".segment")]
+    stitched = sorted({s.name for s in roots if s.parent_id in dispatch})
+    trace_errors = validate_chrome_trace(chrome)
+
+    hosts = []
+    for h in range(2):
+        ks, ws = kill_stats[h], warm_stats[h]
+        caps = ks.get("captures") or [{}]
+        hosts.append({
+            "host": h, "device": disp.host_device(h), "spawns": ks.get("spawns"),
+            "spawn_to_ready_s": ks.get("spawn_s"), "init_bytes": ks.get("init_bytes"),
+            "inits_sent": ks.get("inits_sent"), "inits_sent_after_warm": ws.get("inits_sent"),
+            "init_encode_s": ks.get("init_encode_s"),
+            "init_s": ks.get("init_s"), "init_place_s": ks.get("init_place_s"),
+            "capture_s": caps[-1].get("seconds"), "graph_pool_bytes": caps[-1].get("pool_bytes"),
+            "s_per_iter_cold": kill["s_per_iter"][h], "s_per_iter_warm": warm["s_per_iter"][h],
+            "s_per_iter_in_process": ref["s_per_iter"][h],
+            "peak_allocated_bytes": ws.get("peak_bytes"), "reserved_bytes": ws.get("reserved_bytes"),
+            "captured_warm": ws.get("captured")})
+    warm_expect = {k: v * MH_STEPS // (WARMUP_STEPS + MH_STEPS) for k, v in ref["counts"].items()}
+    rec = {"phase": "multihost", "model": cfg.name, "n_layers": cfg.n_layers,
+           "steps": MH_STEPS, "seq": SWEEP_SEQ, "hosts": hosts,
+           "in_process": {"wall_s": ref["wall_s"], "s_per_iter": ref["s_per_iter"],
+                          "capture_s": ref_captures, "peak_allocated_bytes": parent_peak},
+           "kill_run": {"wall_s": kill["wall_s"], "attempts": attempt + 1,
+                        "n_restarts": n_restarts, "overlap": kill["overlap"],
+                        "recovery_s": None if kill_t[0] is None else kill["t_end"] - kill_t[0],
+                        "bitwise": same(kill, ref)},
+           "warm_run": {"wall_s": warm["wall_s"], "overlap": warm["overlap"],
+                        "bitwise": same(warm, ref)},
+           "host_states": states, "heartbeat_s": MH_HEARTBEAT,
+           "memory": {"free_before": free0, "least_free": least_free, "free_after": free_after,
+                      "most_used_beyond_before": free0 - least_free, "slack": MH_MEM_SLACK},
+           "trace": {"spans": len(spans), "errors": trace_errors, "stitched": stitched,
+                     "tiers": trace_tiers(chrome)},
+           "launches": {"in_process": ref["counts"], "kill_run": kill["counts"],
+                        "warm_run": warm["counts"], "warm_expected": warm_expect}}
+    emit(rec)
+    if n_restarts < 1:
+        fail(f"multihost: the kill of host 0 never landed mid-segment in {attempt + 1} attempts")
+    if not kill["overlap"] >= 2 or not warm["overlap"] >= 2:
+        fail(f"multihost: the two hosts' segments overlapped {kill['overlap']} / "
+             f"{warm['overlap']} at most (2 wanted)")
+    for name, r in (("the kill run", kill), ("the warm run", warm)):
+        if not same(r, ref):
+            fail(f"multihost: {name}'s losses or pooled adapters differ from the in-process "
+                 f"run's (bitwise equality wanted): {r['losses']} against {ref['losses']}")
+    if any(m["total_steps"] != MH_STEPS or not math.isfinite(m["final_loss"])
+           for r in (kill, warm) for m in r["metas"]):
+        fail("multihost: a pooled adapter's budget or final loss is off")
+    if states != ["ALIVE", "ALIVE"]:
+        fail(f"multihost: host states {states} at the end, both ALIVE wanted")
+    if any(h["inits_sent_after_warm"] != h["inits_sent"] for h in hosts):
+        fail("multihost: the unchanged workload shipped a second init")
+    if trace_errors or stitched != ["host0.segment", "host1.segment"]:
+        fail(f"multihost: the trace is invalid ({trace_errors}) or lacks a host's spans "
+             f"stitched under dispatch.segment ({stitched})")
+    if free_after < free0 - MH_MEM_SLACK:
+        fail(f"multihost: {free0 - free_after} bytes of the card still held after close(), "
+             f"over the slack of {MH_MEM_SLACK}")
+    for need in ("packed_matmul", "packed_matmul_bwd"):
+        if kill["counts"][need] == 0:
+            fail(f"multihost: the workers launched {need} no time")
+    if kill["counts"] != ref["counts"] or warm["counts"] != warm_expect:
+        fail(f"multihost: the workers' launches {kill['counts']} (cold) / {warm['counts']} "
+             f"(warm) against in-process {ref['counts']} / {warm_expect}")
+    return kill["counts"]
 
 
 # ---------------------------------------------------------------------------
@@ -4371,6 +4693,15 @@ USES = [
     ("packed_matmul:sweep_backward", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "sweep",
      "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
      ("sweep", "auto", "packed_matmul_bwd")),
+    # the multihost phase's captured steps in the workers (impl="auto"), at
+    # its jobs' shapes: the kill run's launches, each worker's sent back
+    # with its segments (a warm-up step and 4 replays a job)
+    ("packed_matmul:multihost_forward", "packed_matmul", ("xA", "xAB"), "multihost",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89",
+     ("multihost", "auto", "packed_matmul")),
+    ("packed_matmul:multihost_backward", "packed_matmul", ("bwd2_dxA", "bwd4_dx"), "multihost",
+     "packed_matmul.cu", "src/repro/kernels/packed_matmul.py:89 (ops.py:238-242)",
+     ("multihost", "auto", "packed_matmul_bwd")),
     # the online phase's captured steps (run_online_local, impl="auto"), at
     # the online plan's shapes: warm-up steps and replays, as the sweep's
     ("packed_matmul:online_forward", "packed_matmul", ("xA", "xAB"), "online",
@@ -4614,6 +4945,9 @@ def main() -> None:
     sweep_launches, tune_serve_launches = sweep_phase(torch, dev, base, out_dir)
     emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    multihost_launches = multihost_phase(torch, dev, base, out_dir)
+    emit({"phase": "multihost_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     online_launches, adaptive_launches = online_phase(torch, dev, base, out_dir)
     emit({"phase": "online_done", "seconds": time.perf_counter() - t0,
           "adaptive_launches": adaptive_launches})
@@ -4631,6 +4965,7 @@ def main() -> None:
                                "train": train_launches,
                                "sweep": {"auto": sweep_launches},
                                "tune_serve": tune_serve_launches,
+                               "multihost": {"auto": multihost_launches},
                                "online": {"auto": online_launches},
                                "launcher": launcher_launches, **family_launches,
                                COMMAND_R: command_r_launches, MOE: moe_launches,

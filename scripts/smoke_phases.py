@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s phases alone on one CUDA card.
 
-    python3 scripts/smoke_phases.py              # kernels, command_r, moe, jamba, serve, families
+    python3 scripts/smoke_phases.py              # every phase below, in the smoke's order
     python3 scripts/smoke_phases.py kernels      # the kernel phase alone
     python3 scripts/smoke_phases.py command_r    # the command_r phase alone
     python3 scripts/smoke_phases.py kernels moe  # the kernel rows and qwen3-moe-30b-a3b
@@ -9,6 +9,7 @@
     python3 scripts/smoke_phases.py kernels serve  # the kernel rows, qwen25-7b's serve and
                                                    # its captured decode at 28 layers
     python3 scripts/smoke_phases.py kernels sweep  # the kernel rows, the sweep and tune_serve
+    python3 scripts/smoke_phases.py multihost      # the dispatch tier's two workers on the card
     python3 scripts/smoke_phases.py kernels families
     python3 scripts/smoke_phases.py families:whisper-tiny,internvl2-1b  # some families
 
@@ -18,7 +19,9 @@ Builds the kernels, then runs ``chip_smoke.kernel_phase``,
 chunked drains) with ``chip_smoke.serve_captured`` (eager against
 captured decode on all 28 layers), ``chip_smoke.sweep_phase`` (the sweep through the serve
 engine, then ``tune_serve`` on its pool; on the serve phase's base, or on
-one of its own) and/or ``chip_smoke.families_phase`` (in the
+one of its own), ``chip_smoke.multihost_phase`` (the dispatch tier: two
+spawned workers sharing the card, a kill, a warm traced run; on the same
+base) and/or ``chip_smoke.families_phase`` (in the
 smoke's order; ``families:<arch>,...`` runs those families alone) with the smoke's own checks (a failed check exits
 non-zero), printing the smoke's JSON lines. With the kernel phase and
 another, one ``phase_use`` line per ``kernels`` entry of that phase's
@@ -34,7 +37,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("kernels", "command_r", "moe", "jamba", "serve", "sweep", "families")
+PHASES = ("kernels", "command_r", "moe", "jamba", "serve", "sweep", "multihost", "families")
 
 
 def main() -> None:
@@ -87,17 +90,21 @@ def main() -> None:
         t0 = time.perf_counter()
         counts["serve_captured"] = cs.serve_captured(torch, dev, base, out)
         cs.emit({"phase": "serve_captured_done", "seconds": time.perf_counter() - t0})
-    if "sweep" in which:
-        if base is None:
-            from repro_torch.configs import get_config
-            from repro_torch.models.model import init_model
+    if ("sweep" in which or "multihost" in which) and base is None:
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import init_model
 
-            base, _ = init_model(cs.SEED, get_config("qwen25-7b"), None, dtype=torch.bfloat16,
-                                 device=dev)
+        base, _ = init_model(cs.SEED, get_config("qwen25-7b"), None, dtype=torch.bfloat16,
+                             device=dev)
+    if "sweep" in which:
         t0 = time.perf_counter()
         sweep, counts["tune_serve"] = cs.sweep_phase(torch, dev, base, out)
         counts["sweep"] = {"auto": sweep}
         cs.emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
+    if "multihost" in which:
+        t0 = time.perf_counter()
+        counts["multihost"] = {"auto": cs.multihost_phase(torch, dev, base, out)}
+        cs.emit({"phase": "multihost_done", "seconds": time.perf_counter() - t0})
     del base
     torch.cuda.empty_cache()
     if "families" in which:

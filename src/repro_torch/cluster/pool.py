@@ -66,6 +66,7 @@ class DevicePool:
         self.devices = list(devices)
         self._lock = threading.Condition()
         self._free = set(range(len(self.devices)))
+        self._retired: set = set()
 
     @property
     def total(self) -> int:
@@ -75,6 +76,47 @@ class DevicePool:
     def free(self) -> int:
         with self._lock:
             return len(self._free)
+
+    # ---------------- elastic membership ----------------
+
+    def add_devices(self, devices: Sequence) -> Tuple[int, ...]:
+        """Grow the pool mid-run: append ``devices`` as new (free) units and
+        wake any waiter blocked in ``acquire``/``acquire_units``. Returns the
+        new unit ids (contiguous, after the existing ones -- existing unit ids
+        never shift, so in-flight slices stay valid)."""
+        if not devices:
+            raise ValueError("add_devices needs at least one device")
+        with self._lock:
+            first = len(self.devices)
+            self.devices.extend(devices)
+            new = tuple(range(first, len(self.devices)))
+            self._free |= set(new)
+            self._lock.notify_all()
+            return new
+
+    def retire_units(self, units: Sequence[int], timeout: Optional[float] = None) -> None:
+        """Remove ``units`` from circulation (graceful drain): blocks until
+        each is free, then marks it retired -- it can never be acquired or
+        released again. Unit ids stay stable (the device list keeps its
+        slot), so other units' addressing is untouched."""
+        want = tuple(sorted(set(units)))
+        for u in want:
+            if not 0 <= u < self.total:
+                raise ValueError(f"unit {u} outside pool of {self.total}")
+        with self._lock:
+            if not self._lock.wait_for(
+                lambda: all(u in self._free or u in self._retired for u in want),
+                timeout=timeout,
+            ):
+                busy = [u for u in want if u not in self._free and u not in self._retired]
+                raise TimeoutError(f"timed out draining busy units {busy}")
+            self._free -= set(want)
+            self._retired |= set(want)
+
+    @property
+    def retired(self) -> Tuple[int, ...]:
+        with self._lock:
+            return tuple(sorted(self._retired))
 
     def _make_slice(self, units: Tuple[int, ...]) -> MeshSlice:
         devs = tuple(self.devices[u] for u in units)
@@ -126,6 +168,9 @@ class DevicePool:
             if not 0 <= u < self.total:
                 raise ValueError(f"unit {u} outside pool of {self.total}")
         with self._lock:
+            gone = [u for u in want if u in self._retired]
+            if gone:
+                raise RuntimeError(f"units {gone} are retired (drained host)")
             if not self._lock.wait_for(
                 lambda: all(u in self._free for u in want), timeout=timeout
             ):
@@ -180,6 +225,9 @@ class DevicePool:
             bad = [u for u in s.units if not 0 <= u < self.total]
             if bad:
                 raise RuntimeError(f"release of foreign units {bad}")
+            gone = [u for u in s.units if u in self._retired]
+            if gone:
+                raise RuntimeError(f"release of retired units {gone}")
             self._free |= set(s.units)
             self._lock.notify_all()
 

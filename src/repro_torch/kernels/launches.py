@@ -9,7 +9,11 @@ graph and launches nothing; the graph then launches that kernel on every
 replay. So a capture moves what it recorded out of the counts
 (:func:`recorded`), and each replay adds it back (:func:`add`). The counts
 are plain integers: captures and launches on several devices at once (one
-thread each) may miscount by the calls that overlap a capture.
+thread each) may miscount by the calls that overlap a capture. A
+multi-host worker (``cluster/multihost.py``) sends back what its process
+counted over each segment (:func:`snapshot` before and after), and the
+dispatcher adds it to its own counts (:func:`add`), so a path driven
+through worker processes counts as one driven in this process does.
 """
 from __future__ import annotations
 
@@ -31,13 +35,14 @@ COUNTERS = {
 }
 
 
-def _counts() -> Dict[Tuple[str, str, str], int]:
-    """(wrapper name, direction, path) -> launches, of every wrapper."""
+def snapshot() -> Dict[Tuple[str, str, str], int]:
+    """Every wrapper's counts, (wrapper name, direction, path) -> launches,
+    in the form :func:`add` takes."""
     return {(name, d, p): k for name, fn in WRAPPERS.items() for (d, p), k in fn.launches.items()}
 
 
 def read() -> Dict[str, int]:
-    counts = _counts()
+    counts = snapshot()
     return {count: sum(k for (name, d, _), k in counts.items() if (name, d) == key)
             for count, key in COUNTERS.items()}
 
@@ -45,7 +50,7 @@ def read() -> Dict[str, int]:
 def read_paths() -> Dict[str, Dict[str, int]]:
     """Each wrapper's launches by path (forward and backward together)."""
     out = {name: {} for name in WRAPPERS}
-    for (name, _, p), k in _counts().items():
+    for (name, _, p), k in snapshot().items():
         out[name][p] = out[name].get(p, 0) + k
     return out
 
@@ -66,10 +71,10 @@ def add(counts: Dict[Tuple[str, str, str], int]) -> None:
 def recorded() -> Iterator[Dict[Tuple[str, str, str], int]]:
     """Around a capture: yields a dict that holds, on exit, the calls each
     wrapper made inside the block, and takes them out of the counts."""
-    before = _counts()
+    before = snapshot()
     calls: Dict[Tuple[str, str, str], int] = {}
     try:
         yield calls
     finally:
-        calls.update({key: k - before[key] for key, k in _counts().items() if k != before[key]})
+        calls.update({key: k - before[key] for key, k in snapshot().items() if k != before[key]})
         add({key: -k for key, k in calls.items()})

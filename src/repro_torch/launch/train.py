@@ -31,8 +31,24 @@ fused kernel's K split at the pack's projection shapes, keep the result in a
 JSON cache, run the tuned split and calibrate the cost-model prior with the
 measured fused rate; it runs the fused tier), ``--trace-out`` (a Chrome
 trace of the autotuner's and the executor's spans) and ``--metrics-out``
-(the metrics registry as JSON). The reference's other flags wait for the
-port's multi-host and sharded slices, and raise if given.
+(the metrics registry as JSON).
+
+``--hosts N`` runs the configurations through the multi-host dispatch tier
+(``cluster/multihost.py``): planned host-aware, one spawned worker process
+per simulated host, each on its card (host ``h`` on card ``h %
+device_count``: on one card every host shares it), or on the CPU with
+``--device cpu``. The base is drawn on the device and shipped to each
+worker once, from host memory. ``--host-classes`` tags each host,
+``--heartbeat`` arms the liveness watchdog, and ``--drain-after`` /
+``--join-after`` drain the last host / admit a new one after N seconds,
+which switches execution to the adaptive online loop
+(``run_online_local``). ``--devices-per-host`` above 1 is refused: a job
+wider than one device needs sharded slices, which the port does not have
+yet, as it has no ``--mesh`` / ``--fsdp`` / ``--seq-parallel``; those raise
+if given.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+        --hosts 2 --heartbeat 0.5 --drain-after 0.3 --steps 6
 """
 from __future__ import annotations
 
@@ -54,13 +70,8 @@ from repro_torch.sched.cost_model import PRESETS, CostModel
 from repro_torch.sched.profile import ObservationStore, ProfiledCostModel
 from repro_torch.train.checkpoint import CheckpointPool
 
-# the reference launcher's flags that wait for the port's multi-host and
-# sharded slices
-NOT_PORTED = {
-    "--mesh": "value", "--hosts": "value", "--devices-per-host": "value",
-    "--host-classes": "value", "--heartbeat": "value", "--drain-after": "value",
-    "--join-after": "value", "--fsdp": "flag", "--seq-parallel": "flag",
-}
+# the reference launcher's flags that wait for the port's sharded slices
+NOT_PORTED = {"--mesh": "value", "--fsdp": "flag", "--seq-parallel": "flag"}
 
 
 def _floats(s):
@@ -108,6 +119,23 @@ def parse_args(argv=None):
                          "spans); load it at ui.perfetto.dev or chrome://tracing")
     ap.add_argument("--metrics-out", default=None,
                     help="write the metrics registry (counters, gauges, histograms) as JSON")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="run through the multi-host dispatch tier: N simulated hosts, one "
+                         "spawned worker process each, on the card (or the CPU with --device "
+                         "cpu); the configurations are planned host-aware")
+    ap.add_argument("--devices-per-host", type=int, default=1,
+                    help="device units per host; only 1 (a wider job needs sharded slices)")
+    ap.add_argument("--host-classes", default=None,
+                    help="comma list tagging each host's hardware class (e.g. 'fast,slow'); "
+                         "the adaptive engine places wide jobs on fast classes, narrow on slow")
+    ap.add_argument("--heartbeat", type=float, default=0.0,
+                    help="heartbeat interval in seconds (0 = off): silent hosts go SUSPECT, "
+                         "then DEAD, and their segments re-run on a respawned worker")
+    ap.add_argument("--drain-after", type=float, default=None,
+                    help="gracefully drain the last host N seconds into the run (the adaptive "
+                         "online path)")
+    ap.add_argument("--join-after", type=float, default=None,
+                    help="admit one extra host N seconds into the run (the adaptive online path)")
     for flag, kind in NOT_PORTED.items():
         if kind == "flag":
             ap.add_argument(flag, action="store_true", help="not ported yet")
@@ -116,10 +144,27 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     given = [f for f in NOT_PORTED if getattr(args, f[2:].replace("-", "_")) not in (None, False)]
     if given:
-        ap.error(f"{', '.join(given)}: not ported yet (they wait for the port's multi-host "
-                 "and sharded slices)")
+        ap.error(f"{', '.join(given)}: not ported yet (they wait for the port's sharded slices)")
     if (args.save_state or args.resume_state) and not args.pool:
         ap.error("--save-state/--resume-state require --pool")
+    if args.devices_per_host > 1:
+        ap.error("--devices-per-host > 1 plans jobs wider than one device, which need sharded "
+                 "slices: not ported yet (one unit per host)")
+    if args.hosts > 1:
+        if args.save_state or args.resume_state or args.autotune_cache:
+            ap.error("--hosts is incompatible with --save-state/--resume-state/--autotune-cache "
+                     "(per-job state lives in --pool)")
+        if (args.drain_after is not None or args.join_after is not None) and (
+                args.quant != "none" or args.remat):
+            ap.error("--drain-after/--join-after run the adaptive loop, which takes --impl "
+                     "only: drop --quant/--remat")
+        if args.host_classes and len(args.host_classes.split(",")) != args.hosts:
+            ap.error(f"--host-classes names {len(args.host_classes.split(','))} class(es) for "
+                     f"{args.hosts} hosts")
+    elif (args.host_classes or args.heartbeat or args.drain_after is not None
+          or args.join_after is not None):
+        ap.error("--host-classes/--heartbeat/--drain-after/--join-after need the dispatch "
+                 "tier: pass --hosts N")
     if args.autotune_cache:
         # the calibration prices FUSED-kernel rates, so the run must execute
         # the fused tier -- otherwise the planner would predict work the
@@ -152,6 +197,120 @@ def _export_obs(args, tracer) -> None:
         print(f"saved metrics to {args.metrics_out}")
 
 
+def _drift_table(records, timings, seq) -> None:
+    """Each executed record beside its measured step time and the plan's
+    drift, joined by (config ids, seq): the runner orders timings by
+    virtual start, the records may come back in another order."""
+    from collections import deque
+
+    by_key = {}
+    for t in timings:
+        by_key.setdefault((t.config_ids, t.seq), deque()).append(t)
+    for rec in records:
+        q = by_key.get((tuple(rec.job.config_ids), seq))
+        timing = q.popleft() if q else None
+        losses = None if rec.final_losses is None else np.round(np.asarray(rec.final_losses), 3)
+        if timing is None:
+            print(f"  job cids={rec.job.config_ids} deg={rec.job.degree}      (no timing)  "
+                  f"losses={losses}")
+            continue
+        drift = timing.drift
+        drift_s = f"{100 * drift:+.1f}%" if drift == drift else "n/a"
+        print(f"  job cids={rec.job.config_ids} deg={rec.job.degree} "
+              f"{1e3 * timing.measured_iter:8.1f} ms/step (plan drift {drift_s})  losses={losses}")
+
+
+def _run_multihost(args, cfg, configs, dev):
+    """``--hosts N``: plan host-aware and execute process-per-host, one
+    spawned worker per host on ``dev``'s kind of device (each host on a card
+    of its own, or sharing one; the CPU with ``--device cpu``). Drain / join
+    need replanning, so they run the same workload as an online trace
+    through the adaptive loop, which subscribes to the dispatcher's
+    membership feed. Returns the per-adapter final losses."""
+    import threading
+    import time
+
+    from repro_torch.cluster import HostDispatcher
+    from repro_torch.kernels.ops import use_impl
+    from repro_torch.sched.engine import Arrival, ExecutionEngine
+    from repro_torch.sched.planner import plan
+    from repro_torch.tree import tree_map
+
+    g = args.hosts  # one unit per host
+    classes = [c.strip() for c in args.host_classes.split(",")] if args.host_classes else None
+    quant = None if args.quant == "none" else args.quant
+    # drawn on the workers' kind of device (the single-host launcher's
+    # draw), then kept in host memory: the workers hold it on the card
+    base, _ = init_model(0, cfg, pack_meta(configs), device=dev, quant=quant)
+    base = tree_map(lambda t: t.cpu(), base)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    storage, dense = base_storage(base, dense=True)
+    store = ObservationStore.load(args.profile_in) if args.profile_in else ObservationStore()
+    est = ProfiledCostModel(
+        CostModel(cfg, PRESETS[args.hw], base_dtype=storage, dense_dtype=dense), store)
+    elastic = args.drain_after is not None or args.join_after is not None
+    sched = plan(est, configs, g, args.seq, args.steps, max_degree=1)
+    print(f"multi-host plan: {len(sched.jobs)} job(s) on {args.hosts} hosts x 1 device, "
+          f"virtual makespan {sched.makespan:.1f}s")
+    tracer = _make_tracer(args)
+    pool = CheckpointPool(args.pool) if args.pool else None
+    eng = ExecutionEngine(est, g, host_size=1, tracer=tracer)
+    timers = []
+    with HostDispatcher(args.hosts, tracer=tracer, host_classes=classes,
+                        device="cpu" if dev.type == "cpu" else None,
+                        heartbeat_interval=args.heartbeat) as disp:
+        if args.drain_after is not None:
+            last = len(disp.hosts) - 1
+            timers.append(threading.Timer(args.drain_after, lambda: disp.drain_host(last)))
+        if args.join_after is not None:
+            join_class = classes[-1] if classes else ""
+            timers.append(threading.Timer(args.join_after,
+                                          lambda: disp.add_host(1, host_class=join_class)))
+        for t in timers:
+            t.daemon = True
+            t.start()
+        t0 = time.perf_counter()
+        if elastic:
+            with use_impl(args.impl or "auto"):
+                records, osched = eng.run_online_local(
+                    [Arrival(0.0, c, args.steps) for c in configs], cfg, base,
+                    n_steps=args.steps, seq=args.seq, pool=pool, runner=disp,
+                    probe_steps=min(4, args.steps))
+            makespan = osched.makespan
+        else:
+            # --impl/--remat/--quant ride the wire as a KernelPolicy with
+            # every segment, so each worker runs the tier selected here
+            records, makespan = eng.run_local(
+                sched, configs, cfg, base, n_steps=args.steps, seq=args.seq, pool=pool,
+                runner=disp, impl=args.impl, remat=args.remat, base_dtype=quant)
+        elapsed = time.perf_counter() - t0
+        for t in timers:
+            t.cancel()
+            if t.is_alive():
+                t.join()  # a drain or join already under way completes
+    result = disp.last_result
+    overlap = result.max_overlap() if result is not None else "n/a"
+    print(f"{len(records)} job(s) in {elapsed:.1f}s wall (makespan {makespan:.1f}s, peak "
+          f"overlap {overlap}, {disp.n_restarts} worker restart(s))")
+    if elastic or args.heartbeat:
+        states = ", ".join(f"host{h}={disp.host_state(h)}" for h in range(len(disp.hosts)))
+        print(f"membership: {states}")
+    if result is not None:
+        _drift_table(records, result.timings, args.seq)
+    if args.profile_out:
+        store.save(args.profile_out)
+        print(f"saved profile to {args.profile_out}")
+    if pool is not None:
+        print(f"saved {len(pool.list())} adapters to {args.pool}")
+    _export_obs(args, tracer)
+    per = np.full(len(configs), np.nan)
+    for rec in records:  # in completion order: a later segment's loss wins
+        if rec.final_losses is not None:
+            per[list(rec.job.config_ids)] = rec.final_losses
+    return per
+
+
 def main(argv=None, *, executor=None, step_callback=None):
     """Run the launcher on ``argv`` (default: the command line); returns the
     per-adapter final losses. A caller that observes the run passes its own
@@ -176,6 +335,8 @@ def main(argv=None, *, executor=None, step_callback=None):
     meta = pack_meta(configs)
     print(f"arch={cfg.name} pack N={meta.n} r_bucket={meta.r_bucket} "
           f"steps={args.steps} seq={args.seq} device={dev}")
+    if args.hosts > 1:
+        return _run_multihost(args, cfg, configs, dev)
 
     device_pool = DevicePool([dev])
     slice_ = device_pool.acquire(1)

@@ -19,10 +19,11 @@ Span naming convention:
 
 Concurrency: span stacks are thread-local, so concurrently open spans on
 different threads nest independently; the finished-span list and id
-counter are lock-protected. Cross-process stitching (multi-host workers,
-not ported yet) ships finished spans back as plain dicts and re-ingests
-them with :meth:`Tracer.ingest`, which remaps ids, rebases clocks, and
-reparents the worker's root onto the dispatcher-side span.
+counter are lock-protected. Cross-process stitching (the multi-host
+workers of ``cluster/multihost.py``) ships finished spans back as plain
+dicts and re-ingests them with :meth:`Tracer.ingest`, which remaps ids,
+rebases clocks, and reparents the worker's root onto the dispatcher-side
+``dispatch.segment`` span.
 
 Disabled tracing is a true no-op: :data:`NULL_TRACER` returns one shared
 context-manager singleton from ``span()`` and touches no state, so

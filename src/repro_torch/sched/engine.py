@@ -37,8 +37,11 @@ The static ``simulate(schedule)`` / ``run_local(schedule, ...)`` are the
 case without arrivals.
 
 The hooks of a heterogeneous or elastic fleet (host classes, host states,
-join and drain events) are read with ``getattr`` from the runner and stay
-inert until the port has a multi-host runner.
+join and drain events) are read with ``getattr`` from the runner: a
+:class:`~repro_torch.cluster.multihost.HostDispatcher` serves them (class-
+and health-aware unit picks, replanning onto a joining host and off a
+draining one); a single-host runner has none, and the loop is the
+homogeneous one.
 """
 from __future__ import annotations
 

@@ -239,6 +239,4 @@ def test_launcher_autotunes_traces_and_exports_metrics(tmp_path, capsys):
             launch_train.parse_args(args + ["--autotune-cache", str(c), "--impl", bad])
     assert launch_train.parse_args(args + ["--autotune-cache", str(c), "--impl",
                                            "fused_plain"]).impl == "fused_plain"
-    assert set(launch_train.NOT_PORTED) == {
-        "--mesh", "--hosts", "--devices-per-host", "--host-classes", "--heartbeat",
-        "--drain-after", "--join-after", "--fsdp", "--seq-parallel"}
+    assert set(launch_train.NOT_PORTED) == {"--mesh", "--fsdp", "--seq-parallel"}

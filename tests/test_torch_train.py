@@ -273,7 +273,7 @@ def test_launcher_runs_on_cpu_and_needs_a_device_otherwise(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--reduced", "--steps", "1"])
     with pytest.raises(SystemExit):
-        launch_train.main(["--reduced", "--device", "cpu", "--hosts", "2"])
+        launch_train.main(["--reduced", "--device", "cpu", "--mesh", "2x1"])
 
 
 def test_launcher_fused_impl_equals_auto_on_the_f32_base(capsys):
